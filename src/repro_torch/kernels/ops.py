@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import fwht as _fwht
+from repro_torch.kernels import quantize as _quant
 from repro_torch.kernels import ref
 from repro_torch.kernels import unbias as _unbias
 
@@ -28,6 +29,31 @@ def fwht(x: torch.Tensor, *, signs: Optional[torch.Tensor] = None,
     if x.device.type == "cpu":
         return ref.fwht(x, signs=signs, scale=scale)
     return _fwht.fwht_cuda(x, signs, scale)
+
+
+def fwht_quantize(x: torch.Tensor, noise: torch.Tensor, *,
+                  signs: Optional[torch.Tensor] = None,
+                  scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused rotate-then-quantize of a float32 (rows, n) tensor: the FWHT
+    output feeds the per-row absmax int8 quantizer without a round trip
+    through device memory (what ``coding.encode_quantized`` issues).
+    The same function as ``quantize_int8(fwht(x, signs=..., scale=...),
+    noise)``.  Returns (q int8, scale float32 per row).
+    """
+    if x.device.type == "cpu":
+        return ref.fwht_quantize(x, noise, signs=signs, scale=scale)
+    return _fwht.fwht_quantize_cuda(x, noise, signs, scale)
+
+
+def quantize_int8(x: torch.Tensor, noise: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    if x.device.type == "cpu":
+        return ref.quantize_int8(x, noise)
+    return _quant.quantize_int8_cuda(x, noise)
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return ref.dequantize_int8(q, scale)
 
 
 def masked_unbias(y_sum: torch.Tensor, counts: torch.Tensor,

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's CUDA kernels (port of
-``repro/kernels/ref.py``).
+``repro/kernels/ref.py``): FWHT, int8 quantize, the fused pair, and
+masked unbias.
 
 Each computes the same function as its kernel, in the same float32
 operation order, so on identical inputs kernel and plain version agree
@@ -50,6 +51,39 @@ def fwht(x: torch.Tensor, *, signs: Optional[torch.Tensor] = None,
     if scale != 1.0:
         y = y * scale
     return y.to(x.dtype).reshape(orig_shape)
+
+
+def quantize_int8(x: torch.Tensor, noise: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row absmax int8 stochastic quantization.
+
+    ``noise`` is uniform [0, 1) with ``x``'s shape, supplied by the
+    caller so that kernel and plain version consume identical bits.
+    Returns (q int8, scale float32 per row).
+    """
+    x = x.to(torch.float32)
+    absmax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    # both divisions by tensors: a Python scalar divisor is taken as a
+    # multiply by its reciprocal on the card, not the IEEE quotient
+    scale = torch.where(absmax > 0,
+                        torch.div(absmax, torch.full_like(absmax, 127.0)),
+                        1.0)
+    q = torch.floor(torch.div(x, scale) + noise.to(torch.float32))
+    q = torch.clamp(q, -127.0, 127.0).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale[..., None]
+
+
+def fwht_quantize(x: torch.Tensor, noise: torch.Tensor, *,
+                  signs: Optional[torch.Tensor] = None,
+                  scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_int8(fwht(x, signs=..., scale=...), noise)``: the
+    rotation of a float32 tile, then its per-row int8 quantization."""
+    return quantize_int8(fwht(x.to(torch.float32), signs=signs, scale=scale),
+                         noise)
 
 
 def masked_unbias(y_sum: torch.Tensor, counts: torch.Tensor,

@@ -1,5 +1,5 @@
 """Top-level causal LM (port of ``repro/models/model.py`` for
-``block_pattern=("global",)``).
+``block_pattern=("global",)``): forward, caches, and the training loss.
 
 Parameters are a flat state dict of tensors with dotted names
 (``embed.table``, ``layers.{i}.attn.wq``, ``final_norm.scale``, ...),
@@ -9,7 +9,7 @@ model stacks the caches of its scanned layers.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -106,6 +106,30 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         x = x[:, -1:]
     x = L.rmsnorm(params["final_norm.scale"], x, eps)
     return L.unembed(params["embed.table"], x)
+
+
+def lm_loss(params: Params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]):
+    """Next-token cross-entropy.  Returns (loss, (nll, aux)) as JAX does;
+    ``aux`` is the MoE auxiliary loss, 0 for the dense family.
+
+    The cross-entropy is taken in float32 with the row max shifted out,
+    as in JAX.  The label logit is gathered where JAX sums a one-hot
+    product: the same value, since a sum with zeros is exact.  No remat:
+    the port keeps the activations.
+    """
+    logits = forward(params, cfg, batch["tokens"])
+    labels = batch["labels"]
+    n_txt = labels.shape[1]
+    logits = logits[:, -n_txt:][:, :-1]
+    tgt = labels[:, 1:]
+    mx = torch.amax(logits.detach(), dim=-1, keepdim=True).to(torch.float32)
+    shifted = logits.to(torch.float32) - mx
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + mx[..., 0]
+    label_logit = torch.gather(logits, -1, tgt[..., None].long())[..., 0]
+    nll = lse - label_logit.to(torch.float32)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return nll.mean() + aux, (nll.mean(), aux)
 
 
 def init_caches(cfg: ModelConfig, batch: int, s_max: int,

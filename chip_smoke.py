@@ -2,6 +2,7 @@
 and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab-fwht EARLIER_FWHT_CU   # the A/B only
 
 The kernels: ``fwht`` and ``fwht_quantize`` (``csrc/fwht.cu``),
 ``masked_unbias`` (``csrc/unbias.cu``) and ``quantize_int8``
@@ -12,11 +13,13 @@ caught and carried on):
    for sm_90a, one compiler per source, all at once;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (FWHT at every coded leaf's tiles and at the
-   gradient payload, unbias at its wire layout) and over
-   ``tests/test_kernels.py``'s shapes (the
-   quantizers: codes and scales equal, and the fused kernel equal to the
-   kernel pair), and time kernel, plain version, a PyTorch yardstick,
-   and the bound;
+   gradient payload, unbias at its wire layout) and over ``SWEEP`` and
+   ``QUANT_SHAPES`` (the FWHT equal in float32 and bfloat16, with and
+   without signs and scale, at every n = 2 .. 4096 and ragged tails;
+   the quantizers' codes and scales equal, and the fused kernel equal
+   to the kernel pair; a misaligned view refused), and time kernel,
+   plain version, a PyTorch yardstick, and the bound (``time_ms``: runs
+   of back-to-back calls behind a spin kernel, median of 5);
 3. serve qwen2-0.5b at full width (24 layers, d 896, 14 heads padded to
    16, kv 2, vocab 151,936, bf16, random weights from seed 0): prefill
    8 prompts of 512 tokens, ship the KV caches through the coded lossy
@@ -43,11 +46,17 @@ before it and read just after.  The last line is ``{"ok": true,
 "device": {...}}``; the lines before it carry the card's name and power
 limit and a ``{"kernels": [...]}`` record.  Needs CUDA: without it the
 script raises before printing any result.
+
+``--ab-fwht`` builds the kernels, then only times ``csrc/fwht.cu``
+against an earlier design of the same file (its path given), in turns,
+at the serve, largest-leaf and gradient-payload shapes, and prints a
+``{"fwht_ab": [...]}`` record.
 """
 import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -60,11 +69,19 @@ SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
 BATCH, PROMPT, GEN = 8, 512, 32
 N_ROT, TAU, KV_FRAC = 64, 0.6, 0.9         # fig8's coded-KV recovery cell
-SWEEP = [(8, 128), (3, 256), (100, 4096), (1, 2), (16, 1024), (257, 512)]
+# FWHT and unbias: tests/test_kernels.py's shapes, then every other
+# template instance n = 2 .. 4096, with ragged tails: row counts that are
+# not a multiple of a block's 4096 / n rows, and rows * n not a multiple
+# of 16 at n < 16
+SWEEP = [(8, 128), (3, 256), (100, 4096), (1, 2), (16, 1024), (257, 512),
+         (4097, 2), (33, 4), (33, 8), (5, 16), (300, 32), (3, 64),
+         (5, 1024), (3, 2048)]
 # the quantizers: the main paths' (121,959, 4096), kernel_bench.py's
-# (256, 4096), tests/test_kernels.py's shapes, and the two tile extremes
+# (256, 4096), tests/test_kernels.py's shapes, the two tile extremes,
+# and n = 16 and 2048
 QUANT_SHAPES = [(121959, 4096), (256, 4096), (8, 128), (64, 512), (3, 64),
-                (3, 256), (100, 1024), (4097, 2), (33, 32)]
+                (3, 256), (100, 1024), (4097, 2), (33, 32), (65, 16),
+                (7, 2048)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, SMOKE_STEPS = 8, 128, 3, 14
 MODES = ("exact", "lossy", "lossy_hadamard")
 CODED_LEAVES = 8           # qwen2-0.5b leaves >= min_coded_size (65,536)
@@ -76,28 +93,65 @@ ALLREDUCE_PEERS = (1, 4)   # unbias counts: the one-rank group's and 4 peers'
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
 # tensor cores (the kernels' arithmetic) in operations/s
 HBM_BPS, F32_OPS = 3.35e12, 67e12
-TIMING_ITERS, WARMUP, TOP_KERNELS = 30, 3, 4
+TOP_KERNELS = 4
+# kernel timing: runs of K back-to-back calls of about RUN_MS, K at most
+# MAX_K, the median of REPEATS runs; a working set that fits in the 50 MB
+# L2 is timed cold, a FLUSH_BYTES buffer written before every call
+RUN_MS, MAX_K, REPEATS, FLUSH_BYTES = 2.0, 50, 5, 64 << 20
+SPIN_HZ = 2e9              # above the H100's SM clock: a spin lasts long enough
 
 
 def _sync():
     torch.cuda.synchronize()
 
 
-def time_ms(fn):
-    """Median device time of one call, from CUDA events around each call."""
-    for _ in range(WARMUP):
-        fn()
+def time_ms(fn, cold=False):
+    """Device ms of one call of fn.
+
+    CUDA events around a run of K back-to-back calls, divided by K; the
+    median over REPEATS runs.  A spin kernel holds the stream while the
+    host enqueues the run, so the host's cost per call (Python, the
+    wrapper's checks) never leaves the card idle inside the events.
+    ``cold``: before each call a 64 MB buffer is written (outside the
+    events, which then bracket each call alone), so a working set that
+    fits in L2 comes from device memory, as its callers find it.
+    """
+    fn()
     _sync()
-    times = []
-    for _ in range(TIMING_ITERS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    k = max(1, min(MAX_K, math.ceil(RUN_MS / max(start.elapsed_time(end),
+                                                 1e-3))))
+    flush = (torch.empty(FLUSH_BYTES // 4, device="cuda") if cold else None)
+    runs = []
+    for _ in range(REPEATS):
+        torch.cuda._sleep(int((2 * k * (host_s + 5e-5) + 1e-4) * SPIN_HZ))
+        if cold:
+            events = []
+            for _ in range(k):
+                flush.zero_()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                fn()
+                ev[1].record()
+                events.append(ev)
+            _sync()
+            runs.append(statistics.median(a.elapsed_time(b)
+                                          for a, b in events))
+        else:
+            start.record()
+            for _ in range(k):
+                fn()
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end) / k)
+    return statistics.median(runs)
 
 
 def bound_ms(n_bytes, n_ops):
@@ -190,10 +244,17 @@ def phase_build(_build):
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, "
           f"{' + '.join(n + '.cu' for n in SOURCES)} in parallel)")
     for name in SOURCES:
+        # ptxas -v: one "Used N registers" line and one spill line for
+        # each kernel (fwht.cu has one kernel per template instance)
         log = (_build.BUILD / f"{name}.log")
-        for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        lines = log.read_text().splitlines() if log.exists() else []
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers",
+                                           "\n".join(lines))]
+        spills = [ln.strip() for ln in lines if "spill" in ln
+                  and re.search(r"[1-9]\d* bytes spill", ln)]
+        print(f"  ptxas {name}: {len(regs)} kernels, registers "
+              f"{min(regs, default=0)}..{max(regs, default=0)}, spills: "
+              f"{spills or 'none'}")
 
 
 def phase_kernels(dev, cfg, kfwht, kunbias, ref, coding, coupling):
@@ -210,22 +271,9 @@ def phase_kernels(dev, cfg, kfwht, kunbias, ref, coding, coupling):
     x = torch.randn(rows, n, generator=g, device=dev)
     signs = coding.rademacher(g, code)
     scale = n ** -0.5
-    err = check("fwht main", kfwht.fwht_cuda(x, signs, scale),
-                ref.fwht(x, signs=signs, scale=scale), 1e-4, 1e-4)
-    h = ref.hadamard_matrix(n, device=dev)
-    folded = signs[:, None] * h * scale          # diag(signs) H scale
-    nb, ops = 2 * rows * n * 4 + n * 4, rows * n * (int(math.log2(n)) + 2)
-    b_ms, b_by = bound_ms(nb, ops)
-    records.append({
-        "name": "fwht", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fwht.cu",
-        "replaces": "src/repro/kernels/fwht.py:141",
-        "shape": [rows, n], "dtype": "float32", "max_abs_err": err,
-        "ms": time_ms(lambda: kfwht.fwht_cuda(x, signs, scale)),
-        "plain_ms": time_ms(lambda: ref.fwht(x, signs=signs, scale=scale)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: x @ folded),
-        "library": "torch.matmul(x, diag(signs) H scale), TF32 off"})
+    err = check_equal("fwht main", (kfwht.fwht_cuda(x, signs, scale),),
+                      (ref.fwht(x, signs=signs, scale=scale),))
+    records.append(fwht_record(kfwht, ref, x, signs, scale, err))
 
     # unbias at decode's shape: the wire layout (n_rot, n_blocks) f32
     y = torch.randn(n, rows, generator=g, device=dev)
@@ -233,43 +281,34 @@ def phase_kernels(dev, cfg, kfwht, kunbias, ref, coding, coupling):
     counts = torch.as_tensor(mask, dtype=torch.float32, device=dev)
     err = check("unbias main", kunbias.masked_unbias_cuda(y, counts, 1),
                 ref.masked_unbias(y, counts, 1), 1e-6, 0.0)
-    nb, ops = 2 * n * rows * 4 + n * 4, n * rows + n
-    b_ms, b_by = bound_ms(nb, ops)
-    c2 = counts[:, None]
-    records.append({
-        "name": "masked_unbias", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/unbias.cu",
-        "replaces": "src/repro/kernels/unbias.py:25",
-        "shape": [n, rows], "dtype": "float32", "max_abs_err": err,
-        "ms": time_ms(lambda: kunbias.masked_unbias_cuda(y, counts, 1)),
-        "plain_ms": time_ms(lambda: ref.masked_unbias(y, counts, 1)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(
-            lambda: torch.where(c2 > 0, y * (1 / c2.clamp(min=1)), 0.0)),
-        "library": "torch.where(c > 0, y * (total / max(c, 1)), 0)"})
+    records.append(unbias_record(kunbias, ref, y, counts, 1, err))
 
-    # sweep at tests/test_kernels.py's shapes and tolerances
+    # the sweep: the FWHT equal to its plain version (it keeps its stage
+    # order) with and without signs and scale; unbias at its tolerance
     worst = {"fwht": 0.0, "masked_unbias": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for r, m in SWEEP:
             xs = torch.randn(r, m, generator=g, device=dev).to(dtype)
-            tol = 1e-4 if dtype == torch.float32 else 8e-2 * math.sqrt(m)
             tag = f"{r}x{m} {dtype}"
-            e1 = check(f"fwht {tag}", kfwht.fwht_cuda(xs), ref.fwht(xs),
-                       tol, tol)
             sg = torch.randint(0, 2, (m,), generator=g,
                                device=dev).float() * 2 - 1
-            e2 = check(f"fwht signs {tag}", kfwht.fwht_cuda(xs, sg, m ** -0.5),
-                       ref.fwht(xs, signs=sg, scale=m ** -0.5), tol, tol)
+            for what, sgn, sc in (("", None, 1.0),
+                                  (" signs+scale", sg, m ** -0.5),
+                                  (" scale", None, m ** -0.5)):
+                worst["fwht"] = max(worst["fwht"], check_equal(
+                    f"fwht{what} {tag}", (kfwht.fwht_cuda(xs, sgn, sc),),
+                    (ref.fwht(xs, signs=sgn, scale=sc),)))
             cs = torch.randint(0, 5, (r,), generator=g, device=dev).float()
             e3 = check(f"unbias {tag}", kunbias.masked_unbias_cuda(xs, cs, 4),
                        ref.masked_unbias(xs, cs, 4), 1e-6, 0.0)
-            worst["fwht"] = max(worst["fwht"], e1, e2)
             worst["masked_unbias"] = max(worst["masked_unbias"], e3)
-    path_err = check_train_shapes(dev, g, kfwht, kunbias, ref)
+    check_misaligned(dev, kfwht)
+    path_err, path_records = check_train_shapes(dev, g, kfwht, kunbias, ref)
+    records += path_records
     _sync()
     for rec in records:
-        rec["max_abs_err"] = max(rec["max_abs_err"], path_err[rec["name"]])
+        rec["max_abs_err"] = max(rec["max_abs_err"], path_err[rec["name"]],
+                                 worst[rec["name"]])
         print(f"kernel {rec['name']} {rec['shape']}: max_abs_err "
               f"{rec['max_abs_err']:.3g} (with the train and all-reduce "
               f"shapes), {rec['ms']:.4f} ms (plain "
@@ -280,34 +319,98 @@ def phase_kernels(dev, cfg, kfwht, kunbias, ref, coding, coupling):
     return records
 
 
+def fwht_record(kfwht, ref, x, signs, scale, err):
+    """The FWHT's timing record at x's shape: kernel, plain version, the
+    library yardstick and the bound (x read once, out written once)."""
+    rows, n = x.shape
+    folded = signs[:, None] * ref.hadamard_matrix(n, device=x.device) * scale
+    nb, ops = 2 * rows * n * 4 + n * 4, rows * n * (int(math.log2(n)) + 2)
+    b_ms, b_by = bound_ms(nb, ops)
+    return {
+        "name": "fwht", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fwht.cu",
+        "replaces": "src/repro/kernels/fwht.py:141",
+        "shape": [rows, n], "dtype": "float32", "max_abs_err": err,
+        "ms": time_ms(lambda: kfwht.fwht_cuda(x, signs, scale)),
+        "plain_ms": time_ms(lambda: ref.fwht(x, signs=signs, scale=scale)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: x @ folded),
+        "library": "torch.matmul(x, diag(signs) H scale), TF32 off"}
+
+
+def unbias_record(kunbias, ref, y, counts, total, err):
+    """Masked unbias's timing record at y's shape.  The kernel reads only
+    the rows whose count is > 0, so the bound counts those rows read,
+    every row written, and the counts."""
+    rows, n = y.shape
+    present = int((counts > 0).sum())
+    nb, ops = (present + rows) * n * 4 + rows * 4, rows * n + rows
+    b_ms, b_by = bound_ms(nb, ops)
+    c2 = counts[:, None]
+    return {
+        "name": "masked_unbias", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/unbias.cu",
+        "replaces": "src/repro/kernels/unbias.py:25",
+        "shape": [rows, n], "dtype": "float32", "max_abs_err": err,
+        "ms": time_ms(lambda: kunbias.masked_unbias_cuda(y, counts, total)),
+        "plain_ms": time_ms(lambda: ref.masked_unbias(y, counts, total)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: torch.where(
+            c2 > 0, y * (total / c2.clamp(min=1)), 0.0)),
+        "library": "torch.where(c > 0, y * (total / max(c, 1)), 0)"}
+
+
+def check_misaligned(dev, kfwht):
+    """A contiguous view that starts 4 bytes into its storage makes both
+    FWHT wrappers raise ValueError, and launches nothing."""
+    before = (kfwht.launches, kfwht.quantize_launches)
+    x = torch.zeros(4 * 64 + 1, device=dev)[1:].view(4, 64)
+    noise = torch.zeros(4, 64, device=dev)
+    for name, call in (("fwht_cuda", lambda: kfwht.fwht_cuda(x)),
+                       ("fwht_quantize_cuda",
+                        lambda: kfwht.fwht_quantize_cuda(x, noise))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"{name} took a misaligned view")
+    assert (kfwht.launches, kfwht.quantize_launches) == before
+
+
 def check_train_shapes(dev, g, kfwht, kunbias, ref):
     """FWHT (signs and scale fused) at each coded leaf's tiles and at the
-    gradient payload, and masked unbias at the payload's wire layout
-    with counts from drop-0.05 masks, against the plain versions at the
-    serve shapes' tolerances.  Returns the worst error by kernel."""
+    gradient payload, equal to its plain version, and timed at the largest
+    leaf's and the payload's; masked unbias at the payload's wire layout
+    with counts from drop-0.05 masks at its tolerance, timed at one
+    peer's.  Returns the worst error by kernel and the timing records."""
     rows_all, n = TRAIN_FWHT_ROWS + (GRAD_PAYLOAD[0],), GRAD_PAYLOAD[1]
     signs = torch.randint(0, 2, (n,), generator=g, device=dev).float() * 2 - 1
     worst = {"fwht": 0.0, "masked_unbias": 0.0}
+    records = []
     for rows in rows_all:
         x = torch.randn(rows, n, generator=g, device=dev)
-        worst["fwht"] = max(worst["fwht"], check(
-            f"fwht train/all-reduce {rows}x{n}",
-            kfwht.fwht_cuda(x, signs, n ** -0.5),
-            ref.fwht(x, signs=signs, scale=n ** -0.5), 1e-4, 1e-4))
+        err = check_equal(f"fwht train/all-reduce {rows}x{n}",
+                          (kfwht.fwht_cuda(x, signs, n ** -0.5),),
+                          (ref.fwht(x, signs=signs, scale=n ** -0.5),))
+        worst["fwht"] = max(worst["fwht"], err)
+        if rows in (TRAIN_FWHT_ROWS[-1], GRAD_PAYLOAD[0]):
+            records.append(fwht_record(kfwht, ref, x, signs, n ** -0.5, err))
         del x
     y = torch.randn(n, GRAD_PAYLOAD[0], generator=g, device=dev)
     for peers in ALLREDUCE_PEERS:
         counts = (torch.rand(peers, n, generator=g, device=dev) >= 0.05
                   ).sum(0).float()
-        worst["masked_unbias"] = max(worst["masked_unbias"], check(
-            f"unbias all-reduce {n}x{GRAD_PAYLOAD[0]} {peers} peers",
-            kunbias.masked_unbias_cuda(y, counts, peers),
-            ref.masked_unbias(y, counts, peers), 1e-6, 0.0))
+        err = check(f"unbias all-reduce {n}x{GRAD_PAYLOAD[0]} {peers} peers",
+                    kunbias.masked_unbias_cuda(y, counts, peers),
+                    ref.masked_unbias(y, counts, peers), 1e-6, 0.0)
+        worst["masked_unbias"] = max(worst["masked_unbias"], err)
+        if peers == 1:                     # the one-rank all-reduce's case
+            records.append(unbias_record(kunbias, ref, y, counts, peers, err))
     print(f"train/all-reduce shapes: fwht at {list(rows_all)} x {n} worst "
           f"err {worst['fwht']:.3g}; masked_unbias at ({n}, "
           f"{GRAD_PAYLOAD[0]}), counts of {list(ALLREDUCE_PEERS)} peers at "
           f"drop 0.05, worst err {worst['masked_unbias']:.3g}")
-    return worst
+    return worst, records
 
 
 def phase_quant_kernels(dev, kfwht, kquant, ref):
@@ -381,6 +484,80 @@ def phase_quant_kernels(dev, kfwht, kquant, ref):
     return records
 
 
+# the A/B shapes: the FWHT at serve's, the largest leaf's and the
+# gradient payload's shape, and the fused kernel at the payload's
+AB_SHAPES = (("fwht", (208_896, 64)), ("fwht", (TRAIN_FWHT_ROWS[-1], 4096)),
+             ("fwht", GRAD_PAYLOAD), ("fwht_quantize", GRAD_PAYLOAD))
+
+
+def phase_fwht_ab(dev, earlier_src, _build, kfwht, ref):
+    """``csrc/fwht.cu`` against an earlier design of it with the same C
+    interface, built from ``earlier_src``: at AB_SHAPES both designs'
+    outputs equal the plain version's, and their times are taken in
+    turns (earlier, this, this, earlier) into preallocated outputs,
+    beside the plain version, the library yardstick and the bound."""
+    libs = {"earlier": kfwht.bind(_build.load("fwht_earlier", earlier_src)),
+            "this": kfwht.bind(_build.load("fwht"))}
+    g = torch.Generator(dev).manual_seed(7)
+    records = []
+    for name, (rows, n) in AB_SHAPES:
+        x = torch.randn(rows, n, generator=g, device=dev)
+        signs = torch.randint(0, 2, (n,), generator=g,
+                              device=dev).float() * 2 - 1
+        scale, log_n = n ** -0.5, n.bit_length() - 1
+        folded = signs[:, None] * ref.hadamard_matrix(n, device=dev) * scale
+        if name == "fwht":
+            out = (torch.empty_like(x),)
+            args = (x.data_ptr(), out[0].data_ptr(), signs.data_ptr(), rows,
+                    log_n, scale, 0)
+            plain = lambda: ref.fwht(x, signs=signs, scale=scale)
+            library = lambda: x @ folded
+            nb, ops = 2 * rows * n * 4 + n * 4, rows * n * (log_n + 2)
+        else:
+            noise = torch.rand(rows, n, generator=g, device=dev)
+            out = (torch.empty(rows, n, dtype=torch.int8, device=dev),
+                   torch.empty(rows, device=dev))
+            args = (x.data_ptr(), noise.data_ptr(), signs.data_ptr(),
+                    out[0].data_ptr(), out[1].data_ptr(), rows, log_n, scale)
+            plain = lambda: ref.fwht_quantize(x, noise, signs=signs,
+                                              scale=scale)
+            library = lambda: quantize_expression(x @ folded, noise)
+            nb = rows * n * (4 + 4 + 1) + rows * 4 + n * 4
+            ops = rows * n * (log_n + 8)
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        entry = 0 if name == "fwht" else 1
+        times = {"earlier": [], "this": []}
+        for design in ("earlier", "this", "this", "earlier"):
+            launch = libs[design][entry]
+
+            def call():
+                err = launch(*args, torch.cuda.current_stream().cuda_stream)
+                assert err == 0, f"{design} {name} launch: cudaError {err}"
+
+            for t in out:
+                t.zero_()
+            call()
+            check_equal(f"{design} {name} {rows}x{n}", out, want)
+            times[design].append(time_ms(call))
+        del want
+        b_ms, b_by = bound_ms(nb, ops)
+        rec = {"name": name, "shape": [rows, n], "dtype": "float32",
+               "earlier_ms": times["earlier"], "ms": times["this"],
+               "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+               "bound_ms": b_ms, "bound_by": b_by}
+        for design, key in (("earlier", "earlier_share"), ("this", "share")):
+            rec[key] = b_ms / statistics.mean(times[design])
+        records.append(rec)
+        print(f"A/B {name} {rows}x{n}: earlier {times['earlier']} ms, this "
+              f"{times['this']} ms (bound {b_ms:.4f}, share "
+              f"{rec['earlier_share']:.3f} -> {rec['share']:.3f}); plain "
+              f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}")
+        del x, out, folded
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_kernel_bench(dev, ops, counts):
     """benchmarks/kernel_bench.py's quantize rows at (256, 4096) through
     ``kernels.ops``: fused-signs FWHT, quantize, the unfused pair and the
@@ -408,7 +585,8 @@ def phase_kernel_bench(dev, ops, counts):
                 out["fwht_quant_unfused"])
     assert launches == {"fwht": 2, "fwht_quantize": 1, "masked_unbias": 0,
                         "quantize_int8": 2}, launches
-    times = {k: time_ms(fn) for k, fn in rows.items()}
+    # 12 MB fits in L2: timed cold, as the real callers find it
+    times = {k: time_ms(fn, cold=True) for k, fn in rows.items()}
     print(f"kernel bench (256, 4096) ms: {times}; launches {launches}")
     return {"ms": times, "launches": launches}
 
@@ -762,7 +940,14 @@ def phase_small_reference(dev, C, M, serve_step):
           "greedy tokens agree")
 
 
-def main():
+def card_name_and_power():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def main(earlier_fwht=None):
     sys.path.insert(0, SRC)
     from repro_torch import resolve_device
     dev = resolve_device("cuda")            # raises without CUDA
@@ -790,6 +975,12 @@ def main():
     t_start = time.perf_counter()
     counts = Launches(kfwht, kunbias, kquant)
     phase_build(_build)
+    if earlier_fwht is not None:
+        records = phase_fwht_ab(dev, earlier_fwht, _build, kfwht, ref)
+        print(json.dumps({"fwht_ab": records,
+                          "seconds": time.perf_counter() - t_start}))
+        print(card_name_and_power())
+        return
     records = phase_kernels(dev, C.get("qwen2-0.5b"), kfwht, kunbias, ref,
                             coding, coupling)
     records += phase_quant_kernels(dev, kfwht, kquant, ref)
@@ -812,10 +1003,7 @@ def main():
                                    for p, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
         assert rec["launches"] > 0, f"no path launched {rec['name']}"
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_name_and_power()
     print(json.dumps({"main_path": main_path, "kernel_bench": bench,
                       "train": train, "allreduce": allreduce,
                       "small_train": small_train,
@@ -828,4 +1016,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ab-fwht", metavar="FWHT_CU", type=os.path.abspath,
+                    help="only build the kernels and time csrc/fwht.cu "
+                    "against this earlier design of it, in turns")
+    main(ap.parse_args().ab_fwht)

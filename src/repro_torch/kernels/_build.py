@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -37,28 +37,30 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def library_path(name: str, src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:12]}.so"
 
 
-def build(*names: str) -> Dict[str, Path]:
+def build(*names: str, src: Optional[Path] = None) -> Dict[str, Path]:
     """Compile the named sources that are not built yet, in parallel.
 
     Returns each name's library path.  The compiler's report (registers,
     shared memory, spills from ``-Xptxas -v``) lands in
-    ``build/<name>.log``.
+    ``build/<name>.log``.  ``src`` builds one name from another file
+    than ``csrc/<name>.cu`` (an earlier design, to time beside this one).
     """
     BUILD.mkdir(parents=True, exist_ok=True)
-    paths = {n: library_path(n) for n in names}
+    srcs = {n: Path(src) if src is not None else CSRC / f"{n}.cu"
+            for n in names}
+    paths = {n: library_path(n, srcs[n]) for n in names}
     procs = {}
     for n, out in paths.items():
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)
@@ -75,8 +77,9 @@ def build(*names: str) -> Dict[str, Path]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+def load(name: str, src: Optional[Path] = None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (or ``src``), built if
+    needed."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)[name]))
+        _loaded[name] = ctypes.CDLL(str(build(name, src=src)[name]))
     return _loaded[name]

@@ -18,21 +18,33 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import quantize as _quant
 
-MAX_N = 4096          # the kernel's shared-memory tile holds one such row
+MAX_N = 4096          # a block's tile of 4096 elements holds one such row
+ALIGN = 16            # bytes: the kernels move 16-byte vectors
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 quantize_launches = 0
 
 
-@functools.cache
-def _launcher():
-    fn = _build.load("fwht").fwht_launch
+def bind(lib: ctypes.CDLL):
+    """The two C entry points of a built ``fwht.cu``, ``(fwht_launch,
+    fwht_quantize_launch)``, with their argument types set."""
+    fn = lib.fwht_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    fq = lib.fwht_quantize_launch
+    fq.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fq.restype = ctypes.c_int
+    return fn, fq
+
+
+@functools.cache
+def _launchers():
+    return bind(_build.load("fwht"))
 
 
 def _check_signs(x: torch.Tensor, signs: Optional[torch.Tensor],
@@ -47,13 +59,26 @@ def _check_signs(x: torch.Tensor, signs: Optional[torch.Tensor],
                          "x's device")
 
 
+def check_aligned(name: str, **tensors: Optional[torch.Tensor]) -> None:
+    """Raise ``ValueError`` unless each given tensor starts on an
+    ``ALIGN``-byte boundary: the kernels load and store 16-byte vectors
+    and take no scalar path.  A contiguous view such as ``t[1:]`` of a
+    fresh tensor may not."""
+    for what, t in tensors.items():
+        if t is not None and t.data_ptr() % ALIGN:
+            raise ValueError(
+                f"{name}: {what} must start on a {ALIGN}-byte boundary, got "
+                f"data_ptr {t.data_ptr():#x}")
+
+
 def fwht_cuda(x: torch.Tensor, signs: Optional[torch.Tensor] = None,
               scale: float = 1.0) -> torch.Tensor:
     """FWHT along the last axis of a contiguous (rows, n) CUDA tensor.
 
     ``x`` float32 or bfloat16, n a power of two in [2, 4096]; ``signs``
-    (n,) float32 on the same device or None.  Returns a new tensor in
-    ``x``'s dtype, computed on the current stream.
+    (n,) float32 on the same device or None; both 16-byte aligned.
+    Returns a new tensor in ``x``'s dtype, computed on the current
+    stream.
     """
     global launches
     if x.device.type != "cuda":
@@ -65,11 +90,12 @@ def fwht_cuda(x: torch.Tensor, signs: Optional[torch.Tensor] = None,
                          f"shape {tuple(x.shape)} strides {x.stride()}")
     rows, n = x.shape
     _check_signs(x, signs, n)
+    check_aligned("fwht_cuda", x=x, signs=signs)
     out = torch.empty_like(x)
     if rows == 0:
         return out
     with torch.cuda.device(x.device):
-        err = _launcher()(
+        err = _launchers()[0](
             x.data_ptr(), out.data_ptr(),
             None if signs is None else signs.data_ptr(),
             rows, n.bit_length() - 1, float(scale), _DTYPES[x.dtype],
@@ -80,34 +106,26 @@ def fwht_cuda(x: torch.Tensor, signs: Optional[torch.Tensor] = None,
     return out
 
 
-@functools.cache
-def _quant_launcher():
-    fn = _build.load("fwht").fwht_quantize_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def fwht_quantize_cuda(x: torch.Tensor, noise: torch.Tensor,
                        signs: Optional[torch.Tensor] = None,
                        scale: float = 1.0
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused FWHT + per-row absmax int8 quantization of a contiguous
     (rows, n) float32 CUDA tensor, n a power of two in [2, 4096];
-    ``noise`` uniform [0, 1) of the same shape.  Returns (q int8 (rows, n),
-    scale float32 (rows,)), computed on the current stream."""
+    ``noise`` uniform [0, 1) of the same shape; x, noise and signs
+    16-byte aligned.  Returns (q int8 (rows, n), scale float32 (rows,)),
+    computed on the current stream."""
     global quantize_launches
     _quant.check_noise(x, noise, "fwht_quantize_cuda")
     rows, n = x.shape
     _check_signs(x, signs, n)
+    check_aligned("fwht_quantize_cuda", x=x, noise=noise, signs=signs)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows == 0:
         return q, scales
     with torch.cuda.device(x.device):
-        err = _quant_launcher()(
+        err = _launchers()[1](
             x.data_ptr(), noise.data_ptr(),
             None if signs is None else signs.data_ptr(), q.data_ptr(),
             scales.data_ptr(), rows, n.bit_length() - 1, float(scale),

@@ -132,3 +132,21 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError):
         tops.masked_unbias(meta, torch.empty(4, device="meta"), 1)
     assert tfwht.launches == 0 and tunbias.launches == 0
+
+
+def test_wrappers_refuse_misaligned():
+    """Both FWHT wrappers call ``check_aligned``: the kernels move 16-byte
+    vectors, so a view that starts mid-vector raises instead of falling
+    back to a scalar path."""
+    tfwht.check_aligned("t", x=torch.empty(4, 64), signs=None)
+    for dtype in (torch.float32, torch.bfloat16):
+        shifted = torch.empty(4 * 64 + 1, dtype=dtype)[1:].view(4, 64)
+        assert shifted.is_contiguous()
+        with pytest.raises(ValueError, match="16-byte"):
+            tfwht.check_aligned("t", x=shifted)
+    with pytest.raises(ValueError, match="signs"):
+        tfwht.check_aligned("t", x=torch.empty(4, 64),
+                            signs=torch.empty(65)[1:])
+    with pytest.raises(ValueError, match="noise"):
+        tfwht.check_aligned("t", x=torch.empty(4, 64),
+                            noise=torch.empty(4 * 64 + 2)[2:].view(4, 64))

@@ -1,12 +1,13 @@
-"""Drive the PyTorch/CUDA port's serve and train paths on one NVIDIA card
-and check them.
+"""Drive the PyTorch/CUDA port's serve, train and transport-engine paths
+on one NVIDIA card and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab-fwht EARLIER_FWHT_CU   # the A/B only
 
 The kernels: ``fwht`` and ``fwht_quantize`` (``csrc/fwht.cu``),
-``masked_unbias`` (``csrc/unbias.cu``) and ``quantize_int8``
-(``csrc/quantize.cu``).  Phases (any failure exits non-zero; nothing is
+``masked_unbias`` (``csrc/unbias.cu``), ``quantize_int8``
+(``csrc/quantize.cu``) and ``dcqcn_scan`` (``csrc/dcqcn.cu``, the
+engine's DCQCN recurrence).  Phases (any failure exits non-zero; nothing is
 caught and carried on):
 
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc
@@ -19,7 +20,10 @@ caught and carried on):
    the quantizers' codes and scales equal, and the fused kernel equal
    to the kernel pair; a misaligned view refused), and time kernel,
    plain version, a PyTorch yardstick, and the bound (``time_ms``: runs
-   of back-to-back calls behind a spin kernel, median of 5);
+   of back-to-back calls behind a spin kernel, median of 5); the DCQCN
+   scan bit for bit in rates and state at (1, 15,240, 128), (4, 4,092,
+   1,024) and a ragged (3, 257, 33), at CNP densities 0, 0.001, 0.05 and
+   1 and on a real engine block's marks, and over two consecutive blocks;
 3. serve qwen2-0.5b at full width (24 layers, d 896, 14 heads padded to
    16, kv 2, vocab 151,936, bf16, random weights from seed 0): prefill
    8 prompts of 512 tokens, ship the KV caches through the coded lossy
@@ -39,9 +43,21 @@ caught and carried on):
 7. smoke-size training on the card against the CPU (float32, the same
    masks, signs and batch: loss, the first moments, i.e. the synced
    gradient, and the updated parameters), and 14 coded steps that must
-   lower the loss.
+   lower the loss;
+8. the transport engine: the Fig.-2 protocol at 128 nodes x 40 rounds,
+   all four designs, card against CPU (delivered packets per step
+   exact, times, p99 and recv_frac within rtol 1e-5); Fig. 2 on the card
+   (128 nodes x 300 rounds, 3 scan launches); Fig. 3's largest cell
+   (1,024 nodes, seeds 0-3 batched, 120 rounds of 25 MB, 60 scan
+   launches), with its host/device split, one block's device busy share
+   and peak memory;
+9. the closed loop (Fig. 1): the engine's drop schedules at 128 nodes x
+   60 rounds for the light / paper / heavy windows, the smoke LM trained
+   60 steps from each in ``exact``, ``lossy`` and ``lossy_hadamard``
+   (recovery >= 0.9 in the paper regime asserted), and qwen2-0.5b at
+   full width for 3 ``lossy_hadamard`` steps from the paper schedule.
 
-Each path (3-6) runs with the kernels' launch counts set to 0 just
+Each path (3-6, and the engine's in 8-9) runs with the kernels' launch counts set to 0 just
 before it and read just after.  The last line is ``{"ok": true,
 "device": {...}}``; the lines before it carry the card's name and power
 limit and a ``{"kernels": [...]}`` record.  Needs CUDA: without it the
@@ -197,25 +213,28 @@ def profile_window(fn):
             "top_kernels_ms": {k[:60]: v for k, v in ranked}}
 
 
-SOURCES = ("fwht", "unbias", "quantize")
+SOURCES = ("fwht", "unbias", "quantize", "dcqcn")
 
 
 class Launches:
     """The kernel wrappers' launch counters, by kernel name: a path is
     driven with them set to 0 just before it and read just after."""
 
-    def __init__(self, kfwht, kunbias, kquant):
+    def __init__(self, kfwht, kunbias, kquant, kdcqcn):
         self.kfwht, self.kunbias, self.kquant = kfwht, kunbias, kquant
+        self.kdcqcn = kdcqcn
 
     def reset(self):
         self.kfwht.launches = self.kfwht.quantize_launches = 0
         self.kunbias.launches = self.kquant.launches = 0
+        self.kdcqcn.launches = 0
 
     def read(self):
         return {"fwht": self.kfwht.launches,
                 "fwht_quantize": self.kfwht.quantize_launches,
                 "masked_unbias": self.kunbias.launches,
-                "quantize_int8": self.kquant.launches}
+                "quantize_int8": self.kquant.launches,
+                "dcqcn_scan": self.kdcqcn.launches}
 
 
 def check_equal(name, got, want):
@@ -584,7 +603,7 @@ def phase_kernel_bench(dev, ops, counts):
     check_equal("kernel bench fused vs unfused", out["fwht_quant_fused"],
                 out["fwht_quant_unfused"])
     assert launches == {"fwht": 2, "fwht_quantize": 1, "masked_unbias": 0,
-                        "quantize_int8": 2}, launches
+                        "quantize_int8": 2, "dcqcn_scan": 0}, launches
     # 12 MB fits in L2: timed cold, as the real callers find it
     times = {k: time_ms(fn, cold=True) for k, fn in rows.items()}
     print(f"kernel bench (256, 4096) ms: {times}; launches {launches}")
@@ -694,9 +713,9 @@ def phase_allreduce(dev, ts, tr, coding, lc, counts):
             for k, v in launches.items():
                 total[k] = total.get(k, 0) + v
             want = ({"fwht": 1, "fwht_quantize": 1, "masked_unbias": 1,
-                     "quantize_int8": 0} if q else
+                     "quantize_int8": 0, "dcqcn_scan": 0} if q else
                     {"fwht": 2, "fwht_quantize": 0, "masked_unbias": 1,
-                     "quantize_int8": 0})
+                     "quantize_int8": 0, "dcqcn_scan": 0})
             assert launches == want, (name, launches)
             rel = (est - flat).norm().item() / norm
             frac = frac.item()
@@ -940,6 +959,387 @@ def phase_small_reference(dev, C, M, serve_step):
           "greedy tokens agree")
 
 
+# ----------------------------------------------------------------------
+# The transport engine (the DCQCN scan kernel, Figs. 1-3)
+# ----------------------------------------------------------------------
+
+# the scan's check shapes: the Fig.-1 schedule's one block (128 nodes x
+# 60 rounds of 254 steps), a Fig.-3 block (4 seeds x 2 rounds of 2,046
+# steps x 1,024 nodes) and a ragged one; the CNP densities run as the
+# seeds of one call (the seeds of a block are independent)
+SCAN_SHAPES = ((1, 15_240, 128), (4, 4_092, 1_024), (3, 257, 33))
+SCAN_DENSITIES = (0.0, 0.001, 0.05, 1.0)
+# H100 SXM float64 rate outside the tensor cores (NVIDIA data sheet), for
+# the scan's operation count
+F64_OPS = 34e12
+ENGINE_CHECK_ROUNDS, FIG2_ROUNDS = 40, 300          # 128 nodes
+FIG3_NODES, FIG3_SEEDS, FIG3_ROUNDS, FIG3_MB = 1024, (0, 1, 2, 3), 120, 25.0
+FIG1_NODES, FIG1_ROUNDS, FIG1_STEPS = 128, 60, 60
+FIG1_REGIMES = {"light": 1.0, "paper": 0.6, "heavy": 0.4}
+FIG1_RECOVERY_BAR = 0.9
+
+
+def scan_state(S, n, dev):
+    return (torch.ones(S, n, dtype=torch.float64, device=dev),
+            torch.ones(S, n, dtype=torch.float64, device=dev),
+            torch.ones(S, n, dtype=torch.float64, device=dev),
+            torch.zeros(S, n, dtype=torch.int32, device=dev))
+
+
+def engine_block_marks(E, ET, params, n_rounds, seeds, dev):
+    """The CNP marks of the first block of an ``n_rounds`` engine run, one
+    per seed, from the host pass (the marks the scan sees on the main
+    path)."""
+    eng = E.BatchedEngine(params, device=str(dev))
+    g = eng._geometry(seeds[0])
+    steps, n = g["steps"], g["n"]
+    tb = min(max(1, E._BLOCK_ELEMENTS // (steps * n)), n_rounds) * steps
+    ph = g["plan"].phases[0]
+    cnp = [ET._host_block(eng, ET._SeedStreams(eng, s, ["celeris"]), tb,
+                          ["celeris"], ph.src, ph.dst,
+                          ph.n_pkts(params.net))["cnp"] for s in seeds]
+    return torch.from_numpy(np.stack(cnp)).to(dev)
+
+
+def scan_pair(kdcqcn, ref, dq, cnp, state):
+    """The kernel and its plain version on the same block; equal bit for
+    bit in the rates and all four state arrays.  Returns the kernel's
+    result and the plain version's device ms (CUDA events, one call: it
+    is a host-bound loop of ~65 launches a step)."""
+    any_t = cnp.any(-1)
+    got = kdcqcn.dcqcn_scan_cuda(cnp, any_t, *state, dq)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = ref.dcqcn_scan(cnp, any_t, *state, dq)
+    end.record()
+    end.synchronize()
+    check_equal(f"dcqcn_scan {tuple(cnp.shape)}", (got[0],) + got[1],
+                (want[0],) + want[1])
+    return got, start.elapsed_time(end)
+
+
+def scan_record(kdcqcn, dq, cnp, plain_ms, shape_note):
+    """The scan's timing record.  Bytes: marks (1 B a cell) and any_t read
+    once, rates (4 B a cell) written once, the state (3 float64 + 1 int32
+    a flow) read and written once.  Operations, from this block's marks:
+    ~20 float64 a cell on a step with a mark anywhere in its seed, ~12
+    float32 on a calm one."""
+    S, tb, n = cnp.shape
+    any_t = cnp.any(-1)
+    state = scan_state(S, n, cnp.device)
+    active = int(any_t.sum())
+    nb = S * tb * n * 5 + S * tb + 2 * S * n * 28
+    t_ops = (active * n * 20 / F64_OPS
+             + (S * tb - active) * n * 12 / F32_OPS)
+    t_bytes = nb / HBM_BPS
+    ms = time_ms(lambda: kdcqcn.dcqcn_scan_cuda(cnp, any_t, *state, dq))
+    return {
+        "name": "dcqcn_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dcqcn.cu",
+        "replaces": "src/repro/core/transport/engine_jax.py:88 "
+                    "(_dcqcn_scan, a lax.scan: no Pallas counterpart)",
+        "shape": [S, tb, n], "dtype": "bool -> float32", "marks": shape_note,
+        "active_step_share": active / (S * tb), "max_abs_err": 0.0,
+        "ms": ms, "ns_per_step": ms * 1e6 / tb, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "library": "none: no PyTorch call computes a scan"}
+
+
+def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P):
+    """The DCQCN scan kernel against its plain version on the card, bit
+    for bit (rates and the four state arrays): at SCAN_SHAPES with the
+    four densities as seeds, on the marks a real engine block draws
+    (Fig. 1's and Fig. 3's first blocks), and over two consecutive
+    blocks, whose carried state must equal the plain version's and, split
+    where every seed has a mark, one long block's.  Timed at the first two
+    shapes on the real marks."""
+    dq = P.DcqcnParams()
+    g = torch.Generator(dev).manual_seed(11)
+    real = {
+        SCAN_SHAPES[0]: engine_block_marks(
+            E, ET, P.SimParams(net=P.NetworkParams(n_nodes=FIG1_NODES)),
+            FIG1_ROUNDS, [0], dev),
+        SCAN_SHAPES[1]: engine_block_marks(
+            E, ET, P.SimParams(net=P.NetworkParams(n_nodes=FIG3_NODES)),
+            FIG3_ROUNDS, list(FIG3_SEEDS), dev)}
+    records, checks = [], 0
+    for S, tb, n in SCAN_SHAPES:
+        # the four densities as four seeds, and the ragged shape also at
+        # its own seed count
+        sets = [SCAN_DENSITIES]
+        if 1 < S < len(SCAN_DENSITIES):
+            sets.append(SCAN_DENSITIES[-S:])
+        for dens in sets:
+            u = torch.rand(len(dens), tb, n, generator=g, device=dev)
+            synth = u < torch.tensor(dens, device=dev)[:, None, None]
+            scan_pair(kdcqcn, ref, dq, synth, scan_state(len(dens), n, dev))
+            checks += 1
+        if (S, tb, n) in real:
+            cnp = real[(S, tb, n)]
+            assert tuple(cnp.shape) == (S, tb, n), cnp.shape
+            _, plain_ms = scan_pair(kdcqcn, ref, dq, cnp,
+                                    scan_state(S, n, dev))
+            checks += 1
+            records.append(scan_record(kdcqcn, dq, cnp, plain_ms,
+                                       "a real engine block's"))
+    # two consecutive blocks against the plain version, and against one
+    # long block where the split step has a mark in every seed (there
+    # both materialize the same anchor; elsewhere a calm gap cut in two
+    # ramps in two closed forms, which round apart by an ulp)
+    cnp = real[SCAN_SHAPES[1]]
+    any_t = cnp.any(-1)
+    tb = cnp.shape[1]
+    cand = torch.nonzero(any_t.all(0)).flatten().tolist()
+    split = next((i for i in cand if i >= tb // 2), tb // 2)
+    st0 = scan_state(cnp.shape[0], cnp.shape[2], dev)
+    (ra, sa), _ = scan_pair(kdcqcn, ref, dq, cnp[:, :split].contiguous(),
+                            st0)
+    (rb, sb), _ = scan_pair(kdcqcn, ref, dq, cnp[:, split:].contiguous(), sa)
+    long = kdcqcn.dcqcn_scan_cuda(cnp, any_t, *st0, dq)
+    two = (torch.cat([ra, rb], 1),) + sb
+    exact = bool(any_t[:, split].all())
+    if exact:
+        check_equal(f"dcqcn two blocks split at {split} vs one", two,
+                    (long[0],) + long[1])
+    else:
+        for x, y in zip(two, (long[0],) + long[1]):
+            check(f"dcqcn two blocks vs one (calm split {split})", x, y,
+                  1e-12 if x.dtype == torch.float64 else 1e-6, 0.0)
+    _sync()
+    print(f"dcqcn_scan: kernel == plain version bit for bit in {checks + 2} "
+          f"blocks (densities {SCAN_DENSITIES} as seeds at {SCAN_SHAPES}; "
+          f"real Fig.-1 and Fig.-3 marks); two blocks split at step {split} "
+          f"{'==' if exact else '~='} one long block")
+    for rec in records:
+        print(f"kernel dcqcn_scan {rec['shape']}: {rec['ms']:.4f} ms = "
+              f"{rec['ns_per_step']:.1f} ns a step (plain {rec['plain_ms']:.1f}"
+              f" ms, bound {rec['bound_ms']:.5f} by {rec['bound_by']}, active "
+              f"steps {rec['active_step_share']:.3f})")
+    return records
+
+
+def phase_engine_card_vs_cpu(dev, E, P):
+    """The Fig.-2 protocol at 128 nodes x ENGINE_CHECK_ROUNDS, all four
+    designs, on the card and on the CPU (plain scan): delivered packets
+    per step exact, step times, each design's times, p99 and recv_frac
+    within rtol 1e-5."""
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        eng = E.BatchedEngine(P.SimParams(), device=str(d))
+        tr = eng.traces(E.designs.DESIGNS, ENGINE_CHECK_ROUNDS, 0)
+        runs.append((tr, eng.paper_protocol(ENGINE_CHECK_ROUNDS, 0)))
+    (tr_d, pp_d), (tr_c, pp_c) = runs
+    worst = 0.0
+    for name in E.designs.DESIGNS:
+        a, b = tr_d[name], tr_c[name]
+        for f in ("deliv", "total", "tier_deliv"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), (name, f)
+        for x, y, what in ((a.nat_us, b.nat_us, "step times"),
+                           (pp_d[name].times_us, pp_c[name].times_us,
+                            "times"),
+                           (pp_d[name].p99, pp_c[name].p99, "p99"),
+                           (pp_d[name].recv_frac, pp_c[name].recv_frac,
+                            "recv_frac")):
+            np.testing.assert_allclose(x, y, rtol=1e-5, atol=0,
+                                       err_msg=f"{name} {what} card vs cpu")
+            worst = max(worst, float(np.max(np.abs(np.asarray(x) - y)
+                                            / np.abs(y))))
+    print(f"engine card vs CPU, 128 nodes x {ENGINE_CHECK_ROUNDS} rounds: "
+          f"delivered packets per step equal, worst relative difference of "
+          f"times/p99/recv_frac {worst:.3g}")
+    return {"worst_rel_diff": worst,
+            "p99_us": {d: s.p99 for d, s in pp_d.items()}}
+
+
+def phase_fig2(dev, E, P, counts):
+    """Fig. 2 on the card: the paper protocol at 128 nodes x 300 rounds
+    (benchmarks/fig2_tail_latency.py), 3 engine blocks."""
+    eng = E.BatchedEngine(P.SimParams(), device=str(dev))
+    _sync()
+    counts.reset()
+    t0 = time.perf_counter()
+    stats = eng.paper_protocol(FIG2_ROUNDS, 0)
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    assert launches["dcqcn_scan"] == eng.timing["blocks"] == 3, launches
+    for s in stats.values():
+        assert np.isfinite(s.times_us).all() and s.times_us.shape == (
+            FIG2_ROUNDS,)
+        assert ((0 < s.recv_frac) & (s.recv_frac <= 1)).all()
+    out = {d: {"p50_ms": s.p50 / 1e3, "p99_ms": s.p99 / 1e3,
+               "p999_ms": s.p999 / 1e3, "loss": s.mean_loss}
+           for d, s in stats.items()}
+    ratio = stats["roce"].p99 / stats["celeris"].p99
+    assert ratio > 1.0, f"RoCE p99 not above Celeris's: {ratio}"
+    rec = {"designs": out, "roce_celeris_p99_ratio": ratio, "wall_s": wall,
+           "host_s": eng.timing["host_s"], "device_s": eng.timing["device_s"],
+           "launches": launches}
+    print(f"fig2 128 nodes x {FIG2_ROUNDS} rounds on the card: {out}; RoCE/"
+          f"Celeris p99 {ratio:.3f}; wall {wall:.2f} s = host draws "
+          f"{rec['host_s']:.2f} s + device core {rec['device_s']:.2f} s "
+          f"(+ assembly); launches {launches}")
+    return rec
+
+
+def phase_fig3(dev, E, ET, P, counts):
+    """Fig. 3's largest cell on the card: traces_batched at 1,024 nodes,
+    seeds 0-3, FIG3_ROUNDS rounds of 25 MB in one batched pass (60
+    blocks), then each seed assembled by the paper protocol."""
+    p = P.SimParams(net=P.NetworkParams(n_nodes=FIG3_NODES),
+                    work=P.WorkloadParams(
+                        message_bytes=int(FIG3_MB * 2 ** 20)))
+    eng = E.BatchedEngine(p, device=str(dev))
+    designs = list(E.designs.DESIGNS)
+    # the device busy share over one block (a fresh pass of 2 rounds)
+    busy = profile_window(lambda: ET.traces_batched(
+        eng, designs, 2, list(FIG3_SEEDS)))
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    trs = ET.traces_batched(eng, designs, FIG3_ROUNDS, list(FIG3_SEEDS))
+    traced = time.perf_counter() - t0
+    launches = counts.read()
+    timing = dict(eng.timing)
+    assert launches["dcqcn_scan"] == timing["blocks"] == 60, launches
+    p99 = {d: [] for d in designs}
+    for seed, tr in zip(FIG3_SEEDS, trs):
+        base = eng.assemble(tr["roce"], seed)
+        to = float(np.percentile(base.times_us, 50) + base.times_us.std())
+        for d in designs:
+            st = (eng.assemble(tr[d], seed, celeris_timeout_us=to,
+                               adaptive=False) if d == "celeris"
+                  else eng.assemble(tr[d], seed))
+            assert np.isfinite(st.times_us).all()
+            p99[d].append(st.p99 / 1e3)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = {"nodes": FIG3_NODES, "seeds": list(FIG3_SEEDS),
+           "rounds": FIG3_ROUNDS, "rounds_cut_from": 120,
+           "p99_ms_by_seed": p99, "wall_s": wall, "traces_s": traced,
+           "host_s": timing["host_s"], "device_s": timing["device_s"],
+           "one_block_profile": busy, "peak_mem_gib": peak,
+           "launches": launches}
+    print(f"fig3 {FIG3_NODES} nodes x seeds {list(FIG3_SEEDS)} x "
+          f"{FIG3_ROUNDS} rounds (of 120: no cut) on the card: p99 ms by "
+          f"seed {p99}; wall {wall:.1f} s (traces {traced:.1f} s = host "
+          f"draws {timing['host_s']:.1f} s + device core "
+          f"{timing['device_s']:.1f} s); one block: {busy}; peak "
+          f"{peak:.2f} GiB; launches {launches}")
+    return rec
+
+
+def fig1_trainer(C, ts, Trainer, DataConfig, OptConfig, mode, straggler,
+                 dev):
+    """fig1_e2e_loss_tolerance.py's trainer: the smoke LM, seq 64, batch
+    8, lr 1e-3, warmup 10, leaves of >= 1,024 values coded."""
+    cfg = C.get_smoke("qwen2-0.5b")
+    return Trainer(cfg, data_cfg=DataConfig(vocab_size=cfg.vocab_size,
+                                            seq_len=64, global_batch=8,
+                                            seed=1),
+                   opt_cfg=OptConfig(lr=1e-3, warmup_steps=10,
+                                     total_steps=500),
+                   celeris=ts.CelerisConfig(mode=mode, min_coded_size=1024),
+                   seed=0, straggler=straggler, device=str(dev))
+
+
+def phase_fig1(dev, C, ts, Trainer, DataConfig, OptConfig, coupling,
+               counts):
+    """The closed loop (benchmarks/fig1_e2e_loss_tolerance.py): the
+    engine's drop schedule at 128 nodes for each regime, and the smoke LM
+    trained FIG1_STEPS steps in exact, lossy and lossy_hadamard from it.
+    Recovery = the share of exact's loss decrease that lossy_hadamard
+    keeps; the paper regime must reach FIG1_RECOVERY_BAR."""
+    _sync()
+    counts.reset()
+    t0 = time.perf_counter()
+    hist = fig1_trainer(C, ts, Trainer, DataConfig, OptConfig, "exact",
+                        None, dev).run(FIG1_STEPS)
+    loss0 = hist["loss"][0]
+    final_exact = float(np.mean(hist["loss"][-5:]))
+    out = {"loss0": loss0, "final_loss_exact": final_exact, "regimes": {}}
+    scheds = {}
+    for name, scale in FIG1_REGIMES.items():
+        ts0 = time.perf_counter()
+        sched = coupling.schedule_from_engine(
+            FIG1_ROUNDS, seed=0, n_nodes=FIG1_NODES, timeout_scale=scale,
+            device=str(dev))
+        sched_s = time.perf_counter() - ts0
+        scheds[name] = sched
+        finals = {}
+        for mode in ("lossy", "lossy_hadamard"):
+            h = fig1_trainer(C, ts, Trainer, DataConfig, OptConfig, mode,
+                             coupling.EngineStragglerModel(sched),
+                             dev).run(FIG1_STEPS)
+            assert h["drop_rate"] == list(sched.rates[:FIG1_STEPS])
+            assert np.isfinite(h["loss"]).all(), (name, mode)
+            finals[mode] = float(np.mean(h["loss"][-5:]))
+        rec = (loss0 - finals["lossy_hadamard"]) / max(loss0 - final_exact,
+                                                       1e-9)
+        out["regimes"][name] = {
+            "timeout_scale": scale, "drop_mean": sched.mean,
+            "drop_p99": sched.p99, "source": sched.source,
+            "schedule_s": sched_s, "final_loss_lossy": finals["lossy"],
+            "final_loss_lossy_hadamard": finals["lossy_hadamard"],
+            "recovery": rec}
+        print(f"fig1 {name} (window x{scale}): mean drop {sched.mean:.4f} "
+              f"(schedule {sched_s:.2f} s); final loss lossy "
+              f"{finals['lossy']:.4f}, lossy_hadamard "
+              f"{finals['lossy_hadamard']:.4f} (exact {final_exact:.4f}); "
+              f"recovery {rec:.4f}")
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = counts.read()
+    assert out["launches"]["dcqcn_scan"] == len(FIG1_REGIMES), out["launches"]
+    rec = out["regimes"]["paper"]["recovery"]
+    assert rec >= FIG1_RECOVERY_BAR, f"paper-regime recovery {rec} < 0.9"
+    print(f"fig1 paper-regime recovery {rec:.4f} >= {FIG1_RECOVERY_BAR}; "
+          f"launches {out['launches']}")
+    return out, scheds["paper"]
+
+
+def phase_fig1_full_width(dev, C, ts, Trainer, DataConfig, OptConfig,
+                          coupling, sched, counts):
+    """qwen2-0.5b at full width, TRAIN_STEPS steps of lossy_hadamard with
+    the paper regime's engine schedule as its drop source: 16 FWHT
+    launches a step and 0.4 <= recv_frac <= 1, as phase_train asserts."""
+    cfg = C.get("qwen2-0.5b")
+    tr = Trainer(cfg, data_cfg=DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH, seed=1),
+                 opt_cfg=OptConfig(lr=1e-3, warmup_steps=10,
+                                   total_steps=500),
+                 celeris=ts.CelerisConfig(mode="lossy_hadamard"), seed=0,
+                 straggler=coupling.EngineStragglerModel(sched),
+                 device=str(dev))
+    steps = []
+
+    def on_metrics(step, m):
+        steps.append(dict(m, launches=counts.read()))
+        counts.reset()
+
+    _sync()
+    counts.reset()
+    hist = tr.run(TRAIN_STEPS, on_metrics=on_metrics)
+    fwht = [r["launches"]["fwht"] for r in steps]
+    assert fwht == [2 * CODED_LEAVES] * TRAIN_STEPS, fwht
+    assert np.isfinite(hist["loss"]).all(), hist["loss"]
+    assert all(0.4 <= f <= 1.0 for f in hist["recv_frac"]), hist["recv_frac"]
+    assert hist["drop_rate"] == list(sched.rates[:TRAIN_STEPS])
+    total = {}
+    for r in steps:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    out = {"loss": hist["loss"], "recv_frac": hist["recv_frac"],
+           "drop_rate": hist["drop_rate"],
+           "step_ms": [r["wall_s"] * 1e3 for r in steps],
+           "fwht_launches_per_step": fwht, "launches": total}
+    print(f"fig1 full width lossy_hadamard from the engine schedule: loss "
+          f"{hist['loss']}, drop {hist['drop_rate']}, recv_frac "
+          f"{hist['recv_frac']}, FWHT launches/step {fwht}")
+    return out
+
+
 def card_name_and_power():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -957,8 +1357,12 @@ def main(earlier_fwht=None):
     from repro_torch.core import coding
     from repro_torch.core import lossy_collectives as lc
     from repro_torch.core.transport import coupling
+    from repro_torch.core.transport import engine as E
+    from repro_torch.core.transport import engine_torch as ET
+    from repro_torch.core.transport import params as P
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.kernels import _build
+    from repro_torch.kernels import dcqcn as kdcqcn
     from repro_torch.kernels import fwht as kfwht
     from repro_torch.kernels import ops
     from repro_torch.kernels import quantize as kquant
@@ -973,7 +1377,7 @@ def main(earlier_fwht=None):
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    counts = Launches(kfwht, kunbias, kquant)
+    counts = Launches(kfwht, kunbias, kquant, kdcqcn)
     phase_build(_build)
     if earlier_fwht is not None:
         records = phase_fwht_ab(dev, earlier_fwht, _build, kfwht, ref)
@@ -984,6 +1388,7 @@ def main(earlier_fwht=None):
     records = phase_kernels(dev, C.get("qwen2-0.5b"), kfwht, kunbias, ref,
                             coding, coupling)
     records += phase_quant_kernels(dev, kfwht, kquant, ref)
+    records += phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P)
     main_path = phase_main_path(dev, C, M, serve_step, coupling, counts)
     phase_small_reference(dev, C, M, serve_step)
     bench = phase_kernel_bench(dev, ops, counts)
@@ -994,10 +1399,23 @@ def main(earlier_fwht=None):
     torch.cuda.empty_cache()
     small_train = phase_small_train(dev, C, ts, OptConfig, DataConfig,
                                     make_source)
+    engine_check = phase_engine_card_vs_cpu(dev, E, P)
+    fig2 = phase_fig2(dev, E, P, counts)
+    fig3 = phase_fig3(dev, E, ET, P, counts)
+    torch.cuda.empty_cache()
+    fig1, paper_sched = phase_fig1(dev, C, ts, Trainer, DataConfig,
+                                   OptConfig, coupling, counts)
+    fig1["full_width"] = phase_fig1_full_width(
+        dev, C, ts, Trainer, DataConfig, OptConfig, coupling, paper_sched,
+        counts)
+    fig1_launches = {k: v + fig1["full_width"]["launches"][k]
+                     for k, v in fig1["launches"].items()}
     by_path = {"serve": main_path["launches"],
                "kernel_bench": bench["launches"],
                "train": train["launches"],
-               "allreduce": allreduce["launches"]}
+               "allreduce": allreduce["launches"],
+               "fig1": fig1_launches, "fig2": fig2["launches"],
+               "fig3": fig3["launches"]}
     for rec in records:
         rec["launches_by_path"] = {p: c[rec["name"]]
                                    for p, c in by_path.items()}
@@ -1007,6 +1425,8 @@ def main(earlier_fwht=None):
     print(json.dumps({"main_path": main_path, "kernel_bench": bench,
                       "train": train, "allreduce": allreduce,
                       "small_train": small_train,
+                      "engine_card_vs_cpu": engine_check, "fig1": fig1,
+                      "fig2": fig2, "fig3": fig3,
                       "seconds": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -1,1 +1,3 @@
-"""Transport-to-ML coupling.  The transport engine arrives in a later slice."""
+"""Transport engine and transport-to-ML coupling (port of
+``repro/core/transport/``: the shared-fabric flat-ring engine, with its
+rate-dependent core on the card)."""

@@ -1,17 +1,34 @@
 """Transport coupling (port of ``repro/core/transport/coupling.py``):
-``kv_hole_masks`` (delivered KV fractions -> per-request hole masks),
-``CollectiveMode`` (the switch the train step dispatches on) and
-``MAX_DROP``.
+the bridge from the transport engine to the trainer and the server.
 
-numpy and the standard library, copied as they are, so the masks are
-bit-identical to the JAX package's.  ``DropSchedule`` and
-``schedule_from_engine`` arrive with the transport engine's slice.
+- :class:`DropSchedule`: a per-step drop-probability trace with
+  provenance, consumed one step at a time by the trainer;
+- :func:`schedule_from_round_stats`: engine ``RoundStats`` -> schedule
+  (drop = 1 - delivered fraction per round; one AllReduce round maps to
+  one train step);
+- :func:`schedule_from_engine`: run the engine (on ``device``) at a
+  given scale and window tightness and return its schedule; the paper's
+  Fig.-1 drop regimes are settings of ``timeout_scale``;
+- :class:`EngineStragglerModel`: feeds a schedule to the Trainer's
+  ``straggler.drop_rate(timeout, rng)`` interface;
+- ``kv_hole_masks`` (delivered KV fractions -> per-request hole masks)
+  and :class:`CollectiveMode` (the switch the train step dispatches on).
+
+numpy and the standard library around the engine, copied as they are, so
+the masks are bit-identical to the JAX package's.  The axis-split and
+priority schedules (hierarchical topologies) and the closed-form
+latency tail are not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 import numpy as np
+
+from repro_torch.core.transport import telemetry
+from repro_torch.core.transport.engine import BatchedEngine, RoundStats
+from repro_torch.core.transport.params import SimParams
 
 # seeded substream id of the KV hole masks (``repro/serve/traffic.py``)
 STREAM_KV_HOLES = 162
@@ -82,3 +99,125 @@ class CollectiveMode(enum.Enum):
 # past ~0.5 means the window is mis-tuned, not a tail event, and the
 # unbias factors blow up variance: clamp like the trainer's model does.
 MAX_DROP = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class DropSchedule:
+    """Per-train-step drop probabilities with provenance.
+
+    ``rates[i]`` is the drop probability for train step i, clamped to
+    ``[0, MAX_DROP]``; steps past the end wrap around (an engine trace is
+    a stationary sample of the fabric, so tiling it is the natural
+    extension).  ``provenance`` (a :class:`telemetry.DropProvenance`,
+    when the schedule came from engine stats) attributes each step's
+    dropped fraction to a cause; it keeps the unclipped split.
+    """
+    rates: np.ndarray
+    source: str = "constant"
+    provenance: "telemetry.DropProvenance | None" = None
+
+    def __post_init__(self):
+        object.__setattr__(
+            self, "rates",
+            np.clip(np.asarray(self.rates, dtype=np.float64).reshape(-1),
+                    0.0, MAX_DROP))
+        if self.rates.size == 0:
+            raise ValueError("empty drop schedule")
+
+    def rate(self, step: int) -> float:
+        return float(self.rates[step % self.rates.size])
+
+    @property
+    def mean(self) -> float:
+        return float(self.rates.mean())
+
+    @property
+    def p99(self) -> float:
+        return float(np.percentile(self.rates, 99))
+
+
+def schedule_from_round_stats(stats: RoundStats, *,
+                              source: str | None = None) -> DropSchedule:
+    """Engine round statistics -> per-step schedule (round i = step i),
+    with the heuristic provenance attached (the recorder that gives the
+    exact split is not ported yet)."""
+    return DropSchedule(
+        rates=1.0 - np.asarray(stats.recv_frac, dtype=np.float64),
+        source=source or f"engine:{stats.design}",
+        provenance=telemetry.provenance_heuristic(stats, "flat"))
+
+
+def schedule_from_engine(n_rounds: int, seed: int = 0, *,
+                         params: SimParams | None = None,
+                         n_nodes: int | None = None,
+                         message_mb: float | None = None,
+                         design: str = "celeris",
+                         timeout_scale: float = 1.0,
+                         adaptive: bool = False,
+                         window: str = "round",
+                         legacy_streams: bool = False,
+                         record: bool = False,
+                         device: str = "cuda") -> DropSchedule:
+    """Run the transport engine on ``device`` and derive the drop
+    schedule it implies.
+
+    The Celeris window follows the paper protocol (fixed at the RoCE
+    baseline's median + 1 sigma on the *same* fabric trace), scaled by
+    ``timeout_scale``: 1.0 is the paper's Fig.-1 operating point (~1%
+    loss at 128 nodes); smaller values tighten the window into heavier
+    drop regimes.  ``adaptive=True`` runs the per-round timeout
+    controller instead of the fixed window.  Lossless designs ("roce",
+    "irn", "srnic") yield all-zero schedules.  ``record=True`` (the
+    flight recorder) and ``legacy_streams=True`` raise
+    ``NotImplementedError``: neither is ported yet.
+    """
+    if record:
+        raise NotImplementedError(
+            "record=True needs the telemetry TraceRecorder, which is not "
+            "ported to the torch engine yet (ROADMAP, Queue 1 item 5)")
+    p = params or SimParams()
+    if n_nodes is not None:
+        p = dataclasses.replace(
+            p, net=dataclasses.replace(p.net, n_nodes=n_nodes))
+    if message_mb is not None:
+        p = dataclasses.replace(
+            p, work=dataclasses.replace(p.work,
+                                        message_bytes=int(message_mb * 2**20)))
+    eng = BatchedEngine(p, device=device)
+    designs_needed = [design] if design != "celeris" else ["roce", "celeris"]
+    tr = eng.traces(designs_needed, n_rounds, seed,
+                    legacy_streams=legacy_streams)
+    if design != "celeris":
+        stats = eng.assemble(tr[design], seed)
+    else:
+        base = eng.assemble(tr["roce"], seed)
+        to = float((np.percentile(base.times_us, 50) + base.times_us.std())
+                   * timeout_scale)
+        stats = eng.assemble(tr["celeris"], seed, celeris_timeout_us=to,
+                             adaptive=adaptive, window=window)
+    tag = (f"engine:{design} n={p.net.n_nodes} seed={seed} "
+           f"scale={timeout_scale}" + (" adaptive" if adaptive else ""))
+    return schedule_from_round_stats(stats, source=tag)
+
+
+class EngineStragglerModel:
+    """Feed an engine-derived schedule into the Trainer.
+
+    Duck-typed stand-in for ``train.trainer.StragglerModel``: the trainer
+    calls ``drop_rate(timeout, rng)`` once per train step, which walks
+    the schedule in order (wrapping).  ``timeout``/``rng`` are accepted
+    for interface parity but unused: the engine already resolved the
+    window when the schedule was built.
+    """
+
+    def __init__(self, schedule: DropSchedule, median_latency: float = 1.0):
+        self.schedule = schedule
+        self.steps_taken = 0
+        # the trainer's bounded-window emulation reads this to model the
+        # clean per-step latency (units of clean step time)
+        self.median_latency = median_latency
+
+    def drop_rate(self, timeout: float, rng) -> float:
+        p = self.schedule.rate(self.steps_taken)
+        self.steps_taken += 1
+        return p

@@ -1,0 +1,180 @@
+"""Clos fabric + background-contention model (port of
+``repro/core/transport/network.py``: the parts the shared-fabric engine
+runs).
+
+Background load is a Markov-modulated burst process per ToR uplink
+(on/off with occupancy drawn per burst).  Occupancy determines queueing
+delay, ECN marking probability, drop probability and (for RoCE) PFC
+pause events.
+
+Two kinds of code live here:
+
+- the **host pass** (numpy, copied as it is): :func:`occupancy_trace`
+  resolves the burst chain in closed form and the occupancy EWMA by a
+  truncated geometric filter, consuming the fabric stream in exactly the
+  numpy engine's order, and :func:`pfc_pause_trace` consumes the PFC
+  stream.  These consume random streams, so they stay on numpy
+  generators: that is the replay contract;
+- the **response curves**, written once for both numpy arrays and torch
+  tensors (operator and method syntax only: ``**`` and ``.clip`` exist
+  on both), so the host pass and the device core evaluate one formula.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.core.transport.params import NetworkParams
+
+
+@dataclasses.dataclass
+class FabricState:
+    """Per-ToR burst state carried from one engine block to the next."""
+    bursting: np.ndarray      # (n_tors,) bool
+    occupancy: np.ndarray     # (n_tors,) current uplink occupancy
+
+
+# ----------------------------------------------------------------------
+# Fabric response curves: one formula source for the host pass (numpy)
+# and the device core (torch).  The stream replay depends on every
+# consumer agreeing on where the drop probability is exactly zero, so
+# never fork these formulas.
+# ----------------------------------------------------------------------
+
+def queue_delay_us(p: NetworkParams, occ):
+    return p.queue_capacity_us * occ ** 3
+
+
+def avail_bandwidth(p: NetworkParams, occ):
+    return (1.0 - p.bg_bandwidth_weight * occ).clip(p.min_avail_frac, 1.0)
+
+
+def ecn_mark_prob(p: NetworkParams, occ):
+    return ((occ - p.ecn_threshold) / (1 - p.ecn_threshold)).clip(0, 1)
+
+
+def drop_prob(p: NetworkParams, occ):
+    x = ((occ - p.loss_knee) / (1 - p.loss_knee)).clip(0, 1)
+    return p.loss_max_prob * x ** 2
+
+
+# ----------------------------------------------------------------------
+# Vectorized traces (the engine's fabric front-end, host side)
+# ----------------------------------------------------------------------
+
+# Doubles consumed by one step of the burst process: start + stop +
+# burst occupancy draws.
+_ADVANCE_DRAWS = 3
+
+
+def _markov_burst(b0: np.ndarray, start: np.ndarray,
+                  stop: np.ndarray) -> np.ndarray:
+    """Closed-form burst state for all steps at once.
+
+    Per step the transition  b' = (b & ~stop) | (~b & start)  is one of
+    four maps on {0,1}: const-0 (stop only), const-1 (start only),
+    identity (neither), swap (both).  Composing over steps: the state at
+    t is the value of the last constant map at or before t, XOR'd with
+    the parity of swaps after it (or b0 if no constant map yet).
+    """
+    T = start.shape[0]
+    const = start ^ stop                   # exactly one of start/stop
+    swap = start & stop
+    t_idx = np.arange(T)[(slice(None),) + (None,) * (start.ndim - 1)]
+    last_const = np.maximum.accumulate(np.where(const, t_idx, -1), axis=0)
+    cs = np.cumsum(swap, axis=0)           # swaps in [0, t], inclusive
+    gather = np.clip(last_const, 0, None)
+    val_at = np.take_along_axis(np.where(const, start, False), gather, axis=0)
+    cs_at = np.take_along_axis(cs, gather, axis=0)
+    has_const = last_const >= 0
+    base = np.where(has_const, val_at, np.broadcast_to(b0, start.shape))
+    n_swaps = np.where(has_const, cs - cs_at, cs)
+    return base ^ (n_swaps % 2 == 1)
+
+
+def _ewma_half(target: np.ndarray, occ0: np.ndarray,
+               seg: int = 512) -> np.ndarray:
+    """occ[t] = 0.5*occ[t-1] + 0.5*target[t], all t at once, bitwise
+    identical to the sequential recurrence.
+
+    Closed form via exponentially scaled prefix sums::
+
+        occ[t] = 0.5**(t+1) * cumsum([occ0, 2**0*target[0],
+                                      2**1*target[1], ...])[t+1]
+
+    Power-of-two scaling is exact in IEEE-754 and commutes with
+    round-to-nearest, and the cumsum folds ``occ0`` first (the same
+    association order as the recurrence), so every step rounds exactly
+    as the sequential loop does.  Evaluated in ``seg``-step segments so
+    the 2**s scale stays far from the f64 exponent limit.
+    """
+    T = target.shape[0]
+    out = np.empty_like(target)
+    trail = (None,) * (target.ndim - 1)
+    prev = occ0
+    for a in range(0, T, seg):
+        b = min(a + seg, T)
+        s = np.arange(b - a)
+        up = np.exp2(s)[(slice(None),) + trail]
+        down = np.exp2(-(s + 1.0))[(slice(None),) + trail]
+        ext = np.concatenate(
+            [np.broadcast_to(prev, (1,) + target.shape[1:]),
+             target[a:b] * up], axis=0)
+        out[a:b] = down * np.cumsum(ext, axis=0)[1:]
+        prev = out[b - 1]
+    return out
+
+
+def occupancy_trace(p: NetworkParams, u: np.ndarray, state: FabricState
+                    ) -> tuple[np.ndarray, np.ndarray, FabricState]:
+    """Vectorized ``T`` steps of the burst process.
+
+    ``u``: (T, 3, n_tors) uniforms laid out exactly as ``T`` sequential
+    steps consume them (start, stop, burst_occ per step), so
+    ``rng.random((T, 3, n_tors))`` reproduces seeded traces
+    bit-identically.  Returns (bursting, occupancy, final_state).
+    """
+    start = u[:, 0] < p.burst_on_prob
+    stop = u[:, 1] < p.burst_off_prob
+    burst_occ = (p.burst_occupancy_lo
+                 + (p.burst_occupancy_hi - p.burst_occupancy_lo) * u[:, 2])
+    b = _markov_burst(state.bursting, start, stop)
+    target = np.where(b, burst_occ, p.idle_occupancy)
+    occ = _ewma_half(target, state.occupancy)
+    final = FabricState(bursting=b[-1].copy(), occupancy=occ[-1].copy())
+    return b, occ, final
+
+
+def path_occupancy_trace(p: NetworkParams, occ: np.ndarray, src: np.ndarray,
+                         dst: np.ndarray) -> np.ndarray:
+    """Per-transfer path occupancy for a whole trace: ``occ`` (..., T,
+    n_tors) -> (..., T, n_flows).  A cross-ToR path sees the max of its
+    two uplinks; a same-ToR path the idle occupancy."""
+    ts = src // p.nodes_per_tor
+    td = dst // p.nodes_per_tor
+    cross = np.maximum(occ[..., ts], occ[..., td])
+    return np.where(ts == td, p.idle_occupancy, cross)
+
+
+def pfc_pause_trace(p: NetworkParams, occ: np.ndarray,
+                    rng: np.random.Generator) -> np.ndarray:
+    """Vectorized PFC pause totals over a (..., n_flows) occupancy block.
+
+    A pause on a path whose occupancy passes ``pfc_threshold``
+    propagates a further hop with probability ``pfc_cascade_prob``
+    (geometric storm, capped); draws only for still-alive entries.
+    """
+    paused = occ > p.pfc_threshold
+    total = np.where(paused, p.pfc_pause_us, 0.0)
+    alive = paused.copy()
+    for _ in range(p.pfc_max_cascade):
+        idx = np.flatnonzero(alive)
+        if idx.size == 0:
+            break
+        survive = rng.random(idx.size) < p.pfc_cascade_prob
+        # .flat, not .ravel(): ravel() copies on non-contiguous blocks
+        # and the write would be lost
+        alive.flat[idx] = survive
+        total.flat[idx] += np.where(survive, p.pfc_pause_us, 0.0)
+    return total

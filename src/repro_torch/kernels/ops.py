@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import dcqcn as _dcqcn
 from repro_torch.kernels import fwht as _fwht
 from repro_torch.kernels import quantize as _quant
 from repro_torch.kernels import ref
@@ -61,3 +62,15 @@ def masked_unbias(y_sum: torch.Tensor, counts: torch.Tensor,
     if y_sum.device.type == "cpu":
         return ref.masked_unbias(y_sum, counts, total)
     return _unbias.masked_unbias_cuda(y_sum, counts, total)
+
+
+def dcqcn_scan(cnp: torch.Tensor, any_t: torch.Tensor, rate: torch.Tensor,
+               target: torch.Tensor, alpha: torch.Tensor, good: torch.Tensor,
+               dq):
+    """The DCQCN recurrence over a block of engine steps: ``cnp`` bool
+    (S, tb, n), ``any_t`` bool (S, tb), the carried state float64 (S, n)
+    and ``good`` int32 (S, n).  Returns ``(rates float32 (S, tb, n),
+    (rate, target, alpha, good))``."""
+    if cnp.device.type == "cpu":
+        return ref.dcqcn_scan(cnp, any_t, rate, target, alpha, good, dq)
+    return _dcqcn.dcqcn_scan_cuda(cnp, any_t, rate, target, alpha, good, dq)

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the port's CUDA kernels (port of
-``repro/kernels/ref.py``): FWHT, int8 quantize, the fused pair, and
-masked unbias.
+``repro/kernels/ref.py``): FWHT, int8 quantize, the fused pair, masked
+unbias, and the DCQCN scan (which has no Pallas counterpart: the JAX
+engine runs it as a ``lax.scan``).
 
-Each computes the same function as its kernel, in the same float32
-operation order, so on identical inputs kernel and plain version agree
-bit for bit.  The CPU path of :mod:`repro_torch.kernels.ops` runs these;
+Each computes the same function as its kernel, in the same operation
+order, so on identical inputs kernel and plain version agree bit for
+bit.  The CPU path of :mod:`repro_torch.kernels.ops` runs these;
 ``chip_smoke.py`` holds the kernels against them on the card.
 """
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch.core.transport import dcqcn
 
 
 def _is_pow2(n: int) -> bool:
@@ -101,3 +104,40 @@ def masked_unbias(y_sum: torch.Tensor, counts: torch.Tensor,
     factor = torch.div(float(total), safe)
     out = torch.where(c > 0, y_sum.to(torch.float32) * factor, 0.0)
     return out.to(y_sum.dtype)
+
+
+def dcqcn_scan(cnp: torch.Tensor, any_t: torch.Tensor, rate: torch.Tensor,
+               target: torch.Tensor, alpha: torch.Tensor, good: torch.Tensor,
+               dq):
+    """The DCQCN recurrence over a block: a loop over the ``tb`` steps,
+    vectorized over (seed, flow), in the kernel's operation order.
+
+    The carry is the last materialized state (the anchor) plus the calm
+    gap ``L`` since it, one per seed.  A step where any flow of the seed
+    is marked (``any_t``) advances every flow's anchor over the gap in
+    closed form, emits that rate cast to float32, applies
+    :func:`dcqcn.step_math` with the flow's own mark and resets ``L``; a
+    calm step emits the float32 ramp from the float32-cast anchor at gap
+    index ``L``.  The trailing gap is materialized at the end.  Shapes
+    and return value as ``kernels.dcqcn.dcqcn_scan_cuda``.
+    """
+    S, tb, n = cnp.shape
+    decay = 1.0 - dq.alpha_g
+    rates = torch.empty((S, tb, n), dtype=torch.float32, device=cnp.device)
+    r, t, a, g = rate, target, alpha, good
+    L = torch.zeros((S, 1), dtype=torch.int32, device=cnp.device)
+    for i in range(tb):
+        act = any_t[:, i, None]
+        calm32 = dcqcn.calm_ramp(r.float(), t.float(), g, L, dq)
+        r64 = dcqcn.calm_ramp(r, t, g, L, dq)
+        rates[:, i] = torch.where(act, r64.float(), calm32)
+        a_adv = a * torch.pow(decay, L.double())
+        r_s, t_s, a_s, g_s = dcqcn.step_math(r64, t, a_adv, g + L,
+                                             cnp[:, i], dq)
+        r = torch.where(act, r_s, r)
+        t = torch.where(act, t_s, t)
+        a = torch.where(act, a_s, a)
+        g = torch.where(act, g_s, g)
+        L = torch.where(act, 0, L + 1)
+    return rates, (dcqcn.calm_ramp(r, t, g, L, dq), t.clone(),
+                   a * torch.pow(decay, L.double()), g + L)

@@ -23,7 +23,9 @@ caught and carried on):
    of back-to-back calls behind a spin kernel, median of 5); the DCQCN
    scan bit for bit in rates and state at (1, 15,240, 128), (4, 4,092,
    1,024) and a ragged (3, 257, 33), at CNP densities 0, 0.001, 0.05 and
-   1 and on a real engine block's marks, and over two consecutive blocks;
+   1 and on real engine blocks' marks (also Fig. 7's hier and Fig. 4's
+   8-pod blocks), and over two consecutive blocks, with each block's
+   chain bound beside its bytes bound;
 3. serve qwen2-0.5b at full width (24 layers, d 896, 14 heads padded to
    16, kv 2, vocab 151,936, bf16, random weights from seed 0): prefill
    8 prompts of 512 tokens, ship the KV caches through the coded lossy
@@ -55,12 +57,34 @@ caught and carried on):
    60 rounds for the light / paper / heavy windows, the smoke LM trained
    60 steps from each in ``exact``, ``lossy`` and ``lossy_hadamard``
    (recovery >= 0.9 in the paper regime asserted), and qwen2-0.5b at
-   full width for 3 ``lossy_hadamard`` steps from the paper schedule.
+   full width for 3 ``lossy_hadamard`` steps from the paper schedule;
+10. the hierarchical and faulted engine, card against CPU: fig7's
+    32-node smoke fabric on 2 pods (oversubscription 2), 40 rounds, all
+    four designs, the ring, hier and perrail schedules and a stall, a
+    rail and a straggler cell (delivered packets, per tier and per pod,
+    and faulted-flow counts exact; times, p99, recv_frac and tier
+    fractions within rtol 1e-5, round and phase windows);
+11. Fig. 4's engine grid on the card: the ring over 2/4/8 pods at DCI
+    oversubscription 2/4/8, 128 nodes x 100 rounds, through
+    ``topology.hier_protocol``, beside the committed ``fig4_*`` keys
+    (``BENCH_sim.json``), with the host/device split;
+12. Fig. 7 on the card (``fig7_fault_resilience.py``'s protocol through
+    the port's ``sweep``): 128 nodes, 4 pods, oversubscription 4, the
+    ring/hier/perrail clean passes and pinned budgets, the stall, crash
+    and flap rate scans (resilience ratio >= 2 asserted), the rail
+    failures under hier and perrail (perrail's DCI loss below hier's
+    asserted), and the 512-node hier stall cell with its split and peak
+    memory;
+13. Fig. 7's closed loop: ``split_schedule_from_engine`` (2 pods, 128
+    nodes, window x0.6, stall 1e-4) drives the smoke LM 40 steps
+    ``hierarchical`` against 40 ``exact`` (recovery >= 0.9 asserted),
+    then qwen2-0.5b at full width for 3 ``hierarchical`` steps (16 FWHT
+    launches a step).
 
-Each path (3-6, and the engine's in 8-9) runs with the kernels' launch counts set to 0 just
-before it and read just after.  The last line is ``{"ok": true,
-"device": {...}}``; the lines before it carry the card's name and power
-limit and a ``{"kernels": [...]}`` record.  Needs CUDA: without it the
+Each path (3-6, and the engine's in 8-9 and 11-13) runs with the kernels'
+launch counts set to 0 just before it and read just after.  The last
+line is ``{"ok": true, "device": {...}}``; the lines before it carry the
+card's name and power limit and a ``{"kernels": [...]}`` record.  Needs CUDA: without it the
 script raises before printing any result.
 
 ``--ab-fwht`` builds the kernels, then only times ``csrc/fwht.cu``
@@ -972,6 +996,18 @@ SCAN_DENSITIES = (0.0, 0.001, 0.05, 1.0)
 # H100 SXM float64 rate outside the tensor cores (NVIDIA data sheet), for
 # the scan's operation count
 F64_OPS = 34e12
+# The scan's chain bound: the dependent-op latency of one step of
+# csrc/dcqcn.cu, in SM cycles, from its instruction sequence at 4 cycles
+# an int, select or float32 op, 8 a conversion or float64 op (Hopper's
+# FP64 units), ~10 dependent float64 ops (80 cycles) for __ddiv_rn and
+# ~35 (280) for libdevice's double pow.  A calm step: the gap index k
+# (3 int ops, 12), its conversion (8), then mul, add, min, select, add,
+# min, select in float32 (28): 48 cycles.  A marked step: the float64
+# ramp (68) runs beside L's conversion and pow(1 - alpha_g, L) (288),
+# then alpha's mul, mul, add, select, the division, and sub, mul, max,
+# select, max, min (152): 440 cycles.  The bound is (calm steps x 48 +
+# marked steps x 440) / the SM clock, with this block's own marks.
+SCAN_CALM_CYCLES, SCAN_MARKED_CYCLES = 48, 440
 ENGINE_CHECK_ROUNDS, FIG2_ROUNDS = 40, 300          # 128 nodes
 FIG3_NODES, FIG3_SEEDS, FIG3_ROUNDS, FIG3_MB = 1024, (0, 1, 2, 3), 120, 25.0
 FIG1_NODES, FIG1_ROUNDS, FIG1_STEPS = 128, 60, 60
@@ -991,13 +1027,11 @@ def engine_block_marks(E, ET, params, n_rounds, seeds, dev):
     per seed, from the host pass (the marks the scan sees on the main
     path)."""
     eng = E.BatchedEngine(params, device=str(dev))
-    g = eng._geometry(seeds[0])
-    steps, n = g["steps"], g["n"]
-    tb = min(max(1, E._BLOCK_ELEMENTS // (steps * n)), n_rounds) * steps
-    ph = g["plan"].phases[0]
-    cnp = [ET._host_block(eng, ET._SeedStreams(eng, s, ["celeris"]), tb,
-                          ["celeris"], ph.src, ph.dst,
-                          ph.n_pkts(params.net))["cnp"] for s in seeds]
+    ctx = ET._Plan(eng)
+    tb = min(max(1, E._BLOCK_ELEMENTS // (ctx.steps * ctx.n)),
+             n_rounds) * ctx.steps
+    cnp = [ET._host_block(eng, ET._SeedStreams(eng, s, ["celeris"]), ctx,
+                          0, tb, ["celeris"])["cnp"] for s in seeds]
     return torch.from_numpy(np.stack(cnp)).to(dev)
 
 
@@ -1018,6 +1052,15 @@ def scan_pair(kdcqcn, ref, dq, cnp, state):
     return got, start.elapsed_time(end)
 
 
+def sm_clock_hz():
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
 def scan_record(kdcqcn, dq, cnp, plain_ms, shape_note):
     """The scan's timing record.  Bytes: marks (1 B a cell) and any_t read
     once, rates (4 B a cell) written once, the state (3 float64 + 1 int32
@@ -1033,6 +1076,12 @@ def scan_record(kdcqcn, dq, cnp, plain_ms, shape_note):
              + (S * tb - active) * n * 12 / F32_OPS)
     t_bytes = nb / HBM_BPS
     ms = time_ms(lambda: kdcqcn.dcqcn_scan_cuda(cnp, any_t, *state, dq))
+    # the chain: each thread walks its tb steps in order; the seeds run
+    # side by side, so the slowest seed's steps bound the block
+    marked = int(any_t.sum(1).max())
+    clock = sm_clock_hz()
+    chain_ms = ((tb - marked) * SCAN_CALM_CYCLES
+                + marked * SCAN_MARKED_CYCLES) / clock * 1e3
     return {
         "name": "dcqcn_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dcqcn.cu",
@@ -1043,10 +1092,13 @@ def scan_record(kdcqcn, dq, cnp, plain_ms, shape_note):
         "ms": ms, "ns_per_step": ms * 1e6 / tb, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "chain_bound_ms": chain_ms, "chain_share": chain_ms / ms,
+        "bound_share": max(t_bytes, t_ops) * 1e3 / ms,
+        "sm_clock_mhz": clock / 1e6,
         "library_ms": None, "library": "none: no PyTorch call computes a scan"}
 
 
-def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P):
+def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology):
     """The DCQCN scan kernel against its plain version on the card, bit
     for bit (rates and the four state arrays): at SCAN_SHAPES with the
     four densities as seeds, on the marks a real engine block draws
@@ -1063,6 +1115,20 @@ def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P):
         SCAN_SHAPES[1]: engine_block_marks(
             E, ET, P.SimParams(net=P.NetworkParams(n_nodes=FIG3_NODES)),
             FIG3_ROUNDS, list(FIG3_SEEDS), dev)}
+    # the hierarchical paths' blocks (the DCI tier marks far more steps):
+    # Fig. 7's hier schedule on 4 pods, and Fig. 4's ring over 8 pods at
+    # oversubscription 8, real marks only (their plain version is a
+    # host-bound loop of ~0.7 ms a step)
+    hier_real = {
+        "fig7 hier": engine_block_marks(
+            E, ET, topology.hier_params(FIG7_PODS, schedule="hier",
+                                        dci_oversubscription=FIG7_OVERSUB),
+            FIG7_ROUNDS, [0], dev),
+        "fig4 p8 o8": engine_block_marks(
+            E, ET, topology.hier_params(
+                FIG4_PODS[-1], n_nodes=FIG4_NODES,
+                dci_oversubscription=FIG4_OVERSUBS[-1]),
+            FIG4_ROUNDS, [0], dev)}
     records, checks = [], 0
     for S, tb, n in SCAN_SHAPES:
         # the four densities as four seeds, and the ragged shape also at
@@ -1083,6 +1149,12 @@ def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P):
             checks += 1
             records.append(scan_record(kdcqcn, dq, cnp, plain_ms,
                                        "a real engine block's"))
+    for name, cnp in hier_real.items():
+        _, plain_ms = scan_pair(kdcqcn, ref, dq, cnp,
+                                scan_state(*cnp.shape[::2], dev))
+        checks += 1
+        records.append(scan_record(kdcqcn, dq, cnp, plain_ms,
+                                   f"a real {name} engine block's"))
     # two consecutive blocks against the plain version, and against one
     # long block where the split step has a mark in every seed (there
     # both materialize the same anchor; elsewhere a calm gap cut in two
@@ -1112,10 +1184,12 @@ def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P):
           f"real Fig.-1 and Fig.-3 marks); two blocks split at step {split} "
           f"{'==' if exact else '~='} one long block")
     for rec in records:
-        print(f"kernel dcqcn_scan {rec['shape']}: {rec['ms']:.4f} ms = "
-              f"{rec['ns_per_step']:.1f} ns a step (plain {rec['plain_ms']:.1f}"
-              f" ms, bound {rec['bound_ms']:.5f} by {rec['bound_by']}, active "
-              f"steps {rec['active_step_share']:.3f})")
+        print(f"kernel dcqcn_scan {rec['shape']} ({rec['marks']} marks): "
+              f"{rec['ms']:.4f} ms = {rec['ns_per_step']:.1f} ns a step "
+              f"(plain {rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.5f} "
+              f"by {rec['bound_by']}, chain bound {rec['chain_bound_ms']:.4f}"
+              f" = {rec['chain_share']:.3f} of the kernel, active steps "
+              f"{rec['active_step_share']:.3f})")
     return records
 
 
@@ -1340,6 +1414,477 @@ def phase_fig1_full_width(dev, C, ts, Trainer, DataConfig, OptConfig,
     return out
 
 
+# ----------------------------------------------------------------------
+# The hierarchical, faulted fabric (Figs. 4 and 7)
+# ----------------------------------------------------------------------
+
+# phase 10: fig7_fault_resilience.py's SMOKE_PARAMS fabric (32 nodes,
+# burst_on_prob 0.0008) on 2 pods at oversubscription 2, card against
+# CPU; (schedule, fault spec) per cell
+HIER_CHECK_ROUNDS = 40
+HIER_CHECK_CELLS = (("ring", None), ("hier", None), ("perrail", None),
+                    ("hier", "stall:0.003"), ("perrail", "rail:0.3"),
+                    ("ring", "straggler:0.1"))
+# phase 11: fig4_cross_pod_tail.py:32-34 (the engine grid)
+FIG4_NODES, FIG4_ROUNDS = 128, 100
+FIG4_PODS, FIG4_OVERSUBS = (2, 4, 8), (2.0, 4.0, 8.0)
+# phase 12: fig7_fault_resilience.py:64-86 and budgets.py:26 (TAIL_SCALE)
+FIG7_NODES, FIG7_PODS, FIG7_OVERSUB, FIG7_ROUNDS = 128, 4, 4.0, 60
+FIG7_SCHEDULES = ("ring", "hier", "perrail")
+FIG7_SCALE_NODES, FIG7_TAIL_SCALE = 512, 0.25
+FIG7_P99_SLACK, FIG7_GOODPUT_FLOOR = 1.5, 0.8
+FIG7_RATE_GRID = {
+    "stall": (1e-5, 3e-5, 1e-4, 3e-4, 1e-3),
+    "crash": (3e-6, 1e-5, 3e-5, 1e-4, 3e-4),
+    "flap": (1e-4, 3e-4, 1e-3, 3e-3, 1e-2),
+}
+FIG7_FAULT_KW = {"crash": {"crash_restart_steps": 64}}
+FIG7_RAIL_RATES = (0.1, 0.3)
+FIG7_PAPER_CELL = ("stall", 1e-4)
+FIG7_RATIO_BAR = 2.0      # the paper's "nearly doubles NIC resilience"
+# phase 13: fig7's end-to-end run (fig4_cross_pod_tail.py:41-42 for the
+# pods and the window scale), the smoke LM as in fig1_trainer
+FIG7_LOOP_PODS, FIG7_LOOP_SCALE, FIG7_LOOP_STEPS = 2, 0.6, 40
+BENCH_SIM = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "BENCH_sim.json")
+
+
+def committed(key):
+    """The JAX package's committed value of a BENCH_sim.json key (numpy
+    engine on the CPU), or None."""
+    with open(BENCH_SIM) as f:
+        return json.load(f).get(key)
+
+
+def rate_tag(rate):
+    """fig7's key-safe rate tag: 3e-05 -> '3em05'."""
+    return f"{rate:g}".replace(".", "p").replace("-", "m").replace("+", "")
+
+
+def hier_cell_params(P, topology, schedule, fault):
+    """Phase 10's cell: fig7's smoke fabric on 2 pods at oversubscription
+    2 with ``schedule`` and ``fault``."""
+    base = P.SimParams(net=P.NetworkParams(n_nodes=32, burst_on_prob=0.0008))
+    return topology.hier_params(2, base=base, dci_oversubscription=2.0,
+                                schedule=schedule, fault=fault)
+
+
+def phase_hier_card_vs_cpu(dev, E, P, topology):
+    """The hierarchical and faulted engine on the card against the CPU
+    (plain scan): HIER_CHECK_CELLS, all four designs, HIER_CHECK_ROUNDS
+    rounds.  Delivered packets (per step, tier and pod) and faulted-flow
+    counts exact; step times, each design's times, p99, recv_frac and
+    tier fractions within rtol 1e-5, under both window policies."""
+    worst, cells = 0.0, {}
+    designs = list(E.designs.DESIGNS)
+    for sched, fault in HIER_CHECK_CELLS:
+        p = hier_cell_params(P, topology, sched, fault)
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            eng = E.BatchedEngine(p, device=str(d))
+            runs.append((eng, eng.traces(designs, HIER_CHECK_ROUNDS, 0)))
+        (eng_d, tr_d), (eng_c, tr_c) = runs
+        name = f"{sched}/{fault or 'clean'}"
+        for d in designs:
+            a, b = tr_d[d], tr_c[d]
+            for f in ("deliv", "total", "tier_deliv", "pod_deliv",
+                      "fault_flows"):
+                x, y = getattr(a, f), getattr(b, f)
+                assert (x is None) == (y is None) and (
+                    y is None or np.array_equal(x, y)), (name, d, f)
+            pairs = [(a.nat_us, b.nat_us, "step times")]
+            base = eng_c.assemble(tr_c["roce"], 0)
+            to = float(np.percentile(base.times_us, 50)
+                       + base.times_us.std()) * 0.6
+            for window in ("round", "phase"):
+                kw = ({"celeris_timeout_us": to, "adaptive": False,
+                       "window": window} if d == "celeris" else {})
+                sd, sc = eng_d.assemble(a, 0, **kw), eng_c.assemble(b, 0,
+                                                                     **kw)
+                pairs += [(sd.times_us, sc.times_us, f"{window} times"),
+                          (sd.p99, sc.p99, f"{window} p99"),
+                          (sd.recv_frac, sc.recv_frac, f"{window} recv_frac"),
+                          (sd.tier_recv_frac, sc.tier_recv_frac,
+                           f"{window} tier_recv_frac")]
+                if d == "celeris":
+                    cells.setdefault(name, {})[window] = {
+                        "p99_ms": sd.p99 / 1e3, "loss": sd.mean_loss,
+                        "dci_loss": sd.tier_loss("dci")}
+            for x, y, what in pairs:
+                np.testing.assert_allclose(
+                    x, y, rtol=1e-5, atol=0,
+                    err_msg=f"{name} {d} {what} card vs cpu")
+                y = np.asarray(y)
+                worst = max(worst, float(np.max(np.abs(np.asarray(x) - y)
+                                                / np.maximum(np.abs(y),
+                                                             1e-30))))
+        if fault is not None and "straggler" not in fault:
+            assert tr_d["celeris"].fault_flows.sum() > 0, name
+    print(f"hierarchical/faulted engine card vs CPU, 32 nodes x 2 pods x "
+          f"{HIER_CHECK_ROUNDS} rounds, cells {[c for c in cells]}: "
+          f"delivered packets and faulted flows equal, worst relative "
+          f"difference {worst:.3g}; celeris {cells}")
+    return {"worst_rel_diff": worst, "celeris": cells}
+
+
+def phase_fig4(dev, E, P, topology, counts):
+    """Fig. 4's engine grid on the card (fig4_cross_pod_tail.py): the ring
+    over FIG4_PODS pods at FIG4_OVERSUBS DCI oversubscription, 128 nodes,
+    FIG4_ROUNDS rounds, seed 0, through ``topology.hier_protocol``; each
+    cell's Celeris p99 and DCI loss beside the committed keys.  A second
+    engine pass of each cell splits its wall time into host draws and
+    device core."""
+    cells, rows = {}, []
+    wall = host = device = 0.0
+    blocks = 0
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    for npods in FIG4_PODS:
+        for ov in FIG4_OVERSUBS:
+            p = topology.hier_params(npods, n_nodes=FIG4_NODES,
+                                     dci_oversubscription=ov)
+            t0 = time.perf_counter()
+            stats = topology.hier_protocol(p, n_rounds=FIG4_ROUNDS, seed=0,
+                                           device=str(dev))
+            wall += time.perf_counter() - t0
+            cel = stats["celeris"]
+            assert np.isfinite(cel.times_us).all()
+            assert cel.tier_loss("dci") >= 0 and cel.pod_recv_frac.shape == (
+                FIG4_ROUNDS, npods)
+            tag = f"p{npods}_o{int(ov)}"
+            cells[tag] = {"p99_ms": cel.p99 / 1e3,
+                          "dci_loss": cel.tier_loss("dci"),
+                          "roce_p99_ms": stats["roce"].p99 / 1e3,
+                          "committed_p99_ms": committed(
+                              f"fig4_p99_ms_celeris_{tag}"),
+                          "committed_dci_loss": committed(
+                              f"fig4_dci_loss_{tag}")}
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for npods in FIG4_PODS:
+        for ov in FIG4_OVERSUBS:
+            eng = E.BatchedEngine(topology.hier_params(
+                npods, n_nodes=FIG4_NODES, dci_oversubscription=ov),
+                device=str(dev))
+            eng.traces(["roce", "celeris"], FIG4_ROUNDS, 0)
+            host += eng.timing["host_s"]
+            device += eng.timing["device_s"]
+            blocks += eng.timing["blocks"]
+    assert launches["dcqcn_scan"] == blocks, (launches, blocks)
+    # the device busy share over the last cell's engine pass (one block)
+    busy = profile_window(lambda: eng.traces(["roce", "celeris"],
+                                             FIG4_ROUNDS, 0))
+    for tag, c in cells.items():
+        rows.append(f"{tag}: p99 {c['p99_ms']:.2f} ms (committed "
+                    f"{c['committed_p99_ms']}), dci loss {c['dci_loss']:.4f} "
+                    f"(committed {c['committed_dci_loss']})")
+    rec = {"cells": cells, "wall_s": wall, "host_s": host,
+           "device_s": device, "blocks": blocks, "peak_mem_gib": peak,
+           "one_block_profile": busy, "launches": launches}
+    print(f"fig4 {FIG4_NODES} nodes x {FIG4_ROUNDS} rounds on the card:\n  "
+          + "\n  ".join(rows) + f"\n  wall {wall:.2f} s through hier_protocol;"
+          f" a second pass: host draws {host:.2f} s + device core "
+          f"{device:.2f} s; peak {peak:.2f} GiB; one block (p"
+          f"{FIG4_PODS[-1]} o{int(FIG4_OVERSUBS[-1])}): {busy}; launches "
+          f"{launches}")
+    return rec
+
+
+def fig7_goodput(st):
+    """fig7's absolute mean goodput (delivered fraction per unit time)."""
+    return float(np.mean(st.recv_frac / np.maximum(st.times_us, 1e-9)))
+
+
+def fig7_gupf(st, clean_st):
+    """fig7's paired goodput under failure: the faulted rounds' mean
+    goodput over the same rounds of the clean run."""
+    f = st.faulted
+    if not f.any():
+        return 1.0
+    g = st.recv_frac / np.maximum(st.times_us, 1e-9)
+    g0 = clean_st.recv_frac / np.maximum(clean_st.times_us, 1e-9)
+    return float(g[f].mean() / max(float(g0[f].mean()), 1e-30))
+
+
+def fig7_sustained(st, clean):
+    return (st.p99 <= FIG7_P99_SLACK * clean.p99
+            and fig7_goodput(st) >= FIG7_GOODPUT_FLOOR * fig7_goodput(clean))
+
+
+def fig7_max_sustained(cells, clean, rates):
+    """The highest rate with every rate at or below it sustained."""
+    best = 0.0
+    for r in rates:
+        if not fig7_sustained(cells[r], clean):
+            break
+        best = r
+    return best
+
+
+def fig7_clean_pass(E, base, nn, npods, sched, n_rounds, seed, tail_scale,
+                    dev):
+    """fig7's clean pass through the port's ``sweep``: the fault-free
+    stats and the pinned Celeris budget.  Returns (clean, budget,
+    SweepResult)."""
+    res = E.sweep(E.BatchedSimParams(
+        n_nodes=(nn,), seeds=(seed,), n_pods=(npods,), schedules=(sched,),
+        designs=("roce", "celeris"), n_rounds=n_rounds,
+        timeout_scale=tail_scale, base=base), device=str(dev))
+    clean = {d: res.stats[res._key(d, nn, 25.0, seed, npods, sched)]
+             for d in ("roce", "celeris")}
+    roce = clean["roce"]
+    budget = float((np.percentile(roce.times_us, 50) + roce.times_us.std())
+                   * tail_scale)
+    return clean, budget, res
+
+
+def fig7_fault_sweep(E, P, base, nn, npods, sched, kinds_rates, budget,
+                     n_rounds, seed, dev):
+    """fig7's pinned-budget sweep over (kind, rate) cells through the
+    port's ``sweep``.  Returns ({(kind, rate): {design: stats}},
+    SweepResult)."""
+    faults = tuple(P.FaultParams.of_kind(k, r, **FIG7_FAULT_KW.get(k, {}))
+                   for k, r in kinds_rates)
+    res = E.sweep(E.BatchedSimParams(
+        n_nodes=(nn,), seeds=(seed,), n_pods=(npods,), schedules=(sched,),
+        designs=("roce", "celeris"), n_rounds=n_rounds,
+        celeris_timeout_us=budget, faults=faults, base=base),
+        device=str(dev))
+    return ({(k, r): {d: res.stats[res._key(d, nn, 25.0, seed, npods,
+                                            sched, "round", fp.tag)]
+                      for d in ("roce", "celeris")}
+             for (k, r), fp in zip(kinds_rates, faults)}, res)
+
+
+def sweep_timing(results):
+    """Host draws, device core and blocks summed over sweeps' cells."""
+    t = [c for r in results for c in r.timing.values()]
+    return (sum(c["host_s"] for c in t), sum(c["device_s"] for c in t),
+            sum(c["blocks"] for c in t))
+
+
+def phase_fig7(dev, E, P, topology, counts):
+    """Fig. 7 on the card (fig7_fault_resilience.py's full protocol, all
+    through the port's ``sweep``): 128 nodes, 4 pods, oversubscription 4,
+    per schedule the clean pass with the pinned budget, then the stall /
+    crash / flap rate scans (the resilience ratios); the rail failure
+    rates under hier and perrail (the blast radius); and the 512-node
+    hier stall cell.  Asserts the worst resilience ratio >= 2 and
+    perrail's DCI loss below hier's at each rail rate."""
+    base = topology.hier_params(FIG7_PODS, dci_oversubscription=FIG7_OVERSUB)
+    out = {"ratios": {}, "max_rate": {}, "rail": {}, "committed": {}}
+    sweeps = []
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    for sched in FIG7_SCHEDULES:
+        clean, budget, r0 = fig7_clean_pass(
+            E, base, FIG7_NODES, FIG7_PODS, sched, FIG7_ROUNDS, 0,
+            FIG7_TAIL_SCALE, dev)
+        kinds_rates = [(k, r) for k in FIG7_RATE_GRID
+                       for r in FIG7_RATE_GRID[k]]
+        cells, r1 = fig7_fault_sweep(E, P, base, FIG7_NODES, FIG7_PODS,
+                                     sched, kinds_rates, budget, FIG7_ROUNDS,
+                                     0, dev)
+        sweeps += [r0, r1]
+        for k, rates in FIG7_RATE_GRID.items():
+            mx = {d: fig7_max_sustained({r: cells[(k, r)][d] for r in rates},
+                                        clean[d], rates)
+                  for d in ("roce", "celeris")}
+            ratio = min(mx["celeris"] / max(mx["roce"], rates[0] / 2), 100.0)
+            out["ratios"][f"{k}_{sched}"] = ratio
+            out["max_rate"][f"{k}_{sched}"] = mx
+            out["committed"][f"{k}_{sched}"] = {
+                "ratio": committed(f"fig7_resilience_ratio_{k}_{sched}"),
+                "roce": committed(f"fig7_max_rate_roce_{k}_{sched}"),
+                "celeris": committed(f"fig7_max_rate_celeris_{k}_{sched}")}
+        cel = cells[FIG7_PAPER_CELL]["celeris"]
+        out[f"paper_cell_{sched}"] = {
+            "gupf": fig7_gupf(cel, clean["celeris"]),
+            "recovery_rounds": cel.recovery_rounds(),
+            "budget_ms": budget / 1e3,
+            "clean_p99_ms": {d: s.p99 / 1e3 for d, s in clean.items()}}
+    dci = {}
+    for sched in ("hier", "perrail"):
+        clean, budget, r0 = fig7_clean_pass(
+            E, base, FIG7_NODES, FIG7_PODS, sched, FIG7_ROUNDS, 0,
+            FIG7_TAIL_SCALE, dev)
+        cells, r1 = fig7_fault_sweep(
+            E, P, base, FIG7_NODES, FIG7_PODS, sched,
+            [("rail", r) for r in FIG7_RAIL_RATES], budget, FIG7_ROUNDS, 0,
+            dev)
+        sweeps += [r0, r1]
+        for rate in FIG7_RAIL_RATES:
+            cel = cells[("rail", rate)]["celeris"]
+            dci[(sched, rate)] = cel.tier_loss("dci")
+            out["rail"][f"{rate_tag(rate)}_{sched}"] = {
+                "dci_loss": dci[(sched, rate)],
+                "gupf": fig7_gupf(cel, clean["celeris"]),
+                "committed_dci_loss": committed(
+                    f"fig7_dci_loss_rail_{rate_tag(rate)}_{sched}")}
+    for rate in FIG7_RAIL_RATES:
+        out["rail"][f"blast_ratio_{rate_tag(rate)}"] = {
+            "ratio": dci[("hier", rate)] / max(dci[("perrail", rate)], 1e-4),
+            "committed": committed(f"fig7_rail_blast_ratio_{rate_tag(rate)}")}
+    grid_s = time.perf_counter() - t0
+    host, device, blocks = sweep_timing(sweeps)
+    launches = counts.read()
+    assert launches["dcqcn_scan"] == blocks, (launches, blocks)
+    grid_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the device busy share over one faulted cell's engine pass (the hier
+    # paper cell, one block) and over the 512-node cell's (two blocks)
+    paper = P.FaultParams.of_kind(*FIG7_PAPER_CELL)
+    busy = {}
+    for nn in (FIG7_NODES, FIG7_SCALE_NODES):
+        eng = E.BatchedEngine(dataclasses.replace(
+            base, net=dataclasses.replace(base.net, n_nodes=nn),
+            work=dataclasses.replace(base.work, schedule="hier"),
+            fault=paper), device=str(dev))
+        busy[nn] = profile_window(lambda: eng.traces(["roce", "celeris"],
+                                                     FIG7_ROUNDS, 0))
+    counts.reset()
+
+    # the 512-node hier stall cell: its own wall-time split and peak memory
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    clean, budget, r0 = fig7_clean_pass(
+        E, base, FIG7_SCALE_NODES, FIG7_PODS, "hier", FIG7_ROUNDS, 0,
+        FIG7_TAIL_SCALE, dev)
+    cells, r1 = fig7_fault_sweep(E, P, base, FIG7_SCALE_NODES, FIG7_PODS,
+                                 "hier", [FIG7_PAPER_CELL], budget,
+                                 FIG7_ROUNDS, 0, dev)
+    s_host, s_device, s_blocks = sweep_timing([r0, r1])
+    roc, cel = (cells[FIG7_PAPER_CELL][d] for d in ("roce", "celeris"))
+    out["n512"] = {
+        "p99_ms_roce": roc.p99 / 1e3, "p99_ms_celeris": cel.p99 / 1e3,
+        "gupf": fig7_gupf(cel, clean["celeris"]),
+        "committed": {k: committed(f"fig7_{k}_n512") for k in (
+            "p99_ms_roce_stall", "p99_ms_celeris_stall",
+            "gupf_celeris_stall")},
+        "wall_s": time.perf_counter() - t1, "host_s": s_host,
+        "device_s": s_device, "blocks": s_blocks,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    assert counts.read()["dcqcn_scan"] == s_blocks, counts.read()
+    launches["dcqcn_scan"] += s_blocks
+    out.update(grid_wall_s=grid_s, grid_host_s=host, grid_device_s=device,
+               grid_blocks=blocks, grid_peak_mem_gib=grid_peak,
+               hier_stall_profile={str(k): v for k, v in busy.items()},
+               launches=launches)
+
+    worst = min(out["ratios"].values())
+    out["worst_ratio"] = worst
+    for key, ratio in out["ratios"].items():
+        print(f"fig7 {key}: max sustained rate roce "
+              f"{out['max_rate'][key]['roce']:g} / celeris "
+              f"{out['max_rate'][key]['celeris']:g}, resilience ratio "
+              f"{ratio:.2f} (committed {out['committed'][key]})")
+    for key, r in out["rail"].items():
+        print(f"fig7 rail {key}: {r}")
+    print(f"fig7 n={FIG7_SCALE_NODES} hier stall {FIG7_PAPER_CELL[1]:g}: "
+          f"{out['n512']}")
+    print(f"fig7 grid: wall {grid_s:.1f} s = host draws {host:.1f} s + "
+          f"device core {device:.1f} s (+ assembly), {blocks} blocks, peak "
+          f"{grid_peak:.2f} GiB; hier stall {FIG7_PAPER_CELL[1]:g} pass "
+          f"profiles by nodes: {busy}; launches {launches}")
+    assert worst >= FIG7_RATIO_BAR, f"worst resilience ratio {worst} < 2"
+    for rate in FIG7_RAIL_RATES:
+        assert dci[("perrail", rate)] < dci[("hier", rate)], (rate, dci)
+    print(f"fig7 worst resilience ratio {worst:.2f} >= {FIG7_RATIO_BAR}; "
+          f"perrail's DCI loss below hier's at rail rates {FIG7_RAIL_RATES}")
+    return out
+
+
+def phase_fig7_loop(dev, C, ts, Trainer, DataConfig, OptConfig, coupling,
+                    counts):
+    """Fig. 7's closed loop: the faulted 2-pod engine's axis-split
+    schedule (``split_schedule_from_engine``, 128 nodes, window x0.6,
+    stall 1e-4) drives the smoke LM FIG7_LOOP_STEPS steps in
+    ``hierarchical`` mode against as many ``exact`` steps; recovery must
+    reach FIG1_RECOVERY_BAR."""
+    _sync()
+    counts.reset()
+    t0 = time.perf_counter()
+    fault = f"{FIG7_PAPER_CELL[0]}:{FIG7_PAPER_CELL[1]}"
+    sched = coupling.split_schedule_from_engine(
+        FIG7_LOOP_STEPS, seed=0, n_pods=FIG7_LOOP_PODS, n_nodes=FIG1_NODES,
+        timeout_scale=FIG7_LOOP_SCALE, fault=fault, device=str(dev))
+    sched_s = time.perf_counter() - t0
+    assert sched.per_pod is not None and len(sched.per_pod) == FIG7_LOOP_PODS
+    h_exact = fig1_trainer(C, ts, Trainer, DataConfig, OptConfig, "exact",
+                           None, dev).run(FIG7_LOOP_STEPS)
+    h_hier = fig1_trainer(C, ts, Trainer, DataConfig, OptConfig,
+                          "hierarchical",
+                          coupling.HierStragglerModel(sched),
+                          dev).run(FIG7_LOOP_STEPS)
+    assert np.isfinite(h_hier["loss"]).all()
+    want = [sched.rates(i) for i in range(FIG7_LOOP_STEPS)]
+    assert all(np.array_equal(a, b) for a, b in zip(h_hier["drop_rate"],
+                                                    want))
+    loss0 = h_exact["loss"][0]
+    final_exact = float(np.mean(h_exact["loss"][-5:]))
+    final_hier = float(np.mean(h_hier["loss"][-5:]))
+    rec = (loss0 - final_hier) / max(loss0 - final_exact, 1e-9)
+    out = {"source": sched.source, "schedule_s": sched_s,
+           "drop_mean_intra": sched.intra.mean,
+           "drop_mean_cross": sched.cross.mean,
+           "final_loss_exact": final_exact,
+           "final_loss_hierarchical": final_hier, "recovery": rec,
+           "committed": {k: committed(f"fig7_{k}") for k in (
+               "recovery", "drop_mean_intra", "drop_mean_cross",
+               "final_loss_exact", "final_loss_hierarchical")},
+           "wall_s": time.perf_counter() - t0, "launches": counts.read()}
+    assert out["launches"]["dcqcn_scan"] >= 1, out["launches"]
+    print(f"fig7 loop: drop intra {sched.intra.mean:.4f} / cross "
+          f"{sched.cross.mean:.4f} (schedule {sched_s:.2f} s); final loss "
+          f"exact {final_exact:.4f}, hierarchical {final_hier:.4f}; "
+          f"recovery {rec:.4f} (committed {out['committed']['recovery']})")
+    assert rec >= FIG1_RECOVERY_BAR, f"fig7 recovery {rec} < 0.9"
+    return out, sched
+
+
+def phase_fig7_full_width(dev, C, ts, Trainer, DataConfig, OptConfig,
+                          coupling, sched, counts):
+    """qwen2-0.5b at full width, TRAIN_STEPS ``hierarchical`` steps from
+    the faulted axis-split schedule: finite loss and 16 FWHT launches a
+    step."""
+    cfg = C.get("qwen2-0.5b")
+    tr = Trainer(cfg, data_cfg=DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH, seed=1),
+                 opt_cfg=OptConfig(lr=1e-3, warmup_steps=10,
+                                   total_steps=500),
+                 celeris=ts.CelerisConfig(mode="hierarchical"), seed=0,
+                 straggler=coupling.HierStragglerModel(sched),
+                 device=str(dev))
+    steps = []
+
+    def on_metrics(step, m):
+        steps.append(dict(m, launches=counts.read()))
+        counts.reset()
+
+    _sync()
+    counts.reset()
+    hist = tr.run(TRAIN_STEPS, on_metrics=on_metrics)
+    fwht = [r["launches"]["fwht"] for r in steps]
+    assert fwht == [2 * CODED_LEAVES] * TRAIN_STEPS, fwht
+    assert np.isfinite(hist["loss"]).all(), hist["loss"]
+    assert all(0.4 <= f <= 1.0 for f in hist["recv_frac"]), hist["recv_frac"]
+    total = {}
+    for r in steps:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    out = {"loss": hist["loss"], "recv_frac": hist["recv_frac"],
+           "drop_rate": [list(map(float, d)) for d in hist["drop_rate"]],
+           "step_ms": [r["wall_s"] * 1e3 for r in steps],
+           "fwht_launches_per_step": fwht, "launches": total}
+    print(f"fig7 full width hierarchical from the faulted schedule: loss "
+          f"{hist['loss']}, drop {out['drop_rate']}, recv_frac "
+          f"{hist['recv_frac']}, FWHT launches/step {fwht}")
+    return out
+
+
 def card_name_and_power():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1360,6 +1905,7 @@ def main(earlier_fwht=None):
     from repro_torch.core.transport import engine as E
     from repro_torch.core.transport import engine_torch as ET
     from repro_torch.core.transport import params as P
+    from repro_torch.core.transport import topology
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.kernels import _build
     from repro_torch.kernels import dcqcn as kdcqcn
@@ -1388,7 +1934,7 @@ def main(earlier_fwht=None):
     records = phase_kernels(dev, C.get("qwen2-0.5b"), kfwht, kunbias, ref,
                             coding, coupling)
     records += phase_quant_kernels(dev, kfwht, kquant, ref)
-    records += phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P)
+    records += phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology)
     main_path = phase_main_path(dev, C, M, serve_step, coupling, counts)
     phase_small_reference(dev, C, M, serve_step)
     bench = phase_kernel_bench(dev, ops, counts)
@@ -1410,12 +1956,24 @@ def main(earlier_fwht=None):
         counts)
     fig1_launches = {k: v + fig1["full_width"]["launches"][k]
                      for k, v in fig1["launches"].items()}
+    hier_check = phase_hier_card_vs_cpu(dev, E, P, topology)
+    fig4 = phase_fig4(dev, E, P, topology, counts)
+    fig7 = phase_fig7(dev, E, P, topology, counts)
+    torch.cuda.empty_cache()
+    fig7["loop"], fault_sched = phase_fig7_loop(
+        dev, C, ts, Trainer, DataConfig, OptConfig, coupling, counts)
+    fig7["loop"]["full_width"] = phase_fig7_full_width(
+        dev, C, ts, Trainer, DataConfig, OptConfig, coupling, fault_sched,
+        counts)
+    loop_launches = {k: v + fig7["loop"]["full_width"]["launches"][k]
+                     for k, v in fig7["loop"]["launches"].items()}
     by_path = {"serve": main_path["launches"],
                "kernel_bench": bench["launches"],
                "train": train["launches"],
                "allreduce": allreduce["launches"],
                "fig1": fig1_launches, "fig2": fig2["launches"],
-               "fig3": fig3["launches"]}
+               "fig3": fig3["launches"], "fig4": fig4["launches"],
+               "fig7": fig7["launches"], "fig7_loop": loop_launches}
     for rec in records:
         rec["launches_by_path"] = {p: c[rec["name"]]
                                    for p, c in by_path.items()}
@@ -1427,6 +1985,8 @@ def main(earlier_fwht=None):
                       "small_train": small_train,
                       "engine_card_vs_cpu": engine_check, "fig1": fig1,
                       "fig2": fig2, "fig3": fig3,
+                      "hier_card_vs_cpu": hier_check, "fig4": fig4,
+                      "fig7": fig7,
                       "seconds": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -11,13 +11,20 @@ the bridge from the transport engine to the trainer and the server.
   Fig.-1 drop regimes are settings of ``timeout_scale``;
 - :class:`EngineStragglerModel`: feeds a schedule to the Trainer's
   ``straggler.drop_rate(timeout, rng)`` interface;
+- the hierarchical (multi-pod) coupling: :class:`AxisSchedules` splits
+  the engine's per-tier delivered fractions into an intra-pod and a
+  cross-pod (DCI) schedule, refined per pod when the engine tracked
+  pods (:func:`split_schedule_from_round_stats`,
+  :func:`split_schedule_from_engine`, which takes a fault scenario), and
+  :class:`HierStragglerModel` walks them, feeding the trainer a
+  ``(2,)`` ``[intra, cross]`` or ``(n_pods + 1,)`` ``[intra_pod0, ...,
+  cross]`` drop vector per step;
 - ``kv_hole_masks`` (delivered KV fractions -> per-request hole masks)
   and :class:`CollectiveMode` (the switch the train step dispatches on).
 
 numpy and the standard library around the engine, copied as they are, so
-the masks are bit-identical to the JAX package's.  The axis-split and
-priority schedules (hierarchical topologies) and the closed-form
-latency tail are not ported yet.
+the masks are bit-identical to the JAX package's.  The priority-class
+schedules and the closed-form latency tail are not ported yet.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import enum
 
 import numpy as np
 
-from repro_torch.core.transport import telemetry
+from repro_torch.core.transport import telemetry, topology
 from repro_torch.core.transport.engine import BatchedEngine, RoundStats
 from repro_torch.core.transport.params import SimParams
 
@@ -62,8 +69,8 @@ class CollectiveMode(enum.Enum):
       receiver's bounded window is a hole in the raw gradient;
     - ``LOSSY_HADAMARD``: best-effort + randomized-Hadamard coding, the
       paper's recovery path, unbiased even through holes;
-    - ``HIERARCHICAL``: exact intra-pod, coded lossy cross-pod (the port
-      does not run this mode yet).
+    - ``HIERARCHICAL``: exact intra-pod, coded lossy cross-pod (on one
+      device: the coded emulation at the drop vector's cross component).
     """
     EXACT = "exact"
     LOSSY = "lossy"
@@ -166,10 +173,13 @@ def schedule_from_engine(n_rounds: int, seed: int = 0, *,
     ``timeout_scale``: 1.0 is the paper's Fig.-1 operating point (~1%
     loss at 128 nodes); smaller values tighten the window into heavier
     drop regimes.  ``adaptive=True`` runs the per-round timeout
-    controller instead of the fixed window.  Lossless designs ("roce",
-    "irn", "srnic") yield all-zero schedules.  ``record=True`` (the
-    flight recorder) and ``legacy_streams=True`` raise
-    ``NotImplementedError``: neither is ported yet.
+    controller instead of the fixed window.  ``params`` may carry a
+    multi-pod topology, a hierarchical schedule or a fault scenario, as
+    in the JAX package; the schedule is then the flat one over all tiers
+    (:func:`split_schedule_from_engine` splits it by axis).  Lossless
+    designs ("roce", "irn", "srnic") yield all-zero schedules.
+    ``record=True`` (the flight recorder) and ``legacy_streams=True``
+    raise ``NotImplementedError``: neither is ported yet.
     """
     if record:
         raise NotImplementedError(
@@ -200,6 +210,118 @@ def schedule_from_engine(n_rounds: int, seed: int = 0, *,
     return schedule_from_round_stats(stats, source=tag)
 
 
+# ----------------------------------------------------------------------
+# Axis-split schedules (hierarchical multi-pod topologies)
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AxisSchedules:
+    """Per-axis drop schedules for a hierarchical topology: ``intra``
+    (ToR + spine tiers, weighted by the plan's per-tier packets) and
+    ``cross`` (the DCI tier); ``per_pod`` refines ``intra`` per pod when
+    the engine tracked pods.  :meth:`rates` is ``(n_pods + 1,)``
+    ``[intra_pod0, ..., cross]`` or ``(2,)`` ``[intra, cross]``: the cross
+    component is last in both."""
+    intra: DropSchedule
+    cross: DropSchedule
+    per_pod: tuple | None = None       # of DropSchedule, one per pod
+    source: str = ""
+
+    @property
+    def n_pods(self) -> int | None:
+        return None if self.per_pod is None else len(self.per_pod)
+
+    def rates(self, step: int) -> np.ndarray:
+        if self.per_pod is not None:
+            return np.array([s.rate(step) for s in self.per_pod]
+                            + [self.cross.rate(step)])
+        return np.array([self.intra.rate(step), self.cross.rate(step)])
+
+    # the schedule-walk interface shared with DropSchedule
+    rate = rates
+
+    @property
+    def mean(self) -> tuple[float, float]:
+        return (self.intra.mean, self.cross.mean)
+
+
+def split_schedule_from_round_stats(stats: RoundStats, *,
+                                    source: str | None = None
+                                    ) -> AxisSchedules:
+    """Engine per-tier round statistics -> axis-split schedules.
+
+    The tier fractions combine into the intra axis weighted by the
+    plan's offered packets per tier (``stats.tier_pkts``; the flow
+    counts when absent); the DCI tier is the cross axis.  Per-pod
+    fractions, where tracked, give one intra schedule per pod.  The
+    provenance is the heuristic one (the recorder is not ported).
+    """
+    if stats.tier_recv_frac is None or stats.tier_counts is None:
+        raise ValueError("RoundStats lacks per-tier fractions: build it "
+                         "through BatchedEngine.assemble")
+    f = np.asarray(stats.tier_recv_frac, dtype=np.float64)
+    w = np.asarray(stats.tier_pkts if stats.tier_pkts is not None
+                   else stats.tier_counts, dtype=np.float64)
+    w_intra = w[:2].sum()
+    if w_intra > 0:
+        intra = 1.0 - (f[:, :2] * w[:2]).sum(axis=1) / w_intra
+    else:
+        intra = np.zeros(f.shape[0])
+    cross = (1.0 - f[:, 2]) if w[2] > 0 else np.zeros(f.shape[0])
+    tag = source or f"engine:{stats.design}"
+    per_pod = None
+    if stats.pod_recv_frac is not None:
+        pf = np.asarray(stats.pod_recv_frac, dtype=np.float64)
+        per_pod = tuple(
+            DropSchedule(rates=1.0 - pf[:, p], source=f"{tag}:pod{p}")
+            for p in range(pf.shape[1]))
+    return AxisSchedules(
+        intra=DropSchedule(
+            rates=intra, source=tag + ":intra",
+            provenance=telemetry.provenance_heuristic(stats, "intra")),
+        cross=DropSchedule(
+            rates=cross, source=tag + ":cross",
+            provenance=telemetry.provenance_heuristic(stats, "cross")),
+        per_pod=per_pod, source=tag)
+
+
+def split_schedule_from_engine(n_rounds: int, seed: int = 0, *,
+                               params: SimParams | None = None,
+                               n_pods: int = 2,
+                               n_nodes: int | None = None,
+                               dci_oversubscription: "float | tuple | None"
+                               = None,
+                               schedule: str | None = None,
+                               window: str = "round",
+                               timeout_scale: float = 1.0,
+                               fault=None,
+                               record: bool = False,
+                               device: str = "cuda") -> AxisSchedules:
+    """Run the hierarchical engine on ``device`` and derive the
+    axis-split schedule: :func:`topology.hier_protocol` (the RoCE
+    baseline on the same fabric fixes the Celeris window at median + 1
+    sigma, scaled) on ``n_pods`` pods, with ``schedule`` ("ring" |
+    "hier" | "perrail"), ``window`` ("round" | "phase") and an optional
+    ``fault`` (a ``FaultParams`` or its ``kind:rate`` string), whose
+    faulted pods' loss then reaches the per-pod schedules.
+    ``record=True`` raises ``NotImplementedError`` (no recorder yet).
+    """
+    if record:
+        raise NotImplementedError(
+            "record=True needs the telemetry TraceRecorder, which is not "
+            "ported to the torch engine yet (ROADMAP, Queue 1 item 5)")
+    p = topology.hier_params(n_pods, base=params, n_nodes=n_nodes,
+                             dci_oversubscription=dci_oversubscription,
+                             schedule=schedule, fault=fault)
+    stats = topology.hier_protocol(p, n_rounds, seed, window=window,
+                                   timeout_scale=timeout_scale,
+                                   device=device)["celeris"]
+    tag = (f"engine:celeris n={p.net.n_nodes} pods={n_pods} "
+           f"sched={p.work.schedule} window={window} seed={seed} "
+           f"scale={timeout_scale} fault={p.fault.tag}")
+    return split_schedule_from_round_stats(stats, source=tag)
+
+
 class EngineStragglerModel:
     """Feed an engine-derived schedule into the Trainer.
 
@@ -217,7 +339,17 @@ class EngineStragglerModel:
         # clean per-step latency (units of clean step time)
         self.median_latency = median_latency
 
-    def drop_rate(self, timeout: float, rng) -> float:
+    def drop_rate(self, timeout: float, rng) -> "float | np.ndarray":
         p = self.schedule.rate(self.steps_taken)
         self.steps_taken += 1
         return p
+
+
+class HierStragglerModel(EngineStragglerModel):
+    """Feed an :class:`AxisSchedules` into the Trainer: ``drop_rate``
+    returns the per-axis vector the hierarchical train step consumes,
+    ``(n_pods + 1,)`` or ``(2,)``, its cross (DCI) component last."""
+
+    @property
+    def schedules(self) -> AxisSchedules:
+        return self.schedule

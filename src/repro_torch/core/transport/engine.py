@@ -1,39 +1,48 @@
-"""Batched transport engine, shared-fabric flat-ring path (port of
-``repro/core/transport/engine.py``).
+"""Batched transport engine (port of ``repro/core/transport/engine.py``,
+its shared-fabric mode).
 
-The engine materializes the simulation as ``(step, node)`` blocks:
-``step`` is the flattened ``round * ring_step`` time axis, ``node`` the
-concurrent ring flows.  Work proceeds in *round blocks* sized to a fixed
-element budget.  All NIC designs of one seed share one fabric trace and
-one DCQCN rate trace (``legacy_streams=False``, the shared-fabric mode).
+The engine materializes the simulation as ``(step, flow)`` blocks:
+``step`` is the flattened ``round * step`` time axis of the collective
+schedule's plan (``schedule.make_plan``: the flat ring, or the ``hier``
+and ``perrail`` schedules' ``rs``/``dci``/``ag`` phases), ``flow`` a
+phase's concurrent flows.  Work proceeds in round blocks sized to a
+fixed element budget.  All NIC designs of one seed share one fabric
+trace and one DCQCN rate trace (``legacy_streams=False``).  On a
+multi-pod fabric (``n_pods > 1``) the DCI tier overlays the cross-pod
+flows (``topology``); an active ``FaultParams`` adds the seeded stall,
+crash, flap, rail and straggler processes (``faults``).
 
 Where the work runs (``engine_torch`` has the details):
 
 - the host pass replays the numpy engine's random streams with numpy
-  generators, block for block in its exact order: fabric occupancy,
-  path curves, CNP draws, PFC and loss draws;
+  generators, block for block and phase by phase in its exact order:
+  fabric and DCI occupancy, path curves, CNP draws, fault masks, PFC
+  and loss draws;
 - the device core runs the rate-dependent physics as torch ops on
-  ``device``, with the seed axis batched: the DCQCN recurrence in one
-  hand-written CUDA kernel launch per block (``kernels/csrc/dcqcn.cu``),
-  the response curves, per-design completion times and the per-step
-  reductions;
-- the round assembly (:meth:`BatchedEngine.assemble`: round windows,
-  fixed or adaptive) runs on the host over the reduced step traces.
+  ``device``, with the seed axis batched: the DCQCN recurrence over the
+  whole block in one hand-written CUDA kernel launch
+  (``kernels/csrc/dcqcn.cu``), then per phase the response curves, the
+  DCI overlay, the fault reactions, per-design completion times and the
+  per-step reductions;
+- the round assembly (:meth:`BatchedEngine.assemble`: round or phase
+  windows, fixed or adaptive) runs on the host over the reduced step
+  traces; :func:`sweep` runs a grid of cells, each cell's seeds in one
+  batched pass.
 
 The reference is the numpy engine with ``legacy_streams=False``: the
-same host draws, so delivered packets are exact, and times and fractions
-agree within rtol 1e-5 (the device core regroups a few float
-accumulations, as ``engine_jax`` does).
+same host draws, so delivered packets and faulted-flow counts are exact,
+and times and fractions agree within rtol 1e-5 (the device core
+regroups a few float accumulations, as ``engine_jax`` does).
 
 Out of this path, and raising ``NotImplementedError`` (ROADMAP, Queue 1
-items 5-6): ``legacy_streams=True``, ``n_pods > 1``, schedules other
-than the ring and FlowPlan overrides, active faults, a telemetry
-recorder, ``cut_order="priority"``, ``window="step"`` and
-``per_node_for``.
+item 5): ``legacy_streams=True``, FlowPlan overrides (``plan=``) and
+incast, a telemetry recorder, ``cut_order="priority"``,
+``window="step"`` and ``per_node_for``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Sequence
 
 import numpy as np
@@ -42,7 +51,8 @@ from repro_torch import resolve_device
 from repro_torch.core import timeout as timeout_mod
 from repro_torch.core.transport import designs, network, topology
 from repro_torch.core.transport import schedule as schedule_mod
-from repro_torch.core.transport.params import SimParams, WindowPolicy
+from repro_torch.core.transport.params import (FaultParams, SimParams,
+                                               WindowPolicy)
 
 # Engine-native random sub-streams, all derived from the user seed
 # (the numpy engine's ids: the port must consume the same streams).
@@ -61,7 +71,7 @@ _BLOCK_ELEMENTS = 4 << 20
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the torch engine yet (ROADMAP, Queue 1 "
-        "items 5-6); the port runs the shared-fabric flat ring")
+        "item 5)")
 
 
 def _tier_frac(got: np.ndarray, tot: np.ndarray) -> np.ndarray:
@@ -76,8 +86,8 @@ def _cut_block(nat_b, deliv_b, budget_us, groups):
     Elapsed time is ``min(sum(nat), budget)``; packets delivered strictly
     inside the deadline count in full and the boundary step earns linear
     partial credit.  ``groups`` are (steps, G) per-group delivered
-    arrays that take the same cut.  Returns ``(elapsed, got,
-    group_gots)``.
+    arrays (tiers, pods, priority classes) that take the same cut.
+    Returns ``(elapsed, got, group_gots)``.
     """
     cum = np.cumsum(nat_b)
     total_t = cum[-1]
@@ -101,12 +111,17 @@ class RoundStats:
     tier_recv_frac: np.ndarray | None = None    # (rounds, n_tiers)
     tier_counts: np.ndarray | None = None       # (n_tiers,) flows per tier
     tier_pkts: np.ndarray | None = None         # (n_tiers,) offered/round
+    # per-pod intra fractions and offered intra packets per round per pod
+    # (multi-pod fabrics only)
+    pod_recv_frac: np.ndarray | None = None     # (rounds, n_pods)
+    pod_pkts: np.ndarray | None = None          # (n_pods,)
     # per-priority-class delivered fractions and offered packets
     prio_recv_frac: np.ndarray | None = None
     prio_pkts: np.ndarray | None = None
-    # per round, steps with >= 1 faulted flow (None: fault-free, always
-    # so in the port until faults are ported)
-    fault_steps: np.ndarray | None = None
+    # fault accounting (None on fault-free traces): per round, the steps
+    # with >= 1 faulted flow and the faulted (flow, step) cells
+    fault_steps: np.ndarray | None = None       # (rounds,)
+    affected_flows: np.ndarray | None = None    # (rounds,)
 
     @property
     def p50(self) -> float:
@@ -124,6 +139,17 @@ class RoundStats:
     def mean_loss(self) -> float:
         return float(1.0 - self.recv_frac.mean())
 
+    def tier_loss(self, tier: str) -> float:
+        """Mean loss on one tier ('tor' | 'spine' | 'dci'); 0 when the
+        tier is empty or untracked."""
+        if self.tier_recv_frac is None:
+            return 0.0
+        k = topology.TIERS.index(tier)
+        if self.tier_counts is not None and self.tier_counts[k] == 0:
+            return 0.0
+        return float(1.0 - self.tier_recv_frac[:, k].mean())
+
+    # -- fault-resilience metrics (Fig. 7) ------------------------------
     @property
     def faulted(self) -> np.ndarray:
         """(rounds,) bool: rounds with at least one faulted flow."""
@@ -131,29 +157,74 @@ class RoundStats:
             return np.zeros(self.times_us.shape[0], dtype=bool)
         return np.asarray(self.fault_steps) > 0
 
+    def goodput_trace(self) -> np.ndarray:
+        """(rounds,) delivered payload per unit time, normalized so the
+        mean fault-free round is 1.0 (the all-round mean when every round
+        was faulted)."""
+        g = self.recv_frac / np.maximum(self.times_us, 1e-9)
+        clean = ~self.faulted
+        ref = g[clean].mean() if clean.any() else g.mean()
+        return g / max(float(ref), 1e-30)
+
+    @property
+    def goodput_under_failure(self) -> float:
+        """The faulted rounds' mean goodput over the clean rounds' (1.0
+        on a fault-free trace)."""
+        f = self.faulted
+        if not f.any():
+            return 1.0
+        g = self.recv_frac / np.maximum(self.times_us, 1e-9)
+        ref = g[~f].mean() if (~f).any() else g.mean()
+        return float(g[f].mean() / max(float(ref), 1e-30))
+
+    def recovery_rounds(self, frac: float = 0.9) -> float:
+        """Mean rounds from the end of each fault episode until the
+        normalized goodput first returns to ``frac``; an episode not
+        recovered by the end of the trace counts its remaining length."""
+        f = self.faulted
+        if not f.any():
+            return 0.0
+        g = self.goodput_trace()
+        ends = np.flatnonzero(f[:-1] & ~f[1:]) + 1   # first clean round
+        waits = []
+        for e in ends:
+            ok = np.flatnonzero(g[e:] >= frac)
+            waits.append(float(ok[0]) if ok.size else float(f.size - e))
+        return float(np.mean(waits)) if waits else 0.0
+
+    def summary(self) -> Dict[str, float]:
+        return dict(p50_us=self.p50, p99_us=self.p99, p999_us=self.p999,
+                    mean_us=float(self.times_us.mean()),
+                    data_loss=self.mean_loss)
+
 
 @dataclasses.dataclass
 class StepTrace:
     """Reduced per-step physics for one design (full trace length T):
-    ``(T,)`` reductions over nodes, per-tier ``(T, n_tiers)`` sums, and
-    the plan facts the window assembly reads."""
+    ``(T,)`` reductions over flows, per-tier ``(T, n_tiers)`` and per-pod
+    ``(T, n_pods)`` sums, and the plan facts the window assembly reads."""
     design: str
     steps_per_round: int
-    nat_us: np.ndarray            # max over nodes of completion time
-    deliv: np.ndarray             # delivered packets summed over nodes
-    total: np.ndarray             # offered packets summed over nodes
+    nat_us: np.ndarray            # max over flows of completion time
+    deliv: np.ndarray             # delivered packets summed over flows
+    total: np.ndarray             # offered packets summed over flows
     tier_deliv: np.ndarray | None = None
     tier_total: np.ndarray | None = None
     tier_counts: np.ndarray | None = None       # (n_tiers,) flows per tier
     tier_pkts_round: np.ndarray | None = None   # (n_tiers,) offered/round
+    phase_of_step: np.ndarray | None = None     # (steps_per_round,)
+    phase_budget_frac: np.ndarray | None = None  # (n_phases,) sums to 1
     step_priority: np.ndarray | None = None     # (steps_per_round,)
+    pod_deliv: np.ndarray | None = None         # multi-pod fabrics only
+    pod_total: np.ndarray | None = None
+    pod_pkts_round: np.ndarray | None = None    # (n_pods,) offered/round
+    fault_flows: np.ndarray | None = None       # (T,) faulted flows a step
 
 
 class BatchedEngine:
-    """Vectorized flow-plan simulator over ``(step, node)`` tensors,
-    with its rate-dependent core on ``device`` (``"cuda"`` unless the
-    caller asks for the CPU, where the DCQCN scan takes its plain
-    version).
+    """Vectorized flow-plan simulator over ``(step, flow)`` tensors, with
+    its rate-dependent core on ``device`` (``"cuda"`` unless the caller
+    asks for the CPU, where the DCQCN scan takes its plain version).
 
     ``timing`` holds the last :meth:`traces` call's split of wall time
     between the host draw pass and the device core.
@@ -167,13 +238,6 @@ class BatchedEngine:
             raise _not_ported("a FlowPlan override (plan=)")
         if recorder is not None:
             raise _not_ported("the telemetry TraceRecorder")
-        if self.p.topo.hierarchical:
-            raise _not_ported(f"a multi-pod topology (n_pods="
-                              f"{self.p.topo.n_pods})")
-        if self.p.work.schedule != "ring":
-            raise _not_ported(f"schedule={self.p.work.schedule!r}")
-        if self.p.fault.active:
-            raise _not_ported("fault injection (an active FaultParams)")
         self.timing: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
@@ -182,27 +246,29 @@ class BatchedEngine:
         net = p.net
         n = net.n_nodes
         plan = schedule_mod.make_plan(net, p.topo, p.work)
-        geo = dict(
-            n=n, steps=plan.steps_per_round, plan=plan,
-            n_pkts=max(1, (p.work.message_bytes // n) // net.mtu_bytes),
-            src=np.arange(n), dst=(np.arange(n) + 1) % n,
-            n_tors=n // net.nodes_per_tor,
-            hier=topology.hier_geometry(net, p.topo))
+        geo = dict(n=n, steps=plan.steps_per_round, plan=plan,
+                   n_tors=n // net.nodes_per_tor)
         master = np.random.default_rng(seed)
         geo["fabric_seed"] = int(master.integers(2**31))
         return geo
 
-    def _new_traces(self, design_list, T, steps, plan, hgs
-                    ) -> Dict[str, StepTrace]:
+    def _new_traces(self, design_list, T, plan, hgs) -> Dict[str, StepTrace]:
         net, topo = self.p.net, self.p.topo
+        pods = topo.n_pods if topo.hierarchical else 0
         return {d: StepTrace(
-            design=d, steps_per_round=steps,
+            design=d, steps_per_round=plan.steps_per_round,
             nat_us=np.empty(T), deliv=np.empty(T), total=np.empty(T),
             tier_deliv=np.empty((T, topology.N_TIERS)),
             tier_total=np.empty((T, topology.N_TIERS)),
             tier_counts=plan.tier_counts(net, topo, hgs),
             tier_pkts_round=plan.tier_pkts_round(net, topo, hgs),
-            step_priority=plan.step_priority()) for d in design_list}
+            phase_of_step=plan.phase_of_step,
+            phase_budget_frac=plan.budget_fracs(),
+            step_priority=plan.step_priority(),
+            pod_deliv=np.zeros((T, pods)) if pods else None,
+            pod_total=np.zeros((T, pods)) if pods else None,
+            pod_pkts_round=(plan.pod_pkts_round(net, topo, hgs)
+                            if pods else None)) for d in design_list}
 
     def traces(self, design_list: Sequence[str], n_rounds: int, seed: int, *,
                legacy_streams: bool = False,
@@ -233,9 +299,11 @@ class BatchedEngine:
         adaptive controller is on.
 
         ``window``: ``"round"`` is one deadline per round; ``"phase"``
-        splits it across the plan's phases, which on the single-phase
-        ring is the same ``[1.0]`` split, so the two agree bit for bit.
-        ``cut_order``: ``"arrival"`` truncates the trailing steps.
+        splits it across the plan's phases by their ``budget_frac``
+        weights, each phase block truncated at its own deadline (on a
+        single-phase plan the split is ``[1.0]`` and the two agree bit
+        for bit).  ``cut_order``: ``"arrival"`` truncates the trailing
+        steps.
         """
         window = WindowPolicy.parse(window).kind
         if cut_order not in ("arrival", "priority"):
@@ -252,43 +320,61 @@ class BatchedEngine:
         total = trace.total.reshape(R, steps)
         tot_sum = np.maximum(total.sum(axis=1), 1.0)
 
-        # accounting groups riding the window cut: tiers, then priority
-        # classes (the step's own split of its delivered packets)
+        # accounting groups riding the window cut: tiers, then pods,
+        # then priority classes (the step's own split of its packets)
         groups = []             # (R, steps, G) delivered/total pairs
-        has_tiers = trace.tier_deliv is not None
-        if has_tiers:
-            groups.append((trace.tier_deliv.reshape(R, steps, -1),
-                           trace.tier_total.reshape(R, steps, -1)))
+        kinds = []
+        for kind, gd, gt in (("tier", trace.tier_deliv, trace.tier_total),
+                             ("pod", trace.pod_deliv, trace.pod_total)):
+            if gd is not None:
+                groups.append((gd.reshape(R, steps, -1),
+                               gt.reshape(R, steps, -1)))
+                kinds.append(kind)
         prio_pkts = None
-        has_prio = trace.step_priority is not None
-        if has_prio:
+        if trace.step_priority is not None:
             cls = np.asarray(trace.step_priority, dtype=int)
             onehot = cls[:, None] == np.arange(cls.max() + 1)[None, :]
             pr_total = total[:, :, None] * onehot
             groups.append((deliv[:, :, None] * onehot, pr_total))
+            kinds.append("prio")
             prio_pkts = pr_total.sum(axis=1)[0]
+        extra = dict(tier_counts=trace.tier_counts,
+                     tier_pkts=trace.tier_pkts_round,
+                     pod_pkts=trace.pod_pkts_round, prio_pkts=prio_pkts)
+        if trace.fault_flows is not None:
+            ff = trace.fault_flows.reshape(R, steps)
+            extra.update(fault_steps=(ff > 0).sum(axis=1),
+                         affected_flows=ff.sum(axis=1))
 
         def _pack(times, fracs, group_fracs):
-            gf = list(group_fracs)
+            by_kind = dict(zip(kinds, group_fracs))
             return RoundStats(
                 times_us=times, recv_frac=fracs, design=trace.design,
-                tier_recv_frac=gf.pop(0) if has_tiers else None,
-                prio_recv_frac=gf.pop(0) if has_prio else None,
-                tier_counts=trace.tier_counts,
-                tier_pkts=trace.tier_pkts_round, prio_pkts=prio_pkts)
+                tier_recv_frac=by_kind.get("tier"),
+                pod_recv_frac=by_kind.get("pod"),
+                prio_recv_frac=by_kind.get("prio"), **extra)
 
         if trace.design != "celeris":
             return _pack(nat.sum(axis=1), deliv.sum(axis=1) / tot_sum,
                          [_tier_frac(gd.sum(axis=1), gt.sum(axis=1))
                           for gd, gt in groups])
 
+        # budget blocks: the whole round, or each phase's steps with its
+        # share of the budget (one block covering the round on a
+        # single-phase plan, where the two windows coincide)
+        if window == "phase" and trace.phase_of_step is not None:
+            blocks = [(np.flatnonzero(trace.phase_of_step == k), f)
+                      for k, f in enumerate(trace.phase_budget_frac)]
+        else:
+            blocks = [(np.arange(steps), 1.0)]
+
         init_to = (celeris_timeout_us or 50_000.0) / 1e6
         cfg = timeout_mod.TimeoutConfig(
             init_timeout=init_to, min_timeout=init_to * 0.25,
             max_timeout=init_to * 8.0, alpha=0.25)
         if not adaptive:
-            return _pack(*self._assemble_round_window_fixed(
-                nat, deliv, tot_sum, init_to * 1e6, groups))
+            return _pack(*self._assemble_window_fixed(
+                nat, deliv, tot_sum, init_to * 1e6, groups, blocks))
 
         rng = np.random.default_rng([seed, _STREAM_WINDOW])
         n = self.p.net.n_nodes
@@ -299,8 +385,18 @@ class BatchedEngine:
         g_fracs = [np.ones((R, gd.shape[2])) for gd, _ in groups]
         g_tot = [gt.sum(axis=1) for _, gt in groups]
         for r in range(R):
-            times[r], got, gots = _cut_block(
-                nat[r], deliv[r], timeout * 1e6, [gd[r] for gd, _ in groups])
+            budget_us = timeout * 1e6
+            t_sum, got = 0.0, 0.0
+            gots = [np.zeros(gd.shape[2]) for gd, _ in groups]
+            for rows, frac in blocks:
+                t_k, got_k, gots_k = _cut_block(
+                    nat[r, rows], deliv[r, rows], budget_us * frac,
+                    [gd[r, rows] for gd, _ in groups])
+                t_sum += t_k
+                got += got_k
+                for gg, gk in zip(gots, gots_k):
+                    gg += gk
+            times[r] = t_sum
             fracs[r] = got / tot_sum[r]
             for i, gg in enumerate(gots):
                 g_fracs[i][r] = _tier_frac(gg, g_tot[i][r])
@@ -312,37 +408,47 @@ class BatchedEngine:
         return _pack(times, fracs, g_fracs)
 
     @staticmethod
-    def _assemble_round_window_fixed(nat, deliv, tot_sum, budget_us,
-                                     groups=()):
-        """Fixed bounded round window, all rounds at once (paper
-        protocol).  Returns ``(times, fracs, group_fracs)``."""
-        cum = np.cumsum(nat, axis=1)
-        total_t = cum[:, -1]
-        over = total_t > budget_us
-        times = np.where(over, budget_us, total_t)
-        done = cum <= budget_us
-        bidx = np.argmax(~done, axis=1)
-        prev = np.where(
-            bidx > 0,
-            np.take_along_axis(cum, np.maximum(bidx - 1, 0)[:, None],
-                               axis=1)[:, 0],
-            0.0)
-        part = (budget_us - prev) / np.maximum(
-            np.take_along_axis(nat, bidx[:, None], axis=1)[:, 0], 1e-9)
-        got = ((deliv * done).sum(axis=1)
-               + np.take_along_axis(deliv, bidx[:, None], axis=1)[:, 0] * part)
-        fracs = np.where(over, got / tot_sum, deliv.sum(axis=1) / tot_sum)
-        g_fracs = []
-        for g_deliv, g_total in groups:
-            # same window cut, applied per group column (the truncated
-            # step's partial credit splits in proportion to each
-            # column's share of that step's delivered packets)
-            R = g_deliv.shape[0]
-            got_g = ((g_deliv * done[:, :, None]).sum(axis=1)
-                     + g_deliv[np.arange(R), bidx] * part[:, None])
-            g_fracs.append(_tier_frac(
-                np.where(over[:, None], got_g, g_deliv.sum(axis=1)),
-                g_total.sum(axis=1)))
+    def _assemble_window_fixed(nat, deliv, tot_sum, budget_us, groups,
+                               blocks):
+        """Fixed bounded windows, all rounds at once (paper protocol):
+        each budget block of steps (the whole round, or one phase) takes
+        its share of the budget and is truncated at its own deadline.
+        Returns ``(times, fracs, group_fracs)``."""
+        R = nat.shape[0]
+        times = np.zeros(R)
+        got = np.zeros(R)
+        got_g = [np.zeros((R, gd.shape[2])) for gd, _ in groups]
+        for rows, frac in blocks:
+            b_k = budget_us * frac
+            cum = np.cumsum(nat[:, rows], axis=1)
+            total_t = cum[:, -1]
+            over = total_t > b_k
+            times += np.where(over, b_k, total_t)
+            done = cum <= b_k
+            bidx = np.argmax(~done, axis=1)
+            prev = np.where(
+                bidx > 0,
+                np.take_along_axis(cum, np.maximum(bidx - 1, 0)[:, None],
+                                   axis=1)[:, 0],
+                0.0)
+            d_k = deliv[:, rows]
+            part = (b_k - prev) / np.maximum(
+                np.take_along_axis(nat[:, rows], bidx[:, None],
+                                   axis=1)[:, 0], 1e-9)
+            got_k = ((d_k * done).sum(axis=1)
+                     + np.take_along_axis(d_k, bidx[:, None],
+                                          axis=1)[:, 0] * part)
+            got += np.where(over, got_k, d_k.sum(axis=1))
+            for i, (gd, _) in enumerate(groups):
+                # the truncated step's partial credit splits in
+                # proportion to each column's share of its packets
+                gd_k = gd[:, rows]
+                cut = ((gd_k * done[:, :, None]).sum(axis=1)
+                       + gd_k[np.arange(R), bidx] * part[:, None])
+                got_g[i] += np.where(over[:, None], cut, gd_k.sum(axis=1))
+        fracs = got / tot_sum
+        g_fracs = [_tier_frac(gg, gt.sum(axis=1))
+                   for gg, (_, gt) in zip(got_g, groups)]
         return times, fracs, g_fracs
 
     # ------------------------------------------------------------------
@@ -351,7 +457,7 @@ class BatchedEngine:
             adaptive: bool = True, window: "str | WindowPolicy" = "round",
             cut_order: str = "arrival", seed: int | None = None,
             legacy_streams: bool = False) -> RoundStats:
-        """Simulate ``n_rounds`` AllReduce rounds for one NIC design.
+        """Simulate ``n_rounds`` rounds for one NIC design.
 
         The engine is engine-native by construction, so
         ``legacy_streams`` is turned off here, as the numpy engine's jax
@@ -380,6 +486,214 @@ class BatchedEngine:
                                        celeris_timeout_us=to,
                                        adaptive=False, window="round")
         return out
+
+
+# ----------------------------------------------------------------------
+# Parameter-sweep API
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BatchedSimParams:
+    """A sweep grid over the batched engine.
+
+    Celeris windows follow the paper protocol per (config, seed): the
+    seed's RoCE median + 1 sigma times ``timeout_scale``, unless
+    ``celeris_timeout_us`` pins them.  ``n_pods`` adds the
+    hierarchical-topology dimension (``base.topo`` configures the DCI
+    tier), ``schedules`` the collective schedule ("ring" | "hier" |
+    "perrail"), ``windows`` the Celeris window policy ("round" |
+    "phase"; assembled from one trace per cell) and ``faults`` the
+    failure scenario (``FaultParams``, ``"kind:rate"`` specs or None for
+    the fault-free cell; each scenario runs its own trace).  The JAX
+    package's ``backend`` switch has no counterpart: :func:`sweep` takes
+    a ``device``.  ``legacy_streams=True`` raises.
+    """
+    n_nodes: Sequence[int] = (128,)
+    message_mb: Sequence[float] = (25.0,)
+    seeds: Sequence[int] = (0,)
+    n_pods: Sequence[int] = (1,)
+    schedules: Sequence[str] = ("ring",)
+    windows: Sequence[str] = ("round",)
+    faults: Sequence = (None,)
+    designs: Sequence[str] = designs.DESIGNS
+    n_rounds: int = 200
+    celeris_timeout_us: float | None = None
+    timeout_scale: float = 1.0
+    legacy_streams: bool = False
+    base: SimParams = SimParams()
+
+    def fault_params(self) -> tuple:
+        """``faults`` normalized to FaultParams (None => inactive)."""
+        return tuple(FaultParams() if f is None else FaultParams.parse(f)
+                     for f in self.faults)
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """``stats[(design, n_nodes, message_mb, seed)] -> RoundStats``.
+
+    Keys grow a trailing element for each axis the grid sweeps, in this
+    order: pod count (``n_pods != (1,)``), schedule (``schedules !=
+    ("ring",)``), window (``windows != ("round",)``) and the fault's
+    ``FaultParams.tag`` (``faults != (None,)``).  ``timing`` holds each
+    cell's engine pass split (``BatchedEngine.timing``), keyed by
+    ``(n_nodes, message_mb, n_pods, schedule, fault tag)``.
+    """
+    params: BatchedSimParams
+    stats: Dict[tuple, RoundStats]
+    timing: Dict[tuple, dict] = dataclasses.field(default_factory=dict)
+
+    def fault_tags(self) -> tuple:
+        return tuple(fp.tag for fp in self.params.fault_params())
+
+    def _key(self, d, nn, mb, s, npods, sched="ring", window="round",
+             fault="none"):
+        key = (d, nn, mb, s)
+        if tuple(self.params.n_pods) != (1,):
+            key += (npods,)
+        if tuple(self.params.schedules) != ("ring",):
+            key += (sched,)
+        if tuple(self.params.windows) != ("round",):
+            key += (window,)
+        if self.fault_tags() != ("none",):
+            key += (fault,)
+        return key
+
+    def _p99_over(self, design, axis, values, **fixed):
+        """{value: (mean p99 over seeds, std)} along one grid axis, the
+        others at ``fixed`` or their first grid value."""
+        p = self.params
+        cell = dict(nn=p.n_nodes[0], mb=p.message_mb[0], npods=p.n_pods[0],
+                    sched=p.schedules[0], window=p.windows[0])
+        cell.update({k: v for k, v in fixed.items() if v is not None})
+        out = {}
+        for v in values:
+            c = dict(cell, **{axis: v})
+            ps = [self.stats[self._key(design, c["nn"], c["mb"], s,
+                                       c["npods"], c["sched"],
+                                       c["window"])].p99
+                  for s in p.seeds]
+            out[v] = (float(np.mean(ps)), float(np.std(ps)))
+        return out
+
+    def p99_vs_scale(self, design: str, message_mb: float | None = None,
+                     n_pods: int | None = None, schedule: str | None = None,
+                     window: str | None = None):
+        """{n_nodes: (mean p99 over seeds, std over seeds)}."""
+        return self._p99_over(design, "nn", self.params.n_nodes,
+                              mb=message_mb, npods=n_pods, sched=schedule,
+                              window=window)
+
+    def p99_vs_pods(self, design: str, n_nodes: int | None = None,
+                    message_mb: float | None = None,
+                    schedule: str | None = None, window: str | None = None):
+        """{n_pods: (mean p99 over seeds, std over seeds)}."""
+        return self._p99_over(design, "npods", self.params.n_pods,
+                              nn=n_nodes, mb=message_mb, sched=schedule,
+                              window=window)
+
+    def p99_vs_schedule(self, design: str, n_nodes: int | None = None,
+                        message_mb: float | None = None,
+                        n_pods: int | None = None,
+                        window: str | None = None):
+        """{schedule: (mean p99 over seeds, std over seeds)}."""
+        return self._p99_over(design, "sched", self.params.schedules,
+                              nn=n_nodes, mb=message_mb, npods=n_pods,
+                              window=window)
+
+    def p99_vs_window(self, design: str, n_nodes: int | None = None,
+                      message_mb: float | None = None,
+                      n_pods: int | None = None,
+                      schedule: str | None = None):
+        """{window: (mean p99 over seeds, std over seeds)}: one physics
+        trace, different budget assembly."""
+        return self._p99_over(design, "window", self.params.windows,
+                              nn=n_nodes, mb=message_mb, npods=n_pods,
+                              sched=schedule)
+
+    def summary_rows(self):
+        """Flat (key..., p50, p99, loss) rows."""
+        return [key + (st.p50, st.p99, st.mean_loss)
+                for key, st in sorted(self.stats.items())]
+
+
+def sweep(params: BatchedSimParams | None = None, *, progress=None,
+          device: str = "cuda") -> SweepResult:
+    """Run the grid in :class:`BatchedSimParams` on ``device``: one
+    batched engine pass (every seed at once) per ``(n_nodes, message_mb,
+    n_pods, schedule, fault)`` cell, every design and window policy
+    assembled from that cell's traces.  Keys follow :class:`SweepResult`.
+    ``progress``: optional ``callable(str)`` for liveness logging."""
+    from repro_torch.core.transport import engine_torch
+    bp = params or BatchedSimParams()
+    if bp.legacy_streams:
+        raise _not_ported("legacy_streams=True (replay.py)")
+    for win in bp.windows:
+        if WindowPolicy.parse(win).kind == "step":
+            raise ValueError("sweep windows must be 'round' or 'phase' "
+                             "(window='step' needs per-flow traces)")
+    device = resolve_device(device)
+    fault_grid = bp.fault_params()
+    res = SweepResult(params=bp, stats={})
+    total_cells = (len(bp.n_nodes) * len(bp.message_mb) * len(bp.n_pods)
+                   * len(bp.schedules) * len(fault_grid))
+    done_cells = 0
+    t0 = time.perf_counter()
+    for nn in bp.n_nodes:
+        for mb in bp.message_mb:
+            for npods in bp.n_pods:
+                for sched in bp.schedules:
+                    for fp in fault_grid:
+                        if progress is not None:
+                            progress(f"[{device.type}] n_nodes={nn} "
+                                     f"message_mb={mb} n_pods={npods} "
+                                     f"schedule={sched} fault={fp.tag} "
+                                     f"seeds={list(bp.seeds)} ({done_cells}/"
+                                     f"{total_cells} cells, "
+                                     f"{time.perf_counter() - t0:.1f} s)")
+                        p = dataclasses.replace(
+                            bp.base,
+                            net=dataclasses.replace(bp.base.net, n_nodes=nn),
+                            work=dataclasses.replace(
+                                bp.base.work, message_bytes=int(mb * 2**20),
+                                schedule=sched),
+                            topo=dataclasses.replace(bp.base.topo,
+                                                     n_pods=npods),
+                            fault=fp)
+                        eng = BatchedEngine(p, device=str(device))
+                        trs = engine_torch.traces_batched(
+                            eng, list(bp.designs), bp.n_rounds,
+                            list(bp.seeds))
+                        res.timing[(nn, mb, npods, sched, fp.tag)] = (
+                            eng.timing)
+                        for s, tr in zip(bp.seeds, trs):
+                            _assemble_cell(res, eng, bp, tr, s,
+                                           (nn, mb, npods, sched), fp.tag)
+                        done_cells += 1
+    return res
+
+
+def _assemble_cell(res, eng, bp, tr, s, cell, fault_tag):
+    """One seed of one sweep cell: every design, every window."""
+    nn, mb, npods, sched = cell
+    to = bp.celeris_timeout_us
+    if "celeris" in bp.designs and to is None:
+        if "roce" in bp.designs:
+            base = eng.assemble(tr["roce"], s)
+            to = float((np.percentile(base.times_us, 50)
+                        + base.times_us.std()) * bp.timeout_scale)
+        else:
+            to = 50_000.0 * bp.timeout_scale
+    for d in bp.designs:
+        # window policies share the physics trace: only the celeris
+        # budget assembly differs
+        st = None if d == "celeris" else eng.assemble(tr[d], s)
+        for win in bp.windows:
+            res.stats[res._key(d, nn, mb, s, npods, sched, win,
+                               fault_tag)] = (
+                eng.assemble(tr[d], s, celeris_timeout_us=to,
+                             adaptive=False, window=win)
+                if d == "celeris" else st)
 
 
 def _sparse_path_curves(net, occ_tor: np.ndarray, src: np.ndarray,

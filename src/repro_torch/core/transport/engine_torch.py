@@ -1,5 +1,6 @@
 """The engine's device backend in torch (port of
-``repro/core/transport/engine_jax.py``, the shared-fabric flat ring).
+``repro/core/transport/engine_jax.py``: flat and hierarchical fabrics,
+the ring, ``hier`` and ``perrail`` schedules, fault injection).
 
 The numpy engine (``repro.core.transport.engine``) is the reference:
 every seeded statistic is defined by its exact draw order.  This module
@@ -8,33 +9,41 @@ keeps that order and moves the rate-dependent physics to the card.
 Hybrid split (the replay contract decides what goes where)
 ----------------------------------------------------------
 Everything that *consumes a random substream* stays on the host in
-numpy, block for block in the numpy engine's exact order: the burst
-chains, the hot-row ECN/drop curves that gate CNP and loss draws, the
-PFC cascade, and the per-design loss draws (the shared helpers in
-:mod:`designs`).  Loss draws depend only on the drop curve, never on
-the DCQCN rate, so each design's recovery machinery reduces to dense
-rate-independent fields::
+numpy, block for block and phase by phase in the numpy engine's exact
+order (``BatchedEngine._traces_shared`` there): the ToR and DCI burst
+chains, then per phase the hot-row ECN/drop curves, the DCI overlay of
+the curves, the CNP draws (the flat stream, then the DCI stream on
+cross-pod columns); then the fault masks (``faults.FaultModel``), and
+per design and phase the PFC cascade and the loss draws (the shared
+helpers in :mod:`designs`).  Loss draws depend only on the drop curve,
+never on the DCQCN rate, so each design's recovery machinery reduces to
+dense rate-independent fields::
 
     excess_time = A + B * pkt_time        (reliable designs)
     delivered   = n_pkts - wire_losses    (celeris)
 
 Everything *rate-dependent* runs as torch ops on the engine's device,
 with the seed axis written out as the leading dimension: the DCQCN
-recurrence (one launch of the hand-written scan kernel per block,
-``kernels/csrc/dcqcn.cu``; its plain version on the CPU), the
-queue/bandwidth response curves (one formula source: :mod:`network`),
-per-design completion times and the per-step reductions.  The float
-types follow the numpy engine: float32 times, float64 where it casts
-(the excess ``A + B * pkt_time``).
+recurrence over the whole ``(S, tb, n)`` block of marks (one launch of
+the hand-written scan kernel per block, ``kernels/csrc/dcqcn.cu``; its
+plain version on the CPU), so each sender NIC's rate evolves across
+phase boundaries; then per phase a gather of its rows and sender
+columns, the queue/bandwidth response curves (one formula source:
+:mod:`network`), the DCI overlay as static column vectors
+(``topology.dci_columns``), the straggler rate scale, per-design
+completion times, the fault reactions (``faults.apply_to_result``) and
+the per-step tier and pod reductions.  The float types follow the numpy
+engine: float32 times, float64 where it casts (the excess
+``A + B * pkt_time``).
 
 Tolerance contract
 ------------------
 The host pass replays the numpy engine's streams exactly, so both see
-the same draws and delivered packets agree exactly.  The core regroups
-a few float accumulations (the A/B split above, ``occ ** 3`` as two
-multiplies, the ``pow`` of the alpha decay), leaving relative
-differences near 1e-7 on step times: the contract is rtol 1e-5 on
-times, p99 and delivered fractions, as for ``engine_jax``.
+the same draws: delivered packets and faulted-flow counts agree exactly.
+The core regroups a few float accumulations (the A/B split above,
+``occ ** 3`` as two multiplies, the ``pow`` of the alpha decay),
+leaving relative differences near 1e-7 on step times: the contract is
+rtol 1e-5 on times, p99 and delivered fractions, as for ``engine_jax``.
 """
 from __future__ import annotations
 
@@ -43,20 +52,21 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.transport import designs, network
+from repro_torch.core.transport import designs, faults, network, topology
 from repro_torch.core.transport import engine as engine_mod
 from repro_torch.core.transport.dcqcn import DcqcnState
 from repro_torch.kernels import ops
 
 
 class _SeedStreams:
-    """One seed's generators and carried chain state, consumed block by
+    """One seed's generators and carried chain states, consumed block by
     block in the numpy engine's exact order (the replay contract)."""
 
     def __init__(self, eng, seed: int, design_list):
+        p = eng.p
         g = eng._geometry(seed)
-        net = eng.p.net
-        n_tors = g["n_tors"]
+        net = p.net
+        n, n_tors = g["n"], g["n_tors"]
         self.fabric_gen = np.random.default_rng(g["fabric_seed"])
         self.cnp_gen = np.random.default_rng([seed, engine_mod._STREAM_CNP])
         self.pfc_gen = np.random.default_rng([seed, engine_mod._STREAM_PFC])
@@ -67,6 +77,57 @@ class _SeedStreams:
         self.fab_state = network.FabricState(
             bursting=np.zeros(n_tors, dtype=bool),
             occupancy=np.full(n_tors, net.idle_occupancy))
+        if p.topo.hierarchical:
+            self.dci_state = topology.init_dci_state(net, p.topo)
+            self.dci_fab_gen = np.random.default_rng(
+                [g["fabric_seed"], topology.STREAM_DCI_FABRIC])
+            self.dci_cnp_gen = np.random.default_rng(
+                [seed, topology.STREAM_DCI_CNP])
+        self.fmodel = (faults.FaultModel(p, seed, n, n_tors, g["steps"])
+                       if p.fault.active else None)
+
+
+class _Plan:
+    """The static per-phase facts of one engine configuration: rows in a
+    round, senders, tier and pod columns, packets, and the DCI overlay
+    vectors (numpy, and as tensors on the engine's device)."""
+
+    def __init__(self, eng):
+        p = eng.p
+        net, topo = p.net, p.topo
+        g = eng._geometry(0)
+        self.n, self.steps, self.n_tors = g["n"], g["steps"], g["n_tors"]
+        self.plan = plan = g["plan"]
+        self.hgs = plan.geometries(net, topo)
+        self.hier = topo.hierarchical
+        self.single = plan.single_phase
+        dev = eng.device
+
+        def on_dev(a, dtype=torch.long):
+            return torch.as_tensor(a, dtype=dtype, device=dev)
+
+        self.phases = []
+        for k, (ph, hg) in enumerate(zip(plan.phases, self.hgs)):
+            cols = topology.dci_columns(topo, hg)
+            self.phases.append(dict(
+                ph=ph, hg=hg, n_pkts=ph.n_pkts(net),
+                steps=np.flatnonzero(plan.phase_of_step == k),
+                all_senders=np.array_equal(ph.src, np.arange(self.n)),
+                src_t=on_dev(ph.src),
+                tier_np=hg.tier_cols,
+                tier_t=[on_dev(c) for c in hg.tier_cols],
+                pod_np=hg.pod_cols if self.hier else None,
+                pod_t=([on_dev(c) for c in hg.pod_cols] if self.hier
+                       else None),
+                oversub_t=(on_dev(cols.oversub, torch.float32)
+                           if cols is not None else None),
+                dci_add_t=(on_dev(cols.dci_add, torch.float32)
+                           if cols is not None else None)))
+
+    def rows(self, k: int, tb: int) -> np.ndarray:
+        """Phase ``k``'s steps in a block of ``tb`` steps, round-major."""
+        round0 = np.arange(0, tb, self.steps)
+        return (round0[:, None] + self.phases[k]["steps"][None, :]).ravel()
 
 
 def _design_draws(d, n_pkts, drop_p, rel, net, rng, shape):
@@ -113,76 +174,162 @@ def _design_draws(d, n_pkts, drop_p, rel, net, rng, shape):
     return {"A": A, "B": B}
 
 
-def _host_block(eng, st: _SeedStreams, tb: int, design_list, src, dst,
-                n_pkts):
-    """One seed's draw pass for the next ``tb`` steps: exactly the numpy
-    engine's stream consumption on the flat ring, minus the
-    rate-dependent math the core does."""
-    net, rel = eng.p.net, eng.p.rel
-    n_tors = net.n_nodes // net.nodes_per_tor
-    u = st.fabric_gen.random((tb, network._ADVANCE_DRAWS, n_tors))
+def _host_block(eng, st: _SeedStreams, ctx: _Plan, t0: int, tb: int,
+                design_list):
+    """One seed's draw pass for steps ``[t0, t0 + tb)``: exactly the
+    numpy engine's stream consumption, minus the rate-dependent math the
+    core does.  Returns the block's CNP marks ``(tb, n)``, per phase its
+    inputs to the core, and the faulted-flow count per step (None without
+    faults)."""
+    p = eng.p
+    net, rel, topo = p.net, p.rel, p.topo
+    u = st.fabric_gen.random((tb, network._ADVANCE_DRAWS, ctx.n_tors))
     _, occ_tor, st.fab_state = network.occupancy_trace(net, u, st.fab_state)
-    ecn_p, drop_p, hot = engine_mod._sparse_path_curves(net, occ_tor, src,
-                                                        dst)
-    occ32 = network.path_occupancy_trace(net, occ_tor.astype(np.float32),
-                                         src, dst)
-    cnp = np.zeros((tb, src.size), dtype=bool)
-    cnp[hot] = st.cnp_gen.random((hot.size, src.size)) < ecn_p[hot]
-    host = {"cnp": cnp, "occ32": occ32}
-    # PFC + loss draws, design by design (the PFC stream is consumed on
-    # the roce iteration only); its pauses are multiples of
-    # pfc_pause_us, exact in float32
+    if ctx.hier:
+        u_dci = st.dci_fab_gen.random(
+            (tb, network._ADVANCE_DRAWS, topo.n_pods))
+        _, occ_dci, st.dci_state = network.occupancy_trace(
+            topology.dci_net_params(net, topo), u_dci, st.dci_state)
+
+    # phase pass 1: path curves, the DCI overlay of the curves, and the
+    # CNP draws, phase by phase (the flat stream, then the DCI stream)
+    cnp = np.zeros((tb, ctx.n), dtype=bool)
+    ph_host = []
+    for k, s in enumerate(ctx.phases):
+        ph, hg = s["ph"], s["hg"]
+        rows = ctx.rows(k, tb)
+        occ_ph = occ_tor if ctx.single else occ_tor[rows]
+        ecn_p, drop_p, hot = engine_mod._sparse_path_curves(
+            net, occ_ph, ph.src, ph.dst)
+        occ32 = network.path_occupancy_trace(
+            net, occ_ph.astype(np.float32), ph.src, ph.dst)
+        occ_eff = None
+        if ctx.hier:
+            occ_eff = topology.overlay_curves(
+                net, topo, hg, occ_ph, occ_dci if ctx.single
+                else occ_dci[rows], ecn_p, drop_p)
+        cnp_ph = np.zeros((rows.size, ph.src.size), dtype=bool)
+        cnp_ph[hot] = st.cnp_gen.random((hot.size, ph.src.size)) < ecn_p[hot]
+        if ctx.hier:
+            topology.dci_cnp_draws(hg, ecn_p, cnp_ph, st.dci_cnp_gen)
+        cnp[np.ix_(rows, ph.src)] = cnp_ph
+        ph_host.append({"rows": rows, "occ32": occ32, "drop": drop_p,
+                        "occ_eff": occ_eff})
+
+    # the fault masks (after the marks, as the numpy engine draws them
+    # after its DCQCN pass), and the cross-pod columns' effective
+    # occupancy, which the PFC draws below see
+    blk = st.fmodel.advance(t0, tb) if st.fmodel is not None else None
+    fault_flows = np.zeros(tb) if blk is not None else None
+    for k, h in enumerate(ph_host):
+        x = ctx.phases[k]["hg"].cross
+        if ctx.hier and x.size:
+            h["occ32"][:, x] = h["occ_eff"].astype(np.float32)
+        if blk is not None:
+            blocked, dead = st.fmodel.phase_masks(
+                blk, h["rows"], ctx.phases[k]["ph"], ctx.phases[k]["hg"],
+                net.nodes_per_tor)
+            shape = h["occ32"].shape
+            h["blocked"] = (blocked if blocked is not None
+                            else np.zeros(shape, dtype=bool))
+            h["dead"] = (dead if dead is not None
+                         else np.zeros(shape, dtype=bool))
+            fault_flows[h["rows"]] = (h["blocked"].sum(axis=1)
+                                      + h["dead"].sum(axis=1))
+
+    # PFC + loss draws, design by design and phase by phase (the PFC
+    # stream is consumed on the roce iterations only); pauses are
+    # multiples of pfc_pause_us, exact in float32
     for d in design_list:
-        if d == "roce":
-            host["pfc"] = network.pfc_pause_trace(
-                net, occ32, st.pfc_gen).astype(np.float32)
-        host[d] = _design_draws(d, n_pkts, drop_p, rel, net,
-                                st.transfer_gens[d], occ32.shape)
-    return host
+        for k, h in enumerate(ph_host):
+            if d == "roce":
+                h["pfc"] = network.pfc_pause_trace(
+                    net, h["occ32"], st.pfc_gen).astype(np.float32)
+            h[d] = _design_draws(d, ctx.phases[k]["n_pkts"], h["drop"], rel,
+                                 net, st.transfer_gens[d], h["occ32"].shape)
+    for h in ph_host:
+        del h["rows"], h["drop"], h["occ_eff"]
+    return {"cnp": cnp, "phases": ph_host, "fault_flows": fault_flows}
 
 
-def _core(eng, inp, state: DcqcnState, design_list, n_pkts, tier_cols):
+def _core(eng, ctx: _Plan, inp, state: DcqcnState, design_list, tb: int):
     """The rate-dependent physics of one block, all seeds at once.
 
-    ``inp`` holds ``(S, tb, n)`` tensors on the engine's device.  Returns
-    per design the per-step max completion time ``nat`` ``(S, tb)``
-    and, for celeris, the delivered sums ``deliv`` ``(S, tb)`` and
-    ``tier`` ``(S, tb, n_tiers)``; and the carried DCQCN state.
+    ``inp`` holds ``(S, tb, n)`` marks and per phase ``(S, rows, flows)``
+    tensors on the engine's device.  Returns per phase and design the
+    per-step max completion time ``nat`` ``(S, rows)`` and, where they
+    are not schedule constants, the delivered sums ``deliv``, ``tier``
+    and ``pod``; and the carried DCQCN state.
     """
-    net, dq = eng.p.net, eng.p.dcqcn
+    net, rel, dq = eng.p.net, eng.p.rel, eng.p.dcqcn
     cnp = inp["cnp"]
     rates, (r, t, a, g) = ops.dcqcn_scan(
         cnp, cnp.any(-1), state.rate, state.target, state.alpha,
         state.good_stages, dq)
-    occ32 = inp["occ32"]
-    qd = network.queue_delay_us(net, occ32)
-    eff = rates * network.avail_bandwidth(net, occ32)
-    # torch.div, not ``c / eff``: the reflected operator multiplies by
-    # the reciprocal, which is not the IEEE quotient numpy takes
-    pkt_time = torch.div(eff.new_tensor(net.pkt_time_us),
-                         torch.clamp(eff, min=1e-3))
-    ptf64 = pkt_time.double()
-    serialize = n_pkts * pkt_time
-    out = {}
-    for d in design_list:
-        if d == "celeris":
-            times = (serialize + designs.CELERIS_QUEUE_OVERLAP * qd
-                     + net.base_rtt_us / 2)
-            deliv = inp[d]["deliv"]
-            out[d] = {"nat": times.amax(-1), "deliv": deliv.sum(-1),
-                      "tier": torch.stack([deliv[..., c].sum(-1)
-                                           for c in tier_cols], -1)}
-            continue
-        times = serialize + qd + net.base_rtt_us / 2
-        if d == "roce":
-            times = times + inp["pfc"]
-        ex = inp[d]["A"].double() + inp[d]["B"].double() * ptf64
-        out[d] = {"nat": (times + ex.float()).amax(-1)}
+    dev = rates.device
+    rate_scale = inp.get("rate_scale")
+    out = []
+    for k, s in enumerate(ctx.phases):
+        ph_in = inp["phases"][k]
+        occ32 = ph_in["occ32"]
+        # the phase's rows and sender columns of the block's rates
+        if ctx.single and s["all_senders"]:
+            rate_ph = rates
+        else:
+            rows = torch.as_tensor(ctx.rows(k, tb), device=dev)
+            rate_ph = rates.index_select(1, rows)
+            if not s["all_senders"]:
+                rate_ph = rate_ph.index_select(2, s["src_t"])
+        if s["oversub_t"] is not None:
+            qd, eff = topology.overlay_rates(net, occ32, rate_ph,
+                                             s["oversub_t"])
+        else:
+            qd = network.queue_delay_us(net, occ32)
+            eff = rate_ph * network.avail_bandwidth(net, occ32)
+        if rate_scale is not None:          # slow-NIC stragglers
+            eff = eff * rate_scale.index_select(1, s["src_t"])[:, None, :]
+        # torch.div, not ``c / eff``: the reflected operator multiplies by
+        # the reciprocal, which is not the IEEE quotient numpy takes
+        pkt_time = torch.div(eff.new_tensor(net.pkt_time_us),
+                             torch.clamp(eff, min=1e-3))
+        ptf64 = pkt_time.double()
+        serialize = s["n_pkts"] * pkt_time
+        blocked, dead = ph_in.get("blocked"), ph_in.get("dead")
+        per_design = {}
+        for d in design_list:
+            deliv = None
+            if d == "celeris":
+                times = (serialize + designs.CELERIS_QUEUE_OVERLAP * qd
+                         + net.base_rtt_us / 2)
+                deliv = ph_in[d]["deliv"]
+            else:
+                times = serialize + qd + net.base_rtt_us / 2
+                if d == "roce":
+                    times = times + ph_in["pfc"]
+                ex = ph_in[d]["A"].double() + ph_in[d]["B"].double() * ptf64
+                times = times + ex.float()
+            if s["dci_add_t"] is not None:
+                times = times + s["dci_add_t"]
+            if blocked is not None:
+                times, deliv = faults.apply_to_result(d, times, deliv,
+                                                      blocked, dead, rel)
+            o = {"nat": times.amax(-1)}
+            if deliv is None and dead is not None:
+                # reliable designs deliver what a live flow offers
+                deliv = (~dead).double() * float(s["n_pkts"])
+            if deliv is not None:
+                o["deliv"] = deliv.sum(-1)
+                o["tier"] = torch.stack([deliv[..., c].sum(-1)
+                                         for c in s["tier_t"]], -1)
+                if s["pod_t"] is not None:
+                    o["pod"] = torch.stack([deliv[..., c].sum(-1)
+                                            for c in s["pod_t"]], -1)
+            per_design[d] = o
+        out.append(per_design)
     return out, DcqcnState(rate=r, target=t, alpha=a, good_stages=g)
 
 
-def _stack_to(host, key, dev, design=None):
-    arrays = [h[key] if design is None else h[design][key] for h in host]
+def _stack_to(arrays, dev):
     return torch.from_numpy(np.stack(arrays)).to(dev)
 
 
@@ -215,8 +362,8 @@ def traces_batched(eng, design_list, n_rounds: int, seeds, *,
     if S == 0:
         return []
 
-    g0 = eng._geometry(seeds[0])
-    n, steps, plan = g0["n"], g0["steps"], g0["plan"]
+    ctx = _Plan(eng)
+    n, steps = ctx.n, ctx.steps
     T = n_rounds * steps
     if round_block is None:
         # the numpy default, and not negotiable: the host pass must
@@ -224,56 +371,79 @@ def traces_batched(eng, design_list, n_rounds: int, seeds, *,
         # block partition or the draws land on different cells
         round_block = max(1, engine_mod._BLOCK_ELEMENTS // (steps * n))
     block_steps = round_block * steps
-    ph = plan.phases[0]
-    src, dst = ph.src, ph.dst
-    n_pkts = ph.n_pkts(net)
-    hgs = plan.geometries(net, p.topo)
-    tier_np = hgs[0].tier_cols
     dev = eng.device
-    tier_cols = [torch.as_tensor(c, dtype=torch.long, device=dev)
-                 for c in tier_np]
 
     streams = [_SeedStreams(eng, s, design_list) for s in seeds]
-    outs = [eng._new_traces(design_list, T, steps, plan, hgs) for _ in seeds]
+    outs = [eng._new_traces(design_list, T, ctx.plan, ctx.hgs)
+            for _ in seeds]
+    fault_flows = ([np.zeros(T) for _ in seeds] if p.fault.active
+                   else None)
     state = DcqcnState.init((S, n), device=dev)
+    rate_scale = None
+    fmodel = streams[0].fmodel
+    if fmodel is not None and fmodel.rate_scale is not None:
+        rate_scale = _stack_to([st.fmodel.rate_scale for st in streams], dev)
     host_s = device_s = 0.0
     n_blocks = 0
     for t0 in range(0, T, block_steps):
         tb = min(block_steps, T - t0)   # whole rounds: steps | tb
         c0 = time.perf_counter()
-        host = [_host_block(eng, st, tb, design_list, src, dst, n_pkts)
+        host = [_host_block(eng, st, ctx, t0, tb, design_list)
                 for st in streams]
         c1 = time.perf_counter()
-        inp = {k: _stack_to(host, k, dev) for k in ("cnp", "occ32")}
-        if "roce" in design_list:
-            inp["pfc"] = _stack_to(host, "pfc", dev)
-        for d in design_list:
-            inp[d] = {k: _stack_to(host, k, dev, d) for k in host[0][d]}
+        inp = {"cnp": _stack_to([h["cnp"] for h in host], dev),
+               "phases": []}
+        if rate_scale is not None:
+            inp["rate_scale"] = rate_scale
+        for k, h0 in enumerate(host[0]["phases"]):
+            hs = [h["phases"][k] for h in host]
+            ph_in = {key: _stack_to([h[key] for h in hs], dev)
+                     for key in h0 if key not in designs.DESIGNS}
+            for d in design_list:
+                ph_in[d] = {f: _stack_to([h[d][f] for h in hs], dev)
+                            for f in h0[d]}
+            inp["phases"].append(ph_in)
+        if fault_flows is not None:
+            for si, h in enumerate(host):
+                fault_flows[si][t0:t0 + tb] = h["fault_flows"]
         del host
-        res, state = _core(eng, inp, state, design_list, n_pkts, tier_cols)
-        res = {d: {k: v.cpu().numpy() for k, v in o.items()}
-               for d, o in res.items()}
-        rows = slice(t0, t0 + tb)
+        res, state = _core(eng, ctx, inp, state, design_list, tb)
+        res = [{d: {f: v.cpu().numpy() for f, v in o.items()}
+                for d, o in ph.items()} for ph in res]
         for si in range(S):
-            _scatter_block(outs[si], res, si, rows, n_pkts, n, tier_np)
+            _scatter_block(outs[si], res, si, ctx, t0, tb)
         host_s += c1 - c0
         device_s += time.perf_counter() - c1
         n_blocks += 1
+    if fault_flows is not None:
+        for si in range(S):
+            for tr in outs[si].values():
+                tr.fault_flows = fault_flows[si]
     eng.timing = {"host_s": host_s, "device_s": device_s,
                   "blocks": n_blocks, "seeds": S, "steps": T, "nodes": n}
     return outs
 
 
-def _scatter_block(out, res, si, rows, n_pkts, n, tier_cols):
+def _scatter_block(out, res, si, ctx: _Plan, t0: int, tb: int):
     """Write one seed's block of core outputs into its StepTraces; the
-    offered totals (and the reliable designs' delivered packets, which
-    equal them) are schedule constants filled on the host."""
-    for d, tr in out.items():
-        o = res[d]
-        tr.nat_us[rows] = o["nat"][si]
-        tr.total[rows] = float(n_pkts * n)
-        tr.deliv[rows] = o["deliv"][si] if "deliv" in o else float(n_pkts * n)
-        for kt, cols in enumerate(tier_cols):
-            tr.tier_total[rows, kt] = float(n_pkts * cols.size)
-            tr.tier_deliv[rows, kt] = (o["tier"][si][:, kt] if "tier" in o
-                                       else float(n_pkts * cols.size))
+    offered totals, and the delivered packets of reliable designs on
+    fault-free traces (which equal them), are schedule constants filled
+    on the host."""
+    for k, s in enumerate(ctx.phases):
+        rows = t0 + ctx.rows(k, tb)
+        npk, f = s["n_pkts"], s["ph"].src.size
+        for d, tr in out.items():
+            o = res[k][d]
+            tr.nat_us[rows] = o["nat"][si]
+            tr.total[rows] = float(npk * f)
+            tr.deliv[rows] = o["deliv"][si] if "deliv" in o else float(npk * f)
+            for kt, cols in enumerate(s["tier_np"]):
+                tr.tier_total[rows, kt] = float(npk * cols.size)
+                tr.tier_deliv[rows, kt] = (o["tier"][si][:, kt] if "tier" in o
+                                           else float(npk * cols.size))
+            if s["pod_np"] is not None:
+                for kp, cols in enumerate(s["pod_np"]):
+                    tr.pod_total[rows, kp] = float(npk * cols.size)
+                    tr.pod_deliv[rows, kp] = (
+                        o["pod"][si][:, kp] if "pod" in o
+                        else float(npk * cols.size))

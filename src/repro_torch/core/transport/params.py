@@ -187,9 +187,6 @@ class FaultParams:
     ``target_nodes`` restricts the node-level processes (stall, crash,
     straggler) to a node subset — e.g. one pod, for the faulted-pod
     end-to-end training experiment.
-
-    The port's engine does not run faults yet: an active ``FaultParams``
-    makes it raise ``NotImplementedError``.
     """
     stall_rate: float = 0.0
     stall_steps: int = 8

@@ -1,17 +1,33 @@
-"""Flow plans and the ring schedule (port of
-``repro/core/transport/schedule.py``: ``SchedulePhase``, the
-``FlowPlan`` members the engine and the window assembly read, and the
-flat ring).
+"""Flow plans and the collective schedules (port of
+``repro/core/transport/schedule.py``: ``SchedulePhase``, the ``FlowPlan``
+members the engine and the window assembly read, and the ring,
+hierarchical and per-rail schedules).
 
 A :class:`FlowPlan` is one round of point-to-point flow phases: each
 phase a contiguous run of steps sharing one static flow pattern, so it
-stays a dense ``(step, flow)`` block in the engine.  The ring schedule
-is one phase of ``2(N-1)`` steps moving ``M/N`` bytes between ring
-neighbours (reduce-scatter then all-gather over all ``N`` nodes).
+stays a dense ``(step, flow)`` block in the engine.  For ``n_pods`` pods
+of ``m = N / n_pods`` nodes and an ``M``-byte message:
 
-The hierarchical and per-rail schedules, arbitrary ``flow_plan``s and
-incast are not ported yet: :func:`make_plan` raises on any schedule but
-``"ring"`` (see ROADMAP, Queue 1 item 5).
+- :class:`RingSchedule`: one phase of ``2(N-1)`` steps of ``M/N`` bytes
+  between ring neighbours;
+- :class:`HierarchicalSchedule`: ``rs`` (reduce-scatter inside each pod,
+  ``m-1`` steps of ``M/m``), ``dci`` (the pod leaders' ring over the
+  DCI, ``2(n_pods-1)`` steps of ``M/n_pods``), ``ag`` (all-gather inside
+  each pod, as ``rs``);
+- :class:`PerRailHierarchicalSchedule`: the same, with every node
+  crossing pods on its rank's rail in ``dci`` (shards of
+  ``M/(m n_pods)``).
+
+Each phase carries a window-budget weight (``budget_frac``: nominal
+unloaded phase time, the DCI phase paying the mean oversubscription and
+the extra propagation), which :meth:`FlowPlan.budget_fracs` normalizes
+into the per-phase split of the Celeris round budget
+(``window="phase"``), and a semantic priority class.
+
+Arbitrary plans (``flow_plan``), incast and the priority helpers
+(``with_step_priorities``, ``layer_priorities``) are not ported yet: the
+engine takes the plan :func:`make_plan` builds and raises on a ``plan=``
+override.
 """
 from __future__ import annotations
 
@@ -30,20 +46,26 @@ class SchedulePhase:
 
     ``payload_bytes`` is per flow per step; a flow's sender column in
     the engine's ``(step, node)`` tensors is its ``src`` node.
-    ``priority`` is its semantic class (assembly-time metadata only).
-    The per-phase window weight (``budget_frac``) is not ported: on the
-    single-phase ring the phase window is the round window.
+    ``budget_frac`` is the phase's un-normalized window-budget weight
+    (None: its nominal serialization share ``n_steps * payload_bytes``);
+    ``priority`` its semantic class (assembly-time metadata only).
     """
     name: str
     src: np.ndarray            # (n_flows,) sender node per flow
     dst: np.ndarray            # (n_flows,) receiver node per flow
     n_steps: int               # steps of this phase per round
     payload_bytes: int         # bytes per flow per step
+    budget_frac: float | None = None   # window-budget weight (un-normalized)
     priority: int = 0          # semantic class (higher = cut later)
 
     def n_pkts(self, net: NetworkParams) -> int:
         """Packets per flow per step (payload split at the MTU, >= 1)."""
         return max(1, self.payload_bytes // net.mtu_bytes)
+
+    @property
+    def budget_weight(self) -> float:
+        return (float(self.n_steps * self.payload_bytes)
+                if self.budget_frac is None else float(self.budget_frac))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -83,6 +105,24 @@ class FlowPlan:
         for ph, hg in zip(self.phases, gs):
             out += hg.tier_counts * (ph.n_pkts(net) * ph.n_steps)
         return out
+
+    def pod_pkts_round(self, net: NetworkParams, topo: TopologyParams,
+                       geometries: tuple | None = None) -> np.ndarray:
+        """(n_pods,) offered intra-pod packets per round per pod (DCI
+        flows belong to the cross axis)."""
+        gs = geometries if geometries is not None else self.geometries(
+            net, topo)
+        out = np.zeros(topo.n_pods)
+        for ph, hg in zip(self.phases, gs):
+            for p, cols in enumerate(hg.pod_cols):
+                out[p] += cols.size * ph.n_pkts(net) * ph.n_steps
+        return out
+
+    def budget_fracs(self) -> np.ndarray:
+        """(n_phases,) normalized per-phase split of the Celeris round
+        budget; exactly ``[1.0]`` on a single-phase plan."""
+        w = np.array([ph.budget_weight for ph in self.phases])
+        return w / w.sum()
 
     def step_priority(self) -> np.ndarray:
         """(steps_per_round,) semantic priority class per step."""
@@ -125,11 +165,103 @@ class RingSchedule(CollectiveSchedule):
         return _mk_plan(self.name, (ring,))
 
 
+def _mean_oversub(topo: TopologyParams) -> float:
+    """Mean DCI oversubscription ratio (per-pod vectors average)."""
+    return float(np.mean(topology.per_pod_array(
+        topo.dci_oversubscription, topo.n_pods, "dci_oversubscription")))
+
+
+def _nominal_us(net: NetworkParams, n_steps: int, payload_bytes: int,
+                extra_rtt_us: float = 0.0, slowdown: float = 1.0) -> float:
+    """Nominal unloaded phase time: per-step serialization (scaled by the
+    tier's slowdown) plus the half-RTT floor, summed over steps."""
+    return n_steps * (payload_bytes / net.link_bytes_per_us * slowdown
+                      + net.base_rtt_us / 2 + extra_rtt_us)
+
+
+class HierarchicalSchedule(CollectiveSchedule):
+    """Reduce-scatter within pod -> leader DCI exchange -> all-gather
+    within pod."""
+
+    name = "hier"
+    # Execution order of the phases; the trainer's HIERARCHICAL sync
+    # (exact intra-pod first, coded cross-pod second) asserts it.
+    PHASE_ORDER = ("rs", "dci", "ag")
+    # Semantic priority classes: the coded DCI shards are cut first; the
+    # HIERARCHICAL sync asserts the DCI phase is the lowest class.
+    PRIORITY = {"rs": 1, "dci": 0, "ag": 1}
+
+    def _dci_phase(self, net, topo, work, m: int) -> SchedulePhase:
+        """The leader exchange: one flow per pod, ``M/n_pods`` shards."""
+        n_pods = topo.n_pods
+        leaders = np.arange(n_pods) * m
+        return SchedulePhase(
+            name="dci", src=leaders,
+            dst=((np.arange(n_pods) + 1) % n_pods) * m,
+            n_steps=2 * (n_pods - 1),
+            payload_bytes=work.message_bytes // n_pods)
+
+    def plan(self, net, topo, work):
+        topology.validate(net, topo)
+        n, n_pods = net.n_nodes, topo.n_pods
+        if n_pods == 1:
+            # the degenerate hierarchy is the flat ring
+            return dataclasses.replace(RingSchedule().plan(net, topo, work),
+                                       schedule=self.name)
+        m = n // n_pods
+        src = np.arange(n)
+        pod = src // m
+        nxt = pod * m + (src - pod * m + 1) % m     # intra-pod ring
+        dci = self._dci_phase(net, topo, work, m)
+        rs = SchedulePhase(name="rs", src=src, dst=nxt, n_steps=m - 1,
+                           payload_bytes=work.message_bytes // m)
+        intra_w = _nominal_us(net, rs.n_steps, rs.payload_bytes)
+        dci_w = _nominal_us(net, dci.n_steps, dci.payload_bytes,
+                            extra_rtt_us=topo.dci_rtt_us / 2,
+                            slowdown=_mean_oversub(topo))
+        phases = (
+            dataclasses.replace(rs, budget_frac=intra_w,
+                                priority=self.PRIORITY["rs"]),
+            dataclasses.replace(dci, budget_frac=dci_w,
+                                priority=self.PRIORITY["dci"]),
+            dataclasses.replace(rs, name="ag", budget_frac=intra_w,
+                                priority=self.PRIORITY["ag"]),
+        )
+        assert tuple(ph.name for ph in phases) == self.PHASE_ORDER
+        return _mk_plan(self.name, phases)
+
+
+class PerRailHierarchicalSchedule(HierarchicalSchedule):
+    """Hierarchical exchange with every node crossing pods: node (pod i,
+    rank j) rings over pods on rail j, ``M/(m n_pods)``-byte shards for
+    ``2(n_pods-1)`` steps."""
+
+    name = "perrail"
+
+    def _dci_phase(self, net, topo, work, m: int) -> SchedulePhase:
+        n_pods = topo.n_pods
+        src = np.arange(m * n_pods)
+        pod, rank = src // m, src % m
+        return SchedulePhase(
+            name="dci", src=src,
+            dst=((pod + 1) % n_pods) * m + rank,
+            n_steps=2 * (n_pods - 1),
+            payload_bytes=work.message_bytes // (m * n_pods))
+
+
+SCHEDULES = {cls.name: cls for cls in (RingSchedule, HierarchicalSchedule,
+                                       PerRailHierarchicalSchedule)}
+
+
+def get_schedule(name: str) -> CollectiveSchedule:
+    try:
+        return SCHEDULES[name]()
+    except KeyError:
+        raise ValueError(f"unknown collective schedule {name!r}; choose "
+                         f"from {sorted(SCHEDULES)}") from None
+
+
 def make_plan(net: NetworkParams, topo: TopologyParams,
               work: WorkloadParams) -> FlowPlan:
-    """The plan for ``work.schedule`` on this topology (ring only)."""
-    if work.schedule != "ring":
-        raise NotImplementedError(
-            f"schedule={work.schedule!r} is not ported yet: the port runs "
-            "the flat ring only (ROADMAP, Queue 1 item 5)")
-    return RingSchedule().plan(net, topo, work)
+    """The plan for ``work.schedule`` on this topology."""
+    return get_schedule(work.schedule).plan(net, topo, work)

@@ -13,7 +13,13 @@ The gradient sync dispatches on
   only (1 - drop_rate) of each payload inside its window, emulated per
   coded leaf as single-peer ``encode_nd`` -> mask -> unbiased
   ``decode_nd`` (:func:`_code_grads`); the rotations run on the FWHT
-  kernel.
+  kernel;
+- **hierarchical**: exact intra-pod, coded lossy cross-pod.  On one
+  device there is no pod axis to sync over, so it is the
+  ``lossy_hadamard`` emulation at the cross-pod component of the drop
+  vector (``drop_rate[-1]`` of the ``(2,)`` or ``(n_pods + 1,)`` vector
+  a ``coupling.HierStragglerModel`` yields; a scalar is its own last
+  component).
 
 Then AdamW (float32 master) updates the parameters.
 
@@ -27,20 +33,22 @@ generator.  ``masks``/``signs`` (leaf index -> tensor) replace the
 draws; the tests hand in the JAX step's own.
 
 Not ported yet, and refused: a mesh or process group (the DP coded sync
-``_sync_grads_celeris`` with its inline int8 wire, and the plain island),
-``hierarchical`` mode, ``microbatches > 1`` and ``lossy_moe``.
+``_sync_grads_celeris`` with its inline int8 wire, the plain island, and
+the hierarchical pod/data split), ``microbatches > 1`` and ``lossy_moe``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import coding
 from repro_torch.core import lossy_collectives as lc
 from repro_torch.core.transport.coupling import CollectiveMode
+from repro_torch.core.transport.schedule import HierarchicalSchedule
 from repro_torch.models import convert
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
@@ -55,6 +63,7 @@ class CelerisConfig:
     ``mode`` alone chooses the sync."""
     mode: str | CollectiveMode = CollectiveMode.EXACT
                                      # "exact" | "lossy" | "lossy_hadamard"
+                                     # | "hierarchical"
     lossy_moe: bool = False          # lossy expert-parallel all-to-all
     n_rot: int = 4096                # Hadamard rotation width
     min_coded_size: int = 65536      # leaves smaller than this sync exactly
@@ -140,8 +149,10 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     signs=None) -> (state, metrics)``.
 
     ``batch`` = {"tokens", "labels"} (B, S) int64 on the parameters'
-    device; ``drop_rate`` a float.  The metrics are 0-dim tensors:
-    ``loss``, ``nll``, ``aux``, ``recv_frac``, ``grad_norm``, ``lr``.
+    device; ``drop_rate`` a float, or in ``hierarchical`` mode the axis
+    vector whose last component is the cross-pod rate.  The metrics are
+    0-dim tensors: ``loss``, ``nll``, ``aux``, ``recv_frac``,
+    ``grad_norm``, ``lr``.
     """
     opt_cfg = opt_cfg or adamw.OptConfig()
     celeris = celeris or CelerisConfig()
@@ -150,7 +161,19 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         raise NotImplementedError("the data-parallel train step (a mesh or "
                                   "process group) is not ported yet")
     if mode is CollectiveMode.HIERARCHICAL:
-        raise NotImplementedError("hierarchical mode is not ported yet")
+        # the sync order (exact intra-pod, then the coded cross-pod
+        # exchange) mirrors the schedule's phases, and the mode masks only
+        # the DCI shards, which the schedule must cut first
+        order = HierarchicalSchedule.PHASE_ORDER
+        assert order[0] == "rs" and order[-1] == "ag" and "dci" in order, (
+            f"CollectiveMode.HIERARCHICAL assumes intra-reduce -> DCI "
+            f"exchange -> intra-gather; HierarchicalSchedule.PHASE_ORDER "
+            f"is {order}")
+        prio = HierarchicalSchedule.PRIORITY
+        assert prio["dci"] < min(prio["rs"], prio["ag"]), (
+            f"CollectiveMode.HIERARCHICAL masks only DCI shards, so the "
+            f"DCI phase must be the lowest priority class; "
+            f"HierarchicalSchedule.PRIORITY is {prio}")
     if microbatches > 1:
         raise NotImplementedError("microbatches > 1 is not ported yet")
     if celeris.lossy_moe:
@@ -164,6 +187,8 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                  if leaf.numel() >= celeris.min_coded_size else None
                  for leaf in leaves]
         loss, nll, aux, grads = loss_and_grads(cfg, leaves, batch)
+        if mode.hierarchical:
+            drop_rate = float(np.reshape(drop_rate, -1)[-1])
         if mode.lossy:
             m, s = _draw(generator, plans, drop_rate, mode.coded, masks,
                          signs, leaves[0].device)

@@ -99,6 +99,8 @@ class Trainer:
         for step in range(self.start_step, self.start_step + n_steps):
             batch = self.put_batch(step)
             if self.celeris.collective_mode().lossy:
+                # a float for the flat modes; the axis vector of a
+                # HierStragglerModel in hierarchical mode
                 drop = self.straggler.drop_rate(self.controller.timeout,
                                                 self.rng)
             else:

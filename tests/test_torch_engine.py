@@ -16,7 +16,6 @@ mode.  Tolerances (``engine_jax``'s contract):
   and the excess time is ``A + B * pkt_time`` where numpy sums episode
   by episode, so about 0.1 % of step times differ by a float32 ulp.
 """
-import dataclasses
 import json
 import os
 
@@ -32,6 +31,7 @@ from repro_torch.core.transport import engine as tengine
 from repro_torch.core.transport import engine_torch
 from repro_torch.core.transport import network as tnetwork
 from repro_torch.core.transport import params as tparams
+from repro_torch.core.transport import schedule as tschedule
 from repro_torch.kernels import dcqcn as kdcqcn
 from repro_torch.kernels import ops, ref
 
@@ -258,14 +258,6 @@ OUT_OF_SCOPE = {
                                           cut_order="priority"),
     "window_step": lambda e: e.run("celeris", 2, window="step"),
 }
-OUT_OF_SCOPE_PARAMS = {
-    "n_pods": lambda p: dataclasses.replace(
-        p, topo=tparams.TopologyParams(n_pods=2)),
-    "schedule_hier": lambda p: dataclasses.replace(
-        p, work=tparams.WorkloadParams(schedule="hier")),
-    "faults": lambda p: dataclasses.replace(
-        p, fault=tparams.FaultParams(stall_rate=0.001)),
-}
 
 
 @pytest.mark.parametrize("what", sorted(OUT_OF_SCOPE))
@@ -274,10 +266,27 @@ def test_out_of_scope_calls_raise(what):
     _raises(lambda: OUT_OF_SCOPE[what](eng))
 
 
-@pytest.mark.parametrize("what", sorted(OUT_OF_SCOPE_PARAMS))
-def test_out_of_scope_configs_raise(what):
-    p = OUT_OF_SCOPE_PARAMS[what](_small(tparams))
-    _raises(lambda: tengine.BatchedEngine(p, device="cpu"))
+def _incast_plan():
+    """A plan of the port's phases where two senders share a receiver."""
+    ph = tschedule.SchedulePhase(name="kv", src=np.array([0, 1, 2, 3]),
+                                 dst=np.array([8, 8, 9, 9]), n_steps=4,
+                                 payload_bytes=1 << 16)
+    return tschedule._mk_plan("incast", (ph,))
+
+
+PLAN_OVERRIDES = {
+    "plan": lambda p: tschedule.make_plan(p.net, p.topo, p.work),
+    "incast": lambda p: _incast_plan(),
+}
+
+
+@pytest.mark.parametrize("what", sorted(PLAN_OVERRIDES))
+def test_plan_override_and_incast_raise(what):
+    """Arbitrary FlowPlans, incast among them, are not ported: even the
+    engine's own plan handed in as an override raises."""
+    p = _small(tparams)
+    _raises(lambda: tengine.BatchedEngine(p, device="cpu",
+                                          plan=PLAN_OVERRIDES[what](p)))
 
 
 @pytest.mark.parametrize("kw", ["plan", "recorder"])

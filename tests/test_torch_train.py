@@ -258,8 +258,8 @@ def test_unported_paths_raise():
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError, match="data-parallel"):
         tts.make_train_step(tcfg, object())
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        tts.make_train_step(tcfg, None, None,
+    with pytest.raises(NotImplementedError, match="data-parallel"):
+        tts.make_train_step(tcfg, object(), None,
                             tts.CelerisConfig(mode="hierarchical"))
     with pytest.raises(NotImplementedError, match="microbatches"):
         tts.make_train_step(tcfg, None, None, None, microbatches=2)

@@ -3,6 +3,7 @@ on one NVIDIA card and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab-fwht EARLIER_FWHT_CU   # the A/B only
+    python3 chip_smoke.py --ab-dcqcn EARLIER_DCQCN_CU
 
 The kernels: ``fwht`` and ``fwht_quantize`` (``csrc/fwht.cu``),
 ``masked_unbias`` (``csrc/unbias.cu``), ``quantize_int8``
@@ -23,9 +24,11 @@ caught and carried on):
    of back-to-back calls behind a spin kernel, median of 5); the DCQCN
    scan bit for bit in rates and state at (1, 15,240, 128), (4, 4,092,
    1,024) and a ragged (3, 257, 33), at CNP densities 0, 0.001, 0.05 and
-   1 and on real engine blocks' marks (also Fig. 7's hier and Fig. 4's
-   8-pod blocks), and over two consecutive blocks, with each block's
-   chain bound beside its bytes bound;
+   1, on real engine blocks' marks (Fig. 1's, Fig. 3's, Fig. 7's hier and
+   Fig. 4's 8-pod blocks, and the legacy Fig.-2 pass's three channels
+   under their shared step mask, (3, 76,200, 128)), and over two
+   consecutive blocks, each real block timed beside its bound (the
+   larger of bytes, operations and the chain of active steps);
 3. serve qwen2-0.5b at full width (24 layers, d 896, 14 heads padded to
    16, kv 2, vocab 151,936, bf16, random weights from seed 0): prefill
    8 prompts of 512 tokens, ship the KV caches through the coded lossy
@@ -47,9 +50,13 @@ caught and carried on):
    gradient, and the updated parameters), and 14 coded steps that must
    lower the loss;
 8. the transport engine: the Fig.-2 protocol at 128 nodes x 40 rounds,
-   all four designs, card against CPU (delivered packets per step
-   exact, times, p99 and recv_frac within rtol 1e-5); Fig. 2 on the card
-   (128 nodes x 300 rounds, 3 scan launches); Fig. 3's largest cell
+   all four designs, card against CPU in both stream modes, and ``run``
+   per design in legacy mode (delivered packets per step exact, times,
+   p99 and recv_frac within rtol 1e-5); Fig. 2 on the card through
+   ``CollectiveSimulator`` (128 nodes x 300 rounds, legacy streams, one
+   scan call) equal to the committed ``fig2_*`` p99s, reduction and
+   Celeris loss, then in the shared-fabric mode (3 scan launches, RoCE
+   p99 above Celeris's); Fig. 3's largest cell
    (1,024 nodes, seeds 0-3 batched, 120 rounds of 25 MB, 60 scan
    launches), with its host/device split, one block's device busy share
    and peak memory;
@@ -90,8 +97,13 @@ script raises before printing any result.
 ``--ab-fwht`` builds the kernels, then only times ``csrc/fwht.cu``
 against an earlier design of the same file (its path given), in turns,
 at the serve, largest-leaf and gradient-payload shapes, and prints a
-``{"fwht_ab": [...]}`` record.
+``{"fwht_ab": [...]}`` record.  ``--ab-dcqcn`` does the same for
+``csrc/dcqcn.cu`` against the earlier one-thread walk over every step
+(``git show 160fc53:src/repro_torch/kernels/csrc/dcqcn.cu``, whose
+launch takes no workspace) on the five real blocks, both held equal bit
+for bit, and prints ``{"dcqcn_ab": [...]}``.
 """
+import ctypes
 import dataclasses
 import json
 import math
@@ -601,6 +613,80 @@ def phase_fwht_ab(dev, earlier_src, _build, kfwht, ref):
     return records
 
 
+# the earlier design's dcqcn_scan_launch: no workspace argument
+EARLIER_DCQCN_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 3
+                          + [ctypes.c_double] * 5
+                          + [ctypes.c_int, ctypes.c_void_p])
+
+
+def phase_dcqcn_ab(dev, earlier_src, _build, kdcqcn, E, ET, P, topology):
+    """``csrc/dcqcn.cu`` against an earlier design of it, built from
+    ``earlier_src`` (the one-thread walk over every step, whose launch
+    takes no workspace, or one with this C interface) on the five real
+    blocks: both designs' rates and state equal bit for bit, and their
+    times taken in turns (earlier, this, this, earlier), beside the bound
+    and its parts."""
+    lib = _build.load("dcqcn_earlier", earlier_src)
+    if hasattr(lib, "dcqcn_scan_workspace_bytes"):
+        early, early_ws = kdcqcn.bind(lib)
+    else:
+        early, early_ws = lib.dcqcn_scan_launch, None
+        early.argtypes = EARLIER_DCQCN_ARGTYPES
+        early.restype = ctypes.c_int
+    this, ws_bytes = kdcqcn.bind(_build.load("dcqcn"))
+    dq = P.DcqcnParams()
+    params = (dq.alpha_g, dq.rate_decrease_floor, dq.additive_increase,
+              dq.hyper_increase, dq.min_rate, dq.hyper_after)
+    records = []
+    for name, (cnp, any_t) in real_scan_blocks(E, ET, P, topology,
+                                               dev).items():
+        S, tb, n = cnp.shape
+        state = scan_state(S, n, dev)
+        outs = {d: (torch.empty(S, tb, n, device=dev),)
+                + tuple(torch.empty_like(t) for t in state)
+                for d in ("earlier", "this")}
+        work = {d: torch.empty(w(S, tb, n), dtype=torch.uint8, device=dev)
+                for d, w in (("earlier", early_ws), ("this", ws_bytes))
+                if w is not None}
+        ptrs = [cnp.data_ptr(), any_t.data_ptr(),
+                *(t.data_ptr() for t in state)]
+
+        def launcher(design):
+            o = [t.data_ptr() for t in outs[design]]
+            extra = [work[design].data_ptr()] if design in work else []
+            fn = early if design == "earlier" else this
+
+            def call():
+                err = fn(*ptrs, *o, S, tb, n, *params, *extra,
+                         torch.cuda.current_stream().cuda_stream)
+                assert err == 0, f"{design} dcqcn {name}: cudaError {err}"
+            return call
+
+        calls = {d: launcher(d) for d in outs}
+        times = {"earlier": [], "this": []}
+        for design in ("earlier", "this", "this", "earlier"):
+            calls[design]()
+            times[design].append(time_ms(calls[design]))
+        check_equal(f"dcqcn {name}: this == earlier", outs["this"],
+                    outs["earlier"])
+        bound, by, parts = scan_bounds(cnp, any_t)
+        rec = {"block": name, "shape": [S, tb, n],
+               "active_step_share": float(any_t.float().mean()),
+               "max_active_steps": int(any_t.sum(1).max()),
+               "earlier_ms": times["earlier"], "ms": times["this"],
+               "bound_ms": bound, "bound_by": by, **parts,
+               "earlier_share": bound / statistics.mean(times["earlier"]),
+               "share": bound / statistics.mean(times["this"])}
+        records.append(rec)
+        print(f"A/B dcqcn_scan {name} {[S, tb, n]}: earlier "
+              f"{times['earlier']} ms, this {times['this']} ms (bound "
+              f"{bound:.5f} by {by}, share {rec['earlier_share']:.3f} -> "
+              f"{rec['share']:.3f}); equal bit for bit")
+        del cnp, any_t, outs, work
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_kernel_bench(dev, ops, counts):
     """benchmarks/kernel_bench.py's quantize rows at (256, 4096) through
     ``kernels.ops``: fused-signs FWHT, quantize, the unfused pair and the
@@ -996,18 +1082,25 @@ SCAN_DENSITIES = (0.0, 0.001, 0.05, 1.0)
 # H100 SXM float64 rate outside the tensor cores (NVIDIA data sheet), for
 # the scan's operation count
 F64_OPS = 34e12
-# The scan's chain bound: the dependent-op latency of one step of
-# csrc/dcqcn.cu, in SM cycles, from its instruction sequence at 4 cycles
-# an int, select or float32 op, 8 a conversion or float64 op (Hopper's
-# FP64 units), ~10 dependent float64 ops (80 cycles) for __ddiv_rn and
-# ~35 (280) for libdevice's double pow.  A calm step: the gap index k
-# (3 int ops, 12), its conversion (8), then mul, add, min, select, add,
-# min, select in float32 (28): 48 cycles.  A marked step: the float64
-# ramp (68) runs beside L's conversion and pow(1 - alpha_g, L) (288),
-# then alpha's mul, mul, add, select, the division, and sub, mul, max,
-# select, max, min (152): 440 cycles.  The bound is (calm steps x 48 +
-# marked steps x 440) / the SM clock, with this block's own marks.
-SCAN_CALM_CYCLES, SCAN_MARKED_CYCLES = 48, 440
+# The scan's chain: only the active steps (a mark anywhere in the seed)
+# depend on each other; a calm cell is a closed form of its gap's anchor,
+# and (1 - alpha_g)^L of a gap is known from any_t before the walk.  The
+# dependent latency of one active step's state update, in SM cycles, from
+# the walk's operations (csrc/dcqcn.cu) at 4 cycles an int or select op
+# and 8 a conversion or float64 op (Hopper's FP64 units).  After a calm
+# gap (L > 0): the gap index k from good (3 int ops, 12), the additive
+# ramp (conversion, mul, add, min, select: 36) and the hyper ramp on it
+# (add, min, select: 20), then the cut on the new rate (mul, max, select,
+# max, min: 36): 104; alpha's mul by the gap's pow, mul, add, select, mul
+# by 0.5 and sub (48) run beside the ramp.  Right after another active
+# step (L = 0) the ramp is the identity: alpha's mul, add, select, mul by
+# 0.5, sub (36), then the cut (36): 72.  The chain bound is the largest
+# (gap steps x 104 + run steps x 72) of any seed / the SM clock; the
+# block's bound is the larger of it, the bytes bound and the operations
+# bound, with this block's own marks.  The earlier design walked every
+# step on one thread, with libdevice's pow (~288 cycles) and a division
+# (~80) on each marked step: --ab-dcqcn times it beside this one.
+SCAN_GAP_CYCLES, SCAN_RUN_CYCLES = 104, 72
 ENGINE_CHECK_ROUNDS, FIG2_ROUNDS = 40, 300          # 128 nodes
 FIG3_NODES, FIG3_SEEDS, FIG3_ROUNDS, FIG3_MB = 1024, (0, 1, 2, 3), 120, 25.0
 FIG1_NODES, FIG1_ROUNDS, FIG1_STEPS = 128, 60, 60
@@ -1035,12 +1128,54 @@ def engine_block_marks(E, ET, params, n_rounds, seeds, dev):
     return torch.from_numpy(np.stack(cnp)).to(dev)
 
 
-def scan_pair(kdcqcn, ref, dq, cnp, state):
+def legacy_fig2_marks(E, ET, P, n_rounds, dev):
+    """The Fig.-2 protocol's legacy pass at 128 nodes: its stacked CNP
+    channels (roce, sr, celeris) ``(3, T, 128)`` from the host pass, and
+    the step mask the engine gives the scan, the OR over every channel
+    and flow, repeated per channel."""
+    eng = E.BatchedEngine(P.SimParams(), device=str(dev))
+    ctx = ET._Plan(eng)
+    host = ET._legacy_host(eng, ctx, list(E.designs.DESIGNS),
+                           n_rounds * ctx.steps, 0)
+    cnp = torch.from_numpy(host["cnp"]).to(dev)
+    C, T, _ = cnp.shape
+    return cnp, cnp.any(-1).any(0).expand(C, T).contiguous()
+
+
+def real_scan_blocks(E, ET, P, topology, dev):
+    """The scan's inputs on the engine's paths, ``{name: (cnp, any_t)}``:
+    the first block of the Fig.-1 schedule (1, 15,240, 128) and of Fig.
+    3's cell (4, 4,092, 1,024); the hierarchical paths' blocks, where the
+    DCI tier marks far more steps: Fig. 7's hier schedule on 4 pods and
+    Fig. 4's ring over 8 pods at oversubscription 8; and the legacy Fig.-2
+    pass's three channels with their shared step mask."""
+    blocks = {
+        "fig1": (P.SimParams(net=P.NetworkParams(n_nodes=FIG1_NODES)),
+                 FIG1_ROUNDS, [0]),
+        "fig3": (P.SimParams(net=P.NetworkParams(n_nodes=FIG3_NODES)),
+                 FIG3_ROUNDS, list(FIG3_SEEDS)),
+        "fig7 hier": (topology.hier_params(
+            FIG7_PODS, schedule="hier", dci_oversubscription=FIG7_OVERSUB),
+            FIG7_ROUNDS, [0]),
+        "fig4 p8 o8": (topology.hier_params(
+            FIG4_PODS[-1], n_nodes=FIG4_NODES,
+            dci_oversubscription=FIG4_OVERSUBS[-1]), FIG4_ROUNDS, [0])}
+    out = {}
+    for name, (params, rounds, seeds) in blocks.items():
+        cnp = engine_block_marks(E, ET, params, rounds, seeds, dev)
+        out[name] = (cnp, cnp.any(-1))
+    out["fig2 legacy"] = legacy_fig2_marks(E, ET, P, FIG2_ROUNDS, dev)
+    return out
+
+
+def scan_pair(kdcqcn, ref, dq, cnp, state, any_t=None):
     """The kernel and its plain version on the same block; equal bit for
-    bit in the rates and all four state arrays.  Returns the kernel's
-    result and the plain version's device ms (CUDA events, one call: it
-    is a host-bound loop of ~65 launches a step)."""
-    any_t = cnp.any(-1)
+    bit in the rates and all four state arrays.  ``any_t`` defaults to
+    each seed's own mask.  Returns the kernel's result and the plain
+    version's device ms (CUDA events, one call: it is a host-bound loop of
+    ~65 launches a step)."""
+    if any_t is None:
+        any_t = cnp.any(-1)
     got = kdcqcn.dcqcn_scan_cuda(cnp, any_t, *state, dq)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -1061,40 +1196,53 @@ def sm_clock_hz():
     return float(out) * 1e6
 
 
-def scan_record(kdcqcn, dq, cnp, plain_ms, shape_note):
-    """The scan's timing record.  Bytes: marks (1 B a cell) and any_t read
-    once, rates (4 B a cell) written once, the state (3 float64 + 1 int32
-    a flow) read and written once.  Operations, from this block's marks:
-    ~20 float64 a cell on a step with a mark anywhere in its seed, ~12
-    float32 on a calm one."""
+def scan_bounds(cnp, any_t):
+    """The scan's bound on this block's marks, ``(bound_ms, bound_by,
+    parts)``: the larger of the bytes (marks 1 B a cell and any_t read
+    once, rates 4 B a cell written once, the state of 3 float64 + 1 int32
+    a flow read and written once), the operations (~20 float64 a cell on
+    an active step, ~12 float32 on a calm one) and the chain (each seed's
+    active steps at SCAN_GAP_CYCLES after a calm gap, SCAN_RUN_CYCLES
+    right after another active step, the slowest seed at the SM clock)."""
     S, tb, n = cnp.shape
-    any_t = cnp.any(-1)
-    state = scan_state(S, n, cnp.device)
     active = int(any_t.sum())
-    nb = S * tb * n * 5 + S * tb + 2 * S * n * 28
+    t_bytes = (S * tb * n * 5 + S * tb + 2 * S * n * 28) / HBM_BPS * 1e3
     t_ops = (active * n * 20 / F64_OPS
-             + (S * tb - active) * n * 12 / F32_OPS)
-    t_bytes = nb / HBM_BPS
-    ms = time_ms(lambda: kdcqcn.dcqcn_scan_cuda(cnp, any_t, *state, dq))
-    # the chain: each thread walks its tb steps in order; the seeds run
-    # side by side, so the slowest seed's steps bound the block
-    marked = int(any_t.sum(1).max())
+             + (S * tb - active) * n * 12 / F32_OPS) * 1e3
     clock = sm_clock_hz()
-    chain_ms = ((tb - marked) * SCAN_CALM_CYCLES
-                + marked * SCAN_MARKED_CYCLES) / clock * 1e3
+    # an active step opens a run unless the step before it was active
+    # (step 0 has no gap before it either)
+    gap = any_t.clone()
+    gap[:, 0] = False
+    gap[:, 1:] &= ~any_t[:, :-1]
+    cycles = (gap.sum(1) * SCAN_GAP_CYCLES
+              + (any_t & ~gap).sum(1) * SCAN_RUN_CYCLES)
+    t_chain = int(cycles.max()) / clock * 1e3
+    bound = max(t_bytes, t_ops, t_chain)
+    by = "bytes" if t_bytes == bound else "operations"
+    return bound, by, {"bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops,
+                       "chain_bound_ms": t_chain, "sm_clock_mhz": clock / 1e6}
+
+
+def scan_record(kdcqcn, dq, cnp, plain_ms, shape_note, any_t=None):
+    """The scan's timing record on a block's marks (``any_t`` defaults to
+    each seed's own mask)."""
+    S, tb, n = cnp.shape
+    if any_t is None:
+        any_t = cnp.any(-1)
+    state = scan_state(S, n, cnp.device)
+    ms = time_ms(lambda: kdcqcn.dcqcn_scan_cuda(cnp, any_t, *state, dq))
+    bound, by, parts = scan_bounds(cnp, any_t)
     return {
         "name": "dcqcn_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dcqcn.cu",
         "replaces": "src/repro/core/transport/engine_jax.py:88 "
                     "(_dcqcn_scan, a lax.scan: no Pallas counterpart)",
         "shape": [S, tb, n], "dtype": "bool -> float32", "marks": shape_note,
-        "active_step_share": active / (S * tb), "max_abs_err": 0.0,
+        "active_step_share": float(any_t.float().mean()), "max_abs_err": 0.0,
+        "max_active_steps": int(any_t.sum(1).max()),
         "ms": ms, "ns_per_step": ms * 1e6 / tb, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "chain_bound_ms": chain_ms, "chain_share": chain_ms / ms,
-        "bound_share": max(t_bytes, t_ops) * 1e3 / ms,
-        "sm_clock_mhz": clock / 1e6,
+        "bound_ms": bound, "bound_by": by, "bound_share": bound / ms, **parts,
         "library_ms": None, "library": "none: no PyTorch call computes a scan"}
 
 
@@ -1102,33 +1250,14 @@ def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology):
     """The DCQCN scan kernel against its plain version on the card, bit
     for bit (rates and the four state arrays): at SCAN_SHAPES with the
     four densities as seeds, on the marks a real engine block draws
-    (Fig. 1's and Fig. 3's first blocks), and over two consecutive
-    blocks, whose carried state must equal the plain version's and, split
-    where every seed has a mark, one long block's.  Timed at the first two
-    shapes on the real marks."""
+    (Fig. 1's, Fig. 3's, Fig. 7's hier and Fig. 4's 8-pod first blocks,
+    and the legacy Fig.-2 pass's channels with their shared step mask),
+    and over two consecutive blocks, whose carried state must equal the
+    plain version's and, split where every seed has a mark, one long
+    block's.  Timed on every real block, beside its bound."""
     dq = P.DcqcnParams()
     g = torch.Generator(dev).manual_seed(11)
-    real = {
-        SCAN_SHAPES[0]: engine_block_marks(
-            E, ET, P.SimParams(net=P.NetworkParams(n_nodes=FIG1_NODES)),
-            FIG1_ROUNDS, [0], dev),
-        SCAN_SHAPES[1]: engine_block_marks(
-            E, ET, P.SimParams(net=P.NetworkParams(n_nodes=FIG3_NODES)),
-            FIG3_ROUNDS, list(FIG3_SEEDS), dev)}
-    # the hierarchical paths' blocks (the DCI tier marks far more steps):
-    # Fig. 7's hier schedule on 4 pods, and Fig. 4's ring over 8 pods at
-    # oversubscription 8, real marks only (their plain version is a
-    # host-bound loop of ~0.7 ms a step)
-    hier_real = {
-        "fig7 hier": engine_block_marks(
-            E, ET, topology.hier_params(FIG7_PODS, schedule="hier",
-                                        dci_oversubscription=FIG7_OVERSUB),
-            FIG7_ROUNDS, [0], dev),
-        "fig4 p8 o8": engine_block_marks(
-            E, ET, topology.hier_params(
-                FIG4_PODS[-1], n_nodes=FIG4_NODES,
-                dci_oversubscription=FIG4_OVERSUBS[-1]),
-            FIG4_ROUNDS, [0], dev)}
+    real = real_scan_blocks(E, ET, P, topology, dev)
     records, checks = [], 0
     for S, tb, n in SCAN_SHAPES:
         # the four densities as four seeds, and the ragged shape also at
@@ -1141,26 +1270,20 @@ def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology):
             synth = u < torch.tensor(dens, device=dev)[:, None, None]
             scan_pair(kdcqcn, ref, dq, synth, scan_state(len(dens), n, dev))
             checks += 1
-        if (S, tb, n) in real:
-            cnp = real[(S, tb, n)]
-            assert tuple(cnp.shape) == (S, tb, n), cnp.shape
-            _, plain_ms = scan_pair(kdcqcn, ref, dq, cnp,
-                                    scan_state(S, n, dev))
-            checks += 1
-            records.append(scan_record(kdcqcn, dq, cnp, plain_ms,
-                                       "a real engine block's"))
-    for name, cnp in hier_real.items():
+    for name, (cnp, any_t) in real.items():
+        # the plain version is a host-bound loop of ~65 launches a step:
+        # ~50 s over the legacy pass's 76,200 steps
         _, plain_ms = scan_pair(kdcqcn, ref, dq, cnp,
-                                scan_state(*cnp.shape[::2], dev))
+                                scan_state(*cnp.shape[::2], dev),
+                                any_t=any_t)
         checks += 1
         records.append(scan_record(kdcqcn, dq, cnp, plain_ms,
-                                   f"a real {name} engine block's"))
+                                   f"a real {name} block's", any_t=any_t))
     # two consecutive blocks against the plain version, and against one
     # long block where the split step has a mark in every seed (there
     # both materialize the same anchor; elsewhere a calm gap cut in two
     # ramps in two closed forms, which round apart by an ulp)
-    cnp = real[SCAN_SHAPES[1]]
-    any_t = cnp.any(-1)
+    cnp, any_t = real["fig3"]
     tb = cnp.shape[1]
     cand = torch.nonzero(any_t.all(0)).flatten().tolist()
     split = next((i for i in cand if i >= tb // 2), tb // 2)
@@ -1181,78 +1304,144 @@ def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology):
     _sync()
     print(f"dcqcn_scan: kernel == plain version bit for bit in {checks + 2} "
           f"blocks (densities {SCAN_DENSITIES} as seeds at {SCAN_SHAPES}; "
-          f"real Fig.-1 and Fig.-3 marks); two blocks split at step {split} "
+          f"real Fig.-1, 3, 4 and 7 marks; the legacy Fig.-2 channels); "
+          f"two blocks split at step {split} "
           f"{'==' if exact else '~='} one long block")
     for rec in records:
         print(f"kernel dcqcn_scan {rec['shape']} ({rec['marks']} marks): "
               f"{rec['ms']:.4f} ms = {rec['ns_per_step']:.1f} ns a step "
-              f"(plain {rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.5f} "
-              f"by {rec['bound_by']}, chain bound {rec['chain_bound_ms']:.4f}"
-              f" = {rec['chain_share']:.3f} of the kernel, active steps "
-              f"{rec['active_step_share']:.3f})")
+              f"(plain {rec['plain_ms']:.1f} ms; bound "
+              f"{rec['bound_ms']:.5f} by {rec['bound_by']} = "
+              f"{rec['bound_share']:.3f} of the kernel: "
+              f"bytes {rec['bytes_bound_ms']:.5f}, chain "
+              f"{rec['chain_bound_ms']:.5f} over {rec['max_active_steps']} "
+              f"active steps; active share {rec['active_step_share']:.3f})")
     return records
 
 
 def phase_engine_card_vs_cpu(dev, E, P):
     """The Fig.-2 protocol at 128 nodes x ENGINE_CHECK_ROUNDS, all four
-    designs, on the card and on the CPU (plain scan): delivered packets
-    per step exact, step times, each design's times, p99 and recv_frac
-    within rtol 1e-5."""
-    runs = []
-    for d in (dev, torch.device("cpu")):
-        eng = E.BatchedEngine(P.SimParams(), device=str(d))
-        tr = eng.traces(E.designs.DESIGNS, ENGINE_CHECK_ROUNDS, 0)
-        runs.append((tr, eng.paper_protocol(ENGINE_CHECK_ROUNDS, 0)))
-    (tr_d, pp_d), (tr_c, pp_c) = runs
-    worst = 0.0
-    for name in E.designs.DESIGNS:
-        a, b = tr_d[name], tr_c[name]
-        for f in ("deliv", "total", "tier_deliv"):
-            assert np.array_equal(getattr(a, f), getattr(b, f)), (name, f)
-        for x, y, what in ((a.nat_us, b.nat_us, "step times"),
-                           (pp_d[name].times_us, pp_c[name].times_us,
-                            "times"),
-                           (pp_d[name].p99, pp_c[name].p99, "p99"),
-                           (pp_d[name].recv_frac, pp_c[name].recv_frac,
-                            "recv_frac")):
-            np.testing.assert_allclose(x, y, rtol=1e-5, atol=0,
-                                       err_msg=f"{name} {what} card vs cpu")
-            worst = max(worst, float(np.max(np.abs(np.asarray(x) - y)
-                                            / np.abs(y))))
-    print(f"engine card vs CPU, 128 nodes x {ENGINE_CHECK_ROUNDS} rounds: "
-          f"delivered packets per step equal, worst relative difference of "
-          f"times/p99/recv_frac {worst:.3g}")
-    return {"worst_rel_diff": worst,
-            "p99_us": {d: s.p99 for d, s in pp_d.items()}}
+    designs, on the card and on the CPU (plain scan), in both stream
+    modes: the traces, ``paper_protocol`` and, in legacy mode, ``run``
+    per design (each its own channel set, so its own step mask).
+    Delivered packets per step exact; step times, each design's times,
+    p99 and recv_frac within rtol 1e-5."""
+    out = {}
+    for legacy in (False, True):
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            eng = E.BatchedEngine(P.SimParams(), device=str(d))
+            tr = eng.traces(E.designs.DESIGNS, ENGINE_CHECK_ROUNDS, 0,
+                            legacy_streams=legacy)
+            stats = {"pp": eng.paper_protocol(ENGINE_CHECK_ROUNDS, 0,
+                                              legacy_streams=legacy)}
+            if legacy:
+                stats["run"] = {
+                    name: eng.run(name, ENGINE_CHECK_ROUNDS, seed=0,
+                                  adaptive=False)
+                    for name in E.designs.DESIGNS}
+            runs.append((tr, stats))
+        (tr_d, st_d), (tr_c, st_c) = runs
+        worst = 0.0
+        for name in E.designs.DESIGNS:
+            a, b = tr_d[name], tr_c[name]
+            for f in ("deliv", "total", "tier_deliv"):
+                assert np.array_equal(getattr(a, f), getattr(b, f)), (
+                    legacy, name, f)
+            pairs = [(a.nat_us, b.nat_us, "step times")]
+            for kind in st_d:
+                x, y = st_d[kind][name], st_c[kind][name]
+                pairs += [(x.times_us, y.times_us, f"{kind} times"),
+                          (x.p99, y.p99, f"{kind} p99"),
+                          (x.recv_frac, y.recv_frac, f"{kind} recv_frac")]
+            for x, y, what in pairs:
+                np.testing.assert_allclose(
+                    x, y, rtol=1e-5, atol=0,
+                    err_msg=f"legacy={legacy} {name} {what} card vs cpu")
+                worst = max(worst, float(np.max(np.abs(np.asarray(x) - y)
+                                                / np.abs(y))))
+        mode = "legacy" if legacy else "shared"
+        print(f"engine card vs CPU ({mode} streams), 128 nodes x "
+              f"{ENGINE_CHECK_ROUNDS} rounds: delivered packets per step "
+              f"equal, worst relative difference of times/p99/recv_frac "
+              f"{worst:.3g}" + (" (traces, paper_protocol, run x 4)"
+                                if legacy else ""))
+        out[mode] = {"worst_rel_diff": worst,
+                     "p99_us": {d: x.p99 for d, x in st_d["pp"].items()}}
+    return out
 
 
 def phase_fig2(dev, E, P, counts):
     """Fig. 2 on the card: the paper protocol at 128 nodes x 300 rounds
-    (benchmarks/fig2_tail_latency.py), 3 engine blocks."""
+    (benchmarks/fig2_tail_latency.py) through ``CollectiveSimulator``, in
+    its legacy-stream mode (one scan call over the whole trace), held to
+    the committed ``fig2_*`` keys at their printed digits; then the
+    shared-fabric mode beside it (3 engine blocks), held to RoCE p99 above
+    Celeris's."""
+    from repro_torch.core.transport.simulator import CollectiveSimulator
+    sim = CollectiveSimulator(P.SimParams(), device=str(dev))
+    _sync()
+    counts.reset()
+    t0 = time.perf_counter()
+    stats = sim.paper_protocol(FIG2_ROUNDS, 0)
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    timing = dict(sim._engine.timing)
+    assert launches["dcqcn_scan"] == timing["blocks"] == 1, launches
+    for st in stats.values():
+        assert np.isfinite(st.times_us).all() and st.times_us.shape == (
+            FIG2_ROUNDS,)
+        assert ((0 < st.recv_frac) & (st.recv_frac <= 1)).all()
+    out = {d: {"p50_ms": st.p50 / 1e3, "p99_ms": st.p99 / 1e3,
+               "p999_ms": st.p999 / 1e3, "loss": st.mean_loss}
+           for d, st in stats.items()}
+    ratio = stats["roce"].p99 / stats["celeris"].p99
+    # the keys benchmarks/fig2_tail_latency.py commits, rounded as it
+    # rounds them
+    got = {f"p99_ms_{d}": round(st.p99 / 1e3, 2) for d, st in stats.items()}
+    got["p99_reduction"] = round(ratio, 2)
+    got["celeris_loss_pct"] = round(stats["celeris"].mean_loss * 100, 2)
+    want = {k: committed(f"fig2_{k}") for k in got}
+    assert got == want, (
+        f"fig2 differs from the committed keys: {got} vs {want}")
+    # and the pre-refactor sequential simulator's recorded stats, at
+    # tests/test_batched_engine.py's tolerances
+    with open(SEQ_STATS) as f:
+        seq = json.load(f)
+    for d, st in stats.items():
+        assert abs(st.p50 / seq[d]["p50_us"] - 1) < 0.01, d
+        assert abs(st.p99 / seq[d]["p99_us"] - 1) < 0.05, d
+        assert abs(st.mean_loss - seq[d]["data_loss"]) < 0.005, d
+    rec = {"designs": out, "roce_celeris_p99_ratio": ratio,
+           "committed_keys_equal": want, "wall_s": wall,
+           "host_s": timing["host_s"], "device_s": timing["device_s"],
+           "launches": launches}
+    print(f"fig2 128 nodes x {FIG2_ROUNDS} rounds on the card (legacy "
+          f"streams): {got} == the committed fig2_* keys, and within 1 / 5 "
+          f"% (p50 / p99) of the sequential simulator's; wall {wall:.2f} s "
+          f"= host draws {rec['host_s']:.2f} s + device core "
+          f"{rec['device_s']:.2f} s (+ assembly); launches {launches}")
+
     eng = E.BatchedEngine(P.SimParams(), device=str(dev))
     _sync()
     counts.reset()
     t0 = time.perf_counter()
-    stats = eng.paper_protocol(FIG2_ROUNDS, 0)
-    wall = time.perf_counter() - t0
-    launches = counts.read()
-    assert launches["dcqcn_scan"] == eng.timing["blocks"] == 3, launches
-    for s in stats.values():
-        assert np.isfinite(s.times_us).all() and s.times_us.shape == (
-            FIG2_ROUNDS,)
-        assert ((0 < s.recv_frac) & (s.recv_frac <= 1)).all()
-    out = {d: {"p50_ms": s.p50 / 1e3, "p99_ms": s.p99 / 1e3,
-               "p999_ms": s.p999 / 1e3, "loss": s.mean_loss}
-           for d, s in stats.items()}
-    ratio = stats["roce"].p99 / stats["celeris"].p99
-    assert ratio > 1.0, f"RoCE p99 not above Celeris's: {ratio}"
-    rec = {"designs": out, "roce_celeris_p99_ratio": ratio, "wall_s": wall,
-           "host_s": eng.timing["host_s"], "device_s": eng.timing["device_s"],
-           "launches": launches}
-    print(f"fig2 128 nodes x {FIG2_ROUNDS} rounds on the card: {out}; RoCE/"
-          f"Celeris p99 {ratio:.3f}; wall {wall:.2f} s = host draws "
-          f"{rec['host_s']:.2f} s + device core {rec['device_s']:.2f} s "
-          f"(+ assembly); launches {launches}")
+    shared = eng.paper_protocol(FIG2_ROUNDS, 0, legacy_streams=False)
+    s_wall = time.perf_counter() - t0
+    s_launches = counts.read()
+    assert s_launches["dcqcn_scan"] == eng.timing["blocks"] == 3, s_launches
+    s_ratio = shared["roce"].p99 / shared["celeris"].p99
+    assert s_ratio > 1.0, f"RoCE p99 not above Celeris's: {s_ratio}"
+    rec["shared"] = {
+        "p99_ms": {d: st.p99 / 1e3 for d, st in shared.items()},
+        "celeris_loss": shared["celeris"].mean_loss,
+        "roce_celeris_p99_ratio": s_ratio, "wall_s": s_wall,
+        "host_s": eng.timing["host_s"], "device_s": eng.timing["device_s"],
+        "launches": s_launches}
+    print(f"fig2 shared-fabric mode: p99 ms {rec['shared']['p99_ms']}, "
+          f"RoCE/Celeris {s_ratio:.3f}; wall {s_wall:.2f} s = host "
+          f"{rec['shared']['host_s']:.2f} s + device "
+          f"{rec['shared']['device_s']:.2f} s; launches {s_launches}")
     return rec
 
 
@@ -1447,6 +1636,8 @@ FIG7_RATIO_BAR = 2.0      # the paper's "nearly doubles NIC resilience"
 FIG7_LOOP_PODS, FIG7_LOOP_SCALE, FIG7_LOOP_STEPS = 2, 0.6, 40
 BENCH_SIM = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "BENCH_sim.json")
+SEQ_STATS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                         "data", "paper_protocol_seed_stats.json")
 
 
 def committed(key):
@@ -1482,7 +1673,8 @@ def phase_hier_card_vs_cpu(dev, E, P, topology):
         runs = []
         for d in (dev, torch.device("cpu")):
             eng = E.BatchedEngine(p, device=str(d))
-            runs.append((eng, eng.traces(designs, HIER_CHECK_ROUNDS, 0)))
+            runs.append((eng, eng.traces(designs, HIER_CHECK_ROUNDS, 0,
+                                         legacy_streams=False)))
         (eng_d, tr_d), (eng_c, tr_c) = runs
         name = f"{sched}/{fault or 'clean'}"
         for d in designs:
@@ -1567,14 +1759,16 @@ def phase_fig4(dev, E, P, topology, counts):
             eng = E.BatchedEngine(topology.hier_params(
                 npods, n_nodes=FIG4_NODES, dci_oversubscription=ov),
                 device=str(dev))
-            eng.traces(["roce", "celeris"], FIG4_ROUNDS, 0)
+            eng.traces(["roce", "celeris"], FIG4_ROUNDS, 0,
+                       legacy_streams=False)
             host += eng.timing["host_s"]
             device += eng.timing["device_s"]
             blocks += eng.timing["blocks"]
     assert launches["dcqcn_scan"] == blocks, (launches, blocks)
     # the device busy share over the last cell's engine pass (one block)
     busy = profile_window(lambda: eng.traces(["roce", "celeris"],
-                                             FIG4_ROUNDS, 0))
+                                             FIG4_ROUNDS, 0,
+                                             legacy_streams=False))
     for tag, c in cells.items():
         rows.append(f"{tag}: p99 {c['p99_ms']:.2f} ms (committed "
                     f"{c['committed_p99_ms']}), dci loss {c['dci_loss']:.4f} "
@@ -1742,8 +1936,8 @@ def phase_fig7(dev, E, P, topology, counts):
             base, net=dataclasses.replace(base.net, n_nodes=nn),
             work=dataclasses.replace(base.work, schedule="hier"),
             fault=paper), device=str(dev))
-        busy[nn] = profile_window(lambda: eng.traces(["roce", "celeris"],
-                                                     FIG7_ROUNDS, 0))
+        busy[nn] = profile_window(lambda: eng.traces(
+            ["roce", "celeris"], FIG7_ROUNDS, 0, legacy_streams=False))
     counts.reset()
 
     # the 512-node hier stall cell: its own wall-time split and peak memory
@@ -1892,7 +2086,7 @@ def card_name_and_power():
         check=True).stdout.strip().splitlines()[0]
 
 
-def main(earlier_fwht=None):
+def main(earlier_fwht=None, earlier_dcqcn=None):
     sys.path.insert(0, SRC)
     from repro_torch import resolve_device
     dev = resolve_device("cuda")            # raises without CUDA
@@ -1925,10 +2119,15 @@ def main(earlier_fwht=None):
     t_start = time.perf_counter()
     counts = Launches(kfwht, kunbias, kquant, kdcqcn)
     phase_build(_build)
-    if earlier_fwht is not None:
-        records = phase_fwht_ab(dev, earlier_fwht, _build, kfwht, ref)
-        print(json.dumps({"fwht_ab": records,
-                          "seconds": time.perf_counter() - t_start}))
+    if earlier_fwht is not None or earlier_dcqcn is not None:
+        ab = {}
+        if earlier_fwht is not None:
+            ab["fwht_ab"] = phase_fwht_ab(dev, earlier_fwht, _build, kfwht,
+                                          ref)
+        if earlier_dcqcn is not None:
+            ab["dcqcn_ab"] = phase_dcqcn_ab(dev, earlier_dcqcn, _build,
+                                            kdcqcn, E, ET, P, topology)
+        print(json.dumps(dict(ab, seconds=time.perf_counter() - t_start)))
         print(card_name_and_power())
         return
     records = phase_kernels(dev, C.get("qwen2-0.5b"), kfwht, kunbias, ref,
@@ -1972,6 +2171,7 @@ def main(earlier_fwht=None):
                "train": train["launches"],
                "allreduce": allreduce["launches"],
                "fig1": fig1_launches, "fig2": fig2["launches"],
+               "fig2_shared": fig2["shared"]["launches"],
                "fig3": fig3["launches"], "fig4": fig4["launches"],
                "fig7": fig7["launches"], "fig7_loop": loop_launches}
     for rec in records:
@@ -2001,4 +2201,10 @@ if __name__ == "__main__":
     ap.add_argument("--ab-fwht", metavar="FWHT_CU", type=os.path.abspath,
                     help="only build the kernels and time csrc/fwht.cu "
                     "against this earlier design of it, in turns")
-    main(ap.parse_args().ab_fwht)
+    ap.add_argument("--ab-dcqcn", metavar="DCQCN_CU", type=os.path.abspath,
+                    help="only build the kernels and time csrc/dcqcn.cu "
+                    "against this earlier design of it (the C interface "
+                    "without a workspace), in turns, on the engine's real "
+                    "blocks")
+    args = ap.parse_args()
+    main(args.ab_fwht, args.ab_dcqcn)

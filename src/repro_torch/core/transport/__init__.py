@@ -1,3 +1,3 @@
 """Transport engine and transport-to-ML coupling (port of
-``repro/core/transport/``: the shared-fabric flat-ring engine, with its
-rate-dependent core on the card)."""
+``repro/core/transport/``: the legacy-stream and shared-fabric engine
+modes, flat and multi-pod, with the rate-dependent core on the card)."""

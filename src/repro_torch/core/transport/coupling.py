@@ -178,8 +178,9 @@ def schedule_from_engine(n_rounds: int, seed: int = 0, *,
     in the JAX package; the schedule is then the flat one over all tiers
     (:func:`split_schedule_from_engine` splits it by axis).  Lossless
     designs ("roce", "irn", "srnic") yield all-zero schedules.
-    ``record=True`` (the flight recorder) and ``legacy_streams=True``
-    raise ``NotImplementedError``: neither is ported yet.
+    ``legacy_streams=True`` replays the sequential simulator's streams
+    (flat ring only).  ``record=True`` (the flight recorder) raises
+    ``NotImplementedError``: it is not ported yet.
     """
     if record:
         raise NotImplementedError(

@@ -1,43 +1,55 @@
-"""Batched transport engine (port of ``repro/core/transport/engine.py``,
-its shared-fabric mode).
+"""Batched transport engine (port of ``repro/core/transport/engine.py``).
 
 The engine materializes the simulation as ``(step, flow)`` blocks:
 ``step`` is the flattened ``round * step`` time axis of the collective
 schedule's plan (``schedule.make_plan``: the flat ring, or the ``hier``
 and ``perrail`` schedules' ``rs``/``dci``/``ag`` phases), ``flow`` a
-phase's concurrent flows.  Work proceeds in round blocks sized to a
-fixed element budget.  All NIC designs of one seed share one fabric
-trace and one DCQCN rate trace (``legacy_streams=False``).  On a
-multi-pod fabric (``n_pods > 1``) the DCI tier overlays the cross-pod
-flows (``topology``); an active ``FaultParams`` adds the seeded stall,
-crash, flap, rail and straggler processes (``faults``).
+phase's concurrent flows.  Two stream modes, as in the numpy engine:
+
+- **legacy streams** (``legacy_streams=True``, the default of
+  :meth:`BatchedEngine.traces`, :meth:`~BatchedEngine.run` and
+  :meth:`~BatchedEngine.paper_protocol`): the sequential simulator's
+  seeded streams replayed on the flat ring (``replay``,
+  ``network.roce_fabric_trace``): one clean fabric trace for
+  irn/srnic/celeris and RoCE's PFC-polluted one, the selective-repeat
+  and celeris draws bit for bit, and one DCQCN pass over the stacked
+  CNP channels.  Memory is O(T * n): meant for <= 256 nodes.  This is
+  the mode of the committed Fig.-2 numbers;
+- **shared fabric** (``legacy_streams=False``, the default of
+  :func:`sweep`): work proceeds in round blocks sized to a fixed
+  element budget, all NIC designs of one seed share one fabric trace
+  and one DCQCN rate trace.  On a multi-pod fabric (``n_pods > 1``)
+  the DCI tier overlays the cross-pod flows (``topology``); an active
+  ``FaultParams`` adds the seeded stall, crash, flap, rail and
+  straggler processes (``faults``).
 
 Where the work runs (``engine_torch`` has the details):
 
 - the host pass replays the numpy engine's random streams with numpy
-  generators, block for block and phase by phase in its exact order:
-  fabric and DCI occupancy, path curves, CNP draws, fault masks, PFC
-  and loss draws;
+  generators in its exact order (shared fabric: block for block and
+  phase by phase, fabric and DCI occupancy, path curves, CNP draws,
+  fault masks, PFC and loss draws; legacy: the two fabric traces, the
+  replayed draws and RoCE's CNP and transfer draws);
 - the device core runs the rate-dependent physics as torch ops on
-  ``device``, with the seed axis batched: the DCQCN recurrence over the
-  whole block in one hand-written CUDA kernel launch
-  (``kernels/csrc/dcqcn.cu``), then per phase the response curves, the
-  DCI overlay, the fault reactions, per-design completion times and the
-  per-step reductions;
+  ``device``: the DCQCN recurrence in one hand-written CUDA kernel call
+  (``kernels/csrc/dcqcn.cu``) per block (shared fabric, seeds batched)
+  or over the whole trace's stacked CNP channels (legacy), then the
+  response curves, the DCI overlay, the fault reactions, per-design
+  completion times and the per-step reductions;
 - the round assembly (:meth:`BatchedEngine.assemble`: round or phase
   windows, fixed or adaptive) runs on the host over the reduced step
   traces; :func:`sweep` runs a grid of cells, each cell's seeds in one
   batched pass.
 
-The reference is the numpy engine with ``legacy_streams=False``: the
-same host draws, so delivered packets and faulted-flow counts are exact,
-and times and fractions agree within rtol 1e-5 (the device core
-regroups a few float accumulations, as ``engine_jax`` does).
+The reference is the numpy engine in the same stream mode: the same
+host draws, so delivered packets and faulted-flow counts are exact, and
+times and fractions agree within rtol 1e-5 (the device core regroups a
+few float accumulations, as ``engine_jax`` does).
 
 Out of this path, and raising ``NotImplementedError`` (ROADMAP, Queue 1
-item 5): ``legacy_streams=True``, FlowPlan overrides (``plan=``) and
-incast, a telemetry recorder, ``cut_order="priority"``,
-``window="step"`` and ``per_node_for``.
+item 5): FlowPlan overrides (``plan=``) and incast, a telemetry
+recorder, ``cut_order="priority"``, ``window="step"`` and
+``per_node_for``.
 """
 from __future__ import annotations
 
@@ -58,6 +70,7 @@ from repro_torch.core.transport.params import (FaultParams, SimParams,
 # (the numpy engine's ids: the port must consume the same streams).
 # irn and srnic intentionally share one transfer stream.
 _STREAM_CNP = 101          # clean-trace CNP draws (shared by designs)
+_STREAM_CNP_ROCE = 102     # RoCE's CNP draws on its hot rows (legacy mode)
 _STREAM_PFC = 103          # PFC cascade draws (shared-fabric mode only)
 _STREAM_TRANSFER = {"roce": 110, "irn": 111, "srnic": 111, "celeris": 112}
 _STREAM_WINDOW = 120       # bounded-window controller observation noise
@@ -68,10 +81,10 @@ _STREAM_WINDOW = 120       # bounded-window controller observation noise
 _BLOCK_ELEMENTS = 4 << 20
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: str = "") -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the torch engine yet (ROADMAP, Queue 1 "
-        "item 5)")
+        f"item 5{' [' + item + ']' if item else ''})")
 
 
 def _tier_frac(got: np.ndarray, tot: np.ndarray) -> np.ndarray:
@@ -271,22 +284,44 @@ class BatchedEngine:
                             if pods else None)) for d in design_list}
 
     def traces(self, design_list: Sequence[str], n_rounds: int, seed: int, *,
-               legacy_streams: bool = False,
+               legacy_streams: bool = True,
                per_node_for: Sequence[str] = (),
                round_block: int | None = None) -> Dict[str, StepTrace]:
-        """One physics pass for every design in ``design_list``, in the
-        shared-fabric mode (the numpy engine's ``legacy_streams=False``;
-        unlike the numpy engine, that is the default here, and ``True``
-        raises)."""
-        if legacy_streams:
-            raise _not_ported("legacy_streams=True (replay.py, "
-                              "network.roce_fabric_trace)")
+        """One physics pass for every design in ``design_list``.
+
+        ``legacy_streams=True`` replays the sequential simulator's seeded
+        streams on the flat ring (one pass over the whole trace, memory
+        O(T * n)); ``False`` is the shared-fabric mode, in round blocks
+        (``round_block`` rounds each; the numpy engine's partition by
+        default).  Legacy mode refuses what has no sequential stream to
+        replay, with the numpy engine's ``ValueError``s.
+        """
         if per_node_for:
-            raise _not_ported("per_node_for (per-flow (T, n) traces)")
+            raise _not_ported("per_node_for (per-flow (T, n) traces)", "5.3")
         from repro_torch.core.transport import engine_torch
+        if legacy_streams:
+            self._check_legacy()
+            return engine_torch.traces_legacy(self, list(design_list),
+                                              n_rounds, seed)
         return engine_torch.traces_batched(
             self, list(design_list), n_rounds, [seed],
             round_block=round_block)[0]
+
+    def _check_legacy(self):
+        """The numpy engine's refusals of legacy streams: the sequential
+        simulator only ever ran the flat, fault-free ring."""
+        if self.p.topo.hierarchical:
+            raise ValueError(
+                "hierarchical topologies (n_pods > 1) require "
+                "legacy_streams=False (shared-fabric mode)")
+        if self.p.work.schedule != "ring":
+            raise ValueError(
+                f"schedule={self.p.work.schedule!r} requires "
+                "legacy_streams=False (shared-fabric mode)")
+        if self.p.fault.active:
+            raise ValueError(
+                "fault injection (FaultParams) requires "
+                "legacy_streams=False (shared-fabric mode)")
 
     # ------------------------------------------------------------------
     def assemble(self, trace: StepTrace, seed: int, *,
@@ -310,9 +345,9 @@ class BatchedEngine:
             raise ValueError(f"cut_order must be 'arrival' or "
                              f"'priority', got {cut_order!r}")
         if cut_order == "priority":
-            raise _not_ported("cut_order='priority'")
+            raise _not_ported("cut_order='priority'", "5.3")
         if window == "step":
-            raise _not_ported("window='step'")
+            raise _not_ported("window='step'", "5.3")
         steps = trace.steps_per_round
         R = trace.nat_us.shape[0] // steps
         nat = trace.nat_us.reshape(R, steps)
@@ -456,26 +491,32 @@ class BatchedEngine:
             celeris_timeout_us: float | None = None,
             adaptive: bool = True, window: "str | WindowPolicy" = "round",
             cut_order: str = "arrival", seed: int | None = None,
-            legacy_streams: bool = False) -> RoundStats:
+            legacy_streams: bool = True) -> RoundStats:
         """Simulate ``n_rounds`` rounds for one NIC design.
 
-        The engine is engine-native by construction, so
-        ``legacy_streams`` is turned off here, as the numpy engine's jax
-        backend does."""
+        ``legacy_streams`` follows the numpy engine's rules: adaptive
+        Celeris (its controller's draws are not replayable), non-ring
+        schedules and active faults (no sequential stream to replay)
+        run in the shared-fabric mode; a multi-pod ring raises."""
         seed = self.p.seed if seed is None else seed
-        del legacy_streams
-        tr = self.traces([design], n_rounds, seed)
+        window = WindowPolicy.parse(window).kind
+        keep = (design,) if design == "celeris" and window == "step" else ()
+        if ((design == "celeris" and adaptive)
+                or self.p.work.schedule != "ring" or self.p.fault.active):
+            legacy_streams = False
+        tr = self.traces([design], n_rounds, seed,
+                         legacy_streams=legacy_streams, per_node_for=keep)
         return self.assemble(tr[design], seed,
                              celeris_timeout_us=celeris_timeout_us,
                              adaptive=adaptive, window=window,
                              cut_order=cut_order)
 
     def paper_protocol(self, n_rounds: int = 400, seed: int = 0, *,
-                       legacy_streams: bool = False
+                       legacy_streams: bool = True
                        ) -> Dict[str, RoundStats]:
         """The paper's Fig.-2 protocol: RoCE baseline fixes the Celeris
         window at median + 1 sigma; every design shares one physics
-        pass (the shared-fabric mode; ``legacy_streams=True`` raises)."""
+        pass."""
         tr = self.traces(designs.DESIGNS, n_rounds, seed,
                          legacy_streams=legacy_streams)
         out = {d: self.assemble(tr[d], seed)
@@ -506,7 +547,8 @@ class BatchedSimParams:
     failure scenario (``FaultParams``, ``"kind:rate"`` specs or None for
     the fault-free cell; each scenario runs its own trace).  The JAX
     package's ``backend`` switch has no counterpart: :func:`sweep` takes
-    a ``device``.  ``legacy_streams=True`` raises.
+    a ``device``.  ``legacy_streams=True`` replays each seed's
+    sequential streams (flat, fault-free ring cells only).
     """
     n_nodes: Sequence[int] = (128,)
     message_mb: Sequence[float] = (25.0,)
@@ -519,7 +561,7 @@ class BatchedSimParams:
     n_rounds: int = 200
     celeris_timeout_us: float | None = None
     timeout_scale: float = 1.0
-    legacy_streams: bool = False
+    legacy_streams: bool = False      # sweeps share one fabric trace
     base: SimParams = SimParams()
 
     def fault_params(self) -> tuple:
@@ -622,18 +664,26 @@ def sweep(params: BatchedSimParams | None = None, *, progress=None,
     """Run the grid in :class:`BatchedSimParams` on ``device``: one
     batched engine pass (every seed at once) per ``(n_nodes, message_mb,
     n_pods, schedule, fault)`` cell, every design and window policy
-    assembled from that cell's traces.  Keys follow :class:`SweepResult`.
+    assembled from that cell's traces (with ``legacy_streams``, one
+    legacy pass per seed).  Keys follow :class:`SweepResult`.
     ``progress``: optional ``callable(str)`` for liveness logging."""
     from repro_torch.core.transport import engine_torch
     bp = params or BatchedSimParams()
-    if bp.legacy_streams:
-        raise _not_ported("legacy_streams=True (replay.py)")
+    if bp.legacy_streams and any(np_ > 1 for np_ in bp.n_pods):
+        raise ValueError("legacy_streams=True is incompatible with "
+                         "n_pods > 1 sweep cells")
+    if bp.legacy_streams and any(sc != "ring" for sc in bp.schedules):
+        raise ValueError("legacy_streams=True is incompatible with "
+                         "non-ring schedule sweep cells")
+    fault_grid = bp.fault_params()
+    if bp.legacy_streams and any(fp.active for fp in fault_grid):
+        raise ValueError("legacy_streams=True is incompatible with "
+                         "fault-injection sweep cells")
     for win in bp.windows:
         if WindowPolicy.parse(win).kind == "step":
             raise ValueError("sweep windows must be 'round' or 'phase' "
                              "(window='step' needs per-flow traces)")
     device = resolve_device(device)
-    fault_grid = bp.fault_params()
     res = SweepResult(params=bp, stats={})
     total_cells = (len(bp.n_nodes) * len(bp.message_mb) * len(bp.n_pods)
                    * len(bp.schedules) * len(fault_grid))
@@ -661,11 +711,21 @@ def sweep(params: BatchedSimParams | None = None, *, progress=None,
                                                      n_pods=npods),
                             fault=fp)
                         eng = BatchedEngine(p, device=str(device))
-                        trs = engine_torch.traces_batched(
-                            eng, list(bp.designs), bp.n_rounds,
-                            list(bp.seeds))
-                        res.timing[(nn, mb, npods, sched, fp.tag)] = (
-                            eng.timing)
+                        if bp.legacy_streams:
+                            trs, split = [], []
+                            for s in bp.seeds:
+                                trs.append(eng.traces(list(bp.designs),
+                                                      bp.n_rounds, s))
+                                split.append(eng.timing)
+                            timing = dict(split[-1], seeds=len(split), **{
+                                k: sum(t[k] for t in split)
+                                for k in ("host_s", "device_s", "blocks")})
+                        else:
+                            trs = engine_torch.traces_batched(
+                                eng, list(bp.designs), bp.n_rounds,
+                                list(bp.seeds))
+                            timing = eng.timing
+                        res.timing[(nn, mb, npods, sched, fp.tag)] = timing
                         for s, tr in zip(bp.seeds, trs):
                             _assemble_cell(res, eng, bp, tr, s,
                                            (nn, mb, npods, sched), fp.tag)

@@ -1,6 +1,7 @@
 """The engine's device backend in torch (port of
 ``repro/core/transport/engine_jax.py``: flat and hierarchical fabrics,
-the ring, ``hier`` and ``perrail`` schedules, fault injection).
+the ring, ``hier`` and ``perrail`` schedules, fault injection; and of the
+numpy engine's legacy-stream pass, ``_traces_legacy``).
 
 The numpy engine (``repro.core.transport.engine``) is the reference:
 every seeded statistic is defined by its exact draw order.  This module
@@ -36,6 +37,21 @@ the per-step tier and pod reductions.  The float types follow the numpy
 engine: float32 times, float64 where it casts (the excess
 ``A + B * pkt_time``).
 
+Legacy streams
+--------------
+:func:`traces_legacy` is the numpy engine's ``_traces_legacy`` split the
+same way.  The host pass (:func:`_legacy_host`) consumes its streams in
+its order: the clean fabric trace (irn/srnic/celeris), RoCE's
+PFC-polluted one (``network.roce_fabric_trace``), the path curves, the
+replayed selective-repeat and celeris draws (``replay``), RoCE's CNP
+marks on its hot rows and its engine-native transfer draws (the ``A +
+B * pkt_time`` split above).  The device core (:func:`_legacy_core`)
+makes one scan call over the stacked CNP channels, roce, then sr
+(irn/srnic), then celeris, only those asked for, with the step mask
+``any_t`` the OR over every channel and flow (the numpy ``rate_trace``
+materializes every flow of every channel at such a step), then each
+design's times in the numpy engine's float order.
+
 Tolerance contract
 ------------------
 The host pass replays the numpy engine's streams exactly, so both see
@@ -52,7 +68,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.transport import designs, faults, network, topology
+from repro_torch.core.transport import (designs, faults, network, replay,
+                                        topology)
 from repro_torch.core.transport import engine as engine_mod
 from repro_torch.core.transport.dcqcn import DcqcnState
 from repro_torch.kernels import ops
@@ -329,6 +346,25 @@ def _core(eng, ctx: _Plan, inp, state: DcqcnState, design_list, tb: int):
     return out, DcqcnState(rate=r, target=t, alpha=a, good_stages=g)
 
 
+def _check_designs(eng, design_list) -> list:
+    net = eng.p.net
+    unknown = [d for d in design_list if d not in designs.DESIGNS]
+    if unknown:
+        raise ValueError(f"unknown design(s) {unknown}; "
+                         f"choose from {designs.DESIGNS}")
+    if net.n_nodes < net.nodes_per_tor or net.n_nodes % net.nodes_per_tor:
+        raise ValueError(
+            f"n_nodes={net.n_nodes} must be a positive multiple of "
+            f"nodes_per_tor={net.nodes_per_tor}")
+    if net.ecn_threshold > net.loss_knee:
+        # the hot-row prescreen in _sparse_path_curves keys on the ECN
+        # threshold being the lower of the two curves
+        raise ValueError(
+            f"ecn_threshold={net.ecn_threshold} must not exceed "
+            f"loss_knee={net.loss_knee}")
+    return list(design_list)
+
+
 def _stack_to(arrays, dev):
     return torch.from_numpy(np.stack(arrays)).to(dev)
 
@@ -343,20 +379,7 @@ def traces_batched(eng, design_list, n_rounds: int, seeds, *,
     the host draw pass and the device core (which includes the copies
     to and from the card)."""
     p = eng.p
-    net = p.net
-    unknown = [d for d in design_list if d not in designs.DESIGNS]
-    if unknown:
-        raise ValueError(f"unknown design(s) {unknown}; "
-                         f"choose from {designs.DESIGNS}")
-    if net.n_nodes < net.nodes_per_tor or net.n_nodes % net.nodes_per_tor:
-        raise ValueError(
-            f"n_nodes={net.n_nodes} must be a positive multiple of "
-            f"nodes_per_tor={net.nodes_per_tor}")
-    if net.ecn_threshold > net.loss_knee:
-        raise ValueError(
-            f"ecn_threshold={net.ecn_threshold} must not exceed "
-            f"loss_knee={net.loss_knee}")
-    design_list = list(design_list)
+    design_list = _check_designs(eng, design_list)
     seeds = [int(s) for s in seeds]
     S = len(seeds)
     if S == 0:
@@ -447,3 +470,174 @@ def _scatter_block(out, res, si, ctx: _Plan, t0: int, tb: int):
                     tr.pod_deliv[rows, kp] = (
                         o["pod"][si][:, kp] if "pod" in o
                         else float(npk * cols.size))
+
+
+# ----------------------------------------------------------------------
+# Legacy streams: the sequential simulator's seeded streams, replayed
+# ----------------------------------------------------------------------
+
+def _legacy_host(eng, ctx: _Plan, design_list, T: int, seed: int) -> dict:
+    """The numpy engine's ``_traces_legacy`` stream consumption over the
+    whole trace (float64 wherever a value feeds a replay: a flipped
+    comparison there would desynchronize the stream).  Returns the
+    stacked CNP channels ``(C, T, n)``, their order, and per stream class
+    the float32 path occupancy and the draws."""
+    p = eng.p
+    net, rel = p.net, p.rel
+    g = eng._geometry(seed)
+    ph = ctx.phases[0]["ph"]                  # the flat ring: one phase
+    src, dst, n_pkts = ph.src, ph.dst, ctx.phases[0]["n_pkts"]
+    n, n_tors = ctx.n, ctx.n_tors
+    host = {}
+    if any(d != "roce" for d in design_list):
+        # the clean fabric trace, shared by the irn/srnic/celeris streams
+        u = np.random.default_rng(g["fabric_seed"]).random(
+            (T, network._ADVANCE_DRAWS, n_tors))
+        state0 = network.FabricState(
+            bursting=np.zeros(n_tors, dtype=bool),
+            occupancy=np.full(n_tors, net.idle_occupancy))
+        _, occ_tor, _ = network.occupancy_trace(net, u, state0)
+        del u
+        ecn_clean, drop_clean, _ = engine_mod._sparse_path_curves(
+            net, occ_tor, src, dst)
+        host["occ_clean"] = network.path_occupancy_trace(
+            net, occ_tor.astype(np.float32), src, dst)
+    channels, order = [], []
+    if "roce" in design_list:
+        occ_tor_roce, pfc_roce = network.roce_fabric_trace(
+            net, g["fabric_seed"], src, dst, T)
+        ecn_roce, drop_roce, hot_roce = engine_mod._sparse_path_curves(
+            net, occ_tor_roce, src, dst)
+        host["occ_roce"] = network.path_occupancy_trace(
+            net, occ_tor_roce.astype(np.float32), src, dst)
+        # engine-native stream: ECN is zero off the hot rows, so only
+        # those need uniforms
+        cnp_roce = np.zeros((T, n), dtype=bool)
+        cnp_roce[hot_roce] = (
+            np.random.default_rng([seed, engine_mod._STREAM_CNP_ROCE])
+            .random((hot_roce.size, n)) < ecn_roce[hot_roce])
+        channels.append(cnp_roce)
+        order.append("roce")
+        host["pfc"] = pfc_roce.astype(np.float32)
+        host["roce"] = _design_draws(
+            "roce", n_pkts, drop_roce, rel, net,
+            np.random.default_rng([seed, engine_mod._STREAM_TRANSFER["roce"]]),
+            (T, n))
+    if "irn" in design_list or "srnic" in design_list:
+        sr = replay.replay_selective_repeat(seed, n_pkts, drop_clean,
+                                            ecn_clean)
+        channels.append(sr.cnp)
+        order.append("sr")
+        host["sr"] = {"k": sr.k, "tail": sr.tail_lost, "k2": sr.k2}
+    if "celeris" in design_list:
+        cel = replay.replay_celeris(seed, n_pkts, drop_clean, ecn_clean)
+        channels.append(cel.cnp)
+        order.append("celeris")
+        host["celeris"] = {"k": cel.k}
+    host["cnp"] = np.stack(channels)
+    host["order"] = order
+    return host
+
+
+def _legacy_core(eng, ctx: _Plan, host: dict, design_list):
+    """One scan call over the stacked CNP channels, then each design's
+    completion times in the numpy engine's float order.  Returns, per
+    design, ``nat`` ``(1, T)`` and for celeris the delivered sums
+    ``deliv`` and ``tier`` (the reliable designs deliver everything)."""
+    net, rel, dq = eng.p.net, eng.p.rel, eng.p.dcqcn
+    dev = eng.device
+    s0 = ctx.phases[0]
+    n_pkts = s0["n_pkts"]
+    cnp = torch.from_numpy(host["cnp"]).to(dev)
+    C, T, n = cnp.shape
+    # rate_trace's step mask spans every channel and flow
+    any_t = cnp.any(-1).any(0).expand(C, T).contiguous()
+    state = DcqcnState.init((C, n), device=dev)
+    rates, _ = ops.dcqcn_scan(cnp, any_t, state.rate, state.target,
+                              state.alpha, state.good_stages, dq)
+    chan = {c: i for i, c in enumerate(host["order"])}
+
+    def on_dev(a):
+        return torch.from_numpy(a).to(dev)
+
+    def pkt_time_of(rate_d, avail):
+        # torch.div, not ``c / eff``: the IEEE quotient numpy takes
+        eff = rate_d * avail
+        return torch.div(eff.new_tensor(net.pkt_time_us),
+                         torch.clamp(eff, min=1e-3))
+
+    out = {}
+    if "roce" in design_list:
+        occ = on_dev(host["occ_roce"])
+        pkt_time = pkt_time_of(rates[chan["roce"]],
+                               network.avail_bandwidth(net, occ))
+        times = (n_pkts * pkt_time + network.queue_delay_us(net, occ)
+                 + net.base_rtt_us / 2)
+        times = times + on_dev(host["pfc"])
+        ex = (on_dev(host["roce"]["A"]).double()
+              + on_dev(host["roce"]["B"]).double() * pkt_time.double())
+        out["roce"] = {"nat": (times + ex.float()).amax(-1)[None]}
+    if "occ_clean" in host:
+        occ = on_dev(host["occ_clean"])
+        qd = network.queue_delay_us(net, occ)
+        avail = network.avail_bandwidth(net, occ)
+    if "sr" in chan:
+        pkt_time = pkt_time_of(rates[chan["sr"]], avail)
+        base = n_pkts * pkt_time + qd + net.base_rtt_us / 2
+        ptf = pkt_time.double()
+        k, k2 = on_dev(host["sr"]["k"]), on_dev(host["sr"]["k2"])
+        k64 = k.double()
+        f64 = dict(dtype=torch.float64, device=dev)
+        detect = torch.where(on_dev(host["sr"]["tail"]),
+                             torch.tensor(rel.rto_low_us, **f64),
+                             torch.tensor(rel.nack_delay_us
+                                          + net.base_rtt_us, **f64))
+        # the numpy engine scatters float64 excesses into a float32
+        # array: the first pass, then the re-lost second round added in
+        # float64 to the stored float32 value
+        extra = torch.where(k > 0, (detect + k64 * ptf).float(), 0.0)
+        again = rel.rto_low_us + k2.double() * ptf
+        extra = torch.where(k2 > 0, (extra.double() + again).float(), extra)
+        t = base + extra
+        for d in ("irn", "srnic"):
+            if d not in design_list:
+                continue
+            if d == "srnic":
+                slow = (k64 * rel.host_slowpath_us).float()
+                t = torch.where(k > 0, t + slow, t)
+            out[d] = {"nat": t.amax(-1)[None]}
+    if "celeris" in chan:
+        pkt_time = pkt_time_of(rates[chan["celeris"]], avail)
+        times = (n_pkts * pkt_time + designs.CELERIS_QUEUE_OVERLAP * qd
+                 + net.base_rtt_us / 2)
+        # integer sums, exact in float64
+        k = on_dev(host["celeris"]["k"]).double()
+        out["celeris"] = {
+            "nat": times.amax(-1)[None],
+            "deliv": (float(n_pkts * n) - k.sum(-1))[None],
+            "tier": torch.stack([float(n_pkts * c.numel())
+                                 - k[:, c].sum(-1) for c in s0["tier_t"]],
+                                -1)[None]}
+    return out
+
+
+def traces_legacy(eng, design_list, n_rounds: int, seed: int):
+    """The legacy-stream physics of one seed on the flat ring: equal
+    (within the tolerance contract) to the numpy engine's ``traces(...,
+    legacy_streams=True)``.  The caller has refused what has no
+    sequential stream (``BatchedEngine._check_legacy``).  Sets
+    ``eng.timing`` as :func:`traces_batched` does (one block)."""
+    design_list = _check_designs(eng, design_list)
+    ctx = _Plan(eng)
+    T = n_rounds * ctx.steps
+    c0 = time.perf_counter()
+    host = _legacy_host(eng, ctx, design_list, T, int(seed))
+    c1 = time.perf_counter()
+    res = _legacy_core(eng, ctx, host, design_list)
+    res = [{d: {f: v.cpu().numpy() for f, v in o.items()}
+            for d, o in res.items()}]
+    out = eng._new_traces(design_list, T, ctx.plan, ctx.hgs)
+    _scatter_block(out, res, 0, ctx, 0, T)
+    eng.timing = {"host_s": c1 - c0, "device_s": time.perf_counter() - c1,
+                  "blocks": 1, "seeds": 1, "steps": T, "nodes": ctx.n}
+    return out

@@ -1,6 +1,6 @@
 """Clos fabric + background-contention model (port of
-``repro/core/transport/network.py``: the parts the shared-fabric engine
-runs).
+``repro/core/transport/network.py``: the parts the engine runs; the
+step-at-a-time ``ClosFabric`` is left out).
 
 Background load is a Markov-modulated burst process per ToR uplink
 (on/off with occupancy drawn per burst).  Occupancy determines queueing
@@ -12,8 +12,10 @@ Two kinds of code live here:
 - the **host pass** (numpy, copied as it is): :func:`occupancy_trace`
   resolves the burst chain in closed form and the occupancy EWMA by a
   truncated geometric filter, consuming the fabric stream in exactly the
-  numpy engine's order, and :func:`pfc_pause_trace` consumes the PFC
-  stream.  These consume random streams, so they stay on numpy
+  numpy engine's order, :func:`pfc_pause_trace` consumes the PFC
+  stream, and :func:`roce_fabric_trace` replays the fabric stream as a
+  seed RoCE run of the sequential simulator consumed it (legacy
+  streams).  These consume random streams, so they stay on numpy
   generators: that is the replay contract;
 - the **response curves**, written once for both numpy arrays and torch
   tensors (operator and method syntax only: ``**`` and ``.clip`` exist
@@ -178,3 +180,88 @@ def pfc_pause_trace(p: NetworkParams, occ: np.ndarray,
         alive.flat[idx] = survive
         total.flat[idx] += np.where(survive, p.pfc_pause_us, 0.0)
     return total
+
+
+def roce_fabric_trace(p: NetworkParams, fabric_seed: int, src: np.ndarray,
+                      dst: np.ndarray, n_steps: int, *, window: int = 512,
+                      window_max: int = 16384) -> tuple[np.ndarray, np.ndarray]:
+    """Bit-exact replay of the fabric stream as a seed RoCE run consumes it.
+
+    Per step the sequential simulator draws 3*n_tors doubles in
+    ``advance()`` and then >= 1 cascade block of ``n_flows`` doubles in
+    ``pfc_pause_us`` — further blocks only while some cascade survives,
+    which is rare (strong bursts only).  We therefore speculate
+    ``window`` steps at a time assuming the one-block common case, find
+    the first step whose cascade survives its first draw, finish that
+    step's cascade sequentially, and re-anchor the stream position with
+    ``PCG64.advance``.
+
+    Returns (occupancy (T, n_tors), pfc_pause_us (T, n_flows)).
+    """
+    n_tors = p.n_nodes // p.nodes_per_tor
+    n = src.shape[0]
+    step_draws = _ADVANCE_DRAWS * n_tors + n
+    state = FabricState(bursting=np.zeros(n_tors, dtype=bool),
+                        occupancy=np.full(n_tors, p.idle_occupancy))
+    out_occ = np.empty((n_steps, n_tors))
+    out_pfc = np.empty((n_steps, n))
+    t = 0
+    offset = 0                                # doubles consumed so far
+    win = window                              # adaptive: grow while calm,
+    while t < n_steps:                        # shrink on cascade breaks
+        L = min(win, n_steps - t)
+        bg = np.random.PCG64(fabric_seed)
+        bg.advance(offset)
+        gen = np.random.Generator(bg)
+        u = gen.random((L, step_draws))
+        b, occ, spec_state = occupancy_trace(
+            p, u[:, : _ADVANCE_DRAWS * n_tors].reshape(L, _ADVANCE_DRAWS,
+                                                       n_tors), state)
+        # ToR-level prescreen: a path can only pause when some ToR
+        # exceeds the threshold (same-ToR paths sit at idle occupancy),
+        # which is rare — skip the per-flow work for cold steps.
+        hot = (occ > p.pfc_threshold).any(axis=1)
+        hidx = np.flatnonzero(hot)
+        paused_h = np.zeros((hidx.size, n), dtype=bool)
+        if hidx.size:
+            occ_path_h = path_occupancy_trace(p, occ[hidx], src, dst)
+            paused_h = occ_path_h > p.pfc_threshold
+        alive1_h = paused_h & (
+            u[hidx, _ADVANCE_DRAWS * n_tors:] < p.pfc_cascade_prob)
+        cont_h = alive1_h.any(axis=1)
+        j = int(hidx[np.argmax(cont_h)]) if cont_h.any() else L
+        upto = min(j + 1, L)
+        out_occ[t: t + upto] = occ[:upto]
+        out_pfc[t: t + upto] = 0.0
+        keep_h = hidx[hidx < upto]
+        if keep_h.size:
+            out_pfc[t + keep_h] = np.where(paused_h[: keep_h.size],
+                                           p.pfc_pause_us, 0.0)
+        if j < L:
+            # step t+j: cascade survived its first draw — replay the
+            # remaining iterations sequentially at the exact position.
+            bg2 = np.random.PCG64(fabric_seed)
+            extra_offset = offset + (j + 1) * step_draws
+            bg2.advance(extra_offset)
+            gen2 = np.random.Generator(bg2)
+            alive = alive1_h[int(np.argmax(cont_h))].copy()
+            total = out_pfc[t + j]
+            total += np.where(alive, p.pfc_pause_us, 0.0)
+            draws = 1
+            while draws < p.pfc_max_cascade:
+                alive = alive & (gen2.random(n) < p.pfc_cascade_prob)
+                draws += 1
+                if not alive.any():
+                    break
+                total += np.where(alive, p.pfc_pause_us, 0.0)
+            offset = extra_offset + (draws - 1) * n
+            # resume from the state *after* step t+j
+            state = FabricState(bursting=b[j].copy(), occupancy=occ[j].copy())
+            t += j + 1
+            win = window
+        else:
+            state = spec_state
+            offset += L * step_draws
+            t += L
+            win = min(win * 2, window_max)
+    return out_occ, out_pfc

@@ -266,7 +266,8 @@ def hier_protocol(params: SimParams, n_rounds: int = 200, seed: int = 0, *,
     from repro_torch.core.transport.engine import BatchedEngine
 
     eng = BatchedEngine(params, recorder=recorder, device=device)
-    tr = eng.traces(["roce", "celeris"], n_rounds, seed)
+    tr = eng.traces(["roce", "celeris"], n_rounds, seed,
+                    legacy_streams=False)
     base = eng.assemble(tr["roce"], seed)
     to = float((np.percentile(base.times_us, 50) + base.times_us.std())
                * timeout_scale)

@@ -2,8 +2,10 @@
 ``lax.scan``, ``repro/core/transport/engine_jax.py::_dcqcn_scan``; the
 JAX package has no Pallas kernel for it).
 
-The kernel is ``csrc/dcqcn.cu``.  ``launches`` counts the kernel
-launches made through :func:`dcqcn_scan_cuda`: one per engine block.
+The kernels are ``csrc/dcqcn.cu``: one call launches three (the
+compaction of the active steps, the walk over them, the calm fill).
+``launches`` counts the calls made through :func:`dcqcn_scan_cuda`: one
+per engine block.
 """
 from __future__ import annotations
 
@@ -16,15 +18,28 @@ from repro_torch.kernels import _build
 
 launches = 0
 
+# dcqcn_scan_launch's arguments: 11 pointers, (S, tb, n), the five float
+# parameters, hyper_after, then the workspace and the stream
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_double] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2)
+
+
+def bind(lib: ctypes.CDLL):
+    """The C entry points of a built ``dcqcn.cu``, ``(launch,
+    workspace_bytes)``, with their argument types set."""
+    fn = lib.dcqcn_scan_launch
+    fn.argtypes = LAUNCH_ARGTYPES
+    fn.restype = ctypes.c_int
+    ws = lib.dcqcn_scan_workspace_bytes
+    ws.argtypes = [ctypes.c_longlong] * 3
+    ws.restype = ctypes.c_longlong
+    return fn, ws
+
 
 @functools.cache
-def _launcher():
-    fn = _build.load("dcqcn").dcqcn_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 11
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_double] * 5
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _launchers():
+    return bind(_build.load("dcqcn"))
 
 
 def _check(name, t, dtype, shape, device):
@@ -65,13 +80,19 @@ def dcqcn_scan_cuda(cnp: torch.Tensor, any_t: torch.Tensor,
     state = tuple(torch.empty_like(t) for t in (rate, target, alpha, good))
     if S == 0 or n == 0:
         return rates, state
+    launch, ws_bytes = _launchers()
+    # the active-step lists, gap pows and calm-gap anchors, which
+    # csrc/dcqcn.cu carves from one 256-byte aligned block
+    work = torch.empty(ws_bytes(S, tb, n), dtype=torch.uint8, device=dev)
+    if work.data_ptr() % 256:
+        raise RuntimeError("dcqcn_scan_cuda: workspace not 256-byte aligned")
     with torch.cuda.device(dev):
-        err = _launcher()(
+        err = launch(
             cnp.data_ptr(), any_t.data_ptr(), rate.data_ptr(),
             target.data_ptr(), alpha.data_ptr(), good.data_ptr(),
             rates.data_ptr(), *(t.data_ptr() for t in state), S, tb, n,
             dq.alpha_g, dq.rate_decrease_floor, dq.additive_increase,
-            dq.hyper_increase, dq.min_rate, dq.hyper_after,
+            dq.hyper_increase, dq.min_rate, dq.hyper_after, work.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dcqcn kernel launch failed: cudaError {err}")

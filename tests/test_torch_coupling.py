@@ -108,10 +108,20 @@ def test_lossless_design_gives_zero_schedule():
 
 
 def test_record_and_legacy_streams_raise():
-    for kw in ({"record": True}, {"legacy_streams": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcoupling.schedule_from_engine(2, params=SMOKE_T, device="cpu",
-                                           **kw)
+    """The flight recorder is not ported; legacy streams raise where the
+    numpy engine refuses them too (a multi-pod fabric)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcoupling.schedule_from_engine(2, params=SMOKE_T, device="cpu",
+                                       record=True)
+    pods = dataclasses.replace(SMOKE_T, topo=tparams.TopologyParams(
+        n_pods=2))
+    jpods = jparams.SimParams(net=jparams.NetworkParams(n_nodes=32),
+                              topo=jparams.TopologyParams(n_pods=2))
+    for fn, p, kw in ((tcoupling.schedule_from_engine, pods,
+                       {"device": "cpu"}),
+                      (jcoupling.schedule_from_engine, jpods, {})):
+        with pytest.raises(ValueError, match="n_pods > 1"):
+            fn(2, params=p, legacy_streams=True, **kw)
 
 
 def test_schedule_from_engine_needs_cuda_unless_cpu_requested():

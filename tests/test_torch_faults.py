@@ -93,7 +93,8 @@ def fault_runs():
                 device="cpu")
             cache[name] = (jeng, jeng.traces(DESIGNS, ROUNDS, 7,
                                               legacy_streams=False),
-                           teng, teng.traces(DESIGNS, ROUNDS, 7))
+                           teng, teng.traces(DESIGNS, ROUNDS, 7,
+                                             legacy_streams=False))
         return cache[name]
     return get
 
@@ -142,7 +143,7 @@ def test_zero_fault_params_reproduce_pinned_flat_stats():
                                                     burst_on_prob=0.0008),
                           fault=tparams.FaultParams())
     eng = tengine.BatchedEngine(p, device="cpu")
-    tr = eng.traces(["roce", "celeris"], 40, 11)
+    tr = eng.traces(["roce", "celeris"], 40, 11, legacy_streams=False)
     assert tr["celeris"].fault_flows is None
     base = eng.assemble(tr["roce"], 11)
     to = float(np.percentile(base.times_us, 50) + base.times_us.std()) * 0.8
@@ -339,9 +340,14 @@ def test_sweep_grid_axes_match_jax():
 
 
 def test_sweep_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.sweep(tengine.BatchedSimParams(legacy_streams=True),
-                      device="cpu")
+    """The numpy engine's refusals: legacy streams exist only on the
+    flat, fault-free ring; the step window needs per-flow traces."""
+    for kw, what in (({"n_pods": (1, 2)}, "n_pods"),
+                     ({"schedules": ("ring", "hier")}, "schedule"),
+                     ({"faults": (None, "stall:1e-4")}, "fault")):
+        with pytest.raises(ValueError, match=what):
+            tengine.sweep(tengine.BatchedSimParams(legacy_streams=True,
+                                                   **kw), device="cpu")
     with pytest.raises(ValueError, match="window"):
         tengine.sweep(tengine.BatchedSimParams(windows=("step",)),
                       device="cpu")

@@ -136,7 +136,7 @@ def hier_traces():
             teng = tengine.BatchedEngine(pt, device="cpu")
             cache[(schedule, n_pods)] = (
                 jeng, jeng.traces(DESIGNS, ROUNDS, 3, legacy_streams=False),
-                teng, teng.traces(DESIGNS, ROUNDS, 3))
+                teng, teng.traces(DESIGNS, ROUNDS, 3, legacy_streams=False))
         return cache[(schedule, n_pods)]
     return get
 
@@ -181,7 +181,7 @@ def test_per_pod_oversubscription_vector_matches_numpy_engine():
     jeng = jengine.BatchedEngine(_hier(jparams, jtopology, 2, "ring", **kw))
     teng = tengine.BatchedEngine(_hier(tparams, ttopology, 2, "ring", **kw),
                                  device="cpu")
-    check_traces(teng.traces(DESIGNS, 16, 5),
+    check_traces(teng.traces(DESIGNS, 16, 5, legacy_streams=False),
                  jeng.traces(DESIGNS, 16, 5, legacy_streams=False))
 
 
@@ -206,8 +206,10 @@ def test_flat_traces_immune_to_dci_parameters():
     hot = dataclasses.replace(base, topo=tparams.TopologyParams(
         n_pods=1, dci_oversubscription=8.0, dci_burst_on_prob=0.5,
         dci_rtt_us=100.0))
-    a = tengine.BatchedEngine(base, device="cpu").traces(DESIGNS, 10, 4)
-    b = tengine.BatchedEngine(hot, device="cpu").traces(DESIGNS, 10, 4)
+    a = tengine.BatchedEngine(base, device="cpu").traces(
+        DESIGNS, 10, 4, legacy_streams=False)
+    b = tengine.BatchedEngine(hot, device="cpu").traces(
+        DESIGNS, 10, 4, legacy_streams=False)
     for d in DESIGNS:
         np.testing.assert_array_equal(a[d].nat_us, b[d].nat_us)
         np.testing.assert_array_equal(a[d].deliv, b[d].deliv)

@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's serve, train and transport-engine paths
-on one NVIDIA card and check them.
+on one NVIDIA card and check them, with every table and figure the JAX
+package reproduces.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab-fwht EARLIER_FWHT_CU   # the A/B only
@@ -24,9 +25,10 @@ caught and carried on):
    of back-to-back calls behind a spin kernel, median of 5); the DCQCN
    scan bit for bit in rates and state at (1, 15,240, 128), (4, 4,092,
    1,024) and a ragged (3, 257, 33), at CNP densities 0, 0.001, 0.05 and
-   1, on real engine blocks' marks (Fig. 1's, Fig. 3's, Fig. 7's hier and
-   Fig. 4's 8-pod blocks, and the legacy Fig.-2 pass's three channels
-   under their shared step mask, (3, 76,200, 128)), and over two
+   1, on real engine blocks' marks (Fig. 1's, Fig. 3's, Fig. 7's hier,
+   Fig. 4's 8-pod, Fig. 6's 1,024-node hier and Fig. 8's KV incast
+   blocks, and the legacy Fig.-2 pass's three channels under their
+   shared step mask, (3, 76,200, 128)), and over two
    consecutive blocks, each real block timed beside its bound (the
    larger of bytes, operations and the chain of active steps);
 3. serve qwen2-0.5b at full width (24 layers, d 896, 14 heads padded to
@@ -86,10 +88,45 @@ caught and carried on):
     nodes, window x0.6, stall 1e-4) drives the smoke LM 40 steps
     ``hierarchical`` against 40 ``exact`` (recovery >= 0.9 asserted),
     then qwen2-0.5b at full width for 3 ``hierarchical`` steps (16 FWHT
-    launches a step).
+    launches a step);
+14. Tables I-II from the port's ``qp_state`` and ``resource_model``
+    (host arithmetic), held to the paper values the reference's tests
+    hold: per-QP bytes, BRAM, the BRAM cut, MTBF within 2 %;
+15. Fig. 5 on the card (``fig5_schedule_tail.py``'s protocol: ring vs
+    hier over 2/4 pods x oversubscription 2/4/8, 128 nodes x 100 rounds
+    through ``sweep``, and the hot pod through ``hier_protocol``): all 32
+    ``fig5_*`` keys equal to the committed ones;
+16. Fig. 6 on the card (``fig6_scale_schedule.py``'s: {ring, hier,
+    perrail} x {round, phase} at 128, 512 and 1,024 nodes x
+    oversubscription 2/8, 4 pods, 60 rounds, budget x 0.25, through
+    ``sweep``): all 126 ``fig6_*`` keys but the wall equal to the
+    committed ones, with each cell's host/device split and the device
+    busy share over one 1,024-node ring pass;
+17. the incast overlay, card against CPU: the smoke KV plan (28 prefill
+    -> 4 decode, fan-in 7, 32 nodes x 40 rounds), roce / irn / celeris
+    (delivered packets exact, times within rtol 1e-5);
+18. Fig. 8 on the card (``fig8_serving_tail.py``'s full tier): one
+    engine pass over the 112 -> 16 KV incast plan (128 nodes x 300
+    rounds, ``BatchedEngine(plan=)``), the request process and FIFO
+    queue per design and load, all 26 engine-derived ``fig8_*`` keys
+    equal to the committed ones; then the smoke LM decodes from caches
+    degraded at the clipped tail fraction through ``degrade_caches``
+    (the FWHT and unbias kernels), coded usable context >= 0.9, and the
+    two kernels are held to their plain versions on that cell's caches,
+    mask and signs;
+19. qwen2-0.5b at full width on a 4,096-token prompt (batch 1): prefill
+    through the tiled attention path, the coded KV transfer and 16
+    greedy tokens, the transfer's kernels held to their plain versions
+    on its caches ((197,376, 64) blocks); layer 0's tiled attention
+    against the dense formula within two bf16 ulps of its largest
+    output.
 
-Each path (3-6, and the engine's in 8-9 and 11-13) runs with the kernels'
-launch counts set to 0 just before it and read just after.  The last
+The protocols of phases 14-16 and 18 are ``repro_torch.benchmarks.figs``'s
+functions, which the CPU tests also run (smoke tiers and cut grids).
+
+Each path (3-6, and the engine's in 8-9, 11-13, 15-16 and 18-19) runs
+with the kernels' launch counts set to 0 just before it and read just
+after.  The last
 line is ``{"ok": true, "device": {...}}``; the lines before it carry the
 card's name and power limit and a ``{"kernels": [...]}`` record.  Needs CUDA: without it the
 script raises before printing any result.
@@ -1115,15 +1152,16 @@ def scan_state(S, n, dev):
             torch.zeros(S, n, dtype=torch.int32, device=dev))
 
 
-def engine_block_marks(E, ET, params, n_rounds, seeds, dev):
+def engine_block_marks(E, ET, params, n_rounds, seeds, dev, plan=None):
     """The CNP marks of the first block of an ``n_rounds`` engine run, one
     per seed, from the host pass (the marks the scan sees on the main
     path)."""
-    eng = E.BatchedEngine(params, device=str(dev))
+    eng = E.BatchedEngine(params, device=str(dev), plan=plan)
     ctx = ET._Plan(eng)
     tb = min(max(1, E._BLOCK_ELEMENTS // (ctx.steps * ctx.n)),
              n_rounds) * ctx.steps
-    cnp = [ET._host_block(eng, ET._SeedStreams(eng, s, ["celeris"]), ctx,
+    cnp = [ET._host_block(eng, ET._SeedStreams(eng, s, ["celeris"],
+                                               ctx.incast), ctx,
                           0, tb, ["celeris"])["cnp"] for s in seeds]
     return torch.from_numpy(np.stack(cnp)).to(dev)
 
@@ -1146,23 +1184,34 @@ def real_scan_blocks(E, ET, P, topology, dev):
     """The scan's inputs on the engine's paths, ``{name: (cnp, any_t)}``:
     the first block of the Fig.-1 schedule (1, 15,240, 128) and of Fig.
     3's cell (4, 4,092, 1,024); the hierarchical paths' blocks, where the
-    DCI tier marks far more steps: Fig. 7's hier schedule on 4 pods and
-    Fig. 4's ring over 8 pods at oversubscription 8; and the legacy Fig.-2
-    pass's three channels with their shared step mask."""
-    blocks = {
+    DCI tier marks far more steps: Fig. 7's hier schedule on 4 pods,
+    Fig. 4's ring over 8 pods at oversubscription 8 and Fig. 6's hier
+    schedule at 1,024 nodes and oversubscription 8 (1, 3,612, 1,024); Fig.
+    8's KV incast pass (1, 2,400, 128); and the legacy Fig.-2 pass's three
+    channels with their shared step mask."""
+    from repro_torch.benchmarks import figs
+    from repro_torch.serve import traffic
+    kv_params, kv_plan = figs.fig8_params(traffic.ServeTrafficParams(
+        **figs.FIG8_TP))
+    f6 = figs.FIG6
+    blocks = {       # name: (params, rounds, seeds, plan override)
         "fig1": (P.SimParams(net=P.NetworkParams(n_nodes=FIG1_NODES)),
-                 FIG1_ROUNDS, [0]),
+                 FIG1_ROUNDS, [0], None),
         "fig3": (P.SimParams(net=P.NetworkParams(n_nodes=FIG3_NODES)),
-                 FIG3_ROUNDS, list(FIG3_SEEDS)),
+                 FIG3_ROUNDS, list(FIG3_SEEDS), None),
         "fig7 hier": (topology.hier_params(
             FIG7_PODS, schedule="hier", dci_oversubscription=FIG7_OVERSUB),
-            FIG7_ROUNDS, [0]),
+            FIG7_ROUNDS, [0], None),
         "fig4 p8 o8": (topology.hier_params(
             FIG4_PODS[-1], n_nodes=FIG4_NODES,
-            dci_oversubscription=FIG4_OVERSUBS[-1]), FIG4_ROUNDS, [0])}
+            dci_oversubscription=FIG4_OVERSUBS[-1]), FIG4_ROUNDS, [0], None),
+        "fig6 hier n1024 o8": (topology.hier_params(
+            f6.pods, n_nodes=f6.nodes[-1], schedule="hier",
+            dci_oversubscription=f6.oversubs[-1]), f6.n_rounds, [0], None),
+        "fig8 kv": (kv_params, figs.FIG8_ROUNDS, [0], kv_plan)}
     out = {}
-    for name, (params, rounds, seeds) in blocks.items():
-        cnp = engine_block_marks(E, ET, params, rounds, seeds, dev)
+    for name, (params, rounds, seeds, plan) in blocks.items():
+        cnp = engine_block_marks(E, ET, params, rounds, seeds, dev, plan)
         out[name] = (cnp, cnp.any(-1))
     out["fig2 legacy"] = legacy_fig2_marks(E, ET, P, FIG2_ROUNDS, dev)
     return out
@@ -2079,6 +2128,386 @@ def phase_fig7_full_width(dev, C, ts, Trainer, DataConfig, OptConfig,
     return out
 
 
+# ----------------------------------------------------------------------
+# Tables 1-2, Figs. 5, 6 and 8 and the long prompt (phases 14-19)
+# ----------------------------------------------------------------------
+
+# phase 17: the incast overlay, card against CPU
+INCAST_CHECK_ROUNDS = 40
+# phase 19: a long prompt on the tiled attention path (s * s > 4 Mi)
+LONG_PROMPT, LONG_GEN = 4096, 16
+# tiled against dense attention: float32 logits in both, the
+# probabilities rounded to bfloat16 (dense after normalizing, tiled
+# before) and the dense output rounded to bfloat16: 2^-6 of the largest
+# output, two bf16 ulps at that size (layer 0 of qwen2-0.5b at 2,048
+# tokens on the CPU: 2^-7.8)
+LONG_ATTN_RTOL = 2 ** -6
+
+
+def phase_tables(figs, qp, rm):
+    """Tables I-II from the port's copies of ``qp_state`` and
+    ``resource_model`` (host arithmetic), held to the paper values that
+    tests/test_resource_models.py holds the reference to."""
+    keys = figs.table_keys(qp, rm)
+    designs = figs.TABLE_DESIGNS
+    for d, want in qp.PAPER_QP_BYTES.items():
+        assert keys[f"table1_qp_bytes_{d}"] == want, (d, want)
+    gain = qp.PAPER_QP_SCALABILITY["celeris"] / qp.PAPER_QP_SCALABILITY["roce"]
+    assert abs(qp.qp_capacity("celeris") / qp.qp_capacity("roce") / gain
+               - 1) <= 0.05, keys["table1_qp_density_gain"]
+    for d, want in rm.PAPER_BRAM.items():
+        assert abs(rm.bram_blocks(d) / want - 1) <= 1e-3, (d, want)
+    c = rm.bram_blocks("celeris")
+    cut_roce, cut_irn = (1 - c / rm.bram_blocks(d) for d in ("roce", "irn"))
+    assert 0.60 < cut_roce < 0.68 and 0.70 < cut_irn < 0.75, (cut_roce,
+                                                              cut_irn)
+    for d, want in rm.PAPER_MTBF_HRS.items():
+        got = rm.cluster_mtbf_hours(d)
+        assert abs(got - want) / want < 0.02, (d, got, want)
+    print(f"tables I-II: per-QP bytes "
+          f"{[keys[f'table1_qp_bytes_{d}'] for d in designs]} == the "
+          f"paper's; QP density gain {keys['table1_qp_density_gain']}; BRAM "
+          f"cut vs IRN {keys['table2_bram_cut_vs_irn_pct']} % (vs RoCE "
+          f"{cut_roce * 100:.1f} %); MTBF h "
+          f"{[round(keys[f'table2_mtbf_{d}'], 1) for d in designs]} "
+          f"within 2 % of the paper's; MTBF gain {keys['table2_mtbf_gain']}")
+    return dict(keys, bram_cut_vs_roce=cut_roce)
+
+
+def assert_committed(name, keys):
+    """Every key equal to the committed BENCH_sim.json value (the numpy
+    engine on the CPU, rounded as the benchmark rounds it)."""
+    want = {k: committed(k) for k in keys}
+    bad = {k: (v, want[k]) for k, v in keys.items() if v != want[k]}
+    assert not bad, f"{name}: keys differ from the committed ones " \
+        f"(port, committed): {bad}"
+    return len(keys)
+
+
+def check_kv_wire(name, caches, mask, signs, kfwht, kunbias, ref, coding):
+    """The coded KV transfer's kernels against their plain versions on one
+    path's own caches, wire-row mask and signs, per stacked K and V
+    payload (``serve_step.kv_wire_roundtrip``): encode's FWHT on the
+    (n_blocks, n_rot) blocks with signs and scale, decode's unbias on the
+    masked (n_rot, n_blocks) wire with the mask as counts, and decode's
+    FWHT with the scale alone.  The FWHT equal, unbias within rtol 1e-6
+    (phase 2's bars).  Run outside a path's counted window.  Returns the
+    worst error by kernel and the shapes."""
+    n_rot = int(mask.shape[0])
+    counts = mask.to(torch.float32)       # as kv_wire_roundtrip casts it
+    worst = {"fwht": 0.0, "masked_unbias": 0.0}
+    shapes = set()
+    for leaf in (caches.k, caches.v):
+        code = coding.plan(leaf.numel(), n_rot=n_rot)
+        assert code.n_rot == n_rot, (code, n_rot)
+        x = torch.nn.functional.pad(
+            leaf.reshape(-1).to(torch.float32),
+            (0, code.padded_len - code.orig_len)).reshape(code.n_blocks,
+                                                          n_rot)
+        scale = n_rot ** -0.5
+        rot = ref.fwht(x, signs=signs, scale=scale)
+        e1 = check_equal(f"{name} encode fwht {tuple(x.shape)}",
+                         (kfwht.fwht_cuda(x, signs, scale),), (rot,))
+        wire = rot.T.contiguous() * counts[:, None]
+        est = ref.masked_unbias(wire, counts, 1)
+        e2 = check(f"{name} unbias {tuple(wire.shape)}",
+                   kunbias.masked_unbias_cuda(wire, counts, 1), est, 1e-6,
+                   0.0)
+        k = (counts > 0).sum()
+        rot_est = est.T.contiguous() * torch.where(
+            k > 0, torch.div(n_rot, k.clamp(min=1)), 0.0)
+        e3 = check_equal(f"{name} decode fwht {tuple(rot_est.shape)}",
+                         (kfwht.fwht_cuda(rot_est, None, scale),),
+                         (ref.fwht(rot_est, scale=scale),))
+        worst["fwht"] = max(worst["fwht"], e1, e3)
+        worst["masked_unbias"] = max(worst["masked_unbias"], e2)
+        shapes |= {("fwht", tuple(x.shape)),
+                   ("masked_unbias", tuple(wire.shape))}
+    return {"max_abs_err": worst,
+            "shapes": sorted(f"{k} {list(v)}" for k, v in shapes)}
+
+
+def phase_fig5(dev, E, topology, figs, counts):
+    """Fig. 5 on the card (fig5_schedule_tail.run(): ring vs hier over 2
+    and 4 pods x oversubscription 2, 4 and 8, 128 nodes x 100 rounds
+    through ``sweep``, and the hot pod through ``hier_protocol``): all 32
+    ``fig5_*`` keys equal to the committed ones."""
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    keys, sweeps, protocol = figs.fig5_keys(dev)
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    host, device, blocks = sweep_timing(sweeps)
+    blocks += len(protocol)     # one block a pass at 128 nodes x 100 rounds
+    assert launches["dcqcn_scan"] == blocks, (launches, blocks)
+    n = assert_committed("fig5", keys)
+    assert n == 32, n
+    # the device busy share over one engine pass (the 4-pod o8 hier cell,
+    # one block)
+    eng = E.BatchedEngine(topology.hier_params(
+        4, n_nodes=figs.FIG5_NODES, schedule="hier",
+        dci_oversubscription=8.0), device=str(dev))
+    busy = profile_window(lambda: eng.traces(["roce", "celeris"],
+                                             figs.FIG5_ROUNDS, 0,
+                                             legacy_streams=False))
+    rec = {"keys": keys, "committed_keys_equal": n, "wall_s": wall,
+           "sweep_host_s": host, "sweep_device_s": device, "blocks": blocks,
+           "peak_mem_gib": peak, "one_block_profile": busy,
+           "launches": launches}
+    print(f"fig5 {figs.FIG5_NODES} nodes x {figs.FIG5_ROUNDS} rounds on the "
+          f"card: {n} fig5_* keys == the committed ones (ring/hier p99 ratio "
+          f"p4 o8 {keys['fig5_p99_ratio_p4_o8']}, hot pod "
+          f"{keys['fig5_hotpod_p99_ms']} ms); wall {wall:.2f} s, the sweeps' "
+          f"host draws {host:.2f} s + device core {device:.2f} s; peak "
+          f"{peak:.2f} GiB; one block (p4 o8 hier): {busy}; launches "
+          f"{launches}")
+    return rec
+
+
+def phase_fig6(dev, E, topology, figs, counts):
+    """Fig. 6 on the card (fig6_scale_schedule.run(): {ring, hier,
+    perrail} x {round, phase} at 128, 512 and 1,024 nodes x
+    oversubscription {2, 8}, 4 pods, 60 rounds, budget x TAIL_SCALE,
+    through ``sweep``): all 126 ``fig6_*`` keys but the wall equal to the
+    committed ones; each cell's split, and the device busy share over one
+    1,024-node ring pass."""
+    tier = figs.FIG6
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    keys, sweeps = figs.fig6_keys(tier, dev)
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    host, device, blocks = sweep_timing(sweeps)
+    assert launches["dcqcn_scan"] == blocks, (launches, blocks)
+    n = assert_committed("fig6", keys)
+    assert n == 126, n
+    cells = {f"o{int(ov)} {'/'.join(map(str, k))}": t
+             for ov, res in zip(tier.oversubs, sweeps)
+             for k, t in res.timing.items()}
+    # the device busy share over one engine pass of the largest ring cell
+    # (1,024 nodes, oversubscription 8: the physics of its sweep cell)
+    eng = E.BatchedEngine(topology.hier_params(
+        tier.pods, n_nodes=tier.nodes[-1], schedule="ring",
+        dci_oversubscription=tier.oversubs[-1]), device=str(dev))
+    busy = profile_window(lambda: eng.traces(["roce", "celeris"],
+                                             tier.n_rounds, 0,
+                                             legacy_streams=False))
+    rec = {"committed_keys_equal": n, "wall_s": wall,
+           "committed_wall_s": committed("fig6_wall_s"), "host_s": host,
+           "device_s": device, "blocks": blocks, "peak_mem_gib": peak,
+           "cell_timing": cells, "ring_n1024_o8_profile": busy,
+           "launches": launches,
+           "loss_ratio_round_phase_hier": {
+               k: v for k, v in keys.items()
+               if k.startswith("fig6_loss_ratio_round_phase_hier")}}
+    print(f"fig6 on the card: {n} fig6_* keys == the committed ones; wall "
+          f"{wall:.2f} s (committed numpy wall {rec['committed_wall_s']} s) "
+          f"= host draws {host:.2f} s + device core {device:.2f} s (+ "
+          f"assembly), {blocks} blocks, peak {peak:.2f} GiB; one ring pass "
+          f"(n1024 o8): {busy}; launches {launches}")
+    for k, t in cells.items():
+        print(f"  fig6 cell {k}: host {t['host_s']:.2f} s, device "
+              f"{t['device_s']:.2f} s, {t['blocks']} blocks")
+    return rec
+
+
+def phase_incast_card_vs_cpu(dev, E, traffic, figs):
+    """The incast overlay on the card against the CPU: the smoke KV plan
+    (28 prefill -> 4 decode, fan-in 7, 32 nodes), INCAST_CHECK_ROUNDS
+    rounds, roce / irn / celeris.  Delivered packets exact; step times,
+    p99 and recv_frac within rtol 1e-5."""
+    tp = traffic.ServeTrafficParams(**figs.FIG8_SMOKE_TP)
+    params, plan = figs.fig8_params(tp)
+    assert plan.max_fan_in() == tp.fan_in == 7
+    designs = list(figs.FIG8_DESIGNS)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        eng = E.BatchedEngine(params, plan=plan, device=str(d))
+        runs.append((eng, eng.traces(designs, INCAST_CHECK_ROUNDS, 0,
+                                     legacy_streams=False)))
+    (eng_d, tr_d), (eng_c, tr_c) = runs
+    worst = 0.0
+    for d in designs:
+        a, b = tr_d[d], tr_c[d]
+        for f in ("deliv", "total", "tier_deliv"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), (d, f)
+        steps = b.steps_per_round
+        budget = float(np.percentile(b.nat_us.reshape(-1, steps).sum(1),
+                                     50)) * figs.FIG8_SLO_SCALE
+        kw = ({"celeris_timeout_us": budget, "adaptive": False}
+              if d == "celeris" else {})
+        sd, sc = eng_d.assemble(a, 0, **kw), eng_c.assemble(b, 0, **kw)
+        for x, y, what in ((a.nat_us, b.nat_us, "step times"),
+                           (sd.times_us, sc.times_us, "times"),
+                           (sd.p99, sc.p99, "p99"),
+                           (sd.recv_frac, sc.recv_frac, "recv_frac")):
+            np.testing.assert_allclose(x, y, rtol=1e-5, atol=0,
+                                       err_msg=f"incast {d} {what}")
+            y = np.asarray(y)
+            worst = max(worst, float(np.max(np.abs(np.asarray(x) - y)
+                                            / np.maximum(np.abs(y), 1e-30))))
+    lost = float((tr_c["celeris"].deliv < tr_c["celeris"].total).mean())
+    print(f"incast (KV plan, fan-in 7, 32 nodes x {INCAST_CHECK_ROUNDS} "
+          f"rounds) card vs CPU: delivered packets equal, worst relative "
+          f"difference {worst:.3g}; celeris steps with losses {lost:.3f}")
+    return {"worst_rel_diff": worst, "celeris_lossy_step_share": lost}
+
+
+def phase_fig8(dev, traffic, figs, kernels, counts):
+    """Fig. 8 on the card (fig8_serving_tail.run()'s full tier): one
+    engine pass over the 112 -> 16 KV incast plan (128 nodes x 300
+    rounds), then the request process and the FIFO queue per design and
+    load; the 26 engine-derived ``fig8_*`` keys equal to the committed
+    ones; then the smoke LM decodes from caches degraded at the clipped
+    tail fraction, coded usable context >= 0.9, and the coded transfer's
+    kernels are held to their plain versions on its caches."""
+    tp = traffic.ServeTrafficParams(**figs.FIG8_TP)
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    stats, budget, eng = figs.fig8_engine_rounds(tp, figs.FIG8_ROUNDS, 0, dev)
+    engine_s = time.perf_counter() - t0
+    timing = dict(eng.timing)
+    keys, f_cell = figs.fig8_keys(tp, figs.FIG8_LOADS, stats, budget, 0,
+                                  "fig8")
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    assert launches["dcqcn_scan"] == timing["blocks"] == 1, launches
+    n = assert_committed("fig8", keys)
+    assert n == 26, n
+    counts.reset()
+    rec_cell, wire = figs.fig8_recovery(dev, f_cell, 0)
+    rec_launches = counts.read()
+    assert rec_launches["fwht"] > 0 and rec_launches["masked_unbias"] > 0, (
+        rec_launches)
+    launches = {k: v + rec_launches[k] for k, v in launches.items()}
+    wire_check = check_kv_wire("fig8 recovery", *wire, *kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy = profile_window(lambda: eng.traces(list(figs.FIG8_DESIGNS),
+                                             figs.FIG8_ROUNDS, 0,
+                                             legacy_streams=False))
+    rec = {"keys": keys, "committed_keys_equal": n, "kv_frac_cell": f_cell,
+           "recovery": rec_cell, "wire_check": wire_check,
+           "committed_recovery": {k: committed(f"fig8_{k}") for k in (
+               "kv_recovery_coded_hiload", "kv_recovery_uncoded_hiload",
+               "token_agree_coded_hiload")},
+           "wall_s": wall, "engine_s": engine_s,
+           "host_s": timing["host_s"], "device_s": timing["device_s"],
+           "blocks": timing["blocks"], "peak_mem_gib": peak,
+           "one_block_profile": busy, "launches": launches}
+    print(f"fig8 {tp.n_prefill} -> {tp.n_decode} KV incast, "
+          f"{figs.FIG8_ROUNDS} rounds on the card: {n} engine-derived fig8_* "
+          f"keys == the committed ones (SLO {keys['fig8_slo_round_ms']} ms, "
+          f"roce/celeris token p99 "
+          f"{keys['fig8_p99_ratio_roce_celeris_hiload']}x); wall {wall:.2f} s "
+          f"(engine {engine_s:.2f} s = host draws {timing['host_s']:.2f} s + "
+          f"device core {timing['device_s']:.2f} s); recovery at kv_frac "
+          f"{f_cell}: {rec_cell} (committed {rec['committed_recovery']}); "
+          f"its kernels vs plain: {wire_check}; one block: {busy}; launches "
+          f"{launches}")
+    assert rec_cell["coded"]["usable"] >= figs.FIG8_RECOVERY_BAR, rec_cell
+    return rec
+
+
+def phase_serve_long(dev, C, M, L, serve_step, coupling, kernels, counts):
+    """qwen2-0.5b at full width on a LONG_PROMPT-token prompt (batch 1):
+    prefill through the tiled attention path, the coded KV transfer at
+    KV_FRAC, LONG_GEN greedy tokens; the coded transfer's kernels held to
+    their plain versions on its caches; and layer 0's tiled attention
+    against the dense formula at that length."""
+    coding = kernels[-1]
+    cfg = C.get("qwen2-0.5b")
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
+                           generator=torch.Generator(dev).manual_seed(5),
+                           device=dev)
+    assert LONG_PROMPT ** 2 > L.FLASH_THRESHOLD
+    prefill = serve_step.make_prefill(cfg, LONG_PROMPT + LONG_GEN)
+    mask = torch.as_tensor(coupling.kv_hole_masks(
+        np.array([KV_FRAC]), N_ROT, seed=0)[0], device=dev)
+    prefill(params, prompt)                 # warm-up
+    _sync()
+    counts.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, prompt)
+    _sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first = torch.argmax(logits, -1)[:, None]
+    signs = coding.rademacher(torch.Generator(dev).manual_seed(2),
+                              coding.plan(caches.k.numel(), n_rot=N_ROT))
+    t0 = time.perf_counter()
+    coded = serve_step.degrade_caches(caches, mask, signs=signs)
+    toks = serve_step.greedy_decode(cfg, params, coded, first, LONG_PROMPT,
+                                    LONG_GEN)
+    _sync()
+    decode_s = time.perf_counter() - t0
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert torch.isfinite(logits.float()).all() and toks.shape == (1,
+                                                                   LONG_GEN)
+    assert launches["fwht"] >= 4 and launches["masked_unbias"] >= 2, launches
+    wire_check = check_kv_wire("serve_long", caches, mask, signs, *kernels)
+    del coded
+    profile = profile_window(lambda: prefill(params, prompt))
+
+    # layer 0's attention on the prompt: tiled (the prefill's path)
+    # against the dense formula, whose (1, 16, 4096, 4096) float32 logits
+    # take 1 GiB
+    p0 = M.sub_params(params, "layers.0.")
+    x = L.rmsnorm(p0["ln1.scale"],
+                  L.embed(params["embed.table"], cfg, prompt), cfg.norm_eps)
+    pos = torch.arange(LONG_PROMPT, device=dev)
+    q, k, v = L.qkv(M.sub_params(p0, "attn."), cfg, x, pos[None])
+    rep = cfg.n_heads_padded // cfg.n_kv_heads
+    k_rep, v_rep = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+    causal = pos[None, None, None, :] <= pos[None, None, :, None]
+
+    def tiled_fn():
+        return L.tiled_attention(q, k_rep, v_rep, qpos=pos, kpos=pos)
+
+    def sdpa_fn():
+        # the library yardstick, timed only: the same causal attention on
+        # the same q/k/v, without the bf16 rounding of the probabilities
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k_rep.transpose(1, 2),
+            v_rep.float().transpose(1, 2), is_causal=True).transpose(1, 2)
+
+    tiled = tiled_fn()
+    dense = L.dense_attention(q, k, v, causal).float()
+    scale = dense.abs().max().item()
+    err = (tiled - dense).abs().max().item()
+    assert err <= LONG_ATTN_RTOL * scale, (err, scale)
+    sdpa_err = (sdpa_fn() - dense).abs().max().item()
+    ms = {"tiled": time_ms(tiled_fn),
+          "dense": time_ms(lambda: L.dense_attention(q, k, v, causal)),
+          "sdpa_library": time_ms(sdpa_fn)}
+    rec = {"model": cfg.name, "prompt": LONG_PROMPT, "gen": LONG_GEN,
+           "prefill_ms": prefill_ms, "prefill_peak_mem_gib": prefill_peak,
+           "decode_s": decode_s, "peak_mem_gib": peak,
+           "prefill_profile": profile, "wire_check": wire_check,
+           "tiled_vs_dense_max_abs_err": err, "dense_max_abs": scale,
+           "sdpa_vs_dense_max_abs_err": sdpa_err,
+           "tolerance": f"{LONG_ATTN_RTOL} x max |dense|",
+           "layer0_attention_ms": ms, "launches": launches}
+    print(f"long prompt {LONG_PROMPT} tokens, qwen2-0.5b full width: prefill "
+          f"{prefill_ms:.1f} ms (peak {prefill_peak:.2f} GiB; {profile}), "
+          f"coded KV + {LONG_GEN} tokens {decode_s:.2f} s; its kernels vs "
+          f"plain: {wire_check}; layer 0 tiled vs "
+          f"dense max abs err {err:.3g} (max |dense| {scale:.3g}, bar "
+          f"{LONG_ATTN_RTOL} x it; SDPA {sdpa_err:.3g}); layer 0 attention "
+          f"ms {ms}; launches {launches}")
+    return rec
+
+
 def card_name_and_power():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2093,8 +2522,10 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import repro_torch.configs as C
+    from repro_torch.benchmarks import figs
     from repro_torch.core import coding
     from repro_torch.core import lossy_collectives as lc
+    from repro_torch.core import qp_state, resource_model
     from repro_torch.core.transport import coupling
     from repro_torch.core.transport import engine as E
     from repro_torch.core.transport import engine_torch as ET
@@ -2108,9 +2539,10 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     from repro_torch.kernels import quantize as kquant
     from repro_torch.kernels import ref
     from repro_torch.kernels import unbias as kunbias
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.optim.adamw import OptConfig
-    from repro_torch.serve import serve_step
+    from repro_torch.serve import serve_step, traffic
     from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer
 
@@ -2166,6 +2598,15 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
         counts)
     loop_launches = {k: v + fig7["loop"]["full_width"]["launches"][k]
                      for k, v in fig7["loop"]["launches"].items()}
+    tables = phase_tables(figs, qp_state, resource_model)
+    fig5 = phase_fig5(dev, E, topology, figs, counts)
+    fig6 = phase_fig6(dev, E, topology, figs, counts)
+    incast_check = phase_incast_card_vs_cpu(dev, E, traffic, figs)
+    wire_kernels = (kfwht, kunbias, ref, coding)
+    fig8 = phase_fig8(dev, traffic, figs, wire_kernels, counts)
+    torch.cuda.empty_cache()
+    serve_long = phase_serve_long(dev, C, M, L, serve_step, coupling,
+                                  wire_kernels, counts)
     by_path = {"serve": main_path["launches"],
                "kernel_bench": bench["launches"],
                "train": train["launches"],
@@ -2173,8 +2614,13 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "fig1": fig1_launches, "fig2": fig2["launches"],
                "fig2_shared": fig2["shared"]["launches"],
                "fig3": fig3["launches"], "fig4": fig4["launches"],
-               "fig7": fig7["launches"], "fig7_loop": loop_launches}
+               "fig7": fig7["launches"], "fig7_loop": loop_launches,
+               "fig5": fig5["launches"], "fig6": fig6["launches"],
+               "fig8": fig8["launches"], "serve_long": serve_long["launches"]}
     for rec in records:
+        for wire in (fig8["wire_check"], serve_long["wire_check"]):
+            rec["max_abs_err"] = max(rec["max_abs_err"], wire[
+                "max_abs_err"].get(rec["name"], 0.0))
         rec["launches_by_path"] = {p: c[rec["name"]]
                                    for p, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -2186,7 +2632,9 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "engine_card_vs_cpu": engine_check, "fig1": fig1,
                       "fig2": fig2, "fig3": fig3,
                       "hier_card_vs_cpu": hier_check, "fig4": fig4,
-                      "fig7": fig7,
+                      "fig7": fig7, "tables": tables, "fig5": fig5,
+                      "fig6": fig6, "incast_card_vs_cpu": incast_check,
+                      "fig8": fig8, "serve_long": serve_long,
                       "seconds": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -1,10 +1,12 @@
 """Batched transport engine (port of ``repro/core/transport/engine.py``).
 
 The engine materializes the simulation as ``(step, flow)`` blocks:
-``step`` is the flattened ``round * step`` time axis of the collective
-schedule's plan (``schedule.make_plan``: the flat ring, or the ``hier``
-and ``perrail`` schedules' ``rs``/``dci``/``ag`` phases), ``flow`` a
-phase's concurrent flows.  Two stream modes, as in the numpy engine:
+``step`` is the flattened ``round * step`` time axis of a flow plan (the
+collective schedule's, ``schedule.make_plan``: the flat ring, or the
+``hier`` and ``perrail`` schedules' ``rs``/``dci``/``ag`` phases; or an
+arbitrary one passed as ``plan=``, such as the serve path's incast KV
+plan, ``serve/traffic.py``), ``flow`` a phase's concurrent flows.  Two
+stream modes, as in the numpy engine:
 
 - **legacy streams** (``legacy_streams=True``, the default of
   :meth:`BatchedEngine.traces`, :meth:`~BatchedEngine.run` and
@@ -21,7 +23,9 @@ phase's concurrent flows.  Two stream modes, as in the numpy engine:
   and one DCQCN rate trace.  On a multi-pod fabric (``n_pods > 1``)
   the DCI tier overlays the cross-pod flows (``topology``); an active
   ``FaultParams`` adds the seeded stall, crash, flap, rail and
-  straggler processes (``faults``).
+  straggler processes (``faults``).  A plan override runs in this mode
+  only; its incast flows (several senders into one receiver) get the
+  receiver-port overlay, with its own CNP stream.
 
 Where the work runs (``engine_torch`` has the details):
 
@@ -47,9 +51,8 @@ times and fractions agree within rtol 1e-5 (the device core regroups a
 few float accumulations, as ``engine_jax`` does).
 
 Out of this path, and raising ``NotImplementedError`` (ROADMAP, Queue 1
-item 5): FlowPlan overrides (``plan=``) and incast, a telemetry
-recorder, ``cut_order="priority"``, ``window="step"`` and
-``per_node_for``.
+item 5): a telemetry recorder (``recorder=``), ``cut_order="priority"``,
+``window="step"`` and ``per_node_for``.
 """
 from __future__ import annotations
 
@@ -74,6 +77,7 @@ _STREAM_CNP_ROCE = 102     # RoCE's CNP draws on its hot rows (legacy mode)
 _STREAM_PFC = 103          # PFC cascade draws (shared-fabric mode only)
 _STREAM_TRANSFER = {"roce": 110, "irn": 111, "srnic": 111, "celeris": 112}
 _STREAM_WINDOW = 120       # bounded-window controller observation noise
+_STREAM_INCAST_CNP = 150   # CNP draws on incast (fan_in > 1) flow columns
 
 # Round-block sizing: bound the (step, node) chunk to this many elements
 # so peak memory is flat in cluster size.  Not a tuning knob: the host
@@ -239,6 +243,10 @@ class BatchedEngine:
     its rate-dependent core on ``device`` (``"cuda"`` unless the caller
     asks for the CPU, where the DCQCN scan takes its plain version).
 
+    Times one :class:`~repro_torch.core.transport.schedule.FlowPlan` per
+    round: the collective plan named by ``params.work.schedule``, or the
+    ``plan=`` override (shared-fabric mode only).
+
     ``timing`` holds the last :meth:`traces` call's split of wall time
     between the host draw pass and the device core.
     """
@@ -247,8 +255,7 @@ class BatchedEngine:
                  device: str = "cuda", plan=None, recorder=None):
         self.p = params or SimParams()
         self.device = resolve_device(device)
-        if plan is not None:
-            raise _not_ported("a FlowPlan override (plan=)")
+        self.plan_override = plan
         if recorder is not None:
             raise _not_ported("the telemetry TraceRecorder")
         self.timing: Dict[str, float] = {}
@@ -258,7 +265,8 @@ class BatchedEngine:
         p = self.p
         net = p.net
         n = net.n_nodes
-        plan = schedule_mod.make_plan(net, p.topo, p.work)
+        plan = (self.plan_override if self.plan_override is not None
+                else schedule_mod.make_plan(net, p.topo, p.work))
         geo = dict(n=n, steps=plan.steps_per_round, plan=plan,
                    n_tors=n // net.nodes_per_tor)
         master = np.random.default_rng(seed)
@@ -318,6 +326,10 @@ class BatchedEngine:
             raise ValueError(
                 f"schedule={self.p.work.schedule!r} requires "
                 "legacy_streams=False (shared-fabric mode)")
+        if self.plan_override is not None:
+            raise ValueError(
+                "a FlowPlan override requires legacy_streams=False "
+                "(shared-fabric mode)")
         if self.p.fault.active:
             raise ValueError(
                 "fault injection (FaultParams) requires "
@@ -496,13 +508,15 @@ class BatchedEngine:
 
         ``legacy_streams`` follows the numpy engine's rules: adaptive
         Celeris (its controller's draws are not replayable), non-ring
-        schedules and active faults (no sequential stream to replay)
-        run in the shared-fabric mode; a multi-pod ring raises."""
+        schedules, plan overrides and active faults (no sequential
+        stream to replay) run in the shared-fabric mode; a multi-pod
+        ring raises."""
         seed = self.p.seed if seed is None else seed
         window = WindowPolicy.parse(window).kind
         keep = (design,) if design == "celeris" and window == "step" else ()
         if ((design == "celeris" and adaptive)
-                or self.p.work.schedule != "ring" or self.p.fault.active):
+                or self.p.work.schedule != "ring" or self.p.fault.active
+                or self.plan_override is not None):
             legacy_streams = False
         tr = self.traces([design], n_rounds, seed,
                          legacy_streams=legacy_streams, per_node_for=keep)

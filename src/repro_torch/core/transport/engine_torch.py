@@ -1,7 +1,8 @@
 """The engine's device backend in torch (port of
 ``repro/core/transport/engine_jax.py``: flat and hierarchical fabrics,
-the ring, ``hier`` and ``perrail`` schedules, fault injection; and of the
-numpy engine's legacy-stream pass, ``_traces_legacy``).
+the ring, ``hier`` and ``perrail`` schedules, arbitrary flow plans with
+the incast overlay, fault injection; and of the numpy engine's
+legacy-stream pass, ``_traces_legacy``).
 
 The numpy engine (``repro.core.transport.engine``) is the reference:
 every seeded statistic is defined by its exact draw order.  This module
@@ -14,9 +15,10 @@ numpy, block for block and phase by phase in the numpy engine's exact
 order (``BatchedEngine._traces_shared`` there): the ToR and DCI burst
 chains, then per phase the hot-row ECN/drop curves, the DCI overlay of
 the curves, the CNP draws (the flat stream, then the DCI stream on
-cross-pod columns); then the fault masks (``faults.FaultModel``), and
-per design and phase the PFC cascade and the loss draws (the shared
-helpers in :mod:`designs`).  Loss draws depend only on the drop curve,
+cross-pod columns, then the incast stream on every row of the incast
+columns, whose occupancy is floored at ``1 - 1/fan``); then the fault
+masks (``faults.FaultModel``), and per design and phase the PFC cascade
+and the loss draws (the shared helpers in :mod:`designs`).  Loss draws depend only on the drop curve,
 never on the DCQCN rate, so each design's recovery machinery reduces to
 dense rate-independent fields::
 
@@ -31,11 +33,13 @@ plain version on the CPU), so each sender NIC's rate evolves across
 phase boundaries; then per phase a gather of its rows and sender
 columns, the queue/bandwidth response curves (one formula source:
 :mod:`network`), the DCI overlay as static column vectors
-(``topology.dci_columns``), the straggler rate scale, per-design
-completion times, the fault reactions (``faults.apply_to_result``) and
-the per-step tier and pod reductions.  The float types follow the numpy
-engine: float32 times, float64 where it casts (the excess
-``A + B * pkt_time``).
+(``topology.dci_columns``), the incast share of the receiver's egress
+(the effective rate divided by the fan-in, a float32 tensor of fans:
+the IEEE quotient numpy's ``float32 /= int64`` rounds to), the straggler
+rate scale, per-design completion times, the fault reactions
+(``faults.apply_to_result``) and the per-step tier and pod reductions.
+The float types follow the numpy engine: float32 times, float64 where it
+casts (the excess ``A + B * pkt_time``).
 
 Legacy streams
 --------------
@@ -79,7 +83,7 @@ class _SeedStreams:
     """One seed's generators and carried chain states, consumed block by
     block in the numpy engine's exact order (the replay contract)."""
 
-    def __init__(self, eng, seed: int, design_list):
+    def __init__(self, eng, seed: int, design_list, incast: bool):
         p = eng.p
         g = eng._geometry(seed)
         net = p.net
@@ -100,14 +104,18 @@ class _SeedStreams:
                 [g["fabric_seed"], topology.STREAM_DCI_FABRIC])
             self.dci_cnp_gen = np.random.default_rng(
                 [seed, topology.STREAM_DCI_CNP])
+        if incast:
+            self.inc_cnp_gen = np.random.default_rng(
+                [seed, engine_mod._STREAM_INCAST_CNP])
         self.fmodel = (faults.FaultModel(p, seed, n, n_tors, g["steps"])
                        if p.fault.active else None)
 
 
 class _Plan:
     """The static per-phase facts of one engine configuration: rows in a
-    round, senders, tier and pod columns, packets, and the DCI overlay
-    vectors (numpy, and as tensors on the engine's device)."""
+    round, senders, tier and pod columns, packets, the incast columns and
+    their fan-in, and the DCI overlay vectors (numpy, and as tensors on
+    the engine's device)."""
 
     def __init__(self, eng):
         p = eng.p
@@ -126,7 +134,11 @@ class _Plan:
         self.phases = []
         for k, (ph, hg) in enumerate(zip(plan.phases, self.hgs)):
             cols = topology.dci_columns(topo, hg)
+            fan = ph.fan_in()
+            inc = np.flatnonzero(fan > 1)
             self.phases.append(dict(
+                inc=inc, fan=fan,
+                fan_t=on_dev(fan, torch.float32) if inc.size else None,
                 ph=ph, hg=hg, n_pkts=ph.n_pkts(net),
                 steps=np.flatnonzero(plan.phase_of_step == k),
                 all_senders=np.array_equal(ph.src, np.arange(self.n)),
@@ -140,6 +152,10 @@ class _Plan:
                            if cols is not None else None),
                 dci_add_t=(on_dev(cols.dci_add, torch.float32)
                            if cols is not None else None)))
+
+        # a collective schedule is a permutation: no incast column, no
+        # incast stream, and the pass is the fan-in-1 engine's
+        self.incast = any(s["inc"].size for s in self.phases)
 
     def rows(self, k: int, tb: int) -> np.ndarray:
         """Phase ``k``'s steps in a block of ``tb`` steps, round-major."""
@@ -229,6 +245,20 @@ def _host_block(eng, st: _SeedStreams, ctx: _Plan, t0: int, tb: int,
         cnp_ph[hot] = st.cnp_gen.random((hot.size, ph.src.size)) < ecn_p[hot]
         if ctx.hier:
             topology.dci_cnp_draws(hg, ecn_p, cnp_ph, st.dci_cnp_gen)
+        inc = s["inc"]
+        if inc.size:
+            # the incast overlay: the receiver's egress port runs at >= 1 -
+            # 1/fan occupancy whenever its fan senders offer load; the
+            # curves, the marks (their own stream), and below the PFC and
+            # loss draws see the raised occupancy
+            occ_inc = np.maximum(occ32[:, inc],
+                                 (1.0 - 1.0 / s["fan"][inc]
+                                  ).astype(occ32.dtype))
+            occ32[:, inc] = occ_inc
+            ecn_inc = network.ecn_mark_prob(net, occ_inc)
+            drop_p[:, inc] = network.drop_prob(net, occ_inc)
+            cnp_ph[:, inc] = (st.inc_cnp_gen.random(occ_inc.shape)
+                              < ecn_inc)
         cnp[np.ix_(rows, ph.src)] = cnp_ph
         ph_host.append({"rows": rows, "occ32": occ32, "drop": drop_p,
                         "occ_eff": occ_eff})
@@ -303,6 +333,9 @@ def _core(eng, ctx: _Plan, inp, state: DcqcnState, design_list, tb: int):
         else:
             qd = network.queue_delay_us(net, occ32)
             eff = rate_ph * network.avail_bandwidth(net, occ32)
+        if s["fan_t"] is not None:
+            # incast: fan senders share the receiver's one egress link
+            eff = torch.div(eff, s["fan_t"])
         if rate_scale is not None:          # slow-NIC stragglers
             eff = eff * rate_scale.index_select(1, s["src_t"])[:, None, :]
         # torch.div, not ``c / eff``: the reflected operator multiplies by
@@ -396,7 +429,7 @@ def traces_batched(eng, design_list, n_rounds: int, seeds, *,
     block_steps = round_block * steps
     dev = eng.device
 
-    streams = [_SeedStreams(eng, s, design_list) for s in seeds]
+    streams = [_SeedStreams(eng, s, design_list, ctx.incast) for s in seeds]
     outs = [eng._new_traces(design_list, T, ctx.plan, ctx.hgs)
             for _ in seeds]
     fault_flows = ([np.zeros(T) for _ in seeds] if p.fault.active

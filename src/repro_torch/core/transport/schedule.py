@@ -1,7 +1,7 @@
 """Flow plans and the collective schedules (port of
-``repro/core/transport/schedule.py``: ``SchedulePhase``, the ``FlowPlan``
-members the engine and the window assembly read, and the ring,
-hierarchical and per-rail schedules).
+``repro/core/transport/schedule.py``: ``SchedulePhase``, ``FlowPlan``,
+``flow_plan``, ``with_step_priorities``, and the ring, hierarchical and
+per-rail schedules).
 
 A :class:`FlowPlan` is one round of point-to-point flow phases: each
 phase a contiguous run of steps sharing one static flow pattern, so it
@@ -24,10 +24,14 @@ the extra propagation), which :meth:`FlowPlan.budget_fracs` normalizes
 into the per-phase split of the Celeris round budget
 (``window="phase"``), and a semantic priority class.
 
-Arbitrary plans (``flow_plan``), incast and the priority helpers
-(``with_step_priorities``, ``layer_priorities``) are not ported yet: the
-engine takes the plan :func:`make_plan` builds and raises on a ``plan=``
-override.
+Arbitrary static plans come from :func:`flow_plan` (each node sends at
+most one flow per phase).  Several flows sharing a receiver
+(``SchedulePhase.fan_in() > 1``) are **incast**, e.g. the serve path's
+prefill -> decode KV shipping (``serve/traffic.py``); the engine charges
+those flows with per-receiver contention, and a fan-in-1 plan runs
+exactly as the collective schedules do.  ``layer_priorities`` and
+``FlowPlan.prio_pkts_round`` come with the priority cut (ROADMAP, Queue
+1 [5.3]).
 """
 from __future__ import annotations
 
@@ -67,18 +71,42 @@ class SchedulePhase:
         return (float(self.n_steps * self.payload_bytes)
                 if self.budget_frac is None else float(self.budget_frac))
 
+    def fan_in(self) -> np.ndarray:
+        """(n_flows,) how many of this phase's flows share flow ``i``'s
+        receiver: all ones on a permutation (every collective schedule),
+        > 1 on incast flows."""
+        counts = np.bincount(self.dst, minlength=int(self.dst.max()) + 1)
+        return counts[self.dst]
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class FlowPlan:
-    """One round of point-to-point flow phases, resolved for a topology."""
+    """One round of point-to-point flow phases, resolved for a topology.
+
+    Collective schedules give fan-in-1 plans; :func:`flow_plan` builds
+    arbitrary ones (incast among them).  ``priority_of_step`` overrides
+    the phases' priority classes step by step (serve plans bucket steps
+    inside one phase); it is assembly-time metadata only.
+    """
     schedule: str
     phases: tuple              # of SchedulePhase, in execution order
     steps_per_round: int
     phase_of_step: np.ndarray  # (steps_per_round,) phase index per step
+    priority_of_step: np.ndarray | None = None
 
     @property
     def single_phase(self) -> bool:
         return len(self.phases) == 1
+
+    @property
+    def phase_names(self) -> tuple:
+        """Phase names in execution order."""
+        return tuple(ph.name for ph in self.phases)
+
+    def max_fan_in(self) -> int:
+        """Largest per-receiver sender count over all phases (1 for every
+        collective schedule; > 1 marks an incast plan)."""
+        return max(int(ph.fan_in().max()) for ph in self.phases)
 
     def geometries(self, net: NetworkParams, topo: TopologyParams) -> tuple:
         """Per-phase :class:`topology.HierGeometry` (flow→tier maps)."""
@@ -125,10 +153,20 @@ class FlowPlan:
         return w / w.sum()
 
     def step_priority(self) -> np.ndarray:
-        """(steps_per_round,) semantic priority class per step."""
+        """(steps_per_round,) semantic priority class per step: the
+        per-step override where the plan carries one, else the phases'
+        classes."""
+        if self.priority_of_step is not None:
+            return np.asarray(self.priority_of_step, dtype=int)
         return np.repeat(np.array([ph.priority for ph in self.phases],
                                   dtype=int),
                          [ph.n_steps for ph in self.phases])
+
+    def bytes_per_round(self) -> int:
+        """Bytes offered to the fabric per round (all flows, all
+        steps)."""
+        return sum(ph.src.size * ph.n_steps * ph.payload_bytes
+                   for ph in self.phases)
 
 
 def _mk_plan(name: str, phases) -> FlowPlan:
@@ -138,6 +176,55 @@ def _mk_plan(name: str, phases) -> FlowPlan:
                               [ph.n_steps for ph in phases])
     return FlowPlan(schedule=name, phases=phases, steps_per_round=steps,
                     phase_of_step=phase_of_step)
+
+
+def flow_plan(name: str, phases) -> FlowPlan:
+    """A validated :class:`FlowPlan` from arbitrary static phases.
+
+    Per phase: ``src``/``dst`` equal-length, 1-D and non-empty, no
+    self-flows, and unique senders (the engine's ``(step, node)``
+    tensors have one column per node); receivers may repeat (incast).
+    Empty phases (``n_steps == 0``) are dropped, as the collective
+    schedules drop them.
+    """
+    for ph in phases:
+        if ph.n_steps == 0:
+            continue                    # dropped by _mk_plan below
+        src, dst = np.asarray(ph.src), np.asarray(ph.dst)
+        if src.shape != dst.shape or src.ndim != 1 or src.size == 0:
+            raise ValueError(
+                f"phase {ph.name!r}: src/dst must be equal-length 1-D "
+                f"non-empty arrays, got {src.shape} vs {dst.shape}")
+        if np.unique(src).size != src.size:
+            raise ValueError(
+                f"phase {ph.name!r}: duplicate senders — each node "
+                "drives at most one flow per step (the engine's "
+                "(step, node) tensors scatter by sender column)")
+        if (src == dst).any():
+            raise ValueError(f"phase {ph.name!r}: self-flows (src == dst)")
+        if ph.payload_bytes < 1:
+            raise ValueError(
+                f"phase {ph.name!r}: payload_bytes must be >= 1")
+        if ph.priority < 0:
+            raise ValueError(
+                f"phase {ph.name!r}: priority class must be >= 0")
+    plan = _mk_plan(name, phases)
+    if not plan.phases:
+        raise ValueError("flow plan has no non-empty phases")
+    return plan
+
+
+def with_step_priorities(plan: FlowPlan, priority_of_step) -> FlowPlan:
+    """``plan`` with a validated per-step priority override (timing and
+    phases untouched)."""
+    cls = np.asarray(priority_of_step, dtype=int)
+    if cls.shape != (plan.steps_per_round,):
+        raise ValueError(
+            f"priority_of_step must have shape ({plan.steps_per_round},), "
+            f"got {cls.shape}")
+    if (cls < 0).any():
+        raise ValueError("priority classes must be >= 0")
+    return dataclasses.replace(plan, priority_of_step=cls)
 
 
 class CollectiveSchedule:

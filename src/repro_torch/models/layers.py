@@ -8,9 +8,11 @@ step: rmsnorm and the attention logits in float32, the rotary tables in
 float32 (so rotated q and k are float32, as in JAX), the rest in the
 config's dtype.
 
-Local and softcapped attention, cross-attention, the ring cache and the
-memory-efficient ``_flash_attention`` arrive with later slices; a prompt
-here stays on the dense path (``s * s_kv <= FLASH_THRESHOLD``).
+A prompt with ``s * s_kv > FLASH_THRESHOLD`` takes the tiled
+online-softmax path (:func:`tiled_attention`, the JAX package's
+``_flash_attention`` for global causal attention), which never builds
+the ``(s, s_kv)`` logits.  Local and softcapped attention,
+cross-attention and the ring cache arrive with later slices.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 
 Params = Dict[str, torch.Tensor]
 
-FLASH_THRESHOLD = 4 * 1024 * 1024   # s_q * s_kv above which JAX tiles
+FLASH_THRESHOLD = 4 * 1024 * 1024   # s_q * s_kv above which attention tiles
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -83,20 +85,13 @@ class AttnCache:
                          pos=self.pos.clone())
 
 
-def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
-              positions: torch.Tensor,
-              cache: Optional[AttnCache] = None,
-              cache_index: Optional[int] = None) -> torch.Tensor:
-    """Causal GQA self-attention with optional QKV bias and padded heads.
-
-    - train/prefill: (B, S, D) in; with ``cache``, K/V are written to
-      slots [0, S).
-    - decode: S == 1 with ``cache`` and ``cache_index``: K/V written at
-      slot ``cache_index``, attention over every filled slot.
-    """
+def qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
+        positions: torch.Tensor):
+    """The projections with optional bias, split into heads, q and k
+    rotated: q (B, S, H, Dh) and k (B, S, KV, Dh) in float32, v
+    (B, S, KV, Dh) in the compute dtype."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.resolved_head_dim
-
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -105,10 +100,93 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kv, hd)
     v = v.reshape(b, s, kv, hd)
-
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def dense_attention(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Grouped-GQA attention against the unrepeated kv: float32 logits
+    (B, H, S, S_kv) under ``mask``, the softmax rounded to v's dtype.
+    Returns (B, S, H, Dh) in v's dtype."""
+    b, s, h, hd = q.shape
+    kv, s_kv = kq.shape[2], kq.shape[1]
+    rep = h // kv
+    qg = q.reshape(b, s, kv, rep, hd)
+    logits = torch.einsum("bqkrd,bskd->bkrqs", qg.to(torch.float32),
+                          kq.to(torch.float32)) * hd ** -0.5
+    logits = logits.reshape(b, h, s, s_kv)
+    logits = torch.where(mask, logits, -1e30)
+    attn = torch.softmax(logits, dim=-1).to(vq.dtype)
+    attn_g = attn.reshape(b, kv, rep, s, s_kv)
+    out = torch.einsum("bkrqs,bskd->bqkrd", attn_g, vq)
+    return out.reshape(b, s, h, hd)
+
+
+def tiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    qpos: torch.Tensor, kpos: torch.Tensor,
+                    q_blk: int = 1024, kv_blk: int = 1024) -> torch.Tensor:
+    """Causal attention in tiles with an online softmax (the JAX
+    package's ``_flash_attention`` for global attention without softcap).
+
+    q: (B, Sq, H, D); k, v: (B, Skv, H, D), already repeated to q's heads;
+    ``qpos`` (Sq,) and ``kpos`` (Skv,) the true positions.  Per q tile,
+    a loop over kv tiles carries the running max, the normalizer and the
+    output in float32; logits are float32, the probabilities are rounded
+    to v's dtype before the product, which accumulates in float32, as
+    JAX's ``preferred_element_type`` does.  Masked logits are -1e30.
+    Never builds more than one (B, H, q_blk, kv_blk) tile.  Returns
+    (B, Sq, H, D) float32.
+    """
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    q_blk = min(q_blk, sq)
+    kv_blk = min(kv_blk, skv)
+    assert sq % q_blk == 0 and skv % kv_blk == 0, (sq, q_blk, skv, kv_blk)
+    scale = d ** -0.5
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty(b, sq, h, d, **f32)
+    for i in range(0, sq, q_blk):
+        qt = q[:, i:i + q_blk].to(torch.float32)
+        qp = qpos[i:i + q_blk]
+        m = torch.full((b, h, q_blk), -1e30, **f32)
+        l = torch.zeros((b, h, q_blk), **f32)
+        acc = torch.zeros((b, h, q_blk, d), **f32)
+        for j in range(0, skv, kv_blk):
+            kt = k[:, j:j + kv_blk].to(torch.float32)
+            vt = v[:, j:j + kv_blk]
+            kp = kpos[j:j + kv_blk]
+            logits = torch.einsum("bqhd,bkhd->bhqk", qt, kt) * scale
+            mask = ((kp[None, None, None, :] >= 0)
+                    & (kp[None, None, None, :] <= qp[None, None, :, None]))
+            logits = torch.where(mask, logits, -1e30)
+            m_new = torch.maximum(m, logits.amax(-1))
+            p_ = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p_.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p_.to(vt.dtype).to(torch.float32),
+                vt.to(torch.float32))
+            m = m_new
+        out[:, i:i + q_blk] = (acc / torch.clamp(l, min=1e-30)[..., None]
+                               ).transpose(1, 2)
+    return out
+
+
+def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+              positions: torch.Tensor,
+              cache: Optional[AttnCache] = None,
+              cache_index: Optional[int] = None) -> torch.Tensor:
+    """Causal GQA self-attention with optional QKV bias and padded heads.
+
+    - train/prefill: (B, S, D) in; with ``cache``, K/V are written to
+      slots [0, S).  Above ``FLASH_THRESHOLD`` (``s * s``) it tiles.
+    - decode: S == 1 with ``cache`` and ``cache_index``: K/V written at
+      slot ``cache_index``, attention over every filled slot.
+    """
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = qkv(p, cfg, x, positions)
 
     decode = cache is not None and s == 1 and cache_index is not None
     if decode:
@@ -117,10 +195,6 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         cache.pos[cache_index] = cache_index
         kq, vq = cache.k, cache.v
     else:
-        if s * s > FLASH_THRESHOLD:
-            raise NotImplementedError(
-                f"prompt of {s} tokens needs the tiled attention path, "
-                "which is not ported yet")
         if cache is not None:
             if s > cache.k.shape[1]:
                 raise ValueError(f"prompt of {s} tokens does not fit a "
@@ -131,12 +205,15 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         kq, vq = k, v
     s_kv = kq.shape[1]
 
-    # grouped-GQA einsums against the unrepeated kv, logits in float32
-    rep = h // kv
-    qg = q.reshape(b, s, kv, rep, hd)
-    logits = torch.einsum("bqkrd,bskd->bkrqs", qg.to(torch.float32),
-                          kq.to(torch.float32)) * hd ** -0.5
-    logits = logits.reshape(b, h, s, s_kv)
+    if not decode and s * s_kv > FLASH_THRESHOLD:
+        # the tiled path takes kv repeated to the q heads, as JAX does
+        rep = h // kv
+        out = tiled_attention(
+            q, kq.repeat_interleave(rep, dim=2),
+            vq.repeat_interleave(rep, dim=2),
+            qpos=positions[0] if positions.dim() == 2 else positions,
+            kpos=torch.arange(s_kv, device=x.device))
+        return out.reshape(b, s, h * hd).to(x.dtype) @ p["wo"]
 
     if decode:
         kpos = cache.pos[None, None, None, :]
@@ -145,11 +222,7 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         qpos = positions[:, None, :, None]
         kpos = torch.arange(s_kv, device=x.device)[None, None, None, :]
         mask = kpos <= qpos
-    logits = torch.where(mask, logits, -1e30)
-
-    attn = torch.softmax(logits, dim=-1).to(vq.dtype)
-    attn_g = attn.reshape(b, kv, rep, s, s_kv)
-    out = torch.einsum("bkrqs,bskd->bqkrd", attn_g, vq)
+    out = dense_attention(q, kq, vq, mask)
     return out.reshape(b, s, h * hd) @ p["wo"]
 
 

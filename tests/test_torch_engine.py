@@ -31,7 +31,6 @@ from repro_torch.core.transport import engine as tengine
 from repro_torch.core.transport import engine_torch
 from repro_torch.core.transport import network as tnetwork
 from repro_torch.core.transport import params as tparams
-from repro_torch.core.transport import schedule as tschedule
 from repro_torch.kernels import dcqcn as kdcqcn
 from repro_torch.kernels import ops, ref
 
@@ -268,31 +267,10 @@ def test_out_of_scope_calls_raise(what):
     _raises(lambda: OUT_OF_SCOPE[what](eng))
 
 
-def _incast_plan():
-    """A plan of the port's phases where two senders share a receiver."""
-    ph = tschedule.SchedulePhase(name="kv", src=np.array([0, 1, 2, 3]),
-                                 dst=np.array([8, 8, 9, 9]), n_steps=4,
-                                 payload_bytes=1 << 16)
-    return tschedule._mk_plan("incast", (ph,))
-
-
-PLAN_OVERRIDES = {
-    "plan": lambda p: tschedule.make_plan(p.net, p.topo, p.work),
-    "incast": lambda p: _incast_plan(),
-}
-
-
-@pytest.mark.parametrize("what", sorted(PLAN_OVERRIDES))
-def test_plan_override_and_incast_raise(what):
-    """Arbitrary FlowPlans, incast among them, are not ported: even the
-    engine's own plan handed in as an override raises."""
-    p = _small(tparams)
-    _raises(lambda: tengine.BatchedEngine(p, device="cpu",
-                                          plan=PLAN_OVERRIDES[what](p)))
-
-
-@pytest.mark.parametrize("kw", ["plan", "recorder"])
+@pytest.mark.parametrize("kw", ["recorder"])
 def test_plan_override_and_recorder_raise(kw):
+    """The flight recorder is not ported (plan overrides are:
+    tests/test_torch_flowplan.py)."""
     _raises(lambda: tengine.BatchedEngine(_small(tparams), device="cpu",
                                           **{kw: object()}))
 

@@ -5,7 +5,9 @@ sides compute the same function on the same numpy prompt.  float32:
 rtol/atol 2e-4 (the two frameworks order float32 sums differently).
 bfloat16: atol 6.25e-2 plus rtol 2^-6, i.e. four bf16 ulps at the size
 of these logits and caches (~3), since the two frameworks round to
-bfloat16 at different points.
+bfloat16 at different points.  A 3,072-token prompt takes both packages'
+tiled attention (``s * s > FLASH_THRESHOLD``) and is held to the same
+tolerances.
 """
 import dataclasses
 
@@ -117,6 +119,56 @@ def test_prefill_and_decode_match_jax(pair):
     jcache2 = jc2["groups"][0]["attn"]
     _close(tc2.k, jcache2.k, dtype)
     np.testing.assert_array_equal(tc2.pos.numpy(), np.asarray(jcache2.pos))
+
+
+def test_long_prompt_prefill_tiles_and_matches_jax(pair, monkeypatch):
+    """3,072 tokens: the port's tiled attention (every layer) against the
+    JAX prefill's ``_flash_attention`` branch, logits and caches."""
+    dtype, jcfg, tcfg, jp, tp, _ = pair
+    plen, s_max = 3072, 3080
+    assert plen * plen > TL.FLASH_THRESHOLD
+    prompt = np.random.default_rng(2).integers(0, jcfg.vocab_size, (1, plen))
+    calls = []
+    tiled = TL.tiled_attention
+
+    def counting(*a, **kw):
+        calls.append(a[0].shape)
+        return tiled(*a, **kw)
+
+    monkeypatch.setattr(TL, "tiled_attention", counting)
+    jl, jc = JS.make_prefill(jcfg, s_max)(jp, {"tokens": jnp.asarray(prompt)})
+    tl, tc = TS.make_prefill(tcfg, s_max)(tp, torch.as_tensor(prompt))
+    assert len(calls) == tcfg.n_layers
+    _close(tl, jl, dtype)
+    jcache = jc["groups"][0]["attn"]
+    _close(tc.k, jcache.k, dtype)
+    _close(tc.v, jcache.v, dtype)
+    np.testing.assert_array_equal(tc.pos.numpy(), np.asarray(jcache.pos))
+
+
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+def test_tiled_attention_matches_dense_formula(vdtype):
+    """The tiled online softmax against the dense formula on the same
+    q/k/v (GQA, 3 q tiles x 3 kv tiles): float32 v to rtol/atol 1e-5;
+    bfloat16 v, where the two round the probabilities to bfloat16 before
+    and after normalizing and the dense output to bfloat16, to 2^-6 of
+    the largest output (two bf16 ulps; ``chip_smoke.LONG_ATTN_RTOL``)."""
+    g = torch.Generator().manual_seed(0)
+    b, s, h, kv, d = 2, 24, 4, 2, 8
+    q = torch.randn(b, s, h, d, generator=g)
+    k = torch.randn(b, s, kv, d, generator=g)
+    v = torch.randn(b, s, kv, d, generator=g).to(vdtype)
+    pos = torch.arange(s)
+    got = TL.tiled_attention(q, k.repeat_interleave(h // kv, dim=2),
+                             v.repeat_interleave(h // kv, dim=2), qpos=pos,
+                             kpos=pos, q_blk=8, kv_blk=8)
+    want = TL.dense_attention(q, k, v, pos[None, None, None, :]
+                              <= pos[None, None, :, None]).float()
+    assert got.dtype == torch.float32 and got.shape == (b, s, h, d)
+    if vdtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert (got - want).abs().max() <= 2 ** -6 * want.abs().max()
 
 
 def test_init_params_seeded_and_finite():

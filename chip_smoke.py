@@ -57,8 +57,11 @@ caught and carried on):
    p99 and recv_frac within rtol 1e-5); Fig. 2 on the card through
    ``CollectiveSimulator`` (128 nodes x 300 rounds, legacy streams, one
    scan call) equal to the committed ``fig2_*`` p99s, reduction and
-   Celeris loss, then in the shared-fabric mode (3 scan launches, RoCE
-   p99 above Celeris's); Fig. 3's largest cell
+   Celeris loss, the beyond-paper adaptive per-step window (shared
+   fabric, 3 scan launches, Celeris's per-flow arrays copied back) equal
+   to the committed ``fig2_beyond_step_window_reduction`` against that
+   run's RoCE p99, then the paper protocol in the shared-fabric mode (3
+   scan launches, RoCE p99 above Celeris's); Fig. 3's largest cell
    (1,024 nodes, seeds 0-3 batched, 120 rounds of 25 MB, 60 scan
    launches), with its host/device split, one block's device busy share
    and peak memory;
@@ -119,14 +122,35 @@ caught and carried on):
     greedy tokens, the transfer's kernels held to their plain versions
     on its caches ((197,376, 64) blocks); layer 0's tiled attention
     against the dense formula within two bf16 ulps of its largest
-    output.
+    output;
+20. the priority cut, the per-step window and the flight recorder, card
+    against CPU at 40 rounds: the 32-node 2-pod hier cell with
+    layer-depth priority classes under both cut orders and both budget
+    windows; per-node traces of all four designs and the per-step window
+    in both stream modes; a recorded 2-pod pass with NIC stalls
+    (packets, faulted flows, the recorder's packets and fabric counters
+    exact; times, fractions and components within rtol 1e-5, a critical
+    flow differing only at a near tie);
+21. Fig. 10 on the card (``fig10_priority_loss.py``'s full grid: hier on
+    4 pods, 128/256/512 nodes x oversubscription 2/8, 40 rounds, budget
+    x 0.4, arrival against priority cuts): all 36 ``fig10_*`` keys but
+    the wall equal to the committed ones, the two orders' round times
+    equal in every cell, every high-priority loss ratio >= 2;
+22. Fig. 9 on the card (``fig9_tail_attribution.py``'s full tier: the
+    128-node flat ring x 60 rounds and the 2-pod stall cell, recorded):
+    all 39 ``fig9_*`` keys but the wall equal to the committed ones,
+    ``audit_round`` passing on every recorded pass, the stall cell's
+    Perfetto trace written to ``results/fig9_trace.json`` and validated,
+    and both passes' stats with the recorder off equal to the recorded
+    ones bit for bit.
 
-The protocols of phases 14-16 and 18 are ``repro_torch.benchmarks.figs``'s
-functions, which the CPU tests also run (smoke tiers and cut grids).
+The protocols of phases 14-16, 18 and 21-22 (and Fig. 2's step window)
+are ``repro_torch.benchmarks.figs``'s functions, which the CPU tests also
+run (smoke tiers and cut grids).
 
-Each path (3-6, and the engine's in 8-9, 11-13, 15-16 and 18-19) runs
-with the kernels' launch counts set to 0 just before it and read just
-after.  The last
+Each path (3-6, and the engine's in 8-9, 11-13, 15-16, 18-19 and 21-22,
+Fig. 2's step window its own) runs with the kernels' launch counts set to
+0 just before it and read just after.  The last
 line is ``{"ok": true, "device": {...}}``; the lines before it carry the
 card's name and power limit and a ``{"kernels": [...]}`` record.  Needs CUDA: without it the
 script raises before printing any result.
@@ -1187,8 +1211,12 @@ def real_scan_blocks(E, ET, P, topology, dev):
     DCI tier marks far more steps: Fig. 7's hier schedule on 4 pods,
     Fig. 4's ring over 8 pods at oversubscription 8 and Fig. 6's hier
     schedule at 1,024 nodes and oversubscription 8 (1, 3,612, 1,024); Fig.
-    8's KV incast pass (1, 2,400, 128); and the legacy Fig.-2 pass's three
-    channels with their shared step mask."""
+    8's KV incast pass (1, 2,400, 128); Fig. 10's hier cells on 4 pods at
+    oversubscription 8 and each of its node counts; Fig. 9's 2-pod NIC
+    stall cell; the shared-fabric pass of Fig. 2's step window (300
+    rounds, so a longer block than Fig. 1's); and the legacy Fig.-2
+    pass's three channels with their shared step mask.  (Fig. 9's flat
+    cell is Fig. 1's block: the same fabric, rounds and seed.)"""
     from repro_torch.benchmarks import figs
     from repro_torch.serve import traffic
     kv_params, kv_plan = figs.fig8_params(traffic.ServeTrafficParams(
@@ -1208,7 +1236,14 @@ def real_scan_blocks(E, ET, P, topology, dev):
         "fig6 hier n1024 o8": (topology.hier_params(
             f6.pods, n_nodes=f6.nodes[-1], schedule="hier",
             dci_oversubscription=f6.oversubs[-1]), f6.n_rounds, [0], None),
-        "fig8 kv": (kv_params, figs.FIG8_ROUNDS, [0], kv_plan)}
+        "fig8 kv": (kv_params, figs.FIG8_ROUNDS, [0], kv_plan),
+        **{f"fig10 hier n{nn} o8": (topology.hier_params(
+            figs.FIG10_PODS, n_nodes=nn, dci_oversubscription=8.0,
+            schedule="hier"), figs.FIG10_ROUNDS, [0], None)
+           for nn in figs.FIG10_NODES},
+        "fig9 stall": (figs.fig9_fault_params(),
+                       figs.FIG9_FAULT_CELL["n_rounds"], [1], None),
+        "fig2 step": (P.SimParams(), FIG2_ROUNDS, [0], None)}
     out = {}
     for name, (params, rounds, seeds, plan) in blocks.items():
         cnp = engine_block_marks(E, ET, params, rounds, seeds, dev, plan)
@@ -1298,12 +1333,11 @@ def scan_record(kdcqcn, dq, cnp, plain_ms, shape_note, any_t=None):
 def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology):
     """The DCQCN scan kernel against its plain version on the card, bit
     for bit (rates and the four state arrays): at SCAN_SHAPES with the
-    four densities as seeds, on the marks a real engine block draws
-    (Fig. 1's, Fig. 3's, Fig. 7's hier and Fig. 4's 8-pod first blocks,
-    and the legacy Fig.-2 pass's channels with their shared step mask),
-    and over two consecutive blocks, whose carried state must equal the
-    plain version's and, split where every seed has a mark, one long
-    block's.  Timed on every real block, beside its bound."""
+    four densities as seeds, on the marks each engine path's first block
+    draws (:func:`real_scan_blocks`), and over two consecutive blocks,
+    whose carried state must equal the plain version's and, split where
+    every seed has a mark, one long block's.  Timed on every real block,
+    beside its bound."""
     dq = P.DcqcnParams()
     g = torch.Generator(dev).manual_seed(11)
     real = real_scan_blocks(E, ET, P, topology, dev)
@@ -1353,7 +1387,7 @@ def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology):
     _sync()
     print(f"dcqcn_scan: kernel == plain version bit for bit in {checks + 2} "
           f"blocks (densities {SCAN_DENSITIES} as seeds at {SCAN_SHAPES}; "
-          f"real Fig.-1, 3, 4 and 7 marks; the legacy Fig.-2 channels); "
+          f"the real blocks {sorted(real)}); "
           f"two blocks split at step {split} "
           f"{'==' if exact else '~='} one long block")
     for rec in records:
@@ -1420,13 +1454,16 @@ def phase_engine_card_vs_cpu(dev, E, P):
     return out
 
 
-def phase_fig2(dev, E, P, counts):
+def phase_fig2(dev, E, P, figs, counts):
     """Fig. 2 on the card: the paper protocol at 128 nodes x 300 rounds
     (benchmarks/fig2_tail_latency.py) through ``CollectiveSimulator``, in
     its legacy-stream mode (one scan call over the whole trace), held to
     the committed ``fig2_*`` keys at their printed digits; then the
-    shared-fabric mode beside it (3 engine blocks), held to RoCE p99 above
-    Celeris's."""
+    beyond-paper adaptive per-step window (``figs.fig2_step_window``: the
+    shared fabric, 3 blocks, Celeris's per-flow arrays copied back) held
+    to the committed ``fig2_beyond_step_window_reduction`` against the
+    same run's RoCE p99; then the shared-fabric paper protocol beside it
+    (3 engine blocks), held to RoCE p99 above Celeris's."""
     from repro_torch.core.transport.simulator import CollectiveSimulator
     sim = CollectiveSimulator(P.SimParams(), device=str(dev))
     _sync()
@@ -1470,6 +1507,36 @@ def phase_fig2(dev, E, P, counts):
           f"% (p50 / p99) of the sequential simulator's; wall {wall:.2f} s "
           f"= host draws {rec['host_s']:.2f} s + device core "
           f"{rec['device_s']:.2f} s (+ assembly); launches {launches}")
+
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    step_keys, step_st, step_timing = figs.fig2_step_window(
+        dev, stats["roce"].p99)
+    step_wall = time.perf_counter() - t0
+    step_launches = counts.read()
+    assert step_launches["dcqcn_scan"] == step_timing["blocks"] == 3, (
+        step_launches)
+    assert np.isfinite(step_st.times_us).all()
+    n = assert_committed("fig2 step window", step_keys)
+    assert n == 1 and step_keys == {
+        "fig2_beyond_step_window_reduction": 3.85}, step_keys
+    rec["step_window"] = {
+        "keys": step_keys, "p99_ms": step_st.p99 / 1e3,
+        "loss": step_st.mean_loss, "wall_s": step_wall,
+        "host_s": step_timing["host_s"], "device_s": step_timing["device_s"],
+        "node_bytes": step_timing["node_bytes"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": step_launches}
+    print(f"fig2 adaptive per-step window (shared fabric, 128 nodes x "
+          f"{FIG2_ROUNDS} rounds): {step_keys} == the committed key (celeris "
+          f"p99 {step_st.p99 / 1e3:.3f} ms, loss {step_st.mean_loss:.6f}); "
+          f"wall {step_wall:.2f} s = host {step_timing['host_s']:.2f} s + "
+          f"device {step_timing['device_s']:.2f} s (+ assembly); per-node "
+          f"copies {step_timing['node_bytes']} B; peak "
+          f"{rec['step_window']['peak_mem_gib']:.2f} GiB; launches "
+          f"{step_launches}")
 
     eng = E.BatchedEngine(P.SimParams(), device=str(dev))
     _sync()
@@ -2416,6 +2483,254 @@ def phase_fig8(dev, traffic, figs, kernels, counts):
     return rec
 
 
+# ----------------------------------------------------------------------
+# The priority cut, the per-step window and the flight recorder
+# ----------------------------------------------------------------------
+
+FEATURE_CHECK_ROUNDS = 40
+TRACE_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "results", "fig9_trace.json")
+RECORDED_FIELDS = ("times_us", "recv_frac", "tier_recv_frac", "pod_recv_frac",
+                   "prio_recv_frac", "fault_steps", "affected_flows")
+
+
+def worst_rel(pairs, what):
+    """Hold each (card, CPU) pair within rtol 1e-5; return the worst
+    relative difference."""
+    worst = 0.0
+    for x, y, name in pairs:
+        np.testing.assert_allclose(x, y, rtol=1e-5, atol=0,
+                                   err_msg=f"{what} {name} card vs cpu")
+        y = np.asarray(y, np.float64)
+        worst = max(worst, float(np.max(np.abs(np.asarray(x) - y)
+                                        / np.maximum(np.abs(y), 1e-30))))
+    return worst
+
+
+def stats_pairs(a, b, tag):
+    """A (card, CPU) RoundStats pair's times, fractions and p99."""
+    return [(getattr(a, f), getattr(b, f), f"{tag} {f}")
+            for f in ("times_us", "recv_frac", "tier_recv_frac",
+                      "pod_recv_frac", "prio_recv_frac")
+            if getattr(b, f) is not None] + [(a.p99, b.p99, f"{tag} p99")]
+
+
+def check_priority_cut(dev, topology, figs):
+    """The priority cut, card against CPU: the 32-node 2-pod hier cell
+    with layer-depth classes, both cut orders x round and phase windows
+    at the smoke budget."""
+    p = topology.hier_params(2, base=figs.smoke_params(),
+                             dci_oversubscription=8.0, schedule="hier")
+    runs = [figs.fig10_traces(p, FEATURE_CHECK_ROUNDS, 0, d)
+            for d in (dev, torch.device("cpu"))]
+    # one budget for both, the CPU's: a budget an ulp apart could move a
+    # cut across a packet
+    to = figs.paper_budget(runs[1][2], figs.SMOKE_TAIL_SCALE)
+    for f in ("deliv", "tier_deliv", "pod_deliv"):
+        assert np.array_equal(getattr(runs[0][1], f), getattr(runs[1][1], f))
+    pairs, prio = [], {}
+    for order in ("arrival", "priority"):
+        for window in ("round", "phase"):
+            sd, sc = (figs.fig10_cut(eng, cel, 0, to, order, window)
+                      for eng, cel, _ in runs)
+            assert np.array_equal(sd.prio_pkts, sc.prio_pkts)
+            pairs += stats_pairs(sd, sc, f"{order}/{window}")
+            top = sd.prio_pkts.size - 1
+            prio[f"{order}/{window}"] = {"hi_loss": sd.prio_loss(top),
+                                         "lo_loss": sd.prio_loss(0)}
+    return {"worst_rel_diff": worst_rel(pairs, "priority cut"),
+            "celeris": prio}
+
+
+def check_per_node(dev, E, figs):
+    """Per-node traces of all four designs and the fixed per-step window
+    run from them, card against CPU, in both stream modes (32-node flat
+    fabric, a budget that binds)."""
+    designs = list(E.designs.DESIGNS)
+    out = {}
+    for legacy in (False, True):
+        res = []
+        for d in (dev, torch.device("cpu")):
+            eng = E.BatchedEngine(figs.smoke_params(), device=str(d))
+            tr = eng.traces(designs, FEATURE_CHECK_ROUNDS, 0,
+                            legacy_streams=legacy, per_node_for=designs)
+            node_bytes = eng.timing["node_bytes"]
+            st = eng.run("celeris", FEATURE_CHECK_ROUNDS, window="step",
+                         adaptive=False, legacy_streams=legacy, seed=0,
+                         celeris_timeout_us=3_000.0)
+            res.append((tr, st, node_bytes))
+        (trd, std, nb), (trc, stc, _) = res
+        pairs = []
+        for name in designs:
+            assert np.array_equal(trd[name].node_deliv, trc[name].node_deliv)
+            pairs.append((trd[name].node_time_us, trc[name].node_time_us,
+                          f"{name} node times"))
+        pairs += stats_pairs(std, stc, "step window")
+        assert stc.recv_frac.min() < 1.0, "the step window must bind"
+        mode = "legacy" if legacy else "shared"
+        out[mode] = {"worst_rel_diff": worst_rel(pairs, f"per-node {mode}"),
+                     "node_bytes": nb, "step_loss": std.mean_loss}
+    return out
+
+
+def check_recorded_pass(dev, E, figs):
+    """A recorded faulted 2-pod pass (Fig. 9's stall cell), card against
+    CPU: stats, faulted flows, the recorder's packets and fabric counters
+    exact or within rtol 1e-5; the critical flow's components wherever
+    the critical flow agrees, and it may differ only where the CPU
+    step's two largest times lie within rtol 1e-5."""
+    (cd, rd, hp), (cc, rc, _) = (figs.fig9_fault_cell(d, 1)
+                                 for d in (dev, torch.device("cpu")))
+    pairs, diffs = [], {}
+    for name in ("roce", "celeris"):
+        (sd, a), (sc, b) = cd[name], cc[name]
+        for f in ("fault_steps", "affected_flows"):
+            assert np.array_equal(getattr(sd, f), getattr(sc, f)), f
+        for f in ("offered_pkts", "delivered_pkts", "lost_pkts"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), (name, f)
+        pairs += stats_pairs(sd, sc, f"{name} recorded")
+        pairs += [(a.comp_tier, b.comp_tier, f"{name} comp_tier"),
+                  (a.comp_crit.sum(-1), b.comp_crit.sum(-1),
+                   f"{name} critical time")]
+        diff = np.flatnonzero(a.crit_src != b.crit_src)
+        ok = np.setdiff1d(np.arange(a.crit_src.size), diff)
+        np.testing.assert_allclose(a.comp_crit[ok], b.comp_crit[ok],
+                                   rtol=1e-5, atol=1e-9)
+        if diff.size:
+            tr = E.BatchedEngine(hp, device="cpu").traces(
+                [name], figs.FIG9_FAULT_CELL["n_rounds"], 1,
+                legacy_streams=False, per_node_for=(name,))[name]
+            t = np.sort(tr.node_time_us, axis=1)
+            near = np.abs(t[:, -1] - t[:, -2]) <= 1e-5 * np.abs(t[:, -1])
+            assert near[diff].all(), (name, diff)
+        diffs[name] = int(diff.size)
+    for k in rc.fabric:
+        assert np.array_equal(rd.fabric[k], rc.fabric[k]), k
+    assert cd["celeris"][0].fault_steps.sum() > 0
+    return {"worst_rel_diff": worst_rel(pairs, "recorded pass"),
+            "critical_flow_differs_at_near_ties": diffs}
+
+
+def phase_features_card_vs_cpu(dev, E, topology, figs):
+    """The new features on the card against the CPU (plain scan), at
+    FEATURE_CHECK_ROUNDS rounds: the priority cut, per-node traces with
+    the per-step window in both stream modes, and a recorded faulted
+    2-pod pass."""
+    out = {"priority_cut": check_priority_cut(dev, topology, figs),
+           "per_node": check_per_node(dev, E, figs),
+           "recorded_fault_pass": check_recorded_pass(dev, E, figs)}
+    rec = out["recorded_fault_pass"]
+    print(f"new features card vs CPU, {FEATURE_CHECK_ROUNDS} rounds: "
+          f"priority cut (32 nodes, 2 pods, both orders x round/phase) "
+          f"worst {out['priority_cut']['worst_rel_diff']:.3g}; per-node "
+          f"traces + step window worst "
+          f"{ {m: v['worst_rel_diff'] for m, v in out['per_node'].items()} }"
+          f"; recorded faulted 2-pod pass worst "
+          f"{rec['worst_rel_diff']:.3g} (packets, "
+          f"faulted flows and fabric counters equal; critical flow differs "
+          f"at {rec['critical_flow_differs_at_near_ties']} near-tie steps)")
+    return out
+
+
+def phase_fig10(dev, figs, counts):
+    """Fig. 10 on the card (fig10_priority_loss.run()'s full grid: hier on
+    4 pods, 128/256/512 nodes x oversubscription 2/8, 40 rounds, the round
+    window at the paper rule x 0.4, arrival against priority cuts): all 36
+    keys but the wall equal to the committed ones, each cell's two orders
+    sharing their round times, every high-priority loss ratio >= 2."""
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    keys, cells = figs.fig10_keys(dev)
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    blocks = sum(t["blocks"] for _, t in cells.values())
+    assert launches["dcqcn_scan"] == blocks, (launches, blocks)
+    n = assert_committed("fig10", keys)
+    assert n == 36, n
+    ratios = {k: v for k, v in keys.items() if "_hi_loss_ratio_" in k}
+    assert len(ratios) == 6, ratios
+    assert min(ratios.values()) >= figs.FIG10_RATIO_BAR, ratios
+    rec = {"committed_keys_equal": n, "ratios": ratios, "wall_s": wall,
+           "host_s": sum(t["host_s"] for _, t in cells.values()),
+           "device_s": sum(t["device_s"] for _, t in cells.values()),
+           "cells": {tag: {"host_s": t["host_s"], "device_s": t["device_s"],
+                           "blocks": t["blocks"],
+                           "p99_ms": st["arrival"].p99 / 1e3}
+                     for tag, (st, t) in cells.items()},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches}
+    print(f"fig10 on the card (4 pods, {figs.FIG10_NODES} nodes x oversub "
+          f"{figs.FIG10_OVERSUBS}, {figs.FIG10_ROUNDS} rounds): {n} fig10_* "
+          f"keys == the committed ones, arrival and priority times equal in "
+          f"every cell, hi-loss ratios {sorted(set(ratios.values()))} >= "
+          f"{figs.FIG10_RATIO_BAR}; wall {wall:.2f} s = host "
+          f"{rec['host_s']:.2f} s + device {rec['device_s']:.2f} s (+ "
+          f"assembly); peak {rec['peak_mem_gib']:.2f} GiB; launches "
+          f"{launches}")
+    return rec
+
+
+def phase_fig9(dev, figs, trace_export, counts):
+    """Fig. 9 on the card (fig9_tail_attribution.run()'s full tier: the
+    128-node flat ring, 60 rounds, and the 2-pod NIC-stall cell, 40
+    rounds, both recorded): all 39 keys but the wall equal to the
+    committed ones, ``audit_round`` passing on every recorded pass, the
+    stall cell's Perfetto trace written to results/fig9_trace.json and
+    validated; then both passes again with the recorder off, their stats
+    equal to the recorded ones bit for bit."""
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(TRACE_OUT), exist_ok=True)
+    keys, info = figs.fig9_keys(dev, trace_path=TRACE_OUT)
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    n = assert_committed("fig9", keys)
+    assert n == 39, n
+    with open(TRACE_OUT) as f:
+        events = trace_export.validate_trace(json.load(f))
+    assert events == info["trace_counts"], (events, info["trace_counts"])
+    audits = {f"{cell}/{d}": a for cell, by_d in info["audits"].items()
+              for d, a in by_d.items()}
+    # the recorder only reads: both passes again with it off
+    off, _, _ = figs.fig9_recorded_pair(info["flat_params"],
+                                        figs.FIG9_ROUNDS, 0, figs.TAIL_SCALE,
+                                        dev, record=False)
+    off_fault, _, _ = figs.fig9_fault_cell(dev, 1, record=False)
+    for on, offs in ((info["cells"], off), (info["fault_cells"], off_fault)):
+        for d in ("roce", "celeris"):
+            for f in RECORDED_FIELDS:
+                x, y = getattr(on[d][0], f), getattr(offs[d][0], f)
+                assert (x is None and y is None) or np.array_equal(x, y), (
+                    f"recorder on != off: {d} {f}")
+    timing = info["timing"]
+    rec = {"committed_keys_equal": n, "audits": audits,
+           "trace": {"path": os.path.relpath(TRACE_OUT), "events": events,
+                     "bytes": os.path.getsize(TRACE_OUT)},
+           "provenance_cross_fault": info["provenance"],
+           "recorder_on_equals_off": True, "wall_s": wall,
+           "flat_cell": {"host_s": timing["host_s"],
+                         "device_s": timing["device_s"],
+                         "record_bytes": timing["record_bytes"]},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches}
+    worst = max(a["time_rel_err"] for a in audits.values())
+    print(f"fig9 on the card ({figs.FIG9_NODES}-node flat x "
+          f"{figs.FIG9_ROUNDS} rounds + the 2-pod stall cell): {n} fig9_* "
+          f"keys == the committed ones; audit_round passes on "
+          f"{sorted(audits)} (worst time rel err {worst:.2g}); the stall "
+          f"cell's trace {rec['trace']} validates; stats with the recorder "
+          f"off == on, bit for bit; cross provenance {info['provenance']}; "
+          f"wall {wall:.2f} s (flat cell host {timing['host_s']:.2f} s + "
+          f"device {timing['device_s']:.2f} s, recorder copies "
+          f"{timing['record_bytes']} B); peak {rec['peak_mem_gib']:.2f} GiB; "
+          f"launches {launches}")
+    return rec
+
+
 def phase_serve_long(dev, C, M, L, serve_step, coupling, kernels, counts):
     """qwen2-0.5b at full width on a LONG_PROMPT-token prompt (batch 1):
     prefill through the tiled attention path, the coded KV transfer at
@@ -2530,7 +2845,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     from repro_torch.core.transport import engine as E
     from repro_torch.core.transport import engine_torch as ET
     from repro_torch.core.transport import params as P
-    from repro_torch.core.transport import topology
+    from repro_torch.core.transport import topology, trace_export
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.kernels import _build
     from repro_torch.kernels import dcqcn as kdcqcn
@@ -2577,7 +2892,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     small_train = phase_small_train(dev, C, ts, OptConfig, DataConfig,
                                     make_source)
     engine_check = phase_engine_card_vs_cpu(dev, E, P)
-    fig2 = phase_fig2(dev, E, P, counts)
+    fig2 = phase_fig2(dev, E, P, figs, counts)
     fig3 = phase_fig3(dev, E, ET, P, counts)
     torch.cuda.empty_cache()
     fig1, paper_sched = phase_fig1(dev, C, ts, Trainer, DataConfig,
@@ -2607,6 +2922,10 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     torch.cuda.empty_cache()
     serve_long = phase_serve_long(dev, C, M, L, serve_step, coupling,
                                   wire_kernels, counts)
+    torch.cuda.empty_cache()
+    feature_check = phase_features_card_vs_cpu(dev, E, topology, figs)
+    fig10 = phase_fig10(dev, figs, counts)
+    fig9 = phase_fig9(dev, figs, trace_export, counts)
     by_path = {"serve": main_path["launches"],
                "kernel_bench": bench["launches"],
                "train": train["launches"],
@@ -2616,7 +2935,9 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "fig3": fig3["launches"], "fig4": fig4["launches"],
                "fig7": fig7["launches"], "fig7_loop": loop_launches,
                "fig5": fig5["launches"], "fig6": fig6["launches"],
-               "fig8": fig8["launches"], "serve_long": serve_long["launches"]}
+               "fig8": fig8["launches"], "serve_long": serve_long["launches"],
+               "fig10": fig10["launches"], "fig9": fig9["launches"],
+               "fig2_step": fig2["step_window"]["launches"]}
     for rec in records:
         for wire in (fig8["wire_check"], serve_long["wire_check"]):
             rec["max_abs_err"] = max(rec["max_abs_err"], wire[
@@ -2634,7 +2955,9 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "hier_card_vs_cpu": hier_check, "fig4": fig4,
                       "fig7": fig7, "tables": tables, "fig5": fig5,
                       "fig6": fig6, "incast_card_vs_cpu": incast_check,
-                      "fig8": fig8, "serve_long": serve_long,
+                      "fig8": fig8,
+                      "features_card_vs_cpu": feature_check,
+                      "fig10": fig10, "fig9": fig9, "serve_long": serve_long,
                       "seconds": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -22,9 +22,17 @@ the bridge from the transport engine to the trainer and the server.
 - ``kv_hole_masks`` (delivered KV fractions -> per-request hole masks)
   and :class:`CollectiveMode` (the switch the train step dispatches on).
 
+- the priority-class schedules (:class:`PrioritySchedules`,
+  :func:`priority_schedules_from_round_stats`): one drop schedule per
+  semantic class from a ``cut_order="priority"`` engine run.
+
+The schedules carry a :class:`telemetry.DropProvenance`: exact per-(tier,
+cause, phase) when the engine ran with the flight recorder
+(``record=True``), heuristic otherwise.
+
 numpy and the standard library around the engine, copied as they are, so
-the masks are bit-identical to the JAX package's.  The priority-class
-schedules and the closed-form latency tail are not ported yet.
+the masks are bit-identical to the JAX package's.  The closed-form latency
+tail is not ported yet.
 """
 from __future__ import annotations
 
@@ -144,14 +152,20 @@ class DropSchedule:
 
 
 def schedule_from_round_stats(stats: RoundStats, *,
-                              source: str | None = None) -> DropSchedule:
-    """Engine round statistics -> per-step schedule (round i = step i),
-    with the heuristic provenance attached (the recorder that gives the
-    exact split is not ported yet)."""
+                              source: str | None = None,
+                              record: "telemetry.DesignRecord | None" = None
+                              ) -> DropSchedule:
+    """Engine round statistics -> per-step schedule (round i = step i).
+
+    Pass the matching :class:`telemetry.DesignRecord` (from the recorder
+    the engine ran with) for exact per-cause provenance; without it the
+    heuristic attribution is attached."""
+    prov = (telemetry.provenance_from_record(record, "flat")
+            if record is not None
+            else telemetry.provenance_heuristic(stats, "flat"))
     return DropSchedule(
         rates=1.0 - np.asarray(stats.recv_frac, dtype=np.float64),
-        source=source or f"engine:{stats.design}",
-        provenance=telemetry.provenance_heuristic(stats, "flat"))
+        source=source or f"engine:{stats.design}", provenance=prov)
 
 
 def schedule_from_engine(n_rounds: int, seed: int = 0, *,
@@ -179,13 +193,11 @@ def schedule_from_engine(n_rounds: int, seed: int = 0, *,
     (:func:`split_schedule_from_engine` splits it by axis).  Lossless
     designs ("roce", "irn", "srnic") yield all-zero schedules.
     ``legacy_streams=True`` replays the sequential simulator's streams
-    (flat ring only).  ``record=True`` (the flight recorder) raises
-    ``NotImplementedError``: it is not ported yet.
+    (flat ring only).  ``record=True`` runs the engine with a
+    ``telemetry.TraceRecorder`` (in the shared-fabric mode, whatever
+    ``legacy_streams`` says), so the schedule's ``provenance`` carries
+    the exact per-(tier, cause, phase) attribution.
     """
-    if record:
-        raise NotImplementedError(
-            "record=True needs the telemetry TraceRecorder, which is not "
-            "ported to the torch engine yet (ROADMAP, Queue 1 item 5)")
     p = params or SimParams()
     if n_nodes is not None:
         p = dataclasses.replace(
@@ -194,10 +206,11 @@ def schedule_from_engine(n_rounds: int, seed: int = 0, *,
         p = dataclasses.replace(
             p, work=dataclasses.replace(p.work,
                                         message_bytes=int(message_mb * 2**20)))
-    eng = BatchedEngine(p, device=device)
+    rec = telemetry.TraceRecorder() if record else None
+    eng = BatchedEngine(p, device=device, recorder=rec)
     designs_needed = [design] if design != "celeris" else ["roce", "celeris"]
     tr = eng.traces(designs_needed, n_rounds, seed,
-                    legacy_streams=legacy_streams)
+                    legacy_streams=legacy_streams and not record)
     if design != "celeris":
         stats = eng.assemble(tr[design], seed)
     else:
@@ -208,7 +221,9 @@ def schedule_from_engine(n_rounds: int, seed: int = 0, *,
                              adaptive=adaptive, window=window)
     tag = (f"engine:{design} n={p.net.n_nodes} seed={seed} "
            f"scale={timeout_scale}" + (" adaptive" if adaptive else ""))
-    return schedule_from_round_stats(stats, source=tag)
+    return schedule_from_round_stats(
+        stats, source=tag,
+        record=rec.record(design) if rec is not None else None)
 
 
 # ----------------------------------------------------------------------
@@ -247,15 +262,18 @@ class AxisSchedules:
 
 
 def split_schedule_from_round_stats(stats: RoundStats, *,
-                                    source: str | None = None
-                                    ) -> AxisSchedules:
+                                    source: str | None = None,
+                                    record: "telemetry.DesignRecord | None"
+                                    = None) -> AxisSchedules:
     """Engine per-tier round statistics -> axis-split schedules.
 
     The tier fractions combine into the intra axis weighted by the
     plan's offered packets per tier (``stats.tier_pkts``; the flow
     counts when absent); the DCI tier is the cross axis.  Per-pod
-    fractions, where tracked, give one intra schedule per pod.  The
-    provenance is the heuristic one (the recorder is not ported).
+    fractions, where tracked, give one intra schedule per pod.  The intra
+    and cross schedules carry exact provenance when ``record`` (the
+    engine run's :class:`telemetry.DesignRecord`) is given, heuristic
+    otherwise.
     """
     if stats.tier_recv_frac is None or stats.tier_counts is None:
         raise ValueError("RoundStats lacks per-tier fractions: build it "
@@ -270,6 +288,12 @@ def split_schedule_from_round_stats(stats: RoundStats, *,
         intra = np.zeros(f.shape[0])
     cross = (1.0 - f[:, 2]) if w[2] > 0 else np.zeros(f.shape[0])
     tag = source or f"engine:{stats.design}"
+    if record is not None:
+        prov_i = telemetry.provenance_from_record(record, "intra")
+        prov_c = telemetry.provenance_from_record(record, "cross")
+    else:
+        prov_i = telemetry.provenance_heuristic(stats, "intra")
+        prov_c = telemetry.provenance_heuristic(stats, "cross")
     per_pod = None
     if stats.pod_recv_frac is not None:
         pf = np.asarray(stats.pod_recv_frac, dtype=np.float64)
@@ -277,12 +301,10 @@ def split_schedule_from_round_stats(stats: RoundStats, *,
             DropSchedule(rates=1.0 - pf[:, p], source=f"{tag}:pod{p}")
             for p in range(pf.shape[1]))
     return AxisSchedules(
-        intra=DropSchedule(
-            rates=intra, source=tag + ":intra",
-            provenance=telemetry.provenance_heuristic(stats, "intra")),
-        cross=DropSchedule(
-            rates=cross, source=tag + ":cross",
-            provenance=telemetry.provenance_heuristic(stats, "cross")),
+        intra=DropSchedule(rates=intra, source=tag + ":intra",
+                           provenance=prov_i),
+        cross=DropSchedule(rates=cross, source=tag + ":cross",
+                           provenance=prov_c),
         per_pod=per_pod, source=tag)
 
 
@@ -305,22 +327,94 @@ def split_schedule_from_engine(n_rounds: int, seed: int = 0, *,
     "hier" | "perrail"), ``window`` ("round" | "phase") and an optional
     ``fault`` (a ``FaultParams`` or its ``kind:rate`` string), whose
     faulted pods' loss then reaches the per-pod schedules.
-    ``record=True`` raises ``NotImplementedError`` (no recorder yet).
+    ``record=True`` attaches exact per-(tier, cause, phase) provenance
+    from a ``telemetry.TraceRecorder`` run.
     """
-    if record:
-        raise NotImplementedError(
-            "record=True needs the telemetry TraceRecorder, which is not "
-            "ported to the torch engine yet (ROADMAP, Queue 1 item 5)")
     p = topology.hier_params(n_pods, base=params, n_nodes=n_nodes,
                              dci_oversubscription=dci_oversubscription,
                              schedule=schedule, fault=fault)
+    rec = telemetry.TraceRecorder() if record else None
     stats = topology.hier_protocol(p, n_rounds, seed, window=window,
                                    timeout_scale=timeout_scale,
-                                   device=device)["celeris"]
+                                   recorder=rec, device=device)["celeris"]
     tag = (f"engine:celeris n={p.net.n_nodes} pods={n_pods} "
            f"sched={p.work.schedule} window={window} seed={seed} "
            f"scale={timeout_scale} fault={p.fault.tag}")
-    return split_schedule_from_round_stats(stats, source=tag)
+    return split_schedule_from_round_stats(
+        stats, source=tag,
+        record=rec.record("celeris") if rec is not None else None)
+
+
+# ----------------------------------------------------------------------
+# Priority-class split schedules (semantic-aware window cuts)
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PrioritySchedules:
+    """Per-priority-class drop schedules from a prioritized engine run.
+
+    ``classes[c]`` is the :class:`DropSchedule` of priority class ``c``
+    (class 0 = lowest = cut first), ``pkts[c]`` its offered packets per
+    round.  Under ``cut_order="priority"`` the low classes soak up the
+    window cut: on the hierarchical plans class 0 is the coded DCI
+    exchange, so ``low`` aligns with :class:`AxisSchedules`' ``cross``
+    axis.  ``rates(step)`` returns the ``(n_classes,)`` vector, low class
+    first.
+    """
+    classes: tuple                      # of DropSchedule, index = class
+    pkts: np.ndarray                    # (n_classes,) offered pkts/round
+    source: str = ""
+
+    @property
+    def n_classes(self) -> int:
+        return len(self.classes)
+
+    @property
+    def low(self) -> DropSchedule:
+        """The cut-first class (coded / recoverable bytes)."""
+        return self.classes[0]
+
+    @property
+    def high(self) -> DropSchedule:
+        """The cut-last class (exact / high-value bytes)."""
+        return self.classes[-1]
+
+    def rates(self, step: int) -> np.ndarray:
+        return np.array([s.rate(step) for s in self.classes])
+
+    # schedule-walk interface shared with DropSchedule/AxisSchedules
+    rate = rates
+
+    @property
+    def mean(self) -> tuple:
+        return tuple(s.mean for s in self.classes)
+
+
+def priority_schedules_from_round_stats(stats: RoundStats, *,
+                                        source: str | None = None
+                                        ) -> PrioritySchedules:
+    """Engine per-class round statistics -> per-priority-class schedules.
+
+    Requires the stats to carry per-class fractions (any
+    ``BatchedEngine.assemble`` of an engine-built trace, either
+    ``cut_order``); raises otherwise.  Classes with no offered packets
+    get all-zero schedules (nothing to drop).
+    """
+    if stats.prio_recv_frac is None or stats.prio_pkts is None:
+        raise ValueError(
+            "RoundStats lacks per-priority-class fractions — build it "
+            "through BatchedEngine.assemble on a plan-built trace "
+            "(stream-replay / reference paths don't track priority "
+            "classes)")
+    f = np.asarray(stats.prio_recv_frac, dtype=np.float64)
+    pk = np.asarray(stats.prio_pkts, dtype=np.float64)
+    tag = source or f"engine:{stats.design}"
+    classes = tuple(
+        DropSchedule(rates=(1.0 - f[:, c]) if pk[c] > 0
+                     else np.zeros(f.shape[0]),
+                     source=f"{tag}:prio{c}")
+        for c in range(f.shape[1]))
+    return PrioritySchedules(classes=classes, pkts=pk, source=tag)
 
 
 class EngineStragglerModel:

@@ -40,19 +40,21 @@ Where the work runs (``engine_torch`` has the details):
   or over the whole trace's stacked CNP channels (legacy), then the
   response curves, the DCI overlay, the fault reactions, per-design
   completion times and the per-step reductions;
-- the round assembly (:meth:`BatchedEngine.assemble`: round or phase
-  windows, fixed or adaptive) runs on the host over the reduced step
-  traces; :func:`sweep` runs a grid of cells, each cell's seeds in one
-  batched pass.
+- the round assembly (:meth:`BatchedEngine.assemble`: round, phase or
+  per-step windows, fixed or adaptive, the cut in arrival or priority
+  order) runs on the host over the reduced step traces, and for the
+  per-step window over the per-flow ``(T, n)`` arrays the core copies
+  back for the designs in ``per_node_for``; :func:`sweep` runs a grid of
+  cells, each cell's seeds in one batched pass;
+- an opt-in flight recorder (``recorder=``, ``telemetry.TraceRecorder``)
+  rides the shared-fabric pass: the core reduces the component tensors
+  it already computes per step and tier on the device, and the host
+  writes them into the recorder; recording only reads.
 
 The reference is the numpy engine in the same stream mode: the same
 host draws, so delivered packets and faulted-flow counts are exact, and
 times and fractions agree within rtol 1e-5 (the device core regroups a
 few float accumulations, as ``engine_jax`` does).
-
-Out of this path, and raising ``NotImplementedError`` (ROADMAP, Queue 1
-item 5): a telemetry recorder (``recorder=``), ``cut_order="priority"``,
-``window="step"`` and ``per_node_for``.
 """
 from __future__ import annotations
 
@@ -85,26 +87,26 @@ _STREAM_INCAST_CNP = 150   # CNP draws on incast (fan_in > 1) flow columns
 _BLOCK_ELEMENTS = 4 << 20
 
 
-def _not_ported(what: str, item: str = "") -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch engine yet (ROADMAP, Queue 1 "
-        f"item 5{' [' + item + ']' if item else ''})")
-
-
 def _tier_frac(got: np.ndarray, tot: np.ndarray) -> np.ndarray:
     """Delivered fraction per tier; empty tiers report 1 (nothing to
     lose)."""
     return np.where(tot > 0, got / np.maximum(tot, 1.0), 1.0)
 
 
-def _cut_block(nat_b, deliv_b, budget_us, groups):
-    """Apply one deadline to a contiguous run of steps (arrival order).
+def _cut_block(nat_b, deliv_b, budget_us, groups, perm=None):
+    """Apply one deadline to a contiguous run of steps.
 
     Elapsed time is ``min(sum(nat), budget)``; packets delivered strictly
     inside the deadline count in full and the boundary step earns linear
     partial credit.  ``groups`` are (steps, G) per-group delivered
     arrays (tiers, pods, priority classes) that take the same cut.
     Returns ``(elapsed, got, group_gots)``.
+
+    ``perm`` (``cut_order="priority"``) reallocates the same total cut
+    across steps in a static order (lowest priority class first, late
+    arrivals first within a class), so elapsed time and total delivered
+    packets are unchanged while the per-group accounting concentrates
+    the loss in the low-priority steps.  ``perm=None`` is arrival order.
     """
     cum = np.cumsum(nat_b)
     total_t = cum[-1]
@@ -115,8 +117,38 @@ def _cut_block(nat_b, deliv_b, budget_us, groups):
     prev = float(cum[bidx - 1]) if bidx > 0 else 0.0
     part = (budget_us - prev) / max(nat_b[bidx], 1e-9)
     got = deliv_b[done].sum() + deliv_b[bidx] * part
+    if perm is not None:
+        survive = _priority_survive(deliv_b[None, :],
+                                    np.array([deliv_b.sum() - got]),
+                                    perm)[0]
+        return budget_us, got, [(g * survive[:, None]).sum(0)
+                                for g in groups]
     return budget_us, got, [(g * done[:, None]).sum(0) + g[bidx] * part
                             for g in groups]
+
+
+def _priority_survive(d, K, perm):
+    """(R, steps) per-step survive fraction cutting ``K`` packets in
+    ``perm`` order: walk the steps in that order and remove delivered
+    packets until the arrival cut's total ``K[r]`` is gone; the boundary
+    step takes a linear partial cut.  With uniform priorities ``perm``
+    is reverse arrival order and the allocation is the arrival cut's."""
+    d_perm = d[:, perm]
+    cum = np.cumsum(d_perm, axis=1)
+    prev = cum - d_perm
+    cutfrac = np.clip((K[:, None] - prev) / np.maximum(d_perm, 1e-30),
+                      0.0, 1.0)
+    survive = np.empty_like(d)
+    survive[:, perm] = 1.0 - cutfrac
+    return survive
+
+
+def _priority_perm(step_priority: np.ndarray) -> np.ndarray:
+    """Static cut order over a step block: priority class ascending
+    (lowest cut first), step index descending within a class (so
+    uniform-priority blocks reproduce the arrival cut's allocation)."""
+    idx = np.arange(step_priority.size)
+    return np.lexsort((-idx, step_priority))
 
 
 @dataclasses.dataclass
@@ -165,6 +197,16 @@ class RoundStats:
         if self.tier_counts is not None and self.tier_counts[k] == 0:
             return 0.0
         return float(1.0 - self.tier_recv_frac[:, k].mean())
+
+    def prio_loss(self, cls: int) -> float:
+        """Mean loss in one priority class (0 = lowest, cut first under
+        ``cut_order="priority"``); 0 when the class is empty or the
+        trace carried no priority metadata."""
+        if self.prio_recv_frac is None or cls >= self.prio_recv_frac.shape[1]:
+            return 0.0
+        if self.prio_pkts is not None and self.prio_pkts[cls] == 0:
+            return 0.0
+        return float(1.0 - self.prio_recv_frac[:, cls].mean())
 
     # -- fault-resilience metrics (Fig. 7) ------------------------------
     @property
@@ -219,19 +261,32 @@ class RoundStats:
 class StepTrace:
     """Reduced per-step physics for one design (full trace length T):
     ``(T,)`` reductions over flows, per-tier ``(T, n_tiers)`` and per-pod
-    ``(T, n_pods)`` sums, and the plan facts the window assembly reads."""
+    ``(T, n_pods)`` sums, and the plan facts the window assembly reads.
+    The per-node ``(T, n)`` arrays are kept only for the designs a
+    per-step window (``window="step"``) must re-inspect flow by flow
+    (``traces(per_node_for=)``); a node's cells outside its phases stay
+    zero."""
     design: str
     steps_per_round: int
     nat_us: np.ndarray            # max over flows of completion time
     deliv: np.ndarray             # delivered packets summed over flows
     total: np.ndarray             # offered packets summed over flows
+    node_time_us: np.ndarray | None = None      # (T, n) per sender node
+    node_deliv: np.ndarray | None = None        # (T, n)
     tier_deliv: np.ndarray | None = None
     tier_total: np.ndarray | None = None
     tier_counts: np.ndarray | None = None       # (n_tiers,) flows per tier
     tier_pkts_round: np.ndarray | None = None   # (n_tiers,) offered/round
     phase_of_step: np.ndarray | None = None     # (steps_per_round,)
     phase_budget_frac: np.ndarray | None = None  # (n_phases,) sums to 1
-    step_priority: np.ndarray | None = None     # (steps_per_round,)
+    # per phase: sender nodes, and per-tier and per-pod flow columns
+    # (the step window's scatter map)
+    phase_src: tuple | None = None
+    phase_tier_cols: tuple | None = None
+    phase_pod_cols: tuple | None = None
+    # (steps_per_round,) priority class per step: assembly-time metadata
+    # (the priority cut and the per-class accounting read it)
+    step_priority: np.ndarray | None = None
     pod_deliv: np.ndarray | None = None         # multi-pod fabrics only
     pod_total: np.ndarray | None = None
     pod_pkts_round: np.ndarray | None = None    # (n_pods,) offered/round
@@ -245,10 +300,14 @@ class BatchedEngine:
 
     Times one :class:`~repro_torch.core.transport.schedule.FlowPlan` per
     round: the collective plan named by ``params.work.schedule``, or the
-    ``plan=`` override (shared-fabric mode only).
+    ``plan=`` override (shared-fabric mode only).  ``recorder`` (a
+    ``telemetry.TraceRecorder``) records the shared-fabric passes' tail
+    attribution; it reads the physics and draws nothing, so the stats
+    are bit-identical with and without it.
 
     ``timing`` holds the last :meth:`traces` call's split of wall time
-    between the host draw pass and the device core.
+    between the host draw pass and the device core, and the bytes of
+    per-node and recorder copies from the card.
     """
 
     def __init__(self, params: SimParams | None = None, *,
@@ -256,8 +315,7 @@ class BatchedEngine:
         self.p = params or SimParams()
         self.device = resolve_device(device)
         self.plan_override = plan
-        if recorder is not None:
-            raise _not_ported("the telemetry TraceRecorder")
+        self.recorder = recorder
         self.timing: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
@@ -273,18 +331,27 @@ class BatchedEngine:
         geo["fabric_seed"] = int(master.integers(2**31))
         return geo
 
-    def _new_traces(self, design_list, T, plan, hgs) -> Dict[str, StepTrace]:
+    def _new_traces(self, design_list, T, plan, hgs,
+                    per_node_for=()) -> Dict[str, StepTrace]:
         net, topo = self.p.net, self.p.topo
+        n = net.n_nodes
         pods = topo.n_pods if topo.hierarchical else 0
         return {d: StepTrace(
             design=d, steps_per_round=plan.steps_per_round,
             nat_us=np.empty(T), deliv=np.empty(T), total=np.empty(T),
+            # zeroed: multi-phase plans leave a node's idle cells untouched
+            node_time_us=np.zeros((T, n)) if d in per_node_for else None,
+            node_deliv=np.zeros((T, n)) if d in per_node_for else None,
             tier_deliv=np.empty((T, topology.N_TIERS)),
             tier_total=np.empty((T, topology.N_TIERS)),
             tier_counts=plan.tier_counts(net, topo, hgs),
             tier_pkts_round=plan.tier_pkts_round(net, topo, hgs),
             phase_of_step=plan.phase_of_step,
             phase_budget_frac=plan.budget_fracs(),
+            phase_src=tuple(ph.src for ph in plan.phases),
+            phase_tier_cols=tuple(hg.tier_cols for hg in hgs),
+            phase_pod_cols=(tuple(hg.pod_cols for hg in hgs) if pods
+                            else None),
             step_priority=plan.step_priority(),
             pod_deliv=np.zeros((T, pods)) if pods else None,
             pod_total=np.zeros((T, pods)) if pods else None,
@@ -302,18 +369,20 @@ class BatchedEngine:
         O(T * n)); ``False`` is the shared-fabric mode, in round blocks
         (``round_block`` rounds each; the numpy engine's partition by
         default).  Legacy mode refuses what has no sequential stream to
-        replay, with the numpy engine's ``ValueError``s.
+        replay, and a recorder, with the numpy engine's ``ValueError``s.
+        The designs in ``per_node_for`` keep their per-flow ``(T, n)``
+        times and delivered packets (``StepTrace.node_time_us``,
+        ``node_deliv``), which the per-step window needs.
         """
-        if per_node_for:
-            raise _not_ported("per_node_for (per-flow (T, n) traces)", "5.3")
         from repro_torch.core.transport import engine_torch
         if legacy_streams:
             self._check_legacy()
             return engine_torch.traces_legacy(self, list(design_list),
-                                              n_rounds, seed)
+                                              n_rounds, seed,
+                                              per_node_for=per_node_for)
         return engine_torch.traces_batched(
             self, list(design_list), n_rounds, [seed],
-            round_block=round_block)[0]
+            round_block=round_block, per_node_for=per_node_for)[0]
 
     def _check_legacy(self):
         """The numpy engine's refusals of legacy streams: the sequential
@@ -334,6 +403,11 @@ class BatchedEngine:
             raise ValueError(
                 "fault injection (FaultParams) requires "
                 "legacy_streams=False (shared-fabric mode)")
+        if self.recorder is not None:
+            # the recorder rides the shared-fabric per-phase pass
+            raise ValueError(
+                "a TraceRecorder requires legacy_streams=False "
+                "(shared-fabric mode)")
 
     # ------------------------------------------------------------------
     def assemble(self, trace: StepTrace, seed: int, *,
@@ -347,19 +421,32 @@ class BatchedEngine:
 
         ``window``: ``"round"`` is one deadline per round; ``"phase"``
         splits it across the plan's phases by their ``budget_frac``
-        weights, each phase block truncated at its own deadline (on a
-        single-phase plan the split is ``[1.0]`` and the two agree bit
-        for bit).  ``cut_order``: ``"arrival"`` truncates the trailing
-        steps.
+        weights, each phase block truncated at its own deadline;
+        ``"step"`` divides each phase's share uniformly over its steps
+        and cuts flow by flow (per-flow data required).  On a
+        single-phase plan the split is ``[1.0]``: "phase" is "round" bit
+        for bit.  ``cut_order``: ``"arrival"`` truncates the trailing
+        steps; ``"priority"`` reallocates the same total cut by the
+        steps' priority class, lowest first (round and phase windows
+        only): times and total delivered fractions are identical between
+        the two orders, only the per-tier, per-pod and per-class
+        accounting moves.
         """
         window = WindowPolicy.parse(window).kind
         if cut_order not in ("arrival", "priority"):
             raise ValueError(f"cut_order must be 'arrival' or "
                              f"'priority', got {cut_order!r}")
         if cut_order == "priority":
-            raise _not_ported("cut_order='priority'", "5.3")
-        if window == "step":
-            raise _not_ported("window='step'", "5.3")
+            if trace.step_priority is None:
+                raise ValueError(
+                    "cut_order='priority' needs a trace with "
+                    "step_priority metadata (engine-built traces carry "
+                    "it; traces assembled from raw arrays do not)")
+            if window == "step":
+                raise ValueError(
+                    "cut_order='priority' applies to round/phase "
+                    "budgets; the step window binds per step, leaving "
+                    "no cut to reorder")
         steps = trace.steps_per_round
         R = trace.nat_us.shape[0] // steps
         nat = trace.nat_us.reshape(R, steps)
@@ -395,31 +482,57 @@ class BatchedEngine:
 
         def _pack(times, fracs, group_fracs):
             by_kind = dict(zip(kinds, group_fracs))
-            return RoundStats(
+            st = RoundStats(
                 times_us=times, recv_frac=fracs, design=trace.design,
                 tier_recv_frac=by_kind.get("tier"),
                 pod_recv_frac=by_kind.get("pod"),
                 prio_recv_frac=by_kind.get("prio"), **extra)
+            if self.recorder is not None:
+                # window-cut attribution: the gap between the trace's
+                # post-fault delivery and what survived the window
+                self.recorder.record_assemble(trace, st)
+            return st
 
         if trace.design != "celeris":
             return _pack(nat.sum(axis=1), deliv.sum(axis=1) / tot_sum,
                          [_tier_frac(gd.sum(axis=1), gt.sum(axis=1))
                           for gd, gt in groups])
 
+        if window == "step" and trace.node_time_us is None:
+            raise ValueError(
+                "window='step' needs per-flow data: build the trace with "
+                "traces(..., per_node_for=('celeris',)) or use "
+                "BatchedEngine.run(), which sets it up")
+        # per-phase structure; a trace without plan metadata is one phase
+        # covering the round
+        if trace.phase_of_step is not None:
+            ph_rows = [np.flatnonzero(trace.phase_of_step == k)
+                       for k in range(trace.phase_budget_frac.size)]
+            ph_frac = trace.phase_budget_frac
+        else:
+            ph_rows, ph_frac = [np.arange(steps)], np.ones(1)
+        step_round = None
+        if window == "step":
+            step_round = self._step_window(trace, ph_rows, ph_frac, kinds,
+                                           groups)
+
         # budget blocks: the whole round, or each phase's steps with its
-        # share of the budget (one block covering the round on a
-        # single-phase plan, where the two windows coincide)
-        if window == "phase" and trace.phase_of_step is not None:
-            blocks = [(np.flatnonzero(trace.phase_of_step == k), f)
-                      for k, f in enumerate(trace.phase_budget_frac)]
+        # share of the budget; with the priority cut, each block's static
+        # cut order
+        sp = (np.asarray(trace.step_priority, dtype=int)
+              if cut_order == "priority" else None)
+        if window == "phase":
+            blocks = list(zip(ph_rows, ph_frac))
         else:
             blocks = [(np.arange(steps), 1.0)]
+        blocks = [(rows, frac, None if sp is None else _priority_perm(sp[rows]))
+                  for rows, frac in blocks]
 
         init_to = (celeris_timeout_us or 50_000.0) / 1e6
         cfg = timeout_mod.TimeoutConfig(
             init_timeout=init_to, min_timeout=init_to * 0.25,
             max_timeout=init_to * 8.0, alpha=0.25)
-        if not adaptive:
+        if not adaptive and step_round is None:
             return _pack(*self._assemble_window_fixed(
                 nat, deliv, tot_sum, init_to * 1e6, groups, blocks))
 
@@ -433,39 +546,109 @@ class BatchedEngine:
         g_tot = [gt.sum(axis=1) for _, gt in groups]
         for r in range(R):
             budget_us = timeout * 1e6
-            t_sum, got = 0.0, 0.0
-            gots = [np.zeros(gd.shape[2]) for gd, _ in groups]
-            for rows, frac in blocks:
-                t_k, got_k, gots_k = _cut_block(
-                    nat[r, rows], deliv[r, rows], budget_us * frac,
-                    [gd[r, rows] for gd, _ in groups])
-                t_sum += t_k
-                got += got_k
-                for gg, gk in zip(gots, gots_k):
-                    gg += gk
-            times[r] = t_sum
+            if step_round is not None:
+                times[r], got, gots = step_round(r, budget_us)
+            else:
+                t_sum, got = 0.0, 0.0
+                gots = [np.zeros(gd.shape[2]) for gd, _ in groups]
+                for rows, frac, perm in blocks:
+                    t_k, got_k, gots_k = _cut_block(
+                        nat[r, rows], deliv[r, rows], budget_us * frac,
+                        [gd[r, rows] for gd, _ in groups], perm=perm)
+                    t_sum += t_k
+                    got += got_k
+                    for gg, gk in zip(gots, gots_k):
+                        gg += gk
+                times[r] = t_sum
             fracs[r] = got / tot_sum[r]
             for i, gg in enumerate(gots):
                 g_fracs[i][r] = _tier_frac(gg, g_tot[i][r])
-            node_frac = np.clip(fracs[r] + rng.normal(0, 0.002, n), 0.0, 1.0)
-            local, smoothed = timeout_mod.update_array(
-                smoothed, times[r] / 1e6, node_frac, cfg)
-            timeout = timeout_mod.adopt_scalar(
-                timeout_mod.coordinate(local), cfg)
+            if adaptive:
+                node_frac = np.clip(fracs[r] + rng.normal(0, 0.002, n),
+                                    0.0, 1.0)
+                local, smoothed = timeout_mod.update_array(
+                    smoothed, times[r] / 1e6, node_frac, cfg)
+                timeout = timeout_mod.adopt_scalar(
+                    timeout_mod.coordinate(local), cfg)
         return _pack(times, fracs, g_fracs)
+
+    @staticmethod
+    def _step_window(trace: StepTrace, ph_rows, ph_frac, kinds, groups):
+        """The per-step window's round function ``(r, budget_us) ->
+        (elapsed, got, group_gots)``: each phase's budget share divided
+        uniformly over its steps, each flow cut by how late it is, and
+        the survivors scattered per tier, per pod and per class.  Raises
+        the numpy engine's ``ValueError`` where a map is missing."""
+        steps = trace.steps_per_round
+        nat = trace.nat_us.reshape(-1, steps)
+        ph_src = trace.phase_src if trace.phase_of_step is not None else None
+        if len(ph_rows) > 1 and ph_src is None:
+            raise ValueError(
+                "window='step' on a multi-phase plan needs the trace's "
+                "per-phase sender maps (engine-built traces carry them)")
+        # per-group column maps, aligned one-to-one with ``groups``
+        step_col_maps = []
+        for kind, ph_cols, what in (
+                ("tier", trace.phase_tier_cols, "flow→tier"),
+                ("pod", trace.phase_pod_cols, "flow→pod")):
+            if kind not in kinds:
+                continue
+            if ph_cols is None:
+                raise ValueError(
+                    f"window='step' {what} accounting needs the plan's "
+                    "per-phase flow maps (engine-built traces carry "
+                    "them)")
+            step_col_maps.append(ph_cols)
+        n_prio = groups[kinds.index("prio")][0].shape[2] if (
+            "prio" in kinds) else 0
+
+        def _node_cols(k, cols):
+            # a phase's flow columns → node columns in the (T, n) arrays
+            return cols if ph_src is None else ph_src[k][cols]
+
+        def round_fn(r, budget_us):
+            step_to = np.empty(steps)
+            for k, rows in enumerate(ph_rows):
+                step_to[rows] = budget_us * ph_frac[k] / rows.size
+            t_node = trace.node_time_us[r * steps: (r + 1) * steps]
+            d_node = trace.node_deliv[r * steps: (r + 1) * steps]
+            late = np.clip((t_node - step_to[:, None])
+                           / np.maximum(t_node, 1e-9), 0, 1)
+            time_r = np.minimum(nat[r], step_to).sum()
+            got_node = d_node * (1 - late)
+            gots = []
+            for ph_cols in step_col_maps:
+                got_g = np.zeros(len(ph_cols[0]))
+                for k, rows in enumerate(ph_rows):
+                    for j, cols in enumerate(ph_cols[k]):
+                        if cols.size:
+                            got_g[j] += got_node[
+                                np.ix_(rows, _node_cols(k, cols))].sum()
+                gots.append(got_g)
+            if n_prio:
+                # each step's survivors land whole in that step's class
+                got_pr = np.zeros(n_prio)
+                np.add.at(got_pr, np.asarray(trace.step_priority, int),
+                          got_node.sum(axis=1))
+                gots.append(got_pr)
+            return time_r, got_node.sum(), gots
+
+        return round_fn
 
     @staticmethod
     def _assemble_window_fixed(nat, deliv, tot_sum, budget_us, groups,
                                blocks):
         """Fixed bounded windows, all rounds at once (paper protocol):
         each budget block of steps (the whole round, or one phase) takes
-        its share of the budget and is truncated at its own deadline.
-        Returns ``(times, fracs, group_fracs)``."""
+        its share of the budget and is truncated at its own deadline;
+        a block's priority permutation (or None: arrival order) decides
+        which steps the group accounting charges the cut to.  Returns
+        ``(times, fracs, group_fracs)``."""
         R = nat.shape[0]
         times = np.zeros(R)
         got = np.zeros(R)
         got_g = [np.zeros((R, gd.shape[2])) for gd, _ in groups]
-        for rows, frac in blocks:
+        for rows, frac, perm in blocks:
             b_k = budget_us * frac
             cum = np.cumsum(nat[:, rows], axis=1)
             total_t = cum[:, -1]
@@ -486,12 +669,19 @@ class BatchedEngine:
                      + np.take_along_axis(d_k, bidx[:, None],
                                           axis=1)[:, 0] * part)
             got += np.where(over, got_k, d_k.sum(axis=1))
+            survive = None
+            if perm is not None:
+                K = np.where(over, d_k.sum(axis=1) - got_k, 0.0)
+                survive = _priority_survive(d_k, K, perm)
             for i, (gd, _) in enumerate(groups):
                 # the truncated step's partial credit splits in
                 # proportion to each column's share of its packets
                 gd_k = gd[:, rows]
-                cut = ((gd_k * done[:, :, None]).sum(axis=1)
-                       + gd_k[np.arange(R), bidx] * part[:, None])
+                if survive is not None:
+                    cut = (gd_k * survive[:, :, None]).sum(axis=1)
+                else:
+                    cut = ((gd_k * done[:, :, None]).sum(axis=1)
+                           + gd_k[np.arange(R), bidx] * part[:, None])
                 got_g[i] += np.where(over[:, None], cut, gd_k.sum(axis=1))
         fracs = got / tot_sum
         g_fracs = [_tier_frac(gg, gt.sum(axis=1))
@@ -509,14 +699,16 @@ class BatchedEngine:
         ``legacy_streams`` follows the numpy engine's rules: adaptive
         Celeris (its controller's draws are not replayable), non-ring
         schedules, plan overrides and active faults (no sequential
-        stream to replay) run in the shared-fabric mode; a multi-pod
-        ring raises."""
+        stream to replay) and a recorder (it rides the shared-fabric
+        pass) run in the shared-fabric mode; a multi-pod ring raises.
+        The per-step window keeps Celeris's per-flow arrays."""
         seed = self.p.seed if seed is None else seed
         window = WindowPolicy.parse(window).kind
         keep = (design,) if design == "celeris" and window == "step" else ()
         if ((design == "celeris" and adaptive)
                 or self.p.work.schedule != "ring" or self.p.fault.active
-                or self.plan_override is not None):
+                or self.plan_override is not None
+                or self.recorder is not None):
             legacy_streams = False
         tr = self.traces([design], n_rounds, seed,
                          legacy_streams=legacy_streams, per_node_for=keep)
@@ -695,8 +887,11 @@ def sweep(params: BatchedSimParams | None = None, *, progress=None,
                          "fault-injection sweep cells")
     for win in bp.windows:
         if WindowPolicy.parse(win).kind == "step":
+            # the per-step window needs per-flow (T, n) arrays the
+            # sweep never materializes (memory flat in cluster size)
             raise ValueError("sweep windows must be 'round' or 'phase' "
-                             "(window='step' needs per-flow traces)")
+                             "(window='step' needs per-flow traces; use "
+                             "BatchedEngine.run)")
     device = resolve_device(device)
     res = SweepResult(params=bp, stats={})
     total_cells = (len(bp.n_nodes) * len(bp.message_mb) * len(bp.n_pods)

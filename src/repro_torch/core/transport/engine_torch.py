@@ -41,6 +41,15 @@ rate scale, per-design completion times, the fault reactions
 The float types follow the numpy engine: float32 times, float64 where it
 casts (the excess ``A + B * pkt_time``).
 
+Two opt-in outputs ride the same core and copy back only when asked
+for: the per-flow times and delivered packets of the designs in
+``per_node_for`` (the per-step window's input, scattered into ``(T,
+n)`` host arrays by sender column), and the flight recorder's
+reductions (:func:`_record_reduce`: per step the critical flow and its
+time components, per tier the component sums and the delivered,
+wire-lost and fault-lost packets, all reduced on the device).  Neither
+adds anything to the tensors the times and delivered packets come from.
+
 Legacy streams
 --------------
 :func:`traces_legacy` is the numpy engine's ``_traces_legacy`` split the
@@ -73,7 +82,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.transport import (designs, faults, network, replay,
-                                        topology)
+                                        telemetry, topology)
 from repro_torch.core.transport import engine as engine_mod
 from repro_torch.core.transport.dcqcn import DcqcnState
 from repro_torch.kernels import ops
@@ -137,6 +146,8 @@ class _Plan:
             fan = ph.fan_in()
             inc = np.flatnonzero(fan > 1)
             self.phases.append(dict(
+                rec=(self._recorder_facts(net, topo, hg, fan, inc, on_dev)
+                     if eng.recorder is not None else None),
                 inc=inc, fan=fan,
                 fan_t=on_dev(fan, torch.float32) if inc.size else None,
                 ph=ph, hg=hg, n_pkts=ph.n_pkts(net),
@@ -156,6 +167,36 @@ class _Plan:
         # a collective schedule is a permutation: no incast column, no
         # incast stream, and the pass is the fan-in-1 engine's
         self.incast = any(s["inc"].size for s in self.phases)
+
+    @staticmethod
+    def _recorder_facts(net, topo, hg, fan, inc, on_dev) -> dict:
+        """One phase's static inputs to the recorder's reductions: the
+        flow→tier one-hot (float64, for the per-tier sums), the incast
+        carve-out factor ``1 - 1/fan`` (float64, 0 off the incast
+        columns) and the RTT component: the scalar half base RTT, or,
+        where the DCI overlay adds its propagation to cross-pod columns,
+        a float64 column vector and its per-tier sums (as the numpy
+        engine promotes the scalar to an array there)."""
+        n_flows = hg.src.size
+        onehot = np.zeros((n_flows, topology.N_TIERS))
+        for k, c in enumerate(hg.tier_cols):
+            onehot[c, k] = 1.0
+        carve = None
+        if inc.size:
+            carve = np.zeros(n_flows)
+            carve[inc] = 1.0 - 1.0 / fan[inc]
+        rtt_vec = rtt_tier = None
+        if topo.hierarchical and hg.cross.size:
+            rtt_vec = np.full(n_flows, float(net.base_rtt_us / 2))
+            rtt_vec[hg.cross] += topo.dci_rtt_us / 2.0
+            rtt_tier = np.array([rtt_vec[c].sum() for c in hg.tier_cols])
+        return dict(
+            onehot_t=on_dev(onehot, torch.float64),
+            sizes=np.array([c.size for c in hg.tier_cols]),
+            carve_t=None if carve is None else on_dev(carve, torch.float64),
+            rtt_vec_t=(None if rtt_vec is None
+                       else on_dev(rtt_vec, torch.float64)),
+            rtt_tier=rtt_tier)
 
     def rows(self, k: int, tb: int) -> np.ndarray:
         """Phase ``k``'s steps in a block of ``tb`` steps, round-major."""
@@ -212,8 +253,9 @@ def _host_block(eng, st: _SeedStreams, ctx: _Plan, t0: int, tb: int,
     """One seed's draw pass for steps ``[t0, t0 + tb)``: exactly the
     numpy engine's stream consumption, minus the rate-dependent math the
     core does.  Returns the block's CNP marks ``(tb, n)``, per phase its
-    inputs to the core, and the faulted-flow count per step (None without
-    faults)."""
+    inputs to the core, the faulted-flow count per step (None without
+    faults) and, with a recorder, per phase its rows and fabric
+    counters."""
     p = eng.p
     net, rel, topo = p.net, p.rel, p.topo
     u = st.fabric_gen.random((tb, network._ADVANCE_DRAWS, ctx.n_tors))
@@ -283,6 +325,12 @@ def _host_block(eng, st: _SeedStreams, ctx: _Plan, t0: int, tb: int,
                          else np.zeros(shape, dtype=bool))
             fault_flows[h["rows"]] = (h["blocked"].sum(axis=1)
                                       + h["dead"].sum(axis=1))
+    counters = None
+    if eng.recorder is not None:
+        # the design-independent fabric counters, over the occupancy the
+        # PFC draws see (reductions only, no draws)
+        counters = [(h["rows"], network.congestion_counters(
+            net, h["occ32"], h["drop"])) for h in ph_host]
 
     # PFC + loss draws, design by design and phase by phase (the PFC
     # stream is consumed on the roce iterations only); pauses are
@@ -296,17 +344,22 @@ def _host_block(eng, st: _SeedStreams, ctx: _Plan, t0: int, tb: int,
                                  net, st.transfer_gens[d], h["occ32"].shape)
     for h in ph_host:
         del h["rows"], h["drop"], h["occ_eff"]
-    return {"cnp": cnp, "phases": ph_host, "fault_flows": fault_flows}
+    return {"cnp": cnp, "phases": ph_host, "fault_flows": fault_flows,
+            "counters": counters}
 
 
-def _core(eng, ctx: _Plan, inp, state: DcqcnState, design_list, tb: int):
+def _core(eng, ctx: _Plan, inp, state: DcqcnState, design_list, tb: int,
+          per_node_for=()):
     """The rate-dependent physics of one block, all seeds at once.
 
     ``inp`` holds ``(S, tb, n)`` marks and per phase ``(S, rows, flows)``
     tensors on the engine's device.  Returns per phase and design the
     per-step max completion time ``nat`` ``(S, rows)`` and, where they
     are not schedule constants, the delivered sums ``deliv``, ``tier``
-    and ``pod``; and the carried DCQCN state.
+    and ``pod``; for the designs in ``per_node_for`` the per-flow times
+    ``node_t`` and delivered packets ``node_d`` (None where every flow
+    delivers its offer); with a recorder, its reductions ``rec``
+    (:func:`_record_reduce`); and the carried DCQCN state.
     """
     net, rel, dq = eng.p.net, eng.p.rel, eng.p.dcqcn
     cnp = inp["cnp"]
@@ -347,7 +400,7 @@ def _core(eng, ctx: _Plan, inp, state: DcqcnState, design_list, tb: int):
         blocked, dead = ph_in.get("blocked"), ph_in.get("dead")
         per_design = {}
         for d in design_list:
-            deliv = None
+            deliv = ex = None
             if d == "celeris":
                 times = (serialize + designs.CELERIS_QUEUE_OVERLAP * qd
                          + net.base_rtt_us / 2)
@@ -360,13 +413,22 @@ def _core(eng, ctx: _Plan, inp, state: DcqcnState, design_list, tb: int):
                 times = times + ex.float()
             if s["dci_add_t"] is not None:
                 times = times + s["dci_add_t"]
+            parts = {} if s["rec"] is not None else None
+            deliv_pre = deliv
             if blocked is not None:
-                times, deliv = faults.apply_to_result(d, times, deliv,
-                                                      blocked, dead, rel)
+                times, deliv = faults.apply_to_result(
+                    d, times, deliv, blocked, dead, rel, parts=parts,
+                    offered=s["n_pkts"])
             o = {"nat": times.amax(-1)}
             if deliv is None and dead is not None:
                 # reliable designs deliver what a live flow offers
                 deliv = (~dead).double() * float(s["n_pkts"])
+            if d in per_node_for:
+                o["node_t"], o["node_d"] = times, deliv
+            if parts is not None:
+                o["rec"] = _record_reduce(
+                    net, s, d, times, deliv, deliv_pre, serialize, qd,
+                    ph_in.get("pfc") if d == "roce" else None, ex, parts)
             if deliv is not None:
                 o["deliv"] = deliv.sum(-1)
                 o["tier"] = torch.stack([deliv[..., c].sum(-1)
@@ -377,6 +439,66 @@ def _core(eng, ctx: _Plan, inp, state: DcqcnState, design_list, tb: int):
             per_design[d] = o
         out.append(per_design)
     return out, DcqcnState(rate=r, target=t, alpha=a, good_stages=g)
+
+
+def _record_reduce(net, s, d, times, deliv, deliv_pre, serialize, qd, pfc,
+                   ex, parts) -> dict:
+    """The flight recorder's per-step reductions of one (phase, design)
+    block on the device (``telemetry.TraceRecorder.record_phase``'s
+    inputs): the critical flow ``ar`` (the argmax of the very times whose
+    max is ``nat``), its components ``crit`` ``(S, rows, C)``, the
+    per-tier component sums ``tier`` ``(S, rows, n_tiers, C)`` and the
+    per-tier delivered, wire-lost and fault-lost packets ``pkts`` ``(S,
+    rows, n_tiers, 3)``, all float64.  Each float32 component is cast to
+    float64 before it is summed, as the numpy engine's recorder casts
+    it; a component the numpy engine keeps as a scalar is summed as
+    ``value * flows``.  Reads only: nothing here feeds ``times``."""
+    r = s["rec"]
+    onehot = r["onehot_t"]
+    ar = times.argmax(-1)
+    ser = serialize.double()
+    inc = 0.0
+    if r["carve_t"] is not None:
+        # incast carve-out: the (1 - 1/fan) share of the fan-x
+        # serialization stretch is receiver egress contention
+        inc = ser * r["carve_t"]
+        ser = ser - inc
+    queue = (designs.CELERIS_QUEUE_OVERLAP * qd if d == "celeris" else qd)
+    comps = {"serialize": ser, "queue": queue.double(),
+             "rtt": (r["rtt_vec_t"] if r["rtt_vec_t"] is not None
+                     else float(net.base_rtt_us / 2)),
+             "pfc": pfc.double() if pfc is not None else 0.0,
+             "retransmit": ex if ex is not None else 0.0,
+             "incast": inc, "fault": parts.get("fault", 0.0)}
+    S, rows = ar.shape
+    dev = times.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    crit = torch.empty(S, rows, telemetry.N_COMPONENTS, **f64)
+    tier = torch.empty(S, rows, topology.N_TIERS, telemetry.N_COMPONENTS,
+                       **f64)
+    for ci, name in enumerate(telemetry.COMPONENTS):
+        a = comps[name]
+        if not isinstance(a, torch.Tensor):
+            crit[..., ci] = a
+            tier[..., ci] = torch.as_tensor(a * r["sizes"], **f64)
+        elif a.dim() == 1:                  # the DCI-promoted RTT column
+            crit[..., ci] = a[ar]
+            tier[..., ci] = torch.as_tensor(r["rtt_tier"], **f64)
+        else:
+            crit[..., ci] = a.gather(-1, ar[..., None])[..., 0]
+            tier[..., ci] = a @ onehot
+    npk = float(s["n_pkts"])
+    got = deliv.double() if deliv is not None else None
+    wire = (npk - deliv_pre.double()) if deliv_pre is not None else None
+    lost = parts.get("fault_lost")
+    pkts = torch.zeros(S, rows, topology.N_TIERS, 3, **f64)
+    pkts[..., 0] = (got @ onehot if got is not None
+                    else torch.as_tensor(npk * r["sizes"], **f64))
+    if wire is not None:
+        pkts[..., 1] = wire @ onehot
+    if lost is not None:
+        pkts[..., 2] = lost @ onehot
+    return {"ar": ar, "crit": crit, "tier": tier, "pkts": pkts}
 
 
 def _check_designs(eng, design_list) -> list:
@@ -403,20 +525,27 @@ def _stack_to(arrays, dev):
 
 
 def traces_batched(eng, design_list, n_rounds: int, seeds, *,
-                   round_block: int | None = None):
+                   round_block: int | None = None, per_node_for=()):
     """Physics traces for every seed in ``seeds``, one device pass per
     round block with the seed axis batched.  Returns one ``{design:
     StepTrace}`` dict per seed, each equal (within the tolerance
-    contract) to the numpy engine's ``traces(..., legacy_streams=False)``
-    for that seed.  Sets ``eng.timing`` to the wall-time split between
-    the host draw pass and the device core (which includes the copies
-    to and from the card)."""
+    contract) to the numpy engine's ``traces(..., legacy_streams=False,
+    per_node_for=per_node_for)`` for that seed.  With a recorder on the
+    engine (one seed only) the pass also fills it.  Sets ``eng.timing``
+    to the wall-time split between the host draw pass and the device
+    core (which includes the copies to and from the card), and the bytes
+    copied back for the per-node arrays and the recorder."""
     p = eng.p
     design_list = _check_designs(eng, design_list)
+    per_node_for = tuple(d for d in design_list if d in per_node_for)
     seeds = [int(s) for s in seeds]
     S = len(seeds)
     if S == 0:
         return []
+    rec = eng.recorder
+    if rec is not None and S != 1:
+        raise ValueError("a TraceRecorder records one seed's pass: call "
+                         "traces() per seed")
 
     ctx = _Plan(eng)
     n, steps = ctx.n, ctx.steps
@@ -430,8 +559,10 @@ def traces_batched(eng, design_list, n_rounds: int, seeds, *,
     dev = eng.device
 
     streams = [_SeedStreams(eng, s, design_list, ctx.incast) for s in seeds]
-    outs = [eng._new_traces(design_list, T, ctx.plan, ctx.hgs)
+    outs = [eng._new_traces(design_list, T, ctx.plan, ctx.hgs, per_node_for)
             for _ in seeds]
+    if rec is not None:
+        rec.begin(design_list, plan=ctx.plan, n_rounds=n_rounds, steps=steps)
     fault_flows = ([np.zeros(T) for _ in seeds] if p.fault.active
                    else None)
     state = DcqcnState.init((S, n), device=dev)
@@ -441,6 +572,7 @@ def traces_batched(eng, design_list, n_rounds: int, seeds, *,
         rate_scale = _stack_to([st.fmodel.rate_scale for st in streams], dev)
     host_s = device_s = 0.0
     n_blocks = 0
+    copied = {"node_bytes": 0, "record_bytes": 0}
     for t0 in range(0, T, block_steps):
         tb = min(block_steps, T - t0)   # whole rounds: steps | tb
         c0 = time.perf_counter()
@@ -462,12 +594,22 @@ def traces_batched(eng, design_list, n_rounds: int, seeds, *,
         if fault_flows is not None:
             for si, h in enumerate(host):
                 fault_flows[si][t0:t0 + tb] = h["fault_flows"]
+        if rec is not None:
+            for rows, counters in host[0]["counters"]:
+                rec.record_fabric(t0 + rows, counters, T)
         del host
-        res, state = _core(eng, ctx, inp, state, design_list, tb)
-        res = [{d: {f: v.cpu().numpy() for f, v in o.items()}
-                for d, o in ph.items()} for ph in res]
+        res, state = _core(eng, ctx, inp, state, design_list, tb,
+                           per_node_for)
+        res = _to_host(res, copied)
         for si in range(S):
             _scatter_block(outs[si], res, si, ctx, t0, tb)
+        if rec is not None:
+            for k, sph in enumerate(ctx.phases):
+                for d in design_list:
+                    rec.record_phase(d, t0 + ctx.rows(k, tb), sph["ph"],
+                                     sph["hg"], sph["n_pkts"],
+                                     {f: v[0] for f, v in
+                                      res[k][d]["rec"].items()})
         host_s += c1 - c0
         device_s += time.perf_counter() - c1
         n_blocks += 1
@@ -476,21 +618,52 @@ def traces_batched(eng, design_list, n_rounds: int, seeds, *,
             for tr in outs[si].values():
                 tr.fault_flows = fault_flows[si]
     eng.timing = {"host_s": host_s, "device_s": device_s,
-                  "blocks": n_blocks, "seeds": S, "steps": T, "nodes": n}
+                  "blocks": n_blocks, "seeds": S, "steps": T, "nodes": n,
+                  **copied}
     return outs
+
+
+def _to_host(res, copied: dict):
+    """Copy one block's core outputs back (numpy), counting the bytes of
+    the per-node arrays and of the recorder's reductions in ``copied``."""
+    out = []
+    for ph in res:
+        host = {}
+        for d, o in ph.items():
+            h = {}
+            for f, v in o.items():
+                if f == "rec":
+                    h[f] = {g: w.cpu().numpy() for g, w in v.items()}
+                    copied["record_bytes"] += sum(w.nbytes
+                                                  for w in h[f].values())
+                elif v is not None:
+                    h[f] = v.cpu().numpy()
+                    if f in ("node_t", "node_d"):
+                        copied["node_bytes"] += h[f].nbytes
+                else:
+                    h[f] = None
+            host[d] = h
+        out.append(host)
+    return out
 
 
 def _scatter_block(out, res, si, ctx: _Plan, t0: int, tb: int):
     """Write one seed's block of core outputs into its StepTraces; the
     offered totals, and the delivered packets of reliable designs on
     fault-free traces (which equal them), are schedule constants filled
-    on the host."""
+    on the host.  Per-node arrays scatter by the phase's sender
+    columns."""
     for k, s in enumerate(ctx.phases):
         rows = t0 + ctx.rows(k, tb)
         npk, f = s["n_pkts"], s["ph"].src.size
         for d, tr in out.items():
             o = res[k][d]
             tr.nat_us[rows] = o["nat"][si]
+            if tr.node_time_us is not None:
+                cells = np.ix_(rows, s["ph"].src)
+                tr.node_time_us[cells] = o["node_t"][si]
+                tr.node_deliv[cells] = (float(npk) if o["node_d"] is None
+                                        else o["node_d"][si])
             tr.total[rows] = float(npk * f)
             tr.deliv[rows] = o["deliv"][si] if "deliv" in o else float(npk * f)
             for kt, cols in enumerate(s["tier_np"]):
@@ -572,11 +745,13 @@ def _legacy_host(eng, ctx: _Plan, design_list, T: int, seed: int) -> dict:
     return host
 
 
-def _legacy_core(eng, ctx: _Plan, host: dict, design_list):
+def _legacy_core(eng, ctx: _Plan, host: dict, design_list, per_node_for=()):
     """One scan call over the stacked CNP channels, then each design's
     completion times in the numpy engine's float order.  Returns, per
-    design, ``nat`` ``(1, T)`` and for celeris the delivered sums
-    ``deliv`` and ``tier`` (the reliable designs deliver everything)."""
+    design, ``nat`` ``(1, T)``, for celeris the delivered sums ``deliv``
+    and ``tier`` (the reliable designs deliver everything), and for the
+    designs in ``per_node_for`` the per-flow times ``node_t`` ``(1, T,
+    n)``."""
     net, rel, dq = eng.p.net, eng.p.rel, eng.p.dcqcn
     dev = eng.device
     s0 = ctx.phases[0]
@@ -609,7 +784,10 @@ def _legacy_core(eng, ctx: _Plan, host: dict, design_list):
         times = times + on_dev(host["pfc"])
         ex = (on_dev(host["roce"]["A"]).double()
               + on_dev(host["roce"]["B"]).double() * pkt_time.double())
-        out["roce"] = {"nat": (times + ex.float()).amax(-1)[None]}
+        times = times + ex.float()
+        out["roce"] = {"nat": times.amax(-1)[None]}
+        if "roce" in per_node_for:
+            out["roce"]["node_t"] = times[None]
     if "occ_clean" in host:
         occ = on_dev(host["occ_clean"])
         qd = network.queue_delay_us(net, occ)
@@ -639,6 +817,8 @@ def _legacy_core(eng, ctx: _Plan, host: dict, design_list):
                 slow = (k64 * rel.host_slowpath_us).float()
                 t = torch.where(k > 0, t + slow, t)
             out[d] = {"nat": t.amax(-1)[None]}
+            if d in per_node_for:
+                out[d]["node_t"] = t[None]
     if "celeris" in chan:
         pkt_time = pkt_time_of(rates[chan["celeris"]], avail)
         times = (n_pkts * pkt_time + designs.CELERIS_QUEUE_OVERLAP * qd
@@ -651,26 +831,38 @@ def _legacy_core(eng, ctx: _Plan, host: dict, design_list):
             "tier": torch.stack([float(n_pkts * c.numel())
                                  - k[:, c].sum(-1) for c in s0["tier_t"]],
                                 -1)[None]}
+        if "celeris" in per_node_for:
+            out["celeris"]["node_t"] = times[None]
     return out
 
 
-def traces_legacy(eng, design_list, n_rounds: int, seed: int):
+def traces_legacy(eng, design_list, n_rounds: int, seed: int, *,
+                  per_node_for=()):
     """The legacy-stream physics of one seed on the flat ring: equal
     (within the tolerance contract) to the numpy engine's ``traces(...,
-    legacy_streams=True)``.  The caller has refused what has no
-    sequential stream (``BatchedEngine._check_legacy``).  Sets
-    ``eng.timing`` as :func:`traces_batched` does (one block)."""
+    legacy_streams=True, per_node_for=per_node_for)``.  The caller has
+    refused what has no sequential stream (``BatchedEngine
+    ._check_legacy``).  Sets ``eng.timing`` as :func:`traces_batched`
+    does (one block)."""
     design_list = _check_designs(eng, design_list)
+    per_node_for = tuple(d for d in design_list if d in per_node_for)
     ctx = _Plan(eng)
     T = n_rounds * ctx.steps
     c0 = time.perf_counter()
     host = _legacy_host(eng, ctx, design_list, T, int(seed))
     c1 = time.perf_counter()
-    res = _legacy_core(eng, ctx, host, design_list)
-    res = [{d: {f: v.cpu().numpy() for f, v in o.items()}
-            for d, o in res.items()}]
-    out = eng._new_traces(design_list, T, ctx.plan, ctx.hgs)
+    res = _legacy_core(eng, ctx, host, design_list, per_node_for)
+    copied = {"node_bytes": 0, "record_bytes": 0}
+    res = _to_host([res], copied)
+    n_pkts = ctx.phases[0]["n_pkts"]
+    for d in per_node_for:
+        # celeris delivers what its replayed wire draws left; the
+        # reliable designs deliver everything
+        res[0][d]["node_d"] = ((n_pkts - host["celeris"]["k"])[None]
+                               if d == "celeris" else None)
+    out = eng._new_traces(design_list, T, ctx.plan, ctx.hgs, per_node_for)
     _scatter_block(out, res, 0, ctx, 0, T)
     eng.timing = {"host_s": c1 - c0, "device_s": time.perf_counter() - c1,
-                  "blocks": 1, "seeds": 1, "steps": T, "nodes": ctx.n}
+                  "blocks": 1, "seeds": 1, "steps": T, "nodes": ctx.n,
+                  **copied}
     return out

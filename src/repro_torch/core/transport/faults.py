@@ -210,7 +210,9 @@ class FaultModel:
         return blocked, dead
 
 
-def apply_to_result(design: str, time_us, delivered, blocked, dead, rel):
+def apply_to_result(design: str, time_us, delivered, blocked, dead, rel,
+                    parts: dict | None = None,
+                    offered: float | None = None):
     """One phase's fault masks on its float32 completion times and
     delivered packets; returns ``(time_us, delivered)``.
 
@@ -220,8 +222,43 @@ def apply_to_result(design: str, time_us, delivered, blocked, dead, rel):
     ``dead`` disjoint.  The reliable designs' delivered packets are
     returned unchanged: they are the live flows' offer, which the engine
     counts from ``dead`` alone.
+
+    ``parts`` is the flight recorder's scratchpad: when a dict is passed,
+    the exact float64 deltas this overlay applies are recorded in it,
+    ``"fault"`` the added completion time and ``"fault_lost"`` the
+    packets a fault swallowed (a dead reliable flow loses its
+    ``offered`` packets, which ``parts`` requires), read from the state
+    before the overlay.  The returned times and packets are the same with
+    or without it.
     """
-    where = torch.where if isinstance(time_us, torch.Tensor) else np.where
+    is_torch = isinstance(time_us, torch.Tensor)
+    where = torch.where if is_torch else np.where
+    if parts is not None and offered is None:
+        raise ValueError("parts= records fault-lost packets: pass offered=, "
+                         "the packets each flow offers")
+    det = {"roce": rel.rto_us, "irn": rel.rto_low_us,
+           "srnic": rel.rto_low_us + rel.host_slowpath_us}.get(design)
+    if parts is not None:
+        f64 = ((lambda a: a.double()) if is_torch
+               else (lambda a: np.asarray(a, np.float64)))
+        zero = (torch.zeros_like(time_us, dtype=torch.float64) if is_torch
+                else np.zeros(np.shape(time_us)))
+        if design == "celeris":
+            gone = zero
+            for m in (blocked, dead):
+                if m is not None:
+                    gone = where(m, f64(delivered), gone)
+            parts["fault"], parts["fault_lost"] = zero, gone
+        else:
+            add = zero
+            if dead is not None:
+                add = where(dead, det * (1 + rel.max_retries), add)
+                parts["fault_lost"] = where(dead, float(offered), zero)
+            else:
+                parts["fault_lost"] = zero
+            if blocked is not None:
+                add = where(blocked, f64(time_us) + det, add)
+            parts["fault"] = add
     if design == "celeris":
         for m in (blocked, dead):
             if m is not None:
@@ -229,8 +266,6 @@ def apply_to_result(design: str, time_us, delivered, blocked, dead, rel):
         return time_us, delivered
     # the reliable design's retransmission timeout notices the outage;
     # each constant is rounded to float32 as the numpy engine's is
-    det = {"roce": rel.rto_us, "irn": rel.rto_low_us,
-           "srnic": rel.rto_low_us + rel.host_slowpath_us}[design]
     if blocked is not None:
         time_us = where(blocked, 2.0 * time_us + float(np.float32(det)),
                         time_us)

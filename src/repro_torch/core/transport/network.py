@@ -61,6 +61,21 @@ def drop_prob(p: NetworkParams, occ):
     return p.loss_max_prob * x ** 2
 
 
+def congestion_counters(p: NetworkParams, occ: np.ndarray,
+                        drop_p: np.ndarray | None = None) -> dict:
+    """Per-step fabric congestion summary for the flight recorder's
+    counter tracks (``telemetry.TraceRecorder.record_fabric``): mean and
+    max path occupancy, the fraction of flows past the ECN knee, and
+    (when the drop curve is at hand) the mean drop probability.
+    Reductions of the host pass's ``(step, flow)`` blocks, no draws."""
+    out = {"occ_mean": occ.mean(axis=-1).astype(np.float64),
+           "occ_max": occ.max(axis=-1).astype(np.float64),
+           "ecn_frac": (occ > p.ecn_threshold).mean(axis=-1)}
+    if drop_p is not None:
+        out["drop_p_mean"] = drop_p.mean(axis=-1).astype(np.float64)
+    return out
+
+
 # ----------------------------------------------------------------------
 # Vectorized traces (the engine's fabric front-end, host side)
 # ----------------------------------------------------------------------

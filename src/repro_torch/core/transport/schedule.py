@@ -1,7 +1,7 @@
 """Flow plans and the collective schedules (port of
 ``repro/core/transport/schedule.py``: ``SchedulePhase``, ``FlowPlan``,
-``flow_plan``, ``with_step_priorities``, and the ring, hierarchical and
-per-rail schedules).
+``flow_plan``, ``with_step_priorities``, ``layer_priorities``, and the
+ring, hierarchical and per-rail schedules).
 
 A :class:`FlowPlan` is one round of point-to-point flow phases: each
 phase a contiguous run of steps sharing one static flow pattern, so it
@@ -29,9 +29,10 @@ most one flow per phase).  Several flows sharing a receiver
 (``SchedulePhase.fan_in() > 1``) are **incast**, e.g. the serve path's
 prefill -> decode KV shipping (``serve/traffic.py``); the engine charges
 those flows with per-receiver contention, and a fan-in-1 plan runs
-exactly as the collective schedules do.  ``layer_priorities`` and
-``FlowPlan.prio_pkts_round`` come with the priority cut (ROADMAP, Queue
-1 [5.3]).
+exactly as the collective schedules do.  :func:`layer_priorities`
+promotes the trailing half of the all-gather to a top priority class,
+the classes the engine's ``cut_order="priority"`` window cut reorders
+by (Fig. 10).
 """
 from __future__ import annotations
 
@@ -162,6 +163,23 @@ class FlowPlan:
                                   dtype=int),
                          [ph.n_steps for ph in self.phases])
 
+    def n_priority_classes(self) -> int:
+        """Number of priority classes (``max class + 1``; >= 1)."""
+        return int(self.step_priority().max()) + 1
+
+    def prio_pkts_round(self, net: NetworkParams) -> np.ndarray:
+        """(n_classes,) offered packets per round per priority class (the
+        per-class analogue of :meth:`tier_pkts_round`)."""
+        cls = self.step_priority()
+        out = np.zeros(self.n_priority_classes())
+        for ph, rows in zip(self.phases,
+                            np.split(np.arange(self.steps_per_round),
+                                     np.cumsum([ph.n_steps for ph
+                                                in self.phases])[:-1])):
+            per_step = ph.src.size * ph.n_pkts(net)
+            np.add.at(out, cls[rows], float(per_step))
+        return out
+
     def bytes_per_round(self) -> int:
         """Bytes offered to the fabric per round (all flows, all
         steps)."""
@@ -225,6 +243,28 @@ def with_step_priorities(plan: FlowPlan, priority_of_step) -> FlowPlan:
     if (cls < 0).any():
         raise ValueError("priority classes must be >= 0")
     return dataclasses.replace(plan, priority_of_step=cls)
+
+
+def layer_priorities(plan: FlowPlan, top_frac: float = 0.5) -> np.ndarray:
+    """Layer-depth priority classes for a hierarchical training plan.
+
+    The trailing ``top_frac`` of the final all-gather phase carries the
+    early-layer exact shards the next forward pass consumes first, so
+    those steps are promoted to a new top class above every phase
+    priority: e.g. ``dci=0 < rs/early-ag=1 < late-ag=2``.  The bounded
+    window then cuts coded DCI bytes first and the forward-critical
+    shards last, the inverse of the arrival cut.  Plans without an
+    all-gather phase (flat ring, serve) come back unchanged.  Feed the
+    result to :func:`with_step_priorities`.
+    """
+    cls = plan.step_priority().copy()
+    pos = np.asarray(plan.phase_of_step)
+    is_ag = np.array([plan.phases[k].name.startswith("ag") for k in pos])
+    ag_steps = np.where(is_ag)[0]
+    n_top = int(round(ag_steps.size * top_frac))
+    if n_top:
+        cls[ag_steps[ag_steps.size - n_top:]] = cls.max() + 1
+    return cls
 
 
 class CollectiveSchedule:

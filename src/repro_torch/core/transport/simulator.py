@@ -42,8 +42,9 @@ class CollectiveSimulator:
         ``adaptive=False``); when ``adaptive`` the timeout controller
         refines it per round from (duration, received fraction) with
         cluster-median coordination.  ``window``: ``"round"`` bounds the
-        whole collective (paper semantics); ``"step"`` raises
-        ``NotImplementedError`` (not ported yet).
+        whole collective (paper semantics); ``"step"`` bounds each ring
+        step (beyond-paper; adaptive Celeris runs in the shared-fabric
+        mode, as ``BatchedEngine.run`` decides).
         """
         return self._engine.run(design, n_rounds,
                                 celeris_timeout_us=celeris_timeout_us,

@@ -259,9 +259,9 @@ def hier_protocol(params: SimParams, n_rounds: int = 200, seed: int = 0, *,
 
     The RoCE baseline on the same fabric trace fixes the Celeris window
     at median + 1 sigma (scaled); ``window`` is the Celeris budget policy
-    ("round" | "phase").  Returns ``{design: RoundStats}`` for roce and
-    celeris.  ``cut_order="priority"`` and a ``recorder`` raise
-    ``NotImplementedError`` (not ported yet).
+    ("round" | "phase") and ``cut_order`` its cut order ("arrival" |
+    "priority"); a ``recorder`` (``telemetry.TraceRecorder``) records the
+    pass.  Returns ``{design: RoundStats}`` for roce and celeris.
     """
     from repro_torch.core.transport.engine import BatchedEngine
 

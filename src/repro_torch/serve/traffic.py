@@ -249,10 +249,8 @@ def simulate_serving(tp: ServeTrafficParams, times_us: np.ndarray,
 
     ``loss_rates`` (optional, ``(R, n_causes)`` — per-round lost
     payload fraction by cause from the engine run that produced
-    ``times_us``/``recv_frac``: the heuristic
-    ``telemetry.DropProvenance.rates`` until the flight recorder is
-    ported)
-    additionally attributes every request's missing KV to its
+    ``times_us``/``recv_frac``, ``telemetry.DesignRecord.loss_rates()``
+    of a recorded run) additionally attributes every request's missing KV to its
     originating cause with the same shipped-block weighting, so a
     degraded cache can be traced back to a DCI fault stall or a window
     cut.  Rounds beyond the rates' length wrap, like DropSchedule.

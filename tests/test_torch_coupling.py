@@ -108,11 +108,29 @@ def test_lossless_design_gives_zero_schedule():
 
 
 def test_record_and_legacy_streams_raise():
-    """The flight recorder is not ported; legacy streams raise where the
-    numpy engine refuses them too (a multi-pod fabric)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcoupling.schedule_from_engine(2, params=SMOKE_T, device="cpu",
-                                       record=True)
+    """``record=True`` gives the flight recorder's provenance (in the
+    shared-fabric mode, even when legacy streams are asked for, as the
+    numpy engine decides), equal to the JAX package's; legacy streams
+    raise where the numpy engine refuses them too (a multi-pod fabric)."""
+    jsmoke = jparams.SimParams(net=jparams.NetworkParams(
+        n_nodes=32, burst_on_prob=0.0008))
+    for legacy in (False, True):
+        got = tcoupling.schedule_from_engine(
+            6, params=SMOKE_T, device="cpu", record=True,
+            legacy_streams=legacy, timeout_scale=0.6)
+        want = jcoupling.schedule_from_engine(
+            6, params=jsmoke, record=True, legacy_streams=legacy,
+            timeout_scale=0.6)
+        assert got.provenance.source == want.provenance.source == "recorded"
+        assert got.provenance.phases == want.provenance.phases
+        np.testing.assert_allclose(got.rates, want.rates, rtol=1e-5,
+                                   atol=1e-12)
+        np.testing.assert_allclose(got.provenance.rates,
+                                   want.provenance.rates, rtol=1e-5,
+                                   atol=1e-12)
+        np.testing.assert_allclose(
+            np.clip(got.provenance.total(), 0.0, tcoupling.MAX_DROP),
+            got.rates, atol=1e-9)
     pods = dataclasses.replace(SMOKE_T, topo=tparams.TopologyParams(
         n_pods=2))
     jpods = jparams.SimParams(net=jparams.NetworkParams(n_nodes=32),
@@ -246,9 +264,23 @@ def test_hier_straggler_model_walks_the_axis_schedule():
 
 
 def test_split_schedule_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcoupling.split_schedule_from_engine(2, params=SMOKE_T, record=True,
-                                             device="cpu")
+    """``record=True`` gives each axis the recorder's provenance, equal
+    to the JAX package's; without CUDA the default device is refused."""
+    got = tcoupling.split_schedule_from_engine(6, params=SMOKE_T, record=True,
+                                               device="cpu",
+                                               timeout_scale=0.6)
+    want = jcoupling.split_schedule_from_engine(
+        6, params=jparams.SimParams(net=jparams.NetworkParams(
+            n_nodes=32, burst_on_prob=0.0008)), record=True,
+        timeout_scale=0.6)
+    for axis in ("intra", "cross"):
+        a = getattr(got, axis).provenance
+        b = getattr(want, axis).provenance
+        assert (a.source, a.axis, a.tiers, a.phases) == (
+            "recorded", b.axis, b.tiers, b.phases)
+        np.testing.assert_allclose(a.rates, b.rates, rtol=1e-5, atol=1e-12)
+        np.testing.assert_allclose(a.phase_rates, b.phase_rates, rtol=1e-5,
+                                   atol=1e-12)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tcoupling.split_schedule_from_engine(2, params=SMOKE_T)

@@ -244,37 +244,6 @@ def test_assemble_matches_numpy(celeris_traces, adaptive, window,
     _close(got.tier_recv_frac, want.tier_recv_frac, "tier_recv_frac")
 
 
-def _raises(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn()
-
-
-OUT_OF_SCOPE = {
-    "per_node_for": lambda e: e.traces(["celeris"], 2, 0,
-                                       per_node_for=("celeris",)),
-    "cut_order_priority": lambda e: e.run("celeris", 2, adaptive=False,
-                                          cut_order="priority"),
-    "window_step": lambda e: e.run("celeris", 2, window="step"),
-    # the numpy engine honours legacy streams here; the port cannot yet
-    "run_legacy_window_step": lambda e: e.run(
-        "celeris", 2, adaptive=False, window="step", legacy_streams=True),
-}
-
-
-@pytest.mark.parametrize("what", sorted(OUT_OF_SCOPE))
-def test_out_of_scope_calls_raise(what):
-    _, eng = _engines()
-    _raises(lambda: OUT_OF_SCOPE[what](eng))
-
-
-@pytest.mark.parametrize("kw", ["recorder"])
-def test_plan_override_and_recorder_raise(kw):
-    """The flight recorder is not ported (plan overrides are:
-    tests/test_torch_flowplan.py)."""
-    _raises(lambda: tengine.BatchedEngine(_small(tparams), device="cpu",
-                                          **{kw: object()}))
-
-
 def test_engine_needs_cuda_unless_cpu_requested():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the refusal cannot be observed")

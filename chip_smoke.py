@@ -47,6 +47,19 @@ caught and carried on):
    through ``lossy_pmean`` on a one-rank NCCL group, on the int8 wire
    (one fused rotate+quantize launch a call) at drop 0 and 0.05 and on
    the float32 wire at 0.05;
+6b. the data-parallel train step: four rank processes on the one card
+    over gloo, qwen2-0.5b at full width through ``Trainer(mesh=...)``,
+    global batch 8 x 128 (2 rows a rank), 2 steps in each cell: on
+    ``make_host_mesh((4, 1))`` ``exact``, ``lossy`` and
+    ``lossy_hadamard`` at drop 0.05, and the int8 wire at drop 0 and
+    0.05; on ``make_pod_mesh(2, 2, 1)`` ``hierarchical`` on the int8
+    wire at the per-pod vector [0.02, 0.0, 0.05].  Every rank must end
+    every step bit-identical, ``recv_frac`` lie within 0.04 of the mean
+    mask rate's complement (1.0 at drop 0, where the int8 loss is within
+    5e-3 of exact's), each coded step launch the FWHT 16 times a rank;
+    the group's median equals the middle pair's midpoint; world-4 exact
+    equals one device on ``global_batch(0, 4)`` (full width in float32,
+    2 layers); every cell at smoke size agrees card against CPU;
 7. smoke-size training on the card against the CPU (float32, the same
    masks, signs and batch: loss, the first moments, i.e. the synced
    gradient, and the updated parameters), and 14 coded steps that must
@@ -148,7 +161,7 @@ The protocols of phases 14-16, 18 and 21-22 (and Fig. 2's step window)
 are ``repro_torch.benchmarks.figs``'s functions, which the CPU tests also
 run (smoke tiers and cut grids).
 
-Each path (3-6, and the engine's in 8-9, 11-13, 15-16, 18-19 and 21-22,
+Each path (3-6b, and the engine's in 8-9, 11-13, 15-16, 18-19 and 21-22,
 Fig. 2's step window its own) runs with the kernels' launch counts set to
 0 just before it and read just after.  The last
 line is ``{"ok": true, "device": {...}}``; the lines before it carry the
@@ -202,6 +215,11 @@ GRAD_VALUES, GRAD_PAYLOAD = 499_540_864, (121_959, 4096)   # its gradient
 # the FWHT's rows on the train path: the tiles of 4096 of each coded leaf
 # (wk/wv, wq/wo, the MLP weights, embed.table)
 TRAIN_FWHT_ROWS = (672, 5376, 25536, 33236)
+# ... and on a mesh with a model axis (dp_train's (4, 1) and (2, 2, 1)),
+# where each leaf tiles around its model dim: (rows, n_rot) of wk/wv,
+# wq/wo, the MLP weights and embed.table, whose model dim leaves 896
+# entries a column, so n_rot 512
+DP_FWHT_SHAPES = ((768, 4096), (6144, 4096), (29184, 4096), (303872, 512))
 ALLREDUCE_PEERS = (1, 4)   # unbias counts: the one-rank group's and 4 peers'
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
 # tensor cores (the kernels' arithmetic) in operations/s
@@ -494,24 +512,30 @@ def check_misaligned(dev, kfwht):
 
 
 def check_train_shapes(dev, g, kfwht, kunbias, ref):
-    """FWHT (signs and scale fused) at each coded leaf's tiles and at the
-    gradient payload, equal to its plain version, and timed at the largest
-    leaf's and the payload's; masked unbias at the payload's wire layout
+    """FWHT (signs and scale fused) at each coded leaf's tiles, one
+    device's and a mesh's, and at the gradient payload, equal to its
+    plain version, and timed at the largest leaf's, the payload's and
+    the mesh's n_rot-512 leaf; masked unbias at the payload's wire layout
     with counts from drop-0.05 masks at its tolerance, timed at one
     peer's.  Returns the worst error by kernel and the timing records."""
-    rows_all, n = TRAIN_FWHT_ROWS + (GRAD_PAYLOAD[0],), GRAD_PAYLOAD[1]
-    signs = torch.randint(0, 2, (n,), generator=g, device=dev).float() * 2 - 1
+    shapes = ([(rows, GRAD_PAYLOAD[1]) for rows in TRAIN_FWHT_ROWS]
+              + list(DP_FWHT_SHAPES) + [GRAD_PAYLOAD])
+    timed = ((TRAIN_FWHT_ROWS[-1], GRAD_PAYLOAD[1]), DP_FWHT_SHAPES[-1],
+             GRAD_PAYLOAD)
     worst = {"fwht": 0.0, "masked_unbias": 0.0}
     records = []
-    for rows in rows_all:
+    for rows, n in shapes:
         x = torch.randn(rows, n, generator=g, device=dev)
-        err = check_equal(f"fwht train/all-reduce {rows}x{n}",
+        signs = (torch.randint(0, 2, (n,), generator=g, device=dev).float()
+                 * 2 - 1)
+        err = check_equal(f"fwht train/dp/all-reduce {rows}x{n}",
                           (kfwht.fwht_cuda(x, signs, n ** -0.5),),
                           (ref.fwht(x, signs=signs, scale=n ** -0.5),))
         worst["fwht"] = max(worst["fwht"], err)
-        if rows in (TRAIN_FWHT_ROWS[-1], GRAD_PAYLOAD[0]):
+        if (rows, n) in timed:
             records.append(fwht_record(kfwht, ref, x, signs, n ** -0.5, err))
         del x
+    n = GRAD_PAYLOAD[1]
     y = torch.randn(n, GRAD_PAYLOAD[0], generator=g, device=dev)
     for peers in ALLREDUCE_PEERS:
         counts = (torch.rand(peers, n, generator=g, device=dev) >= 0.05
@@ -522,10 +546,10 @@ def check_train_shapes(dev, g, kfwht, kunbias, ref):
         worst["masked_unbias"] = max(worst["masked_unbias"], err)
         if peers == 1:                     # the one-rank all-reduce's case
             records.append(unbias_record(kunbias, ref, y, counts, peers, err))
-    print(f"train/all-reduce shapes: fwht at {list(rows_all)} x {n} worst "
-          f"err {worst['fwht']:.3g}; masked_unbias at ({n}, "
-          f"{GRAD_PAYLOAD[0]}), counts of {list(ALLREDUCE_PEERS)} peers at "
-          f"drop 0.05, worst err {worst['masked_unbias']:.3g}")
+    print(f"train/dp/all-reduce shapes: fwht at {shapes} worst err "
+          f"{worst['fwht']:.3g}; masked_unbias at ({n}, {GRAD_PAYLOAD[0]}), "
+          f"counts of {list(ALLREDUCE_PEERS)} peers at drop 0.05, worst err "
+          f"{worst['masked_unbias']:.3g}")
     return worst, records
 
 
@@ -907,7 +931,7 @@ def phase_allreduce(dev, ts, tr, coding, lc, counts):
         dist.destroy_process_group()
 
 
-def check_first_step(name, new_dev, new_cpu, opt):
+def check_first_step(name, new_dev, new_cpu, opt, steps=None):
     """One AdamW step's state, card against CPU.  The first moment is
     (1 - b1) times the synced, clipped gradient g, so it holds whatever
     the sync (masking, the FWHT encode and decode) made of the gradient:
@@ -915,13 +939,16 @@ def check_first_step(name, new_dev, new_cpu, opt):
     is lr * g / (|g| + eps), i.e. lr (1e-3) per entry, whose slope near
     g = 0 is lr / eps: each parameter is held to 2e-4 plus the update
     difference that the two sides' own g explain, so a sign that rounds
-    the other way at |g| ~ eps is not taken for a fault."""
+    the other way at |g| ~ eps is not taken for a fault.  ``steps``
+    (leaf index -> float, the int8 wire's ``int8_step_bound``) adds one
+    quantization step of g to a first moment's atol."""
     for i, (mu_d, mu_c, p_d, p_c) in enumerate(zip(
             new_dev["opt"]["mu"], new_cpu["opt"]["mu"], new_dev["params"],
             new_cpu["params"])):
         mu_d = mu_d.cpu()
+        step = (1 - opt.b1) * (steps or {}).get(i, 0.0)
         check(f"{name} leaf {i} first moment card vs cpu", mu_d, mu_c, 1e-4,
-              1e-4 * mu_c.abs().max().item())
+              1e-4 * mu_c.abs().max().item() + step)
         g_d, g_c = (mu.double() / (1 - opt.b1) for mu in (mu_d, mu_c))
         explained = opt.lr * ((g_d / (g_d.abs() + opt.eps))
                               - (g_c / (g_c.abs() + opt.eps))).abs()
@@ -930,6 +957,67 @@ def check_first_step(name, new_dev, new_cpu, opt):
         assert not bad.any(), (
             f"{name} leaf {i} params card vs cpu: {int(bad.sum())} entries "
             f"beyond 2e-4 + explained, max diff {diff.max().item():.3g}")
+
+
+def int8_scales(grads, plans, masks, signs, lossy, exact=None):
+    """Per coded leaf (index -> (scale, counts)): the int8 wire's scale
+    of each wire row, the all-peers maximum of |contribution| / 127, and
+    the count of peers that delivered the row, recomputed from this
+    rank's gradients the way the step's int8 wire does
+    (``ts._int8_wire``); every rank gets the same."""
+    import torch.distributed as dist
+    from repro_torch.core import coding
+    from repro_torch.train import train_step as ts
+    out = {}
+    for i, m in masks.items():
+        g = grads[i] if exact is None else ts._pmean(grads[i], exact)
+        contrib = (coding.encode_nd(g, signs[i], plans[i])
+                   * m[None, :, None].to(torch.float32))
+        absmax = ts._all_reduce(torch.amax(contrib.abs(), dim=(0, 2)),
+                                lossy.group, dist.ReduceOp.MAX)
+        out[i] = (absmax / 127.0,
+                  ts._all_reduce(m.to(torch.float32), lossy.group))
+    return out
+
+
+def int8_step_bound(cfg, leaves, batch, plans, masks, signs, lossy,
+                    exact=None):
+    """Per coded leaf (index -> float): the most that one int8 code
+    flipped by one step moves an entry of the synced gradient.  Two sides
+    whose gradients differ in the last bits can round a code on either
+    side of a ``floor``; after the decode such a flip moves every entry
+    of its tile column by scale_r * (peers / count_r) * (n_rot / k) /
+    sqrt(n_rot) / peers."""
+    from repro_torch.train import train_step as ts
+    *_, grads = ts.loss_and_grads(cfg, leaves, batch)
+    out = {}
+    for i, (scale, counts) in int8_scales(grads, plans, masks, signs, lossy,
+                                          exact).items():
+        k = int((counts > 0).sum())
+        worst = (scale * lossy.size / counts.clamp(min=1)).max()
+        out[i] = (float(worst) * plans[i].n_rot / k
+                  / math.sqrt(plans[i].n_rot) / lossy.size)
+    return out
+
+
+def int8_noise_bound(grads, plans, masks, signs, lossy, exact=None):
+    """Per coded leaf (index -> float): a bound on the norm of what the
+    int8 wire's rounding adds to the synced gradient when every row
+    arrives.  A code misses its value by e * scale_r with e in (-1, 1),
+    E e = 0 and var e <= 1/4; the peers share the noise, so their errors
+    may add up in step: var of the sum <= peers^2 / 4 scale_r^2.  The
+    decode is orthonormal in each tile column and divides by the peers,
+    so E |err|^2 <= tiles * Ns * sum_r scale_r^2 / 4.  Returns twice that,
+    square-rooted (the squared norm of millions of independent entries
+    sits close to its mean)."""
+    out = {}
+    for i, (scale, _) in int8_scales(grads, plans, masks, signs, lossy,
+                                     exact).items():
+        p = plans[i]
+        ns = p.shape[p.sharded_dim] if p.sharded_dim is not None else 1
+        out[i] = math.sqrt(2 * p.tiles * ns
+                           * float(scale.double().square().sum()) / 4)
+    return out
 
 
 def phase_small_train(dev, C, ts, OptConfig, DataConfig, make_source):
@@ -957,18 +1045,11 @@ def phase_small_train(dev, C, ts, OptConfig, DataConfig, make_source):
             signs[i] = torch.randint(0, 2, (4096,),
                                      generator=g).float() * 2 - 1
 
-    def to(tree, d):
-        if isinstance(tree, dict):
-            return {k: to(v, d) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, d) for v in tree]
-        return tree.to(d)
-
     for mode in MODES:
         step = ts.make_train_step(cfg, None, opt,
                                   ts.CelerisConfig(mode=mode, **celeris))
         (new_cpu, m_cpu), (new_dev, m_dev) = [
-            step(to(state, d), to(batch, d), None, 0.05, masks=masks,
+            step(to_device(state, d), to_device(batch, d), None, 0.05, masks=masks,
                  signs=signs) for d in (cpu, dev)]
         for k in ("loss", "recv_frac"):
             check(f"smoke train {mode} {k} card vs cpu", m_dev[k].cpu(),
@@ -977,7 +1058,7 @@ def phase_small_train(dev, C, ts, OptConfig, DataConfig, make_source):
 
     step = ts.make_train_step(cfg, None, OptConfig(lr=1e-3), ts.CelerisConfig(
         mode="lossy_hadamard", **celeris))
-    st, losses, fracs = to(state, dev), [], []
+    st, losses, fracs = to_device(state, dev), [], []
     for i in range(SMOKE_STEPS):
         b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
              for k, v in src.global_batch(i).items()}
@@ -993,6 +1074,481 @@ def phase_small_train(dev, C, ts, OptConfig, DataConfig, make_source):
           f"at drop 0.05 on the card: loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}")
     return {"losses": losses, "recv_frac": fracs}
+
+
+def to_device(tree, d):
+    """A state, batch or draw dict moved to device ``d``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, d) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, d) for v in tree]
+    return tree.to(d)
+
+
+# The data-parallel train step: four ranks share the one card over gloo
+# (NCCL refuses two ranks on one device).  Cells: (name, mesh, mode,
+# quantize_wire, drop rate or the per-pod vector [intra_pod0, intra_pod1,
+# cross]); "host" is make_host_mesh((4, 1)), "pods" make_pod_mesh(2, 2, 1).
+DP_WORLD, DP_STEPS, DP_TIMEOUT = 4, 2, 900
+DP_CELLS = (("exact", "host", "exact", False, 0.0),
+            ("lossy", "host", "lossy", False, 0.05),
+            ("lossy_hadamard", "host", "lossy_hadamard", False, 0.05),
+            ("int8_drop0", "host", "lossy_hadamard", True, 0.0),
+            ("int8_drop0.05", "host", "lossy_hadamard", True, 0.05),
+            ("hierarchical_int8", "pods", "hierarchical", True,
+             (0.02, 0.0, 0.05)))
+DP_OUT = os.path.join(SRC, "repro_torch", "kernels", "build", "dp_train")
+
+
+class FixedDrop:
+    """A straggler model that gives every step the same drop rate (or
+    hierarchical drop vector)."""
+    median_latency = 1.0
+
+    def __init__(self, rate):
+        self.rate = rate
+
+    def drop_rate(self, timeout, rng):
+        return self.rate
+
+
+def expected_drop(rate):
+    """The mean mask rate a cell's drop input gives: the rate itself, or
+    over the pods of a [intra_pod..., cross] vector, 1 - (1 - intra_p)
+    (1 - cross) capped at 0.5."""
+    r = np.reshape(np.asarray(rate, np.float64), -1)
+    if r.size == 1:
+        return float(r[0])
+    return float(np.mean(np.minimum(1 - (1 - r[:-1]) * (1 - r[-1]), 0.5)))
+
+
+def fingerprint(leaves, metrics):
+    """Per leaf, integer sums of its bits (all, every third, every
+    seventh from 1), and the metrics' float64 values: equal on two ranks
+    when their parameters and metrics are equal bit for bit."""
+    sums = []
+    for p in leaves:
+        b = p.detach().reshape(-1).view(torch.int16 if p.element_size() == 2
+                                        else torch.int32)
+        sums += [b.sum(dtype=torch.int64), b[::3].sum(dtype=torch.int64),
+                 b[1::7].sum(dtype=torch.int64)]
+    vals = torch.tensor([metrics[k] for k in sorted(metrics)],
+                        dtype=torch.float64)
+    return torch.cat([torch.stack(sums).cpu(), vals.view(torch.int64)])
+
+
+def dp_smoke_draws(leaves, mesh, celeris, drop):
+    """Injected draws for the card-vs-CPU cells, the same on every rank:
+    per coded leaf all mask peers' masks (this rank keeps its own), the
+    signs and, on the int8 wire, the noise, from one CPU generator."""
+    from repro_torch.core import coding
+    from repro_torch.train import train_step as ts
+    sync = ts._DpSync.make(mesh, celeris.collective_mode(), celeris)
+    mode = celeris.collective_mode()
+    if mode.hierarchical:
+        rates, peer = ts._pod_rates(drop, sync.pod.size), sync.pod.peer
+    else:
+        rates = torch.full((sync.dp.size,), float(drop))
+        peer = sync.dp.peer
+    g = torch.Generator().manual_seed(3)
+    masks, signs, noise = {}, {}, {}
+    for i, plan in enumerate(ts.plan_leaves(leaves, mesh, celeris)):
+        if plan is None:
+            continue
+        masks[i] = (torch.rand((rates.shape[0], plan.n_rot), generator=g)
+                    >= rates[:, None])[peer]
+        signs[i] = coding.rademacher_nd(g, plan)
+        if celeris.quantize_wire:
+            ns = (plan.shape[plan.sharded_dim]
+                  if plan.sharded_dim is not None else 1)
+            noise[i] = torch.rand((plan.tiles, plan.n_rot, ns), generator=g)
+    return masks, signs, noise, sync
+
+
+def dp_rank(rank, port, out_dir, device="cuda"):
+    """One rank of ``phase_dp_train``: joins the gloo group, runs every
+    cell and check, and writes ``rank<r>.json`` into ``out_dir``.  Any
+    failed check raises, and the rank exits non-zero."""
+    sys.path.insert(0, SRC)
+    import torch.distributed as dist
+    from repro_torch import resolve_device
+    from repro_torch.launch import mesh as mesh_mod
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)          # every rank on the one card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=DP_WORLD)
+    try:
+        meshes = {"host": mesh_mod.make_host_mesh((DP_WORLD, 1),
+                                                  device_type=dev.type),
+                  "pods": mesh_mod.make_pod_mesh(2, 2, 1,
+                                                 device_type=dev.type)}
+        rec = dp_cells(rank, dev, meshes)
+        rec["one_device"] = dp_check_one_device(rank, dev, meshes["host"])
+        rec["coded_vs_exact"] = dp_check_coded_syncs(dev, meshes)
+        rec["card_vs_cpu"] = dp_check_card_vs_cpu(dev, meshes)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_cells(rank, dev, meshes):
+    """The full-width cells through ``Trainer(mesh=...)``, then the
+    median coordination over the group."""
+    import torch.distributed as dist
+    import repro_torch.configs as C
+    from repro_torch.core import timeout as tmo
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import dcqcn as kdcqcn
+    from repro_torch.kernels import fwht as kfwht
+    from repro_torch.kernels import quantize as kquant
+    from repro_torch.kernels import unbias as kunbias
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    counts = Launches(kfwht, kunbias, kquant, kdcqcn)
+    world = dist.group.WORLD
+    # the sync's host-clock time and the bytes each all-reduce moves,
+    # read by wrapping the step's two module functions
+    stats = {"sync_s": 0.0, "bytes": 0}
+    sync_dp, all_reduce = ts._sync_dp, ts._all_reduce
+
+    def timed_sync(*a, **k):
+        _sync()
+        t0 = time.perf_counter()
+        out = sync_dp(*a, **k)
+        _sync()
+        stats["sync_s"] += time.perf_counter() - t0
+        return out
+
+    def counted_all_reduce(t, group, op=dist.ReduceOp.SUM):
+        stats["bytes"] += t.numel() * t.element_size()
+        return all_reduce(t, group, op)
+
+    ts._sync_dp, ts._all_reduce = timed_sync, counted_all_reduce
+    cfg = C.get("qwen2-0.5b")
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=1)
+    opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
+    rec, tr = {"cells": {}}, None
+    for name, mk, mode, q, drop in DP_CELLS:
+        del tr
+        torch.cuda.empty_cache()
+        tr = Trainer(cfg, data_cfg=data_cfg, opt_cfg=opt,
+                     celeris=ts.CelerisConfig(mode=mode, quantize_wire=q),
+                     mesh=meshes[mk], seed=0, straggler=FixedDrop(drop),
+                     device=str(dev))
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+
+        def on_metrics(step, m):
+            steps.append({"wall_ms": m["wall_s"] * 1e3,
+                          "sync_ms": stats["sync_s"] * 1e3,
+                          "allreduce_bytes": stats["bytes"],
+                          "launches": counts.read()})
+            fp = fingerprint(tr.state["params"], {
+                k: v for k, v in m.items() if k not in ("wall_s",
+                                                        "drop_rate")})
+            every = [torch.empty_like(fp) for _ in range(DP_WORLD)]
+            dist.all_gather(every, fp, group=world)
+            assert all(torch.equal(e, fp) for e in every), (
+                f"dp {name} step {step}: the ranks' parameters or metrics "
+                "differ")
+            counts.reset()
+            stats.update(sync_s=0.0, bytes=0)
+
+        _sync()
+        counts.reset()
+        stats.update(sync_s=0.0, bytes=0)
+        hist = tr.run(DP_STEPS, on_metrics=on_metrics)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        fwht = [s["launches"]["fwht"] for s in steps]
+        coded = mode in ("lossy_hadamard", "hierarchical")
+        want = {"fwht": 2 * CODED_LEAVES if coded else 0,
+                "fwht_quantize": 0, "masked_unbias": 0, "quantize_int8": 0,
+                "dcqcn_scan": 0}
+        assert all(s["launches"] == want for s in steps), (name, steps)
+        assert np.isfinite(hist["loss"]).all(), (name, hist["loss"])
+        if mode == "exact" or drop == 0.0:
+            assert hist["recv_frac"] == [1.0] * DP_STEPS, (name, hist)
+        else:
+            assert all(abs(f - (1 - expected_drop(drop))) < 0.04
+                       for f in hist["recv_frac"]), (name, hist["recv_frac"])
+        rec["cells"][name] = {
+            "mesh": mk, "mode": mode, "quantize_wire": q,
+            "drop": np.asarray(drop).tolist(), "loss": hist["loss"],
+            "recv_frac": hist["recv_frac"], "steps": steps,
+            "fwht_launches_per_step": fwht, "peak_gib": peak}
+    ts._sync_dp, ts._all_reduce = sync_dp, all_reduce
+    exact, q0 = rec["cells"]["exact"], rec["cells"]["int8_drop0"]
+    assert all(abs(a - b) < 5e-3 for a, b in zip(q0["loss"], exact["loss"])
+               ), ("int8 wire at drop 0 vs exact", q0["loss"], exact["loss"])
+    # median coordination over the group
+    local = np.float32(tr.controller.timeout * (1 + 0.01 * rank))
+    agreed = tmo.coordinate_group(torch.tensor(local), world)
+    vals = np.sort([np.float32(tr.controller.timeout * (1 + 0.01 * r))
+                    for r in range(DP_WORLD)])
+    want = (vals[(DP_WORLD - 1) // 2] + vals[DP_WORLD // 2]) * np.float32(0.5)
+    assert agreed.item() == want, (agreed.item(), want)
+    rec["median"] = {"local": float(local), "agreed": agreed.item()}
+    del tr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dp_check_one_device(rank, dev, mesh):
+    """World-4 exact = one device: qwen2-0.5b at full width in float32,
+    depth cut to 2 layers (the check's tolerances are float32's: in
+    bf16 the ranks' gradients and the global batch's round apart), one
+    exact step from the same weights on ``global_batch(0, 4)``, held
+    to ``check_first_step``."""
+    import torch.distributed as dist
+    from repro_torch import generator
+    import repro_torch.configs as C
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    cfg = dataclasses.replace(C.get("qwen2-0.5b"), n_layers=2,
+                              dtype="float32")
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=1)
+    opt = OptConfig(lr=1e-3, warmup_steps=1)
+    tr = Trainer(cfg, data_cfg=data_cfg, opt_cfg=opt, mesh=mesh, seed=0,
+                 device=str(dev))
+    new, m = tr.step_fn(tr.state, tr.put_batch(0), None, 0.0)
+    del tr
+    out = {"loss": m["loss"].item()}
+    if rank == 0:
+        step = ts.make_train_step(cfg, None, opt)
+        batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                 for k, v in make_source(data_cfg).global_batch(0, DP_WORLD)
+                 .items()}
+        one, m1 = step(ts.init_state(generator(dev, 0), cfg), batch, None,
+                       0.0)
+        one = to_device({"params": one["params"],
+                         "opt": {"mu": one["opt"]["mu"]}}, "cpu")
+        check("dp exact loss vs one device", m["loss"].cpu(),
+              m1["loss"].cpu(), 1e-5, 0.0)
+        check_first_step("dp exact (world 4) vs one device", new, one, opt)
+        out["one_device_loss"] = m1["loss"].item()
+    dist.barrier()
+    return out
+
+
+# the syncs at drop 0 held to the exact pmean on the same gradients:
+# (name, mesh, mode, quantize_wire, drop rate or per-pod vector)
+DP_ZERO_CELLS = (("lossy", "host", "lossy", False, 0.0),
+                 ("lossy_hadamard", "host", "lossy_hadamard", False, 0.0),
+                 ("int8", "host", "lossy_hadamard", True, 0.0),
+                 ("hierarchical_int8", "pods", "hierarchical", True,
+                  (0.0, 0.0, 0.0)))
+
+
+def dp_check_coded_syncs(dev, meshes, cfg=None, min_coded_size=65536):
+    """Each cell's sync at drop 0 against the exact pmean, on this rank's
+    gradients (by default at full width: qwen2-0.5b, 2 layers, float32;
+    this rank's rows of ``global_batch(0, 4)``): the plain island and the
+    float32
+    coded wire leaf by leaf within rtol 1e-5 + 1e-5 of the leaf's largest
+    entry (a float32 round trip through the FWHT); the int8 wire, plain
+    and hierarchical, within ``int8_noise_bound`` in norm.  Returns each
+    cell's worst error relative to its bound."""
+    from repro_torch import generator
+    from repro_torch import sharding as shd
+    import repro_torch.configs as C
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.train import train_step as ts
+    cfg = cfg or dataclasses.replace(C.get("qwen2-0.5b"), n_layers=2,
+                                     dtype="float32")
+    src = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_BATCH, seed=1))
+    leaves = ts.init_state(generator(dev, 0), cfg)["params"]
+    out = {}
+    for name, mk, mode, q, drop in DP_ZERO_CELLS:
+        mesh = meshes[mk]
+        batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                 for k, v in src.shard_batch(
+                     0, shd.peer_index(mesh, shd.dp_axes(mesh)),
+                     DP_WORLD).items()}
+        *_, grads = ts.loss_and_grads(cfg, leaves, batch)
+        celeris = ts.CelerisConfig(mode=mode, quantize_wire=q,
+                                   min_coded_size=min_coded_size)
+        plans = ts.plan_leaves(leaves, mesh, celeris)
+        assert any(p is not None for p in plans), name
+        exact = ts._sync_dp(ts._DpSync.make(mesh, ts.CollectiveMode.EXACT,
+                                            celeris),
+                            grads, plans, None, 0.0, None, None, None)[0]
+        masks, signs, noise, sync = (to_device(d, dev) if isinstance(d, dict)
+                                     else d for d in dp_smoke_draws(
+                                         leaves, mesh, celeris, drop))
+        est, frac = ts._sync_dp(sync, grads, plans, None, drop, masks, signs,
+                                noise)
+        assert frac.item() == 1.0, (name, frac.item())
+        if q:
+            lossy = sync.pod if mode == "hierarchical" else sync.dp
+            bound = int8_noise_bound(grads, plans, masks, signs, lossy,
+                                     sync.data)
+        worst = 0.0
+        for i, (e, x) in enumerate(zip(est, exact)):
+            if q and i in bound:
+                err = (e - x).double().norm().item()
+                assert err <= bound[i], (
+                    f"dp {name} at drop 0 leaf {i}: |int8 - exact| {err:.4g}"
+                    f" beyond the rounding bound {bound[i]:.4g}")
+                worst = max(worst, err / bound[i])
+            else:
+                atol = 1e-5 * x.abs().max().item()
+                err = check(f"dp {name} at drop 0 leaf {i} vs exact", e, x,
+                            1e-5, atol)
+                worst = max(worst, err / max(atol, 1e-30))
+        out[name] = worst
+        del grads, exact, est, masks, signs, noise
+    return out
+
+
+def dp_check_card_vs_cpu(dev, meshes):
+    """Every cell at smoke size in float32, one step at world 4 on the
+    card and on the CPU (the same ranks, the same gloo group) from the
+    same weights, batch and injected draws, held to
+    ``check_first_step`` (plus one quantization step on the int8
+    wire)."""
+    from repro_torch import sharding as shd
+    import repro_torch.configs as C
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import train_step as ts
+    cfg = dataclasses.replace(C.get_smoke("qwen2-0.5b"), dtype="float32")
+    cpu = torch.device("cpu")
+    state = ts.init_state(torch.Generator(cpu).manual_seed(0), cfg)
+    src = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                 global_batch=8, seed=1))
+    opt = OptConfig(lr=1e-3, warmup_steps=1)
+    out = {}
+    for name, mk, mode, q, drop in DP_CELLS:
+        mesh = meshes[mk]
+        celeris = ts.CelerisConfig(mode=mode, quantize_wire=q,
+                                   min_coded_size=1024)
+        step = ts.make_train_step(cfg, mesh, opt, celeris)
+        peer = shd.peer_index(mesh, shd.dp_axes(mesh))
+        batch = {k: torch.as_tensor(v, dtype=torch.long) for k, v in
+                 src.shard_batch(0, peer, DP_WORLD).items()}
+        masks, signs, noise, sync = dp_smoke_draws(state["params"], mesh,
+                                                   celeris, drop)
+        (new_cpu, m_cpu), (new_dev, m_dev) = [
+            step(to_device(state, d), to_device(batch, d), None, drop,
+                 masks=masks, signs=signs, noise=noise) for d in (cpu, dev)]
+        for k in ("loss", "recv_frac"):
+            check(f"dp smoke {name} {k} card vs cpu", m_dev[k].cpu(),
+                  m_cpu[k], 2e-4, 2e-4)
+        steps = None
+        if q:
+            lossy = sync.pod if mode == "hierarchical" else sync.dp
+            steps = int8_step_bound(
+                cfg, state["params"], batch,
+                ts.plan_leaves(state["params"], mesh, celeris), masks,
+                signs, lossy, sync.data)
+        check_first_step(f"dp smoke {name}", new_dev, new_cpu, opt, steps)
+        out[name] = {"loss": m_dev["loss"].item(),
+                     "recv_frac": m_dev["recv_frac"].item()}
+    return out
+
+
+def phase_dp_train():
+    """The data-parallel train step at full width: four rank processes
+    on the one card over gloo (``dp_rank``), each cell 2 steps through
+    ``Trainer(mesh=...)``.  Any rank that fails fails the phase."""
+    import shutil
+    import socket
+    shutil.rmtree(DP_OUT, ignore_errors=True)
+    os.makedirs(DP_OUT)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    # four ranks of ~15 GiB each share 80 GB: segments that grow in
+    # place keep each allocator's free-but-reserved blocks small
+    env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(DP_OUT, f"rank{r}.log"), "w")
+            for r in range(DP_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         "--dp-port", str(port), "--dp-out", DP_OUT], env=env,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
+    try:
+        deadline = time.monotonic() + DP_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    seconds = time.perf_counter() - t0
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = []
+        for r in failed:
+            with open(os.path.join(DP_OUT, f"rank{r}.log")) as f:
+                tails.append(f"rank {r} (exit {procs[r].returncode}):\n"
+                             + "".join(f.readlines()[-40:]))
+        raise RuntimeError("dp train: ranks failed\n" + "\n".join(tails))
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(DP_OUT, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    smi = card_name_and_power()
+    out, launches = {"cells": {}}, 0
+    for name, *_ in DP_CELLS:
+        cell = ranks[0]["cells"][name]
+        steps = cell["steps"]
+        rec = {k: cell[k] for k in ("mesh", "mode", "quantize_wire", "drop",
+                                    "loss", "recv_frac",
+                                    "fwht_launches_per_step")}
+        rec.update(
+            step_ms=[s["wall_ms"] for s in steps],
+            median_step_ms_after_first=statistics.median(
+                s["wall_ms"] for s in steps[1:]),
+            sync_ms=[s["sync_ms"] for s in steps],
+            allreduce_bytes_per_rank_step=steps[-1]["allreduce_bytes"],
+            peak_gib_per_rank=[rk["cells"][name]["peak_gib"]
+                               for rk in ranks])
+        launches += sum(s["launches"]["fwht"] for rk in ranks
+                        for s in rk["cells"][name]["steps"])
+        out["cells"][name] = rec
+        print(f"dp train {name} ({rec['mesh']}, {DP_WORLD} ranks on one "
+              f"card, gloo): loss {rec['loss']}, recv_frac "
+              f"{rec['recv_frac']}, step ms {rec['step_ms']}, sync ms "
+              f"{rec['sync_ms']}, all-reduce bytes/rank-step "
+              f"{rec['allreduce_bytes_per_rank_step']}, FWHT launches/"
+              f"rank-step {rec['fwht_launches_per_step']}, peak GiB/rank "
+              f"{[round(g, 2) for g in rec['peak_gib_per_rank']]} [{smi}]")
+    out.update(seconds=seconds, median=[rk["median"] for rk in ranks],
+               one_device=ranks[0]["one_device"],
+               coded_vs_exact=[rk["coded_vs_exact"] for rk in ranks],
+               card_vs_cpu=ranks[0]["card_vs_cpu"],
+               launches={"fwht": launches, "fwht_quantize": 0,
+                         "masked_unbias": 0, "quantize_int8": 0,
+                         "dcqcn_scan": 0})
+    zero_worst = {k: max(rk[k] for rk in out["coded_vs_exact"])
+                  for k in out["coded_vs_exact"][0]}
+    print(f"dp train: every rank bit-identical after every step; median "
+          f"coordination {out['median'][0]['agreed']}; world-4 exact = one "
+          f"device (full width, 2 layers, float32; loss "
+          f"{out['one_device']['loss']} vs "
+          f"{out['one_device']['one_device_loss']}); the syncs at drop 0 "
+          f"vs exact on the same gradients (full width, 2 layers, float32), "
+          f"worst error / tolerance by cell {zero_worst}; "
+          f"card = CPU at smoke "
+          f"size in {len(DP_CELLS)} cells; {seconds:.1f} s [{smi}]")
+    return out
 
 
 def phase_main_path(dev, C, M, serve_step, coupling, counts):
@@ -2889,6 +3445,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     allreduce = phase_allreduce(dev, ts, tr, coding, lc, counts)
     del tr
     torch.cuda.empty_cache()
+    dp_train = phase_dp_train()
     small_train = phase_small_train(dev, C, ts, OptConfig, DataConfig,
                                     make_source)
     engine_check = phase_engine_card_vs_cpu(dev, E, P)
@@ -2930,6 +3487,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "kernel_bench": bench["launches"],
                "train": train["launches"],
                "allreduce": allreduce["launches"],
+               "dp_train": dp_train["launches"],
                "fig1": fig1_launches, "fig2": fig2["launches"],
                "fig2_shared": fig2["shared"]["launches"],
                "fig3": fig3["launches"], "fig4": fig4["launches"],
@@ -2949,6 +3507,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     smi = card_name_and_power()
     print(json.dumps({"main_path": main_path, "kernel_bench": bench,
                       "train": train, "allreduce": allreduce,
+                      "dp_train": dp_train,
                       "small_train": small_train,
                       "engine_card_vs_cpu": engine_check, "fig1": fig1,
                       "fig2": fig2, "fig3": fig3,
@@ -2977,5 +3536,11 @@ if __name__ == "__main__":
                     "against this earlier design of it (the C interface "
                     "without a workspace), in turns, on the engine's real "
                     "blocks")
+    ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    main(args.ab_fwht, args.ab_dcqcn)
+    if args.dp_rank is not None:        # one rank of phase_dp_train
+        dp_rank(args.dp_rank, args.dp_port, args.dp_out)
+    else:
+        main(args.ab_fwht, args.ab_dcqcn)

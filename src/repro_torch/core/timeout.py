@@ -1,5 +1,4 @@
-"""Bounded delivery windows (port of ``repro/core/timeout.py``, the host
-forms).
+"""Bounded delivery windows (port of ``repro/core/timeout.py``).
 
 Celeris replaces NIC-managed reliability with software step-level
 timeouts.  Per collective group:
@@ -12,10 +11,12 @@ timeouts.  Per collective group:
 - nodes exchange local estimates and all adopt the **median** for the
   next round (straggler-robust cluster coordination).
 
-numpy and the standard library, copied as they are: the host controller
-(:class:`TimeoutController`, :func:`coordinate`) and the whole-cluster
-array forms (:func:`update_array`, :func:`adopt_scalar`).  The in-graph
-forms of the JAX package wait for the engine slice.
+The host controller (:class:`TimeoutController`, :func:`coordinate`)
+and the whole-cluster array forms (:func:`update_array`,
+:func:`adopt_scalar`) are numpy, copied as they are.  The JAX package's
+in-graph forms ``init_jax``/``update_jax``/``coordinate_jax`` are
+tensor functions here (:func:`init_tensor`, :func:`update_tensor`) and
+a median over a process group (:func:`coordinate_group`).
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass
@@ -107,3 +110,39 @@ def update_array(smoothed: np.ndarray, duration: float,
 def adopt_scalar(cluster_timeout: float, cfg: TimeoutConfig) -> float:
     """:meth:`TimeoutController.adopt` for the coordinated median."""
     return float(np.clip(cluster_timeout, cfg.min_timeout, cfg.max_timeout))
+
+
+# ----------------------------------------------------------------------
+# In-step (tensor) forms: the state is a (timeout, smoothed_target) pair
+# of float32 scalars, as in the JAX package's in-graph forms.
+# ----------------------------------------------------------------------
+
+def init_tensor(cfg: TimeoutConfig, device=None) -> torch.Tensor:
+    return torch.full((2,), cfg.init_timeout, dtype=torch.float32,
+                      device=device)
+
+
+def update_tensor(state: torch.Tensor, duration: torch.Tensor,
+                  received_fraction: torch.Tensor, cfg: TimeoutConfig
+                  ) -> torch.Tensor:
+    frac = torch.clamp(received_fraction, min=cfg.eps)
+    tgt = torch.where(frac >= 1.0, duration,
+                      torch.div(duration, frac) * cfg.margin)
+    sm = (1.0 - cfg.alpha) * state[1] + cfg.alpha * tgt
+    to = torch.clamp(sm, cfg.min_timeout, cfg.max_timeout)
+    return torch.stack([to, sm])
+
+
+def coordinate_group(local_timeout: torch.Tensor, group=None
+                     ) -> torch.Tensor:
+    """Median of every rank's 0-dim estimate over ``group``: an
+    all-gather and a sort, the per-step estimate exchange.
+
+    ``jnp.median``'s: at an even count the two middle values' midpoint,
+    ``(low + high) * 0.5`` (``torch.median`` would return the lower).
+    """
+    n = dist.get_world_size(group)
+    out = [torch.empty_like(local_timeout) for _ in range(n)]
+    dist.all_gather(out, local_timeout.contiguous(), group=group)
+    s = torch.sort(torch.stack(out).reshape(-1)).values
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5

@@ -1,23 +1,63 @@
-"""Training launcher (port of ``repro/launch/train.py``, one device).
+"""Training launcher (port of ``repro/launch/train.py``).
+
+One device:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --steps 50 --celeris
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --smoke --device cpu --celeris --steps 3
 
+Data-parallel, one process a rank under ``torch.distributed.run``:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch qwen2-0.5b --smoke \
+        --device cpu --mesh host --celeris --steps 3
+
+``--mesh host`` is ``(world, 1)`` over (data, model) until tensor
+parallelism is ported (the JAX launcher's ``(n // 2, 2)`` needs a
+``model`` axis of 2); ``single``/``multi`` are the production meshes
+(256 and 512 ranks).  The backend is NCCL when every local rank has a
+card of its own and gloo otherwise (ranks that share a card, or the
+CPU); the choice is printed, and a backend that fails raises.
+
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
-missing.  Weights are random, from seed 0.  There is no ``--mesh`` and
-no checkpointing yet.
+missing.  Weights are random, from seed 0.  There is no checkpointing
+yet.
 """
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch
+import torch.distributed as dist
 
 import repro_torch.configs as C
+from repro_torch import resolve_device
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.train_step import CelerisConfig
 from repro_torch.train.trainer import Trainer
+
+
+def init_ranks(device: str) -> tuple[str, str]:
+    """Join the process group that ``torch.distributed.run`` describes
+    (``env://``).  Returns (backend, this rank's device)."""
+    dev = resolve_device(device)
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+    if dev.type == "cuda" and torch.cuda.device_count() >= local_world:
+        backend, rank_dev = "nccl", f"cuda:{local}"
+    elif dev.type == "cuda":
+        backend = "gloo"
+        rank_dev = f"cuda:{local % torch.cuda.device_count()}"
+    else:
+        backend, rank_dev = "gloo", "cpu"
+    if dev.type == "cuda":
+        torch.cuda.set_device(torch.device(rank_dev))
+    dist.init_process_group(backend, init_method="env://")
+    return backend, rank_dev
 
 
 def main(argv=None):
@@ -31,21 +71,51 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=6e-4)
     ap.add_argument("--celeris", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", choices=["none", "host", "single", "multi"],
+                    default="none",
+                    help="data-parallel mesh over the ranks of "
+                    "torch.distributed.run: host = (world, 1) over (data, "
+                    "model), since tensor parallelism is not ported; "
+                    "single/multi = the 16x16 and 2x16x16 production "
+                    "meshes")
     args = ap.parse_args(argv)
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
-    tr = Trainer(
-        cfg,
-        data_cfg=DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
-                            global_batch=args.global_batch),
-        opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps),
-        celeris=CelerisConfig(
-            mode="lossy_hadamard" if args.celeris else "exact"),
-        device=args.device)
-    return tr.run(args.steps, on_metrics=lambda s, m: print(
-        f"step {s:4d} loss {m['loss']:.4f} nll {m['nll']:.4f} "
-        f"recv {m['recv_frac']:.3f} lr {m['lr']:.2e} ({m['wall_s']:.2f}s)",
-        flush=True))
+    mesh, device, rank = None, args.device, 0
+    if args.mesh != "none":
+        backend, device = init_ranks(args.device)
+        rank = dist.get_rank()
+        kind = torch.device(device).type
+        if rank == 0:
+            print(f"backend {backend}, {dist.get_world_size()} ranks, rank 0 "
+                  f"on {device}", flush=True)
+        if args.mesh == "host":
+            mesh = mesh_mod.make_host_mesh((dist.get_world_size(), 1),
+                                           device_type=kind)
+        else:
+            mesh = mesh_mod.make_production_mesh(
+                multi_pod=args.mesh == "multi", device_type=kind)
+
+    def report(step, m):
+        if rank == 0:
+            print(f"step {step:4d} loss {m['loss']:.4f} nll {m['nll']:.4f} "
+                  f"recv {m['recv_frac']:.3f} lr {m['lr']:.2e} "
+                  f"({m['wall_s']:.2f}s)", flush=True)
+
+    try:
+        tr = Trainer(
+            cfg,
+            data_cfg=DataConfig(vocab_size=cfg.vocab_size,
+                                seq_len=args.seq_len,
+                                global_batch=args.global_batch),
+            opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps),
+            celeris=CelerisConfig(
+                mode="lossy_hadamard" if args.celeris else "exact"),
+            mesh=mesh, device=device)
+        return tr.run(args.steps, on_metrics=report)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
-"""Train step (port of ``repro/train/train_step.py``, the single-device
-path, ``:454-499``).
+"""Train step (port of ``repro/train/train_step.py``): one device, or
+one rank of a data-parallel mesh over a ``torch.distributed`` process
+group.
 
 The gradient sync dispatches on
 :class:`repro_torch.core.transport.coupling.CollectiveMode`
-(``CelerisConfig.mode``):
+(``CelerisConfig.mode``).  On one device (``mesh=None``, the JAX
+package's ``:454-499``):
 
 - **exact**: no sync; on one device the gradient is the gradient;
 - **lossy**: the Fig.-1 ablation without coding: wire rows beyond the
@@ -14,27 +16,67 @@ The gradient sync dispatches on
   coded leaf as single-peer ``encode_nd`` -> mask -> unbiased
   ``decode_nd`` (:func:`_code_grads`); the rotations run on the FWHT
   kernel;
-- **hierarchical**: exact intra-pod, coded lossy cross-pod.  On one
-  device there is no pod axis to sync over, so it is the
-  ``lossy_hadamard`` emulation at the cross-pod component of the drop
-  vector (``drop_rate[-1]`` of the ``(2,)`` or ``(n_pods + 1,)`` vector
-  a ``coupling.HierStragglerModel`` yields; a scalar is its own last
-  component).
+- **hierarchical**: on one device there is no pod axis to sync over,
+  so it is the ``lossy_hadamard`` emulation at the cross-pod component
+  of the drop vector (``drop_rate[-1]`` of the ``(2,)`` or
+  ``(n_pods + 1,)`` vector a ``coupling.HierStragglerModel`` yields; a
+  scalar is its own last component).
+
+On a mesh (a DeviceMesh, :mod:`repro_torch.sharding`; the JAX
+package's ``shard_map`` island, ``:148-225`` and ``:343-453``) each rank
+takes the gradient of its own rows of the batch, then:
+
+- **exact** (and a lossy mode with nothing to code): the float32 pmean
+  over the dp axes (``pod``, ``data``), which equals the global batch's
+  gradient because every shard holds as many tokens;
+- **lossy**: per-(peer, wire-row) loss without coding: each peer masks
+  its own raw tiles before the plain all-reduce
+  (:func:`_sync_grads_plain_island`);
+- **lossy_hadamard**: per coded leaf, encode, mask this peer's lost wire
+  rows, all-reduce, and decode unbiased by the count of peers that
+  delivered each row (:func:`_sync_grads_celeris`); with
+  ``quantize_wire`` the contributions go as int8 codes on one scale a
+  wire row, the all-ranks maximum of ``|contribution| / 127``;
+- **hierarchical**: the float32 pmean over ``data`` (inside a pod),
+  then the coded lossy all-reduce over ``pod`` alone, every data rank
+  of a pod masking with its pod's mask; a ``(n_pods + 1,)`` vector
+  charges pod p the rate ``1 - (1 - intra_p)(1 - cross)``, capped at
+  ``MAX_DROP``.
+
+Loss, nll and aux are averaged over the dp ranks, and ``recv_frac`` is
+the fraction of all peers' wire rows that arrived, the same on every
+rank.  The coded sync tiles each leaf around its ``model`` dimension
+when the mesh has a ``model`` axis, even of size 1, as the JAX step's
+``sharded_dim`` does (:mod:`repro_torch.train.sharding_rules`).
+
+Collectives (:func:`_all_reduce`) are ``torch.distributed.all_reduce``
+on the group's ranks, on the gradients' own device: under gloo (four
+ranks on one card, which NCCL refuses) the backend itself moves a CUDA
+tensor through host memory.  No collective sums int16, so the int8
+codes are summed as int32: the same integer sums as the JAX package's
+int16, at 4 bytes an entry on the wire instead of 2.
 
 Then AdamW (float32 master) updates the parameters.
 
 The state is ``{"params", "opt", "step"}`` with the parameters in the
 JAX leaf view (``models.convert``): the JAX step plans, codes and draws
 per leaf index, and so does this one.  A step draws from the
-``torch.Generator`` it is given, one arrival mask per coded leaf in
-leaf order, then (coded mode) one set of signs per coded leaf, so
-``lossy`` and ``lossy_hadamard`` lose the same rows from the same
-generator.  ``masks``/``signs`` (leaf index -> tensor) replace the
-draws; the tests hand in the JAX step's own.
+``torch.Generator`` it is given.  On one device: one arrival mask per
+coded leaf in leaf order, then (coded mode) one set of signs per coded
+leaf, so ``lossy`` and ``lossy_hadamard`` lose the same rows from the
+same generator.  On a mesh every rank holds an identically seeded
+generator (``repro_torch.generator(dev, seed, step)``) and draws, per
+coded leaf in leaf order, the masks of all mask peers (the dp peers, or
+the pods in ``hierarchical`` mode) and keeps its own; then the signs;
+then, leaf by leaf as it syncs, the int8 wire's rounding noise over the
+whole contribution.  So signs and noise are the same on every rank and
+the masks are per (leaf, peer), as the JAX package's ``fold_in`` draws
+are.  ``masks``/``signs``/``noise`` (leaf index -> tensor: this rank's
+mask, the signs, the noise) replace the draws; the tests hand in the
+JAX step's own.
 
-Not ported yet, and refused: a mesh or process group (the DP coded sync
-``_sync_grads_celeris`` with its inline int8 wire, the plain island, and
-the hierarchical pod/data split), ``microbatches > 1`` and ``lossy_moe``.
+Not ported yet, and refused: tensor parallelism (a ``model`` axis
+larger than 1), ``microbatches > 1`` and ``lossy_moe``.
 """
 from __future__ import annotations
 
@@ -43,30 +85,37 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import coding
 from repro_torch.core import lossy_collectives as lc
-from repro_torch.core.transport.coupling import CollectiveMode
+from repro_torch.core.transport.coupling import MAX_DROP, CollectiveMode
 from repro_torch.core.transport.schedule import HierarchicalSchedule
 from repro_torch.models import convert
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.train import sharding_rules as rules
 
 
 @dataclasses.dataclass(frozen=True)
 class CelerisConfig:
-    """Celeris integration knobs for training.  The JAX fields for the
-    data-parallel sync (``wire_dtype``, ``quantize_wire``) arrive with
-    it; ``use_pallas`` has no counterpart (``ops`` dispatches on the
-    tensor's device), and neither has the legacy ``enabled`` switch:
-    ``mode`` alone chooses the sync."""
+    """Celeris integration knobs for training.  ``use_pallas`` has no
+    counterpart (``ops`` dispatches on the tensor's device), and neither
+    has the legacy ``enabled`` switch: ``mode`` alone chooses the sync."""
     mode: str | CollectiveMode = CollectiveMode.EXACT
                                      # "exact" | "lossy" | "lossy_hadamard"
                                      # | "hierarchical"
     lossy_moe: bool = False          # lossy expert-parallel all-to-all
     n_rot: int = 4096                # Hadamard rotation width
     min_coded_size: int = 65536      # leaves smaller than this sync exactly
+    wire_dtype: str = "float32"      # the coded all-reduce's payload dtype
+                                     # (decode stays float32)
+    quantize_wire: bool = False      # int8 codes on one shared scale a
+                                     # wire row, summed as int32 over the
+                                     # lossy axes; in hierarchical mode
+                                     # only the cross-pod all-reduce
 
     def collective_mode(self) -> CollectiveMode:
         return CollectiveMode.parse(self.mode)
@@ -141,25 +190,263 @@ def _draw(generator, plans, drop_rate, coded, masks, signs, device):
             {i: t.to(device) for i, t in s.items()})
 
 
+# ----------------------------------------------------------------------
+# Data-parallel sync over a process group
+# ----------------------------------------------------------------------
+
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    """All-reduce ``t`` in place over ``group`` and return it (the one
+    place the sync's collectives go through)."""
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def check_replicated(leaves, group) -> None:
+    """Raise unless every rank of ``group`` holds the same tensors, bit
+    for bit: each is broadcast from the group's first rank and compared
+    as bytes."""
+    src = dist.get_global_rank(group, 0)
+    for i, leaf in enumerate(leaves):
+        mine = leaf.detach().reshape(-1).view(torch.uint8)
+        ref = mine.clone()
+        dist.broadcast(ref, src=src, group=group)
+        if not torch.equal(ref, mine):
+            raise RuntimeError(f"leaf {i} differs from rank {src}'s: the "
+                               "ranks did not start from the same weights")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Axes:
+    """One sync's process group and its size; ``peer`` is this rank's
+    index along it, the mask peer."""
+    group: object
+    size: int
+    peer: int
+
+
+def _pmean(x: torch.Tensor, axes: _Axes) -> torch.Tensor:
+    """Float32 mean over the ranks of ``axes`` (divided by a tensor: a
+    Python-scalar divisor is not an IEEE quotient on the card)."""
+    s = _all_reduce(x.to(torch.float32, copy=True), axes.group)
+    return torch.div(s, torch.tensor(float(axes.size), device=s.device))
+
+
+def _int8_wire(contrib: torch.Tensor, noise: torch.Tensor, lossy: _Axes
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's inline int8 wire (``train_step.py:175-187``):
+    one scale a wire row, the maximum of ``|contrib|`` over tiles, the
+    sharded dim and every peer, / 127; codes ``floor(contrib / scale +
+    noise)`` clipped to +-127.  Returns (codes as int32, scale)."""
+    absmax = _all_reduce(torch.amax(torch.abs(contrib), dim=(0, 2)),
+                         lossy.group, dist.ReduceOp.MAX)
+    scale = torch.where(absmax > 0,
+                        torch.div(absmax, torch.full_like(absmax, 127.0)),
+                        1.0)
+    q = torch.floor(torch.div(contrib, scale[None, :, None]) + noise)
+    return torch.clamp(q, -127.0, 127.0).to(torch.int32), scale
+
+
+def _sync_grads_celeris(grads, plans, masks, signs, noise, celeris,
+                        dp: _Axes, lossy: _Axes,
+                        exact: Optional[_Axes] = None):
+    """Per-leaf lossy pmean with Hadamard recovery over ``lossy``.  Small
+    leaves take the exact pmean over ``dp``.  ``exact`` (hierarchical
+    mode: the pod's data ranks) first takes the exact float32 pmean of
+    each coded leaf, which then stays float32, as in the JAX package.
+    ``noise(i, shape)`` gives leaf i's int8 rounding noise."""
+    out, fracs = [], []
+    n_lossy = torch.tensor(float(lossy.size), device=grads[0].device)
+    for i, (g, plan) in enumerate(zip(grads, plans)):
+        if plan is None:
+            out.append(_pmean(g, dp).to(g.dtype))
+            continue
+        if exact is not None:
+            g = _pmean(g, exact)
+        tiles = coding.encode_nd(g, signs[i], plan)
+        mask = masks[i]
+        contrib = tiles * mask[None, :, None].to(tiles.dtype)
+        if celeris.quantize_wire:
+            q, scale = _int8_wire(contrib, noise(i, contrib.shape), lossy)
+            tiles_sum = (_all_reduce(q, lossy.group).to(torch.float32)
+                         * scale[None, :, None])
+        else:
+            contrib = contrib.to(getattr(torch, celeris.wire_dtype))
+            tiles_sum = _all_reduce(contrib, lossy.group).to(torch.float32)
+        counts = _all_reduce(mask.to(torch.float32), lossy.group)
+        est = coding.decode_nd(tiles_sum, counts, signs[i], plan,
+                               total_peers=lossy.size)
+        out.append(torch.div(est, n_lossy).to(g.dtype))
+        fracs.append(torch.div(counts.sum(), n_lossy * plan.n_rot))
+    return out, _mean_frac(fracs, grads[0])
+
+
+def _sync_grads_plain_island(grads, plans, masks, dp: _Axes):
+    """Per-(peer, wire-row) loss WITHOUT coding: each peer masks its own
+    raw tiles before the plain all-reduce, so a dropped row is missing
+    from that peer only, with no recovery and no rescaling."""
+    out, fracs = [], []
+    n_dp = torch.tensor(float(dp.size), device=grads[0].device)
+    for i, (g, plan) in enumerate(zip(grads, plans)):
+        if plan is None:
+            out.append(_pmean(g, dp).to(g.dtype))
+            continue
+        tiles = coding.to_tiles_nd(g.to(torch.float32), plan)
+        mask = masks[i]
+        masked = tiles * mask[None, :, None].to(tiles.dtype)
+        tiles_sum = _all_reduce(masked, dp.group)
+        counts = _all_reduce(mask.to(torch.float32), dp.group)
+        out.append(coding.from_tiles_nd(torch.div(tiles_sum, n_dp), plan)
+                   .to(g.dtype))
+        fracs.append(torch.div(counts.sum(), n_dp * plan.n_rot))
+    return out, _mean_frac(fracs, grads[0])
+
+
+def _draw_dp(generator, plans, rates, peer, coded, masks, signs, device):
+    """The mesh draws, the same on every rank: per coded leaf the masks
+    of all mask peers, ``rand(peers, n_rot) >= rates[:, None]``, of which
+    this rank keeps row ``peer``; then the signs.  An injected tensor
+    replaces its draw."""
+    masks, signs = masks or {}, signs or {}
+    idx = [i for i, p in enumerate(plans) if p is not None]
+    if generator is None and any(i not in masks or (coded and i not in signs)
+                                 for i in idx):
+        raise ValueError("the lossy train step needs a generator, or masks "
+                         "(and signs) for every coded leaf")
+    rates = rates.to(generator.device if generator is not None else device)
+    m = {}
+    for i in idx:
+        if i in masks:
+            m[i] = masks[i]
+        else:
+            u = torch.rand((rates.shape[0], plans[i].n_rot),
+                           generator=generator, device=generator.device)
+            m[i] = (u >= rates[:, None])[peer]
+    s = {i: signs[i] if i in signs
+         else coding.rademacher_nd(generator, plans[i])
+         for i in idx} if coded else {}
+    return ({i: t.to(device) for i, t in m.items()},
+            {i: t.to(device) for i, t in s.items()})
+
+
+def _pod_rates(drop_rate, n_pods: int) -> torch.Tensor:
+    """Hierarchical mode's mask rate of each pod, float32: the cross-pod
+    component of the drop vector; a ``(n_pods + 1,)`` vector charges pod
+    p ``1 - (1 - intra_p)(1 - cross)``, capped at ``MAX_DROP``."""
+    dr = torch.as_tensor(np.reshape(np.asarray(drop_rate, np.float32), -1))
+    cross = dr[-1].expand(n_pods)
+    if dr.shape[0] == n_pods + 1 and n_pods > 1:
+        cross = torch.clamp(1.0 - (1.0 - dr[:n_pods]) * (1.0 - cross),
+                            max=MAX_DROP)
+    return cross
+
+
+def plan_leaves(leaves, mesh, celeris: CelerisConfig):
+    """Each leaf's coding plan, None for a leaf that syncs exactly: tiles
+    of ``n_rot`` around the leaf's ``model`` dimension when the mesh has
+    that axis (the JAX train step's ``plans``)."""
+    specs = (rules.param_specs([tuple(l.shape) for l in leaves], mesh)
+             if mesh is not None else [()] * len(leaves))
+    return [coding.plan_nd(tuple(leaf.shape), rules.sharded_dim(spec),
+                           celeris.n_rot)
+            if leaf.numel() >= celeris.min_coded_size else None
+            for leaf, spec in zip(leaves, specs)]
+
+
+@dataclasses.dataclass(frozen=True)
+class _DpSync:
+    """What the mesh path's sync needs: the mode, the dp group, and in
+    hierarchical mode the pod group (mask peer: the pod) and the data
+    group (None when the mesh has no data axis)."""
+    mode: CollectiveMode
+    celeris: CelerisConfig
+    island: bool                     # a lossy sync; else the exact pmean
+    dp: _Axes
+    pod: Optional[_Axes] = None
+    data: Optional[_Axes] = None
+
+    @classmethod
+    def make(cls, mesh, mode, celeris) -> "_DpSync":
+        dp = shd.dp_axes(mesh)
+        pod_axes = tuple(a for a in dp if a == shd.POD_AXIS)
+        data_axes = tuple(a for a in dp if a != shd.POD_AXIS)
+        peer = shd.peer_index(mesh, dp)
+        dp_ax = _Axes(shd.group(mesh, dp), shd.axis_size(mesh, dp), peer)
+        if mode is not CollectiveMode.HIERARCHICAL:
+            return cls(mode, celeris, mode.lossy, dp_ax)
+        n_data = shd.axis_size(mesh, data_axes)
+        pod = _Axes(shd.group(mesh, pod_axes), shd.axis_size(mesh, pod_axes),
+                    peer // n_data)
+        data = (_Axes(shd.group(mesh, data_axes), n_data,
+                      shd.peer_index(mesh, data_axes)) if data_axes else None)
+        return cls(mode, celeris, True, dp_ax, pod, data)
+
+
+def _sync_dp(sync: _DpSync, grads, plans, generator, drop_rate, masks,
+             signs, noise):
+    """The mesh path's gradient sync: (synced grads, recv_frac)."""
+    if not (sync.island and any(p is not None for p in plans)):
+        return ([_pmean(g, sync.dp).to(g.dtype) for g in grads],
+                _mean_frac([], grads[0]))
+    dev = grads[0].device
+    noise = noise or {}
+
+    def draw_noise(i, shape):
+        if i in noise:
+            return noise[i].to(dev)
+        if generator is None:
+            raise ValueError("the int8 wire needs a generator, or noise "
+                             "for every coded leaf")
+        return torch.rand(shape, generator=generator,
+                          device=generator.device).to(dev)
+
+    if sync.mode is CollectiveMode.HIERARCHICAL:
+        rates = _pod_rates(drop_rate, sync.pod.size)
+        m, s = _draw_dp(generator, plans, rates, sync.pod.peer, True, masks,
+                        signs, dev)
+        return _sync_grads_celeris(grads, plans, m, s, draw_noise,
+                                   sync.celeris, sync.dp, sync.pod,
+                                   sync.data)
+    rates = torch.full((sync.dp.size,), float(drop_rate),
+                       dtype=torch.float32)
+    m, s = _draw_dp(generator, plans, rates, sync.dp.peer, sync.mode.coded,
+                    masks, signs, dev)
+    if sync.mode is CollectiveMode.LOSSY:
+        return _sync_grads_plain_island(grads, plans, m, sync.dp)
+    return _sync_grads_celeris(grads, plans, m, s, draw_noise, sync.celeris,
+                               sync.dp, sync.dp)
+
+
 def make_train_step(cfg: ModelConfig, mesh=None,
                     opt_cfg: Optional[adamw.OptConfig] = None,
                     celeris: Optional[CelerisConfig] = None,
                     microbatches: int = 1):
     """Returns ``step(state, batch, generator, drop_rate, *, masks=None,
-    signs=None) -> (state, metrics)``.
+    signs=None, noise=None) -> (state, metrics)``.
 
+    ``mesh``: None (one device) or this rank's DeviceMesh; every rank of
+    it builds its step together (the dp groups are made here).  The
+    step's ``dp_group`` attribute is its process group over the dp axes
+    (None without a mesh).
     ``batch`` = {"tokens", "labels"} (B, S) int64 on the parameters'
-    device; ``drop_rate`` a float, or in ``hierarchical`` mode the axis
-    vector whose last component is the cross-pod rate.  The metrics are
-    0-dim tensors: ``loss``, ``nll``, ``aux``, ``recv_frac``,
-    ``grad_norm``, ``lr``.
+    device: this rank's rows on a mesh.  ``drop_rate`` a float, or in
+    ``hierarchical`` mode the axis vector whose last component is the
+    cross-pod rate.  The metrics are 0-dim tensors: ``loss``, ``nll``,
+    ``aux``, ``recv_frac``, ``grad_norm``, ``lr``.
     """
     opt_cfg = opt_cfg or adamw.OptConfig()
     celeris = celeris or CelerisConfig()
     mode = celeris.collective_mode()
-    if mesh is not None:
-        raise NotImplementedError("the data-parallel train step (a mesh or "
-                                  "process group) is not ported yet")
+    dp = shd.dp_axes(mesh) if mesh is not None else ()
+    if mode is CollectiveMode.HIERARCHICAL and dp and shd.POD_AXIS not in dp:
+        raise ValueError(
+            "hierarchical collective mode needs a 'pod' mesh axis "
+            "(launch.mesh.make_pod_mesh / make_scale_mesh >= 512); "
+            f"got dp axes {dp}")
+    if shd.axis_sizes(mesh).get(shd.MODEL_AXIS, 1) > 1:
+        raise NotImplementedError(
+            "tensor parallelism over the 'model' mesh axis is not ported "
+            "yet (ROADMAP Queue 1 [4.1b]); give the mesh a model axis of 1")
     if mode is CollectiveMode.HIERARCHICAL:
         # the sync order (exact intra-pod, then the coded cross-pod
         # exchange) mirrors the schedule's phases, and the mode masks only
@@ -180,16 +467,20 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         raise NotImplementedError("lossy_moe is not ported yet (no MoE "
                                   "family)")
 
+    dp_sync = _DpSync.make(mesh, mode, celeris) if dp else None
+
     def train_step(state, batch, generator: Optional[torch.Generator],
-                   drop_rate: float, *, masks=None, signs=None):
+                   drop_rate, *, masks=None, signs=None, noise=None):
         leaves = state["params"]
-        plans = [coding.plan_nd(tuple(leaf.shape), None, celeris.n_rot)
-                 if leaf.numel() >= celeris.min_coded_size else None
-                 for leaf in leaves]
+        plans = plan_leaves(leaves, mesh, celeris)
         loss, nll, aux, grads = loss_and_grads(cfg, leaves, batch)
-        if mode.hierarchical:
-            drop_rate = float(np.reshape(drop_rate, -1)[-1])
-        if mode.lossy:
+        if dp_sync is not None:
+            grads, frac = _sync_dp(dp_sync, grads, plans, generator,
+                                   drop_rate, masks, signs, noise)
+            loss, nll, aux = (_pmean(x, dp_sync.dp) for x in (loss, nll, aux))
+        elif mode.lossy:
+            if mode.hierarchical:
+                drop_rate = float(np.reshape(drop_rate, -1)[-1])
             m, s = _draw(generator, plans, drop_rate, mode.coded, masks,
                          signs, leaves[0].device)
             if mode.coded:
@@ -205,6 +496,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         return {"params": new_params, "opt": new_opt,
                 "step": state["step"] + 1}, metrics
 
+    train_step.dp_group = dp_sync.dp.group if dp_sync is not None else None
     return train_step
 
 

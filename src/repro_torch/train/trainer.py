@@ -14,6 +14,14 @@ The host draws (straggler bursts, emulated latencies, coordination
 noise) come from the same numpy generator as in JAX, in the same order.
 The step's JAX key becomes a generator seeded from (seed, step).
 ``checkpoint.py`` is not ported yet, so a ``ckpt_dir`` raises.
+
+With a ``mesh`` (a DeviceMesh) the trainer runs one rank: every rank
+builds it together, initializes the same weights from the same seed
+(checked once against the first dp rank's, bit for bit), draws the same
+drop rates and step generators, and feeds the step its own rows of the
+batch, those the JAX package's dp-sharded ``device_put`` gives its
+shard.  The timeout coordination stays the JAX trainer's emulated
+8-node host median, so the numbers stay the JAX package's.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import generator, resolve_device
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import timeout as timeout_mod
 from repro_torch.data import pipeline as data_pipe
@@ -78,14 +87,28 @@ class Trainer:
         self.controller = timeout_mod.TimeoutController(
             timeout_mod.TimeoutConfig(init_timeout=2.0, min_timeout=0.5,
                                       max_timeout=8.0))
+        self.mesh = mesh
         self.step_fn = ts.make_train_step(cfg, mesh, self.opt_cfg,
                                           self.celeris)
         self.state = ts.init_state(generator(self.device, seed), cfg)
+        dp = shd.dp_axes(mesh)
+        if dp:
+            self.shard = (shd.peer_index(mesh, dp), shd.axis_size(mesh, dp))
+            ts.check_replicated(self.state["params"], self.step_fn.dp_group)
+        else:
+            self.shard = None
         self.start_step = 0
 
     def put_batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """The step's batch, or on a mesh this rank's rows of it:
+        ``shard_batch(step, peer, n_shards)`` with ``peer`` the rank's
+        row-major index over the dp axes (so the world's rows together
+        are ``global_batch(step, n_shards)``, not ``global_batch(step)``).
+        """
+        host = (self.source.global_batch(step) if self.shard is None
+                else self.source.shard_batch(step, *self.shard))
         return {k: torch.as_tensor(v, dtype=torch.long, device=self.device)
-                for k, v in self.source.global_batch(step).items()}
+                for k, v in host.items()}
 
     def step_generator(self, step: int) -> torch.Generator:
         return generator(self.device, self.seed, step)

@@ -31,9 +31,11 @@ from repro_torch.models import convert
 from repro_torch.core.transport import engine as tengine
 from repro_torch.core.transport import params as tparams
 from repro_torch.data import pipeline as tpipe
+from repro_torch.launch import mesh as tmesh
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train import train_step as tts
 from repro_torch.train import trainer as ttrainer
+from test_torch_dp_train import fake_world
 
 SMOKE_T = tparams.SimParams(net=tparams.NetworkParams(n_nodes=32,
                                                       burst_on_prob=0.0008))
@@ -390,6 +392,9 @@ def test_trainer_walks_a_hierarchical_schedule():
 
 
 def test_hierarchical_mode_on_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        tts.make_train_step(TC.get_smoke("qwen2-0.5b"), object(), None,
-                            tts.CelerisConfig(mode="hierarchical"))
+    """On a mesh without a 'pod' axis, as the JAX package refuses it."""
+    with fake_world(4):
+        mesh = tmesh.make_host_mesh((4, 1), device_type="cpu")
+        with pytest.raises(ValueError, match="needs a 'pod' mesh axis"):
+            tts.make_train_step(TC.get_smoke("qwen2-0.5b"), mesh, None,
+                                tts.CelerisConfig(mode="hierarchical"))

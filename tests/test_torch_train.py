@@ -42,12 +42,14 @@ from repro_torch.core import timeout as ttimeout
 from repro_torch.core.transport import coupling as tcoupling
 from repro_torch.data import pipeline as tpipe
 from repro_torch.kernels import fwht as tfwht
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import convert
 from repro_torch.models import model as TM
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train import train_step as tts
 from repro_torch.train import trainer as ttrainer
+from test_torch_dp_train import fake_world
 
 MIN_CODED = 1024        # codes the same 8 leaves as the full-width model
 DROP = 0.1
@@ -256,11 +258,13 @@ def test_lossy_step_needs_a_draw_source():
 
 def test_unported_paths_raise():
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        tts.make_train_step(tcfg, object())
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        tts.make_train_step(tcfg, object(), None,
-                            tts.CelerisConfig(mode="hierarchical"))
+    with fake_world(4):
+        tp = tmesh.make_host_mesh((2, 2), device_type="cpu")
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+            tts.make_train_step(tcfg, tp)
+        with pytest.raises(ValueError, match="needs a 'pod' mesh axis"):
+            tts.make_train_step(tcfg, tp, None,
+                                tts.CelerisConfig(mode="hierarchical"))
     with pytest.raises(NotImplementedError, match="microbatches"):
         tts.make_train_step(tcfg, None, None, None, microbatches=2)
     with pytest.raises(NotImplementedError, match="lossy_moe"):

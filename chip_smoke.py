@@ -15,8 +15,9 @@ caught and carried on):
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a, one compiler per source, all at once;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes (FWHT at every coded leaf's tiles and at the
-   gradient payload, unbias at its wire layout) and over ``SWEEP`` and
+   main paths' shapes (FWHT at every coded leaf's tiles, one device's,
+   a dp mesh's and a tensor-parallel rank's, and at the gradient
+   payload, unbias at its wire layout) and over ``SWEEP`` and
    ``QUANT_SHAPES`` (the FWHT equal in float32 and bfloat16, with and
    without signs and scale, at every n = 2 .. 4096 and ragged tails;
    the quantizers' codes and scales equal, and the fused kernel equal
@@ -60,6 +61,21 @@ caught and carried on):
     the group's median equals the middle pair's midpoint; world-4 exact
     equals one device on ``global_batch(0, 4)`` (full width in float32,
     2 layers); every cell at smoke size agrees card against CPU;
+6c. the tensor-parallel train step: the same four rank processes, each
+    holding its shards of the leaves split over ``model``, 2 steps a
+    cell: on ``make_host_mesh((2, 2))`` (data x model) ``exact``,
+    ``lossy`` and ``lossy_hadamard`` at drop 0.05, the int8 wire at 0
+    and 0.05, and ``lossy_hadamard`` with ``microbatches=2``; on
+    ``make_pod_mesh(2, 1, 2)`` ``hierarchical`` int8 at [0.02, 0.0,
+    0.05]; on ``make_host_mesh((1, 4))`` ``exact`` (wk/wv split over 4,
+    the 2 kv heads not).  The ranks that share a model index must end
+    every step bit-identical, each coded step launch the FWHT 16 times
+    a rank at ``tp_fwht_shapes``; exact on (2, 2) and on (1, 4) equals
+    one device (float32, 2 layers, the shards gathered); each coded
+    (2, 2) sync at drop 0 equals the exact pmean on the same gradients;
+    ``microbatches=2`` equals the whole rows; every cell at smoke size
+    agrees card against CPU.  Each cell prints its step, dp sync and
+    model-group collective times and bytes a rank-step;
 7. smoke-size training on the card against the CPU (float32, the same
    masks, signs and batch: loss, the first moments, i.e. the synced
    gradient, and the updated parameters), and 14 coded steps that must
@@ -161,7 +177,7 @@ The protocols of phases 14-16, 18 and 21-22 (and Fig. 2's step window)
 are ``repro_torch.benchmarks.figs``'s functions, which the CPU tests also
 run (smoke tiers and cut grids).
 
-Each path (3-6b, and the engine's in 8-9, 11-13, 15-16, 18-19 and 21-22,
+Each path (3-6c, and the engine's in 8-9, 11-13, 15-16, 18-19 and 21-22,
 Fig. 2's step window its own) runs with the kernels' launch counts set to
 0 just before it and read just after.  The last
 line is ``{"ok": true, "device": {...}}``; the lines before it carry the
@@ -218,7 +234,8 @@ TRAIN_FWHT_ROWS = (672, 5376, 25536, 33236)
 # ... and on a mesh with a model axis (dp_train's (4, 1) and (2, 2, 1)),
 # where each leaf tiles around its model dim: (rows, n_rot) of wk/wv,
 # wq/wo, the MLP weights and embed.table, whose model dim leaves 896
-# entries a column, so n_rot 512
+# entries a column, so n_rot 512; on tp_train's (2, 2) mesh each rank
+# rotates its half of the model dim (tp_fwht_shapes)
 DP_FWHT_SHAPES = ((768, 4096), (6144, 4096), (29184, 4096), (303872, 512))
 ALLREDUCE_PEERS = (1, 4)   # unbias counts: the one-rank group's and 4 peers'
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
@@ -437,7 +454,8 @@ def phase_kernels(dev, cfg, kfwht, kunbias, ref, coding, coupling):
                        ref.masked_unbias(xs, cs, 4), 1e-6, 0.0)
             worst["masked_unbias"] = max(worst["masked_unbias"], e3)
     check_misaligned(dev, kfwht)
-    path_err, path_records = check_train_shapes(dev, g, kfwht, kunbias, ref)
+    path_err, path_records = check_train_shapes(dev, g, cfg, kfwht, kunbias,
+                                                ref)
     records += path_records
     _sync()
     for rec in records:
@@ -511,24 +529,26 @@ def check_misaligned(dev, kfwht):
     assert (kfwht.launches, kfwht.quantize_launches) == before
 
 
-def check_train_shapes(dev, g, kfwht, kunbias, ref):
+def check_train_shapes(dev, g, cfg, kfwht, kunbias, ref):
     """FWHT (signs and scale fused) at each coded leaf's tiles, one
-    device's and a mesh's, and at the gradient payload, equal to its
-    plain version, and timed at the largest leaf's, the payload's and
-    the mesh's n_rot-512 leaf; masked unbias at the payload's wire layout
+    device's, a dp mesh's and a (2, 2) tensor-parallel rank's, and at
+    the gradient payload, equal to its plain version, and timed at the
+    largest leaf's, the payload's, the dp mesh's n_rot-512 leaf and the
+    TP rank's two largest; masked unbias at the payload's wire layout
     with counts from drop-0.05 masks at its tolerance, timed at one
     peer's.  Returns the worst error by kernel and the timing records."""
+    tp = sorted(set(tp_fwht_shapes(cfg)))
     shapes = ([(rows, GRAD_PAYLOAD[1]) for rows in TRAIN_FWHT_ROWS]
-              + list(DP_FWHT_SHAPES) + [GRAD_PAYLOAD])
+              + list(DP_FWHT_SHAPES) + tp + [GRAD_PAYLOAD])
     timed = ((TRAIN_FWHT_ROWS[-1], GRAD_PAYLOAD[1]), DP_FWHT_SHAPES[-1],
-             GRAD_PAYLOAD)
+             *tp[-2:], GRAD_PAYLOAD)
     worst = {"fwht": 0.0, "masked_unbias": 0.0}
     records = []
     for rows, n in shapes:
         x = torch.randn(rows, n, generator=g, device=dev)
         signs = (torch.randint(0, 2, (n,), generator=g, device=dev).float()
                  * 2 - 1)
-        err = check_equal(f"fwht train/dp/all-reduce {rows}x{n}",
+        err = check_equal(f"fwht train/dp/tp/all-reduce {rows}x{n}",
                           (kfwht.fwht_cuda(x, signs, n ** -0.5),),
                           (ref.fwht(x, signs=signs, scale=n ** -0.5),))
         worst["fwht"] = max(worst["fwht"], err)
@@ -546,7 +566,7 @@ def check_train_shapes(dev, g, kfwht, kunbias, ref):
         worst["masked_unbias"] = max(worst["masked_unbias"], err)
         if peers == 1:                     # the one-rank all-reduce's case
             records.append(unbias_record(kunbias, ref, y, counts, peers, err))
-    print(f"train/dp/all-reduce shapes: fwht at {shapes} worst err "
+    print(f"train/dp/tp/all-reduce shapes: fwht at {shapes} worst err "
           f"{worst['fwht']:.3g}; masked_unbias at ({n}, {GRAD_PAYLOAD[0]}), "
           f"counts of {list(ALLREDUCE_PEERS)} peers at drop 0.05, worst err "
           f"{worst['masked_unbias']:.3g}")
@@ -959,13 +979,15 @@ def check_first_step(name, new_dev, new_cpu, opt, steps=None):
             f"beyond 2e-4 + explained, max diff {diff.max().item():.3g}")
 
 
-def int8_scales(grads, plans, masks, signs, lossy, exact=None):
+def int8_scales(grads, plans, masks, signs, lossy, exact=None, model=None):
     """Per coded leaf (index -> (scale, counts)): the int8 wire's scale
     of each wire row, the all-peers maximum of |contribution| / 127, and
     the count of peers that delivered the row, recomputed from this
     rank's gradients the way the step's int8 wire does
-    (``ts._int8_wire``); every rank gets the same."""
+    (``ts._int8_wire``, over ``model`` too for a leaf split there); every
+    rank gets the same."""
     import torch.distributed as dist
+    from repro_torch import sharding as shd
     from repro_torch.core import coding
     from repro_torch.train import train_step as ts
     out = {}
@@ -973,26 +995,29 @@ def int8_scales(grads, plans, masks, signs, lossy, exact=None):
         g = grads[i] if exact is None else ts._pmean(grads[i], exact)
         contrib = (coding.encode_nd(g, signs[i], plans[i])
                    * m[None, :, None].to(torch.float32))
-        absmax = ts._all_reduce(torch.amax(contrib.abs(), dim=(0, 2)),
-                                lossy.group, dist.ReduceOp.MAX)
+        absmax = torch.amax(contrib.abs(), dim=(0, 2))
+        if model is not None and plans[i].sharded_dim is not None:
+            shd.model_all_reduce(absmax, model, dist.ReduceOp.MAX)
+        absmax = ts._all_reduce(absmax, lossy.group, dist.ReduceOp.MAX)
         out[i] = (absmax / 127.0,
                   ts._all_reduce(m.to(torch.float32), lossy.group))
     return out
 
 
 def int8_step_bound(cfg, leaves, batch, plans, masks, signs, lossy,
-                    exact=None):
+                    exact=None, model=None):
     """Per coded leaf (index -> float): the most that one int8 code
     flipped by one step moves an entry of the synced gradient.  Two sides
     whose gradients differ in the last bits can round a code on either
     side of a ``floor``; after the decode such a flip moves every entry
     of its tile column by scale_r * (peers / count_r) * (n_rot / k) /
-    sqrt(n_rot) / peers."""
+    sqrt(n_rot) / peers.  ``model``: the tensor-parallel group of a
+    rank holding shards."""
     from repro_torch.train import train_step as ts
-    *_, grads = ts.loss_and_grads(cfg, leaves, batch)
+    *_, grads = ts.loss_and_grads(cfg, leaves, batch, model)
     out = {}
     for i, (scale, counts) in int8_scales(grads, plans, masks, signs, lossy,
-                                          exact).items():
+                                          exact, model).items():
         k = int((counts > 0).sum())
         worst = (scale * lossy.size / counts.clamp(min=1)).max()
         out[i] = (float(worst) * plans[i].n_rot / k
@@ -1000,21 +1025,24 @@ def int8_step_bound(cfg, leaves, batch, plans, masks, signs, lossy,
     return out
 
 
-def int8_noise_bound(grads, plans, masks, signs, lossy, exact=None):
+def int8_noise_bound(grads, plans, masks, signs, lossy, exact=None,
+                     model=None):
     """Per coded leaf (index -> float): a bound on the norm of what the
     int8 wire's rounding adds to the synced gradient when every row
     arrives.  A code misses its value by e * scale_r with e in (-1, 1),
     E e = 0 and var e <= 1/4; the peers share the noise, so their errors
     may add up in step: var of the sum <= peers^2 / 4 scale_r^2.  The
     decode is orthonormal in each tile column and divides by the peers,
-    so E |err|^2 <= tiles * Ns * sum_r scale_r^2 / 4.  Returns twice that,
-    square-rooted (the squared norm of millions of independent entries
-    sits close to its mean)."""
+    so E |err|^2 <= tiles * Ns * sum_r scale_r^2 / 4, Ns this rank's
+    columns (a leaf split over ``model`` keeps 1 / size of them).  Returns
+    twice that, square-rooted (the squared norm of millions of
+    independent entries sits close to its mean)."""
     out = {}
     for i, (scale, _) in int8_scales(grads, plans, masks, signs, lossy,
-                                     exact).items():
+                                     exact, model).items():
         p = plans[i]
-        ns = p.shape[p.sharded_dim] if p.sharded_dim is not None else 1
+        ns = (p.shape[p.sharded_dim] // (model.size if model else 1)
+              if p.sharded_dim is not None else 1)
         out[i] = math.sqrt(2 * p.tiles * ns
                            * float(scale.double().square().sum()) / 4)
     return out
@@ -1085,19 +1113,78 @@ def to_device(tree, d):
     return tree.to(d)
 
 
-# The data-parallel train step: four ranks share the one card over gloo
+# The train step on a mesh: four ranks share the one card over gloo
 # (NCCL refuses two ranks on one device).  Cells: (name, mesh, mode,
 # quantize_wire, drop rate or the per-pod vector [intra_pod0, intra_pod1,
-# cross]); "host" is make_host_mesh((4, 1)), "pods" make_pod_mesh(2, 2, 1).
+# cross], microbatches).  Phase 6b, data parallel: "host" is
+# make_host_mesh((4, 1)), "pods" make_pod_mesh(2, 2, 1).  Phase 6c, tensor
+# parallel: "dm22" is make_host_mesh((2, 2)) over (data, model), "pdm212"
+# make_pod_mesh(2, 1, 2) and "dm14" make_host_mesh((1, 4)), where wk/wv
+# split over the 4 model ranks but qwen2-0.5b's 2 kv heads do not.
 DP_WORLD, DP_STEPS, DP_TIMEOUT = 4, 2, 900
-DP_CELLS = (("exact", "host", "exact", False, 0.0),
-            ("lossy", "host", "lossy", False, 0.05),
-            ("lossy_hadamard", "host", "lossy_hadamard", False, 0.05),
-            ("int8_drop0", "host", "lossy_hadamard", True, 0.0),
-            ("int8_drop0.05", "host", "lossy_hadamard", True, 0.05),
+DP_CELLS = (("exact", "host", "exact", False, 0.0, 1),
+            ("lossy", "host", "lossy", False, 0.05, 1),
+            ("lossy_hadamard", "host", "lossy_hadamard", False, 0.05, 1),
+            ("int8_drop0", "host", "lossy_hadamard", True, 0.0, 1),
+            ("int8_drop0.05", "host", "lossy_hadamard", True, 0.05, 1),
             ("hierarchical_int8", "pods", "hierarchical", True,
-             (0.02, 0.0, 0.05)))
-DP_OUT = os.path.join(SRC, "repro_torch", "kernels", "build", "dp_train")
+             (0.02, 0.0, 0.05), 1))
+TP_CELLS = (("exact", "dm22", "exact", False, 0.0, 1),
+            ("lossy", "dm22", "lossy", False, 0.05, 1),
+            ("lossy_hadamard", "dm22", "lossy_hadamard", False, 0.05, 1),
+            ("int8_drop0", "dm22", "lossy_hadamard", True, 0.0, 1),
+            ("int8_drop0.05", "dm22", "lossy_hadamard", True, 0.05, 1),
+            ("lossy_hadamard_mb2", "dm22", "lossy_hadamard", False, 0.05, 2),
+            ("hierarchical_int8", "pdm212", "hierarchical", True,
+             (0.02, 0.0, 0.05), 1),
+            ("exact_tp4", "dm14", "exact", False, 0.0, 1))
+MESH_OUT = os.path.join(SRC, "repro_torch", "kernels", "build", "{}_train")
+
+
+def mesh_of(kind, device_type):
+    """Phase 6b's ("dp") or 6c's ("tp") meshes, built by every rank in
+    the same order; with their cells, drop-0 sync cells and the meshes
+    whose exact step is held to one device."""
+    from repro_torch.launch import mesh as mesh_mod
+    if kind == "dp":
+        return ({"host": mesh_mod.make_host_mesh((DP_WORLD, 1),
+                                                 device_type=device_type),
+                 "pods": mesh_mod.make_pod_mesh(2, 2, 1,
+                                                device_type=device_type)},
+                DP_CELLS, DP_ZERO_CELLS, ("host",))
+    return ({"dm22": mesh_mod.make_host_mesh((2, 2), device_type=device_type),
+             "pdm212": mesh_mod.make_pod_mesh(2, 1, 2,
+                                              device_type=device_type),
+             "dm14": mesh_mod.make_host_mesh((1, 4),
+                                             device_type=device_type)},
+            TP_CELLS, TP_ZERO_CELLS, ("dm22", "dm14"))
+
+
+def tp_fwht_shapes(cfg, mesh=None):
+    """(rows, n_rot) of the FWHT call of each coded leaf, in leaf order,
+    on ``mesh`` (by default the (2, 2) data x model mesh; a coded
+    rank-step makes two at each, encode and decode): the leaf's tiles
+    times its local columns of the model dim, the plans made from the
+    global shapes as the step makes them."""
+    from repro_torch import sharding as shd
+    from repro_torch.models import convert
+    from repro_torch.train import train_step as ts
+    mesh = mesh or mesh_shape((2, 2), ("data", "model"))
+    tp = shd.axis_size(mesh, (shd.MODEL_AXIS,))
+    plans = ts.plan_leaves(convert.leaf_shapes(cfg), mesh,
+                           ts.CelerisConfig(mode="lossy_hadamard"))
+    return [(p.tiles * (p.shape[p.sharded_dim] // tp
+                        if p.sharded_dim is not None else 1), p.n_rot)
+            for p in plans if p is not None]
+
+
+def mesh_shape(shape, names):
+    """A mesh's axis names and sizes, all that ``sharding.axis_sizes``
+    reads, for a process (phase 2) that has no process group to build a
+    DeviceMesh on."""
+    import types
+    return types.SimpleNamespace(mesh_dim_names=tuple(names),
+                                 mesh=torch.empty(shape))
 
 
 class FixedDrop:
@@ -1137,13 +1224,17 @@ def fingerprint(leaves, metrics):
     return torch.cat([torch.stack(sums).cpu(), vals.view(torch.int64)])
 
 
-def dp_smoke_draws(leaves, mesh, celeris, drop):
+def dp_smoke_draws(cfg, mesh, celeris, drop):
     """Injected draws for the card-vs-CPU cells, the same on every rank:
     per coded leaf all mask peers' masks (this rank keeps its own), the
-    signs and, on the int8 wire, the noise, from one CPU generator."""
+    signs and, on the int8 wire, the noise at the leaf's global tile
+    shape, from one CPU generator."""
+    from repro_torch import sharding as shd
     from repro_torch.core import coding
+    from repro_torch.models import convert
     from repro_torch.train import train_step as ts
-    sync = ts._DpSync.make(mesh, celeris.collective_mode(), celeris)
+    sync = ts._DpSync.make(mesh, celeris.collective_mode(), celeris,
+                           shd.model_group(mesh))
     mode = celeris.collective_mode()
     if mode.hierarchical:
         rates, peer = ts._pod_rates(drop, sync.pod.size), sync.pod.peer
@@ -1152,7 +1243,8 @@ def dp_smoke_draws(leaves, mesh, celeris, drop):
         peer = sync.dp.peer
     g = torch.Generator().manual_seed(3)
     masks, signs, noise = {}, {}, {}
-    for i, plan in enumerate(ts.plan_leaves(leaves, mesh, celeris)):
+    for i, plan in enumerate(ts.plan_leaves(convert.leaf_shapes(cfg), mesh,
+                                            celeris)):
         if plan is None:
             continue
         masks[i] = (torch.rand((rates.shape[0], plan.n_rot), generator=g)
@@ -1165,14 +1257,13 @@ def dp_smoke_draws(leaves, mesh, celeris, drop):
     return masks, signs, noise, sync
 
 
-def dp_rank(rank, port, out_dir, device="cuda"):
-    """One rank of ``phase_dp_train``: joins the gloo group, runs every
-    cell and check, and writes ``rank<r>.json`` into ``out_dir``.  Any
-    failed check raises, and the rank exits non-zero."""
+def mesh_rank(kind, rank, port, out_dir, device="cuda"):
+    """One rank of ``phase_mesh_train(kind)``: joins the gloo group, runs
+    every cell and check, and writes ``rank<r>.json`` into ``out_dir``.
+    Any failed check raises, and the rank exits non-zero."""
     sys.path.insert(0, SRC)
     import torch.distributed as dist
     from repro_torch import resolve_device
-    from repro_torch.launch import mesh as mesh_mod
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(0)          # every rank on the one card
@@ -1181,29 +1272,36 @@ def dp_rank(rank, port, out_dir, device="cuda"):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=DP_WORLD)
     try:
-        meshes = {"host": mesh_mod.make_host_mesh((DP_WORLD, 1),
-                                                  device_type=dev.type),
-                  "pods": mesh_mod.make_pod_mesh(2, 2, 1,
-                                                 device_type=dev.type)}
-        rec = dp_cells(rank, dev, meshes)
-        rec["one_device"] = dp_check_one_device(rank, dev, meshes["host"])
-        rec["coded_vs_exact"] = dp_check_coded_syncs(dev, meshes)
-        rec["card_vs_cpu"] = dp_check_card_vs_cpu(dev, meshes)
+        meshes, cells, zero_cells, one = mesh_of(kind, dev.type)
+        rec = dp_cells(rank, dev, meshes, cells)
+        rec["one_device"] = {mk: dp_check_one_device(rank, dev, meshes[mk])
+                             for mk in one}
+        rec["coded_vs_exact"] = dp_check_coded_syncs(dev, meshes,
+                                                     cells=zero_cells)
+        rec["card_vs_cpu"] = dp_check_card_vs_cpu(dev, meshes, cells)
+        if kind == "tp":
+            rec["microbatches"] = tp_check_microbatches(dev, meshes["dm22"])
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
         dist.destroy_process_group()
 
 
-def dp_cells(rank, dev, meshes):
-    """The full-width cells through ``Trainer(mesh=...)``, then the
-    median coordination over the group."""
+def dp_cells(rank, dev, meshes, cells):
+    """The full-width cells through ``Trainer(mesh=...)`` (a cell with
+    microbatches > 1 swaps in a step that accumulates), then the median
+    coordination over the group.  Every step the ranks that share a
+    model index must hold the same parameters and metrics bit for bit,
+    and a coded step must launch the FWHT 16 times a rank, at
+    ``tp_fwht_shapes`` on the cell's mesh."""
     import torch.distributed as dist
     import repro_torch.configs as C
+    from repro_torch import sharding as shd
     from repro_torch.core import timeout as tmo
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels import dcqcn as kdcqcn
     from repro_torch.kernels import fwht as kfwht
+    from repro_torch.kernels import ops
     from repro_torch.kernels import quantize as kquant
     from repro_torch.kernels import unbias as kunbias
     from repro_torch.optim.adamw import OptConfig
@@ -1211,36 +1309,60 @@ def dp_cells(rank, dev, meshes):
     from repro_torch.train.trainer import Trainer
     counts = Launches(kfwht, kunbias, kquant, kdcqcn)
     world = dist.group.WORLD
-    # the sync's host-clock time and the bytes each all-reduce moves,
-    # read by wrapping the step's two module functions
-    stats = {"sync_s": 0.0, "bytes": 0}
-    sync_dp, all_reduce = ts._sync_dp, ts._all_reduce
+    # the dp sync's host-clock time and the bytes each of its all-reduces
+    # moves, the time and bytes of the collectives over the model group,
+    # and the FWHT's shapes, read by wrapping the module functions
+    stats = {}
 
-    def timed_sync(*a, **k):
-        _sync()
-        t0 = time.perf_counter()
-        out = sync_dp(*a, **k)
-        _sync()
-        stats["sync_s"] += time.perf_counter() - t0
-        return out
+    def reset():
+        stats.update(sync_s=0.0, bytes=0, model_s=0.0, model_bytes=0,
+                     fwht_shapes=[])
 
-    def counted_all_reduce(t, group, op=dist.ReduceOp.SUM):
-        stats["bytes"] += t.numel() * t.element_size()
-        return all_reduce(t, group, op)
+    def timed(fn, key):
+        def call(*a, **k):
+            _sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            _sync()
+            stats[key] += time.perf_counter() - t0
+            return out
+        return call
 
-    ts._sync_dp, ts._all_reduce = timed_sync, counted_all_reduce
+    def counted(fn, key, seconds=None):
+        def call(t, *a, **k):
+            stats[key] += t.numel() * t.element_size()
+            return fn(t, *a, **k)
+        return timed(call, seconds) if seconds else call
+
+    def shaped_fwht(x, *a, **k):
+        stats["fwht_shapes"].append(list(x.shape))
+        return plain_fwht(x, *a, **k)
+
+    saved = (ts._sync_dp, ts._all_reduce, shd.model_all_reduce,
+             shd.model_all_gather, shd.model_reduce_scatter, ops.fwht)
+    sync_dp, all_reduce, *model_ops, plain_fwht = saved
+    ts._sync_dp = timed(sync_dp, "sync_s")
+    ts._all_reduce = counted(all_reduce, "bytes")
+    (shd.model_all_reduce, shd.model_all_gather,
+     shd.model_reduce_scatter) = (counted(f, "model_bytes", "model_s")
+                                  for f in model_ops)
+    ops.fwht = shaped_fwht
     cfg = C.get("qwen2-0.5b")
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                           global_batch=TRAIN_BATCH, seed=1)
     opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
     rec, tr = {"cells": {}}, None
-    for name, mk, mode, q, drop in DP_CELLS:
+    for name, mk, mode, q, drop, mb in cells:
         del tr
         torch.cuda.empty_cache()
-        tr = Trainer(cfg, data_cfg=data_cfg, opt_cfg=opt,
-                     celeris=ts.CelerisConfig(mode=mode, quantize_wire=q),
+        celeris = ts.CelerisConfig(mode=mode, quantize_wire=q)
+        tr = Trainer(cfg, data_cfg=data_cfg, opt_cfg=opt, celeris=celeris,
                      mesh=meshes[mk], seed=0, straggler=FixedDrop(drop),
                      device=str(dev))
+        if mb > 1:
+            tr.step_fn = ts.make_train_step(cfg, meshes[mk], opt, celeris,
+                                            microbatches=mb)
+        group = tr.step_fn.dp_group
         torch.cuda.reset_peak_memory_stats()
         steps = []
 
@@ -1248,21 +1370,25 @@ def dp_cells(rank, dev, meshes):
             steps.append({"wall_ms": m["wall_s"] * 1e3,
                           "sync_ms": stats["sync_s"] * 1e3,
                           "allreduce_bytes": stats["bytes"],
-                          "launches": counts.read()})
+                          "model_ms": stats["model_s"] * 1e3,
+                          "model_bytes": stats["model_bytes"],
+                          "launches": counts.read(),
+                          "fwht_shapes": sorted(stats["fwht_shapes"])})
             fp = fingerprint(tr.state["params"], {
                 k: v for k, v in m.items() if k not in ("wall_s",
                                                         "drop_rate")})
-            every = [torch.empty_like(fp) for _ in range(DP_WORLD)]
-            dist.all_gather(every, fp, group=world)
+            every = [torch.empty_like(fp)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(every, fp, group=group)
             assert all(torch.equal(e, fp) for e in every), (
-                f"dp {name} step {step}: the ranks' parameters or metrics "
+                f"{mk} {name} step {step}: the ranks' parameters or metrics "
                 "differ")
             counts.reset()
-            stats.update(sync_s=0.0, bytes=0)
+            reset()
 
         _sync()
         counts.reset()
-        stats.update(sync_s=0.0, bytes=0)
+        reset()
         hist = tr.run(DP_STEPS, on_metrics=on_metrics)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         fwht = [s["launches"]["fwht"] for s in steps]
@@ -1271,6 +1397,11 @@ def dp_cells(rank, dev, meshes):
                 "fwht_quantize": 0, "masked_unbias": 0, "quantize_int8": 0,
                 "dcqcn_scan": 0}
         assert all(s["launches"] == want for s in steps), (name, steps)
+        if coded:
+            shapes = sorted(2 * [list(s)
+                                 for s in tp_fwht_shapes(cfg, meshes[mk])])
+            assert all(s["fwht_shapes"] == shapes for s in steps), (
+                name, shapes, steps)
         assert np.isfinite(hist["loss"]).all(), (name, hist["loss"])
         if mode == "exact" or drop == 0.0:
             assert hist["recv_frac"] == [1.0] * DP_STEPS, (name, hist)
@@ -1279,10 +1410,12 @@ def dp_cells(rank, dev, meshes):
                        for f in hist["recv_frac"]), (name, hist["recv_frac"])
         rec["cells"][name] = {
             "mesh": mk, "mode": mode, "quantize_wire": q,
-            "drop": np.asarray(drop).tolist(), "loss": hist["loss"],
-            "recv_frac": hist["recv_frac"], "steps": steps,
-            "fwht_launches_per_step": fwht, "peak_gib": peak}
-    ts._sync_dp, ts._all_reduce = sync_dp, all_reduce
+            "drop": np.asarray(drop).tolist(), "microbatches": mb,
+            "loss": hist["loss"], "recv_frac": hist["recv_frac"],
+            "steps": steps, "fwht_launches_per_step": fwht,
+            "peak_gib": peak}
+    (ts._sync_dp, ts._all_reduce, shd.model_all_reduce, shd.model_all_gather,
+     shd.model_reduce_scatter, ops.fwht) = saved
     exact, q0 = rec["cells"]["exact"], rec["cells"]["int8_drop0"]
     assert all(abs(a - b) < 5e-3 for a, b in zip(q0["loss"], exact["loss"])
                ), ("int8 wire at drop 0 vs exact", q0["loss"], exact["loss"])
@@ -1300,15 +1433,18 @@ def dp_cells(rank, dev, meshes):
 
 
 def dp_check_one_device(rank, dev, mesh):
-    """World-4 exact = one device: qwen2-0.5b at full width in float32,
-    depth cut to 2 layers (the check's tolerances are float32's: in
-    bf16 the ranks' gradients and the global batch's round apart), one
-    exact step from the same weights on ``global_batch(0, 4)``, held
-    to ``check_first_step``."""
+    """Exact on the mesh = one device: qwen2-0.5b at full width in
+    float32, depth cut to 2 layers (the check's tolerances are float32's:
+    in bf16 the ranks' gradients and the global batch's round apart),
+    one exact step from the same weights on the mesh's global batch,
+    ``global_batch(0, n_dp)``, the shards gathered back over ``model``
+    and held to ``check_first_step``."""
     import torch.distributed as dist
     from repro_torch import generator
+    from repro_torch import sharding as shd
     import repro_torch.configs as C
     from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.models import convert
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer
@@ -1321,22 +1457,59 @@ def dp_check_one_device(rank, dev, mesh):
                  device=str(dev))
     new, m = tr.step_fn(tr.state, tr.put_batch(0), None, 0.0)
     del tr
+    shapes = convert.leaf_shapes(cfg)
+    new = {"params": convert.gather_leaves(new["params"], mesh, shapes),
+           "opt": {"mu": convert.gather_leaves(new["opt"]["mu"], mesh,
+                                               shapes)}}
     out = {"loss": m["loss"].item()}
     if rank == 0:
         step = ts.make_train_step(cfg, None, opt)
+        n_dp = shd.axis_size(mesh, shd.dp_axes(mesh))
         batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
-                 for k, v in make_source(data_cfg).global_batch(0, DP_WORLD)
+                 for k, v in make_source(data_cfg).global_batch(0, n_dp)
                  .items()}
         one, m1 = step(ts.init_state(generator(dev, 0), cfg), batch, None,
                        0.0)
         one = to_device({"params": one["params"],
                          "opt": {"mu": one["opt"]["mu"]}}, "cpu")
-        check("dp exact loss vs one device", m["loss"].cpu(),
+        shape = tuple(mesh.mesh.shape)
+        check(f"exact on {shape} loss vs one device", m["loss"].cpu(),
               m1["loss"].cpu(), 1e-5, 0.0)
-        check_first_step("dp exact (world 4) vs one device", new, one, opt)
+        check_first_step(f"exact on {shape} vs one device", new, one, opt)
         out["one_device_loss"] = m1["loss"].item()
+    del new
     dist.barrier()
     return out
+
+
+def tp_check_microbatches(dev, mesh):
+    """``microbatches=2`` against the whole rows on the mesh: qwen2-0.5b
+    at full width in float32 with 2 layers, one exact step from the same
+    shards and rows; the loss within rtol 1e-5 and each rank's shards
+    held to ``check_first_step``."""
+    import repro_torch.configs as C
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    cfg = dataclasses.replace(C.get("qwen2-0.5b"), n_layers=2,
+                              dtype="float32")
+    opt = OptConfig(lr=1e-3, warmup_steps=1)
+    tr = Trainer(cfg, data_cfg=DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=1), opt_cfg=opt, mesh=mesh, seed=0,
+        device=str(dev))
+    batch = tr.put_batch(0)
+    whole, m1 = tr.step_fn(tr.state, batch, None, 0.0)
+    whole = to_device({"params": whole["params"],
+                       "opt": {"mu": whole["opt"]["mu"]}}, "cpu")
+    acc, m2 = ts.make_train_step(cfg, mesh, opt, microbatches=2)(
+        tr.state, batch, None, 0.0)
+    del tr
+    check("tp microbatches=2 loss vs whole rows", m2["loss"].cpu(),
+          m1["loss"].cpu(), 1e-5, 0.0)
+    check_first_step("tp microbatches=2 vs whole rows", acc, whole, opt)
+    return {"loss": m1["loss"].item(), "loss_mb2": m2["loss"].item()}
 
 
 # the syncs at drop 0 held to the exact pmean on the same gradients:
@@ -1346,125 +1519,138 @@ DP_ZERO_CELLS = (("lossy", "host", "lossy", False, 0.0),
                  ("int8", "host", "lossy_hadamard", True, 0.0),
                  ("hierarchical_int8", "pods", "hierarchical", True,
                   (0.0, 0.0, 0.0)))
+TP_ZERO_CELLS = (("lossy", "dm22", "lossy", False, 0.0),
+                 ("lossy_hadamard", "dm22", "lossy_hadamard", False, 0.0),
+                 ("int8", "dm22", "lossy_hadamard", True, 0.0),
+                 ("hierarchical_int8", "pdm212", "hierarchical", True,
+                  (0.0, 0.0, 0.0)))
 
 
-def dp_check_coded_syncs(dev, meshes, cfg=None, min_coded_size=65536):
+def dp_check_coded_syncs(dev, meshes, cfg=None, min_coded_size=65536,
+                         cells=DP_ZERO_CELLS):
     """Each cell's sync at drop 0 against the exact pmean, on this rank's
     gradients (by default at full width: qwen2-0.5b, 2 layers, float32;
-    this rank's rows of ``global_batch(0, 4)``): the plain island and the
-    float32
-    coded wire leaf by leaf within rtol 1e-5 + 1e-5 of the leaf's largest
-    entry (a float32 round trip through the FWHT); the int8 wire, plain
-    and hierarchical, within ``int8_noise_bound`` in norm.  Returns each
-    cell's worst error relative to its bound."""
+    this rank's rows of ``global_batch(0, n_dp)``; its shards on a
+    ``model`` axis): the plain island and the float32 coded wire leaf by
+    leaf within rtol 1e-5 + 1e-5 of the leaf's largest entry (a float32
+    round trip through the FWHT); the int8 wire, plain and hierarchical,
+    within ``int8_noise_bound`` in norm.  Returns each cell's worst error
+    relative to its bound."""
     from repro_torch import generator
     from repro_torch import sharding as shd
     import repro_torch.configs as C
     from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.models import convert
     from repro_torch.train import train_step as ts
     cfg = cfg or dataclasses.replace(C.get("qwen2-0.5b"), n_layers=2,
                                      dtype="float32")
     src = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                  global_batch=TRAIN_BATCH, seed=1))
-    leaves = ts.init_state(generator(dev, 0), cfg)["params"]
     out = {}
-    for name, mk, mode, q, drop in DP_ZERO_CELLS:
+    for name, mk, mode, q, drop in cells:
         mesh = meshes[mk]
+        tp = convert.model_group(cfg, mesh)
+        leaves = ts.init_state(generator(dev, 0), cfg, mesh)["params"]
+        dp = shd.dp_axes(mesh)
         batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
                  for k, v in src.shard_batch(
-                     0, shd.peer_index(mesh, shd.dp_axes(mesh)),
-                     DP_WORLD).items()}
-        *_, grads = ts.loss_and_grads(cfg, leaves, batch)
+                     0, shd.peer_index(mesh, dp),
+                     shd.axis_size(mesh, dp)).items()}
+        *_, grads = ts.loss_and_grads(cfg, leaves, batch, tp)
         celeris = ts.CelerisConfig(mode=mode, quantize_wire=q,
                                    min_coded_size=min_coded_size)
-        plans = ts.plan_leaves(leaves, mesh, celeris)
+        plans = ts.plan_leaves(convert.leaf_shapes(cfg), mesh, celeris)
         assert any(p is not None for p in plans), name
         exact = ts._sync_dp(ts._DpSync.make(mesh, ts.CollectiveMode.EXACT,
-                                            celeris),
+                                            celeris, tp),
                             grads, plans, None, 0.0, None, None, None)[0]
         masks, signs, noise, sync = (to_device(d, dev) if isinstance(d, dict)
                                      else d for d in dp_smoke_draws(
-                                         leaves, mesh, celeris, drop))
+                                         cfg, mesh, celeris, drop))
         est, frac = ts._sync_dp(sync, grads, plans, None, drop, masks, signs,
                                 noise)
         assert frac.item() == 1.0, (name, frac.item())
         if q:
             lossy = sync.pod if mode == "hierarchical" else sync.dp
             bound = int8_noise_bound(grads, plans, masks, signs, lossy,
-                                     sync.data)
+                                     sync.data, tp)
         worst = 0.0
         for i, (e, x) in enumerate(zip(est, exact)):
             if q and i in bound:
                 err = (e - x).double().norm().item()
                 assert err <= bound[i], (
-                    f"dp {name} at drop 0 leaf {i}: |int8 - exact| {err:.4g}"
-                    f" beyond the rounding bound {bound[i]:.4g}")
+                    f"{mk} {name} at drop 0 leaf {i}: |int8 - exact| "
+                    f"{err:.4g} beyond the rounding bound {bound[i]:.4g}")
                 worst = max(worst, err / bound[i])
             else:
                 atol = 1e-5 * x.abs().max().item()
-                err = check(f"dp {name} at drop 0 leaf {i} vs exact", e, x,
-                            1e-5, atol)
+                err = check(f"{mk} {name} at drop 0 leaf {i} vs exact", e,
+                            x, 1e-5, atol)
                 worst = max(worst, err / max(atol, 1e-30))
         out[name] = worst
-        del grads, exact, est, masks, signs, noise
+        del grads, exact, est, masks, signs, noise, leaves
     return out
 
 
-def dp_check_card_vs_cpu(dev, meshes):
+def dp_check_card_vs_cpu(dev, meshes, cells):
     """Every cell at smoke size in float32, one step at world 4 on the
     card and on the CPU (the same ranks, the same gloo group) from the
-    same weights, batch and injected draws, held to
+    same weights (this rank's shards), batch and injected draws, held to
     ``check_first_step`` (plus one quantization step on the int8
     wire)."""
     from repro_torch import sharding as shd
     import repro_torch.configs as C
     from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.models import convert
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import train_step as ts
     cfg = dataclasses.replace(C.get_smoke("qwen2-0.5b"), dtype="float32")
     cpu = torch.device("cpu")
-    state = ts.init_state(torch.Generator(cpu).manual_seed(0), cfg)
     src = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
                                  global_batch=8, seed=1))
     opt = OptConfig(lr=1e-3, warmup_steps=1)
     out = {}
-    for name, mk, mode, q, drop in DP_CELLS:
+    for name, mk, mode, q, drop, mb in cells:
         mesh = meshes[mk]
+        state = ts.init_state(torch.Generator(cpu).manual_seed(0), cfg, mesh)
         celeris = ts.CelerisConfig(mode=mode, quantize_wire=q,
                                    min_coded_size=1024)
-        step = ts.make_train_step(cfg, mesh, opt, celeris)
-        peer = shd.peer_index(mesh, shd.dp_axes(mesh))
+        step = ts.make_train_step(cfg, mesh, opt, celeris, microbatches=mb)
+        dp = shd.dp_axes(mesh)
         batch = {k: torch.as_tensor(v, dtype=torch.long) for k, v in
-                 src.shard_batch(0, peer, DP_WORLD).items()}
-        masks, signs, noise, sync = dp_smoke_draws(state["params"], mesh,
-                                                   celeris, drop)
+                 src.shard_batch(0, shd.peer_index(mesh, dp),
+                                 shd.axis_size(mesh, dp)).items()}
+        masks, signs, noise, sync = dp_smoke_draws(cfg, mesh, celeris, drop)
         (new_cpu, m_cpu), (new_dev, m_dev) = [
             step(to_device(state, d), to_device(batch, d), None, drop,
                  masks=masks, signs=signs, noise=noise) for d in (cpu, dev)]
         for k in ("loss", "recv_frac"):
-            check(f"dp smoke {name} {k} card vs cpu", m_dev[k].cpu(),
+            check(f"{mk} smoke {name} {k} card vs cpu", m_dev[k].cpu(),
                   m_cpu[k], 2e-4, 2e-4)
         steps = None
         if q:
             lossy = sync.pod if mode == "hierarchical" else sync.dp
             steps = int8_step_bound(
                 cfg, state["params"], batch,
-                ts.plan_leaves(state["params"], mesh, celeris), masks,
-                signs, lossy, sync.data)
-        check_first_step(f"dp smoke {name}", new_dev, new_cpu, opt, steps)
+                ts.plan_leaves(convert.leaf_shapes(cfg), mesh, celeris),
+                masks, signs, lossy, sync.data, step.model_group)
+        check_first_step(f"{mk} smoke {name}", new_dev, new_cpu, opt, steps)
         out[name] = {"loss": m_dev["loss"].item(),
                      "recv_frac": m_dev["recv_frac"].item()}
     return out
 
 
-def phase_dp_train():
-    """The data-parallel train step at full width: four rank processes
-    on the one card over gloo (``dp_rank``), each cell 2 steps through
-    ``Trainer(mesh=...)``.  Any rank that fails fails the phase."""
+def phase_mesh_train(kind):
+    """The train step on a mesh at full width: four rank processes on the
+    one card over gloo (``mesh_rank``), each cell 2 steps through
+    ``Trainer(mesh=...)``; ``kind`` "dp" is phase 6b (data parallel),
+    "tp" phase 6c (tensor parallel over ``model``, and gradient
+    accumulation).  Any rank that fails fails the phase."""
     import shutil
     import socket
-    shutil.rmtree(DP_OUT, ignore_errors=True)
-    os.makedirs(DP_OUT)
+    out_dir = MESH_OUT.format(kind)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -1474,12 +1660,13 @@ def phase_dp_train():
     # place keep each allocator's free-but-reserved blocks small
     env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     t0 = time.perf_counter()
-    logs = [open(os.path.join(DP_OUT, f"rank{r}.log"), "w")
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w")
             for r in range(DP_WORLD)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
-         "--dp-port", str(port), "--dp-out", DP_OUT], env=env,
-        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         "--mesh-kind", kind, "--mesh-port", str(port), "--mesh-out",
+         out_dir], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(DP_WORLD)]
     try:
         deadline = time.monotonic() + DP_TIMEOUT
         for p in procs:
@@ -1496,21 +1683,21 @@ def phase_dp_train():
     if failed:
         tails = []
         for r in failed:
-            with open(os.path.join(DP_OUT, f"rank{r}.log")) as f:
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
                 tails.append(f"rank {r} (exit {procs[r].returncode}):\n"
                              + "".join(f.readlines()[-40:]))
-        raise RuntimeError("dp train: ranks failed\n" + "\n".join(tails))
+        raise RuntimeError(f"{kind} train: ranks failed\n" + "\n".join(tails))
     ranks = []
     for r in range(DP_WORLD):
-        with open(os.path.join(DP_OUT, f"rank{r}.json")) as f:
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
     smi = card_name_and_power()
     out, launches = {"cells": {}}, 0
-    for name, *_ in DP_CELLS:
+    for name, *_ in DP_CELLS if kind == "dp" else TP_CELLS:
         cell = ranks[0]["cells"][name]
         steps = cell["steps"]
         rec = {k: cell[k] for k in ("mesh", "mode", "quantize_wire", "drop",
-                                    "loss", "recv_frac",
+                                    "microbatches", "loss", "recv_frac",
                                     "fwht_launches_per_step")}
         rec.update(
             step_ms=[s["wall_ms"] for s in steps],
@@ -1518,36 +1705,46 @@ def phase_dp_train():
                 s["wall_ms"] for s in steps[1:]),
             sync_ms=[s["sync_ms"] for s in steps],
             allreduce_bytes_per_rank_step=steps[-1]["allreduce_bytes"],
+            model_collective_ms=[s["model_ms"] for s in steps],
+            model_collective_bytes_per_rank_step=steps[-1]["model_bytes"],
             peak_gib_per_rank=[rk["cells"][name]["peak_gib"]
                                for rk in ranks])
         launches += sum(s["launches"]["fwht"] for rk in ranks
                         for s in rk["cells"][name]["steps"])
         out["cells"][name] = rec
-        print(f"dp train {name} ({rec['mesh']}, {DP_WORLD} ranks on one "
-              f"card, gloo): loss {rec['loss']}, recv_frac "
-              f"{rec['recv_frac']}, step ms {rec['step_ms']}, sync ms "
-              f"{rec['sync_ms']}, all-reduce bytes/rank-step "
-              f"{rec['allreduce_bytes_per_rank_step']}, FWHT launches/"
-              f"rank-step {rec['fwht_launches_per_step']}, peak GiB/rank "
+        print(f"{kind} train {name} ({rec['mesh']}, microbatches "
+              f"{rec['microbatches']}, {DP_WORLD} ranks on one card, gloo): "
+              f"loss {rec['loss']}, recv_frac {rec['recv_frac']}, step ms "
+              f"{rec['step_ms']} (median after the first "
+              f"{rec['median_step_ms_after_first']:.1f}), dp sync ms "
+              f"{rec['sync_ms']}, dp all-reduce bytes/rank-step "
+              f"{rec['allreduce_bytes_per_rank_step']}, model-group "
+              f"collectives ms {rec['model_collective_ms']} and bytes/"
+              f"rank-step {rec['model_collective_bytes_per_rank_step']}, "
+              f"FWHT launches/rank-step {rec['fwht_launches_per_step']}, "
+              f"peak GiB/rank "
               f"{[round(g, 2) for g in rec['peak_gib_per_rank']]} [{smi}]")
     out.update(seconds=seconds, median=[rk["median"] for rk in ranks],
                one_device=ranks[0]["one_device"],
                coded_vs_exact=[rk["coded_vs_exact"] for rk in ranks],
                card_vs_cpu=ranks[0]["card_vs_cpu"],
+               microbatches=ranks[0].get("microbatches"),
                launches={"fwht": launches, "fwht_quantize": 0,
                          "masked_unbias": 0, "quantize_int8": 0,
                          "dcqcn_scan": 0})
     zero_worst = {k: max(rk[k] for rk in out["coded_vs_exact"])
                   for k in out["coded_vs_exact"][0]}
-    print(f"dp train: every rank bit-identical after every step; median "
-          f"coordination {out['median'][0]['agreed']}; world-4 exact = one "
-          f"device (full width, 2 layers, float32; loss "
-          f"{out['one_device']['loss']} vs "
-          f"{out['one_device']['one_device_loss']}); the syncs at drop 0 "
-          f"vs exact on the same gradients (full width, 2 layers, float32), "
-          f"worst error / tolerance by cell {zero_worst}; "
-          f"card = CPU at smoke "
-          f"size in {len(DP_CELLS)} cells; {seconds:.1f} s [{smi}]")
+    losses = {mk: (v["loss"], v["one_device_loss"])
+              for mk, v in out["one_device"].items()}
+    print(f"{kind} train: the ranks that share a model index bit-identical "
+          f"after every step; median coordination "
+          f"{out['median'][0]['agreed']}; exact = one device (full width, "
+          f"2 layers, float32; loss on the mesh vs one device {losses}); "
+          f"the syncs at drop 0 vs exact on the same gradients (full width,"
+          f" 2 layers, float32), worst error / tolerance by cell "
+          f"{zero_worst}; microbatches=2 vs whole rows {out['microbatches']};"
+          f" card = CPU at smoke size in {len(out['cells'])} cells; "
+          f"{seconds:.1f} s [{smi}]")
     return out
 
 
@@ -3445,7 +3642,8 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     allreduce = phase_allreduce(dev, ts, tr, coding, lc, counts)
     del tr
     torch.cuda.empty_cache()
-    dp_train = phase_dp_train()
+    dp_train = phase_mesh_train("dp")
+    tp_train = phase_mesh_train("tp")
     small_train = phase_small_train(dev, C, ts, OptConfig, DataConfig,
                                     make_source)
     engine_check = phase_engine_card_vs_cpu(dev, E, P)
@@ -3488,6 +3686,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "train": train["launches"],
                "allreduce": allreduce["launches"],
                "dp_train": dp_train["launches"],
+               "tp_train": tp_train["launches"],
                "fig1": fig1_launches, "fig2": fig2["launches"],
                "fig2_shared": fig2["shared"]["launches"],
                "fig3": fig3["launches"], "fig4": fig4["launches"],
@@ -3507,7 +3706,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     smi = card_name_and_power()
     print(json.dumps({"main_path": main_path, "kernel_bench": bench,
                       "train": train, "allreduce": allreduce,
-                      "dp_train": dp_train,
+                      "dp_train": dp_train, "tp_train": tp_train,
                       "small_train": small_train,
                       "engine_card_vs_cpu": engine_check, "fig1": fig1,
                       "fig2": fig2, "fig3": fig3,
@@ -3536,11 +3735,14 @@ if __name__ == "__main__":
                     "against this earlier design of it (the C interface "
                     "without a workspace), in turns, on the engine's real "
                     "blocks")
-    ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
-    ap.add_argument("--dp-port", type=int, help=argparse.SUPPRESS)
-    ap.add_argument("--dp-out", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-kind", choices=("dp", "tp"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.dp_rank is not None:        # one rank of phase_dp_train
-        dp_rank(args.dp_rank, args.dp_port, args.dp_out)
+    if args.mesh_rank is not None:      # one rank of phase_mesh_train
+        mesh_rank(args.mesh_kind, args.mesh_rank, args.mesh_port,
+                  args.mesh_out)
     else:
         main(args.ab_fwht, args.ab_dcqcn)

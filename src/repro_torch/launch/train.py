@@ -7,18 +7,19 @@ One device:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --smoke --device cpu --celeris --steps 3
 
-Data-parallel, one process a rank under ``torch.distributed.run``:
+On a mesh, one process a rank under ``torch.distributed.run``:
 
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
         -m repro_torch.launch.train --arch qwen2-0.5b --smoke \
         --device cpu --mesh host --celeris --steps 3
 
-``--mesh host`` is ``(world, 1)`` over (data, model) until tensor
-parallelism is ported (the JAX launcher's ``(n // 2, 2)`` needs a
-``model`` axis of 2); ``single``/``multi`` are the production meshes
-(256 and 512 ranks).  The backend is NCCL when every local rank has a
-card of its own and gloo otherwise (ranks that share a card, or the
-CPU); the choice is printed, and a backend that fails raises.
+``--mesh host`` is the JAX launcher's ``(max(n // 2, 1), min(2, n))``
+over (data, model): data parallel over pairs of ranks that split the
+model between them (tensor parallelism); ``single``/``multi`` are the
+production meshes (256 and 512 ranks).  The backend is NCCL when every
+local rank has a card of its own and gloo otherwise (ranks that share a
+card, or the CPU); the choice is printed, and a backend that fails
+raises.
 
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 missing.  Weights are random, from seed 0.  There is no checkpointing
@@ -73,11 +74,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", choices=["none", "host", "single", "multi"],
                     default="none",
-                    help="data-parallel mesh over the ranks of "
-                    "torch.distributed.run: host = (world, 1) over (data, "
-                    "model), since tensor parallelism is not ported; "
-                    "single/multi = the 16x16 and 2x16x16 production "
-                    "meshes")
+                    help="mesh over the ranks of torch.distributed.run: "
+                    "host = (max(n // 2, 1), min(2, n)) over (data, model), "
+                    "data and tensor parallel; single/multi = the 16x16 "
+                    "and 2x16x16 production meshes")
     args = ap.parse_args(argv)
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
@@ -90,7 +90,8 @@ def main(argv=None):
             print(f"backend {backend}, {dist.get_world_size()} ranks, rank 0 "
                   f"on {device}", flush=True)
         if args.mesh == "host":
-            mesh = mesh_mod.make_host_mesh((dist.get_world_size(), 1),
+            n = dist.get_world_size()
+            mesh = mesh_mod.make_host_mesh((max(n // 2, 1), min(2, n)),
                                            device_type=kind)
         else:
             mesh = mesh_mod.make_production_mesh(

@@ -13,14 +13,22 @@ layers as the scanned ``decoder.groups[0]`` holds them.  The trainer
 keeps its parameters in this view: the JAX train step plans, codes and
 draws one mask and one set of signs per leaf index, so the port codes
 the same stacked leaves in the same order.
+
+On a mesh with a ``model`` axis each rank holds its slice of every leaf
+that the partition specs split over ``model`` (:func:`shard_leaves`;
+:func:`gather_leaves` puts them back together), and the whole of every
+other leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import sharding as shd
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Params
 
 
@@ -66,6 +74,8 @@ LAYER_LEAVES = ("attn.bk", "attn.bq", "attn.bv", "attn.wk", "attn.wo",
                 "mlp.wi", "mlp.wo")
 LEAF_NAMES = tuple(f"decoder.groups[0].{n}" for n in LAYER_LEAVES) + (
     "embed.table", "final_norm.scale")
+# the same leaves by their names in a layer's (or the model's) params
+SHORT_NAMES = LAYER_LEAVES + ("embed.table", "final_norm.scale")
 
 
 def jax_leaves(params: Params) -> List[torch.Tensor]:
@@ -89,4 +99,80 @@ def params_from_leaves(leaves: Sequence[torch.Tensor]) -> Params:
     for name, stacked in zip(LAYER_LEAVES, leaves):
         for i, layer in enumerate(stacked.unbind(0)):
             out[f"layers.{i}.{name}"] = layer
+    return out
+
+
+def leaf_shapes(cfg: ModelConfig) -> List[Tuple[int, ...]]:
+    """The 14 JAX leaves' global shapes for ``cfg``, in leaf order."""
+    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    q = cfg.n_heads_padded * cfg.resolved_head_dim
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim
+    layer = {"attn.bk": (kv,), "attn.bq": (q,), "attn.bv": (kv,),
+             "attn.wk": (d, kv), "attn.wo": (q, d), "attn.wq": (d, q),
+             "attn.wv": (d, kv), "ln1.scale": (d,), "ln2.scale": (d,),
+             "mlp.wg": (d, f), "mlp.wi": (d, f), "mlp.wo": (f, d)}
+    return [(n,) + layer[name] for name in LAYER_LEAVES] + [
+        (cfg.vocab_size, d), (d,)]
+
+
+def split_dims(shapes: Sequence[Sequence[int]], mesh
+               ) -> List[Optional[int]]:
+    """Each leaf's dim on the ``model`` axis of this mesh (split when the
+    axis is larger than 1), or None, from the leaves' global shapes."""
+    # sharding_rules imports this module (LEAF_NAMES), so not at the top
+    from repro_torch.train import sharding_rules as rules
+    return [rules.sharded_dim(spec)
+            for spec in rules.param_specs(shapes, mesh)]
+
+
+def model_group(cfg: ModelConfig, mesh) -> Optional[shd.ModelGroup]:
+    """This rank's :class:`~repro_torch.sharding.ModelGroup` with the
+    leaves of ``cfg`` that the specs split over ``model``
+    (:data:`SHORT_NAMES`), which the layers read; None without tensor
+    parallelism."""
+    tp = shd.model_group(mesh)
+    if tp is None:
+        return None
+    dims = split_dims(leaf_shapes(cfg), mesh)
+    return dataclasses.replace(tp, split=frozenset(
+        n for n, d in zip(SHORT_NAMES, dims) if d is not None))
+
+
+def shard_leaves(leaves: Sequence[Any], mesh) -> List[torch.Tensor]:
+    """The full JAX leaves (numpy arrays or tensors) -> this rank's
+    leaves: its slice of each leaf that the partition specs split over
+    ``model``, copies of the rest.  A leaf that the divisibility guard
+    keeps whole stays whole."""
+    tp = shd.model_group(mesh)
+    leaves = [x if isinstance(x, torch.Tensor) else _tensor(x)
+              for x in leaves]
+    if tp is None:
+        return [x.clone() for x in leaves]
+    out = []
+    for x, dim in zip(leaves, split_dims([x.shape for x in leaves], mesh)):
+        if dim is None:
+            out.append(x.clone())
+        else:
+            n = x.shape[dim] // tp.size
+            out.append(x.narrow(dim, tp.index * n, n).clone())
+    return out
+
+
+def gather_leaves(shards: Sequence[torch.Tensor], mesh,
+                  shapes: Sequence[Sequence[int]]) -> List[torch.Tensor]:
+    """Inverse of :func:`shard_leaves`, given the leaves' global
+    ``shapes`` (e.g. :func:`leaf_shapes`; a shard alone cannot tell a
+    split leaf from one the guard kept whole): every model rank calls it
+    together and gets the full leaves back, each split leaf all-gathered
+    over the ``model`` group."""
+    tp = shd.model_group(mesh)
+    if tp is None:
+        return [x.clone() for x in shards]
+    out = []
+    for x, dim in zip(shards, split_dims(shapes, mesh)):
+        if dim is None:
+            out.append(x.clone())
+        else:
+            out.append(shd.model_all_gather(x.movedim(dim, -1), tp)
+                       .movedim(-1, dim).contiguous())
     return out

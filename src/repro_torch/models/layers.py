@@ -13,6 +13,17 @@ online-softmax path (:func:`tiled_attention`, the JAX package's
 ``_flash_attention`` for global causal attention), which never builds
 the ``(s, s_kv)`` logits.  Local and softcapped attention,
 cross-attention and the ring cache arrive with later slices.
+
+Tensor parallelism (Megatron, as the JAX package's partition specs and
+``_head_shard``/``_proj_shard`` constraints have GSPMD lay it out):
+given a :class:`repro_torch.sharding.ModelGroup`, :func:`attention`
+and :func:`mlp` run column-parallel in-projections on their input
+through ``copy_to_model`` and a row-parallel ``wo`` into
+``reduce_from_model``; :func:`embed` and :func:`unembed` split the
+vocabulary.  Each takes its leaves' local shards.  Without one they run
+as on one device; the model passes one only to a block whose leaves the
+partition specs split (:func:`split_over_model`, reading
+``ModelGroup.split`` from ``convert.model_group``).
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -31,6 +43,14 @@ FLASH_THRESHOLD = 4 * 1024 * 1024   # s_q * s_kv above which attention tiles
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def split_over_model(name: str, tp: Optional[shd.ModelGroup]
+                     ) -> Optional[shd.ModelGroup]:
+    """``tp`` when the specs split leaf ``name`` (``convert.SHORT_NAMES``)
+    over ``model``, else None (a leaf the divisibility guard keeps
+    whole)."""
+    return tp if tp is not None and name in tp.split else None
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -85,21 +105,60 @@ class AttnCache:
                          pos=self.pos.clone())
 
 
+def _kv_weights(p: Params, cfg: ModelConfig,
+                tp: Optional[shd.ModelGroup]):
+    """wk, wv (and bk, bv) as this rank's k/v projection uses them, and
+    whether it holds its own kv heads.  The JAX package's ``_proj_shard``
+    splits the kv heads over ``model`` only when ``tp`` divides their
+    count; else GQA's few kv heads stay whole on every rank:
+
+    - (a) ``n_kv % tp == 0``: the local shards are this rank's kv heads;
+    - (b) the spec splits wk/wv in storage but not by heads: all-gather
+      the weights (``gather_from_model``), so each rank's gradient is the
+      reduce-scatter of every rank's partial one;
+    - (c) the guard kept them whole: every rank holds them, and their
+      gradient is summed over ``model`` (``copy_to_model``).
+    """
+    names = ("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv")
+    w = [p[n] for n in names]
+    if tp is None or cfg.n_kv_heads % tp.size == 0:
+        return w, True
+    if split_over_model("attn.wk", tp) is not None:
+        return [shd.gather_from_model(t, tp) for t in w], False
+    return [shd.copy_to_model(t, tp) for t in w], False
+
+
 def qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
-        positions: torch.Tensor):
+        positions: torch.Tensor, tp: Optional[shd.ModelGroup] = None):
     """The projections with optional bias, split into heads, q and k
     rotated: q (B, S, H, Dh) and k (B, S, KV, Dh) in float32, v
-    (B, S, KV, Dh) in the compute dtype."""
+    (B, S, KV, Dh) in the compute dtype.
+
+    With ``tp`` (wq/bq split by heads) H is this rank's H / tp heads;
+    KV is its own kv heads, or, where the kv heads stay whole, the kv
+    head of each of its q heads (head j uses kv head j // (H / n_kv),
+    as unsharded GQA does), so the grouping is one q head a kv head."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.resolved_head_dim
+    if tp is not None:
+        if h % tp.size:
+            raise ValueError(f"{h} heads do not split over {tp.size} "
+                             "model ranks")
+        x = shd.copy_to_model(x, tp)
+    (wk, wv, *bkv), own = _kv_weights(p, cfg, tp)
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x @ wk
+    v = x @ wv
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+        q, k, v = q + p["bq"], k + bkv[0], v + bkv[1]
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
+    if not own:
+        h_local = q.shape[2]
+        heads = (tp.index * h_local + torch.arange(h_local, device=x.device)
+                 ) // (h // kv)
+        k, v = k[:, :, heads], v[:, :, heads]
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -176,17 +235,20 @@ def tiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
               positions: torch.Tensor,
               cache: Optional[AttnCache] = None,
-              cache_index: Optional[int] = None) -> torch.Tensor:
+              cache_index: Optional[int] = None,
+              tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
     """Causal GQA self-attention with optional QKV bias and padded heads.
 
     - train/prefill: (B, S, D) in; with ``cache``, K/V are written to
       slots [0, S).  Above ``FLASH_THRESHOLD`` (``s * s``) it tiles.
     - decode: S == 1 with ``cache`` and ``cache_index``: K/V written at
       slot ``cache_index``, attention over every filled slot.
+    - ``tp``: this rank's heads (:func:`qkv`), its rows of ``wo``, and
+      the partial outputs summed over ``model``; no cache.
     """
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.resolved_head_dim
-    q, k, v = qkv(p, cfg, x, positions)
+    q, k, v = qkv(p, cfg, x, positions, tp)
+    h, kv, hd = q.shape[2], k.shape[2], cfg.resolved_head_dim
 
     decode = cache is not None and s == 1 and cache_index is not None
     if decode:
@@ -213,7 +275,7 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
             vq.repeat_interleave(rep, dim=2),
             qpos=positions[0] if positions.dim() == 2 else positions,
             kpos=torch.arange(s_kv, device=x.device))
-        return out.reshape(b, s, h * hd).to(x.dtype) @ p["wo"]
+        return _out_proj(out.reshape(b, s, h * hd).to(x.dtype), p["wo"], tp)
 
     if decode:
         kpos = cache.pos[None, None, None, :]
@@ -223,21 +285,50 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         kpos = torch.arange(s_kv, device=x.device)[None, None, None, :]
         mask = kpos <= qpos
     out = dense_attention(q, kq, vq, mask)
-    return out.reshape(b, s, h * hd) @ p["wo"]
+    return _out_proj(out.reshape(b, s, h * hd), p["wo"], tp)
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU."""
-    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+def _out_proj(x: torch.Tensor, wo: torch.Tensor,
+              tp: Optional[shd.ModelGroup]) -> torch.Tensor:
+    """``x @ wo``; row-parallel with ``tp``: the partial products of the
+    ranks' rows summed over ``model``."""
+    y = x @ wo
+    return y if tp is None else shd.reduce_from_model(y, tp)
 
 
-def embed(table: torch.Tensor, cfg: ModelConfig,
-          tokens: torch.Tensor) -> torch.Tensor:
-    x = table[tokens]
+def mlp(p: Params, x: torch.Tensor,
+        tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
+    """SwiGLU; with ``tp`` wi/wg are column shards and wo the matching
+    row shard."""
+    if tp is not None:
+        x = shd.copy_to_model(x, tp)
+    return _out_proj(F.silu(x @ p["wg"]) * (x @ p["wi"]), p["wo"], tp)
+
+
+def embed(table: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor,
+          tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
+    """Lookup, then the sqrt(d_model) scale.  With ``tp`` the table is
+    this rank's rows of the vocabulary: tokens outside them look up 0,
+    and the ranks' lookups are summed over ``model``, which is exact (a
+    sum with zeros), so it equals the whole table's lookup bit for bit."""
+    if tp is None:
+        x = table[tokens]
+    else:
+        rows = table.shape[0]
+        local = tokens - tp.index * rows
+        mine = (local >= 0) & (local < rows)
+        x = torch.where(mine[..., None], table[torch.where(mine, local, 0)],
+                        0)
+        x = shd.reduce_from_model(x, tp)
     # the sqrt(d_model) scale is rounded to the compute dtype, as in JAX
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
 
 
-def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding; logits in the compute dtype."""
+def unembed(table: torch.Tensor, x: torch.Tensor,
+            tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
+    """Tied unembedding; logits in the compute dtype.  With ``tp`` the
+    logits of this rank's rows of the vocabulary (split over ``model``,
+    as the JAX package constrains them)."""
+    if tp is not None:
+        x = shd.copy_to_model(x, tp)
     return x @ table.T

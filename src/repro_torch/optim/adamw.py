@@ -10,15 +10,22 @@ float32 0-dim tensors on the parameters' device, as JAX does it, and
 every division is by a tensor: a Python-scalar divisor is taken as a
 multiply by its reciprocal on the card.
 
+On a mesh with a ``model`` axis each rank holds its shards of the
+leaves that the specs split over ``model``: the global norm adds up
+their squares over the model group and counts the replicated leaves
+once, so the clip factor is the same on every rank.
+
 Schedule: linear warmup -> cosine decay.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+
+from repro_torch import sharding as shd
 
 Leaves = Sequence[torch.Tensor]
 
@@ -63,18 +70,33 @@ def init_opt_state(params: Leaves) -> Dict[str, Any]:
     }
 
 
-def global_norm(leaves: Leaves) -> torch.Tensor:
+def _sum_squares(leaves: Leaves):
     total = 0
     for leaf in leaves:
         total = total + torch.sum(torch.square(leaf.to(torch.float32)))
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(leaves: Leaves, tp: Optional[shd.ModelGroup] = None,
+                split: Sequence[bool] = ()) -> torch.Tensor:
+    """The norm of all the leaves together.  With ``tp``, ``split[i]``
+    says leaf i is this rank's shard of a leaf split over ``model``:
+    those squares are summed over the model group, the others counted
+    once."""
+    if tp is None or not any(split):
+        return torch.sqrt(_sum_squares(leaves))
+    shards = _sum_squares([l for l, s in zip(leaves, split) if s])
+    whole = _sum_squares([l for l, s in zip(leaves, split) if not s])
+    return torch.sqrt(shd.model_all_reduce(shards, tp) + whole)
 
 
 def apply_updates(params: Leaves, grads: Leaves, state: Dict[str, Any],
-                  cfg: OptConfig):
-    """Returns (new params in their dtypes, new state, metrics)."""
+                  cfg: OptConfig, tp: Optional[shd.ModelGroup] = None,
+                  split: Sequence[bool] = ()):
+    """Returns (new params in their dtypes, new state, metrics).  ``tp``
+    and ``split``: :func:`global_norm`'s."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, tp, split)
     scale = torch.clamp(
         torch.div(_f32(cfg.clip_norm, gnorm), torch.clamp(gnorm, min=1e-9)),
         max=1.0)

@@ -13,12 +13,23 @@ size is static on the mesh: :func:`axis_size`).  The JAX package's
 partitioner gate ``plain_lossy_island_supported`` has nothing to gate
 here: the port always runs the per-(peer, wire-row) plain island, the
 jax >= 0.8 behaviour.
+
+Tensor parallelism over ``model`` (:class:`ModelGroup` and the Megatron
+operators :func:`copy_to_model`, :func:`reduce_from_model` and
+:func:`gather_from_model`) has no counterpart either: GSPMD emits those
+collectives from the JAX package's partition specs and sharding
+constraints, and the port writes them out.  Every collective over the
+``model`` group goes through :func:`model_all_reduce`,
+:func:`model_all_gather` or :func:`model_reduce_scatter`, in the
+tensor's own dtype, as GSPMD's do.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
@@ -112,3 +123,111 @@ def group(mesh: DeviceMesh, axes: Sequence[str]):
         if dist.get_rank() in row:
             mine = g
     return mine
+
+
+# ----------------------------------------------------------------------
+# Tensor parallelism over the model axis
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ModelGroup:
+    """This rank's place on the ``model`` axis: the process group of the
+    ranks that differ from it only along ``model``, its size, this
+    rank's index along it (which shard of each split leaf it holds), and
+    the names of the leaves the partition specs split over it
+    (``convert.model_group`` fills them in from the specs)."""
+    group: object
+    size: int
+    index: int
+    split: frozenset = frozenset()
+
+
+def model_group(mesh: Optional[DeviceMesh]) -> Optional[ModelGroup]:
+    """The ``model`` group of this rank, or None when the mesh has no
+    ``model`` axis larger than 1 (no tensor parallelism)."""
+    size = axis_sizes(mesh).get(MODEL_AXIS, 1)
+    if size == 1:
+        return None
+    return ModelGroup(group(mesh, (MODEL_AXIS,)), size,
+                      peer_index(mesh, (MODEL_AXIS,)))
+
+
+def model_all_reduce(t: torch.Tensor, tp: ModelGroup,
+                     op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """All-reduce ``t`` in place over the model group and return it."""
+    dist.all_reduce(t, op=op, group=tp.group)
+    return t
+
+
+def model_all_gather(t: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
+    """The model ranks' ``t`` side by side along the last dim, in rank
+    order."""
+    first = t.movedim(-1, 0).contiguous()
+    out = first.new_empty((tp.size * first.shape[0],) + first.shape[1:])
+    dist.all_gather_into_tensor(out, first, group=tp.group)
+    return out.movedim(0, -1)
+
+
+def model_reduce_scatter(t: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
+    """The sum of the model ranks' ``t``, of which this rank keeps its
+    slice of the last dim (the inverse layout of
+    :func:`model_all_gather`)."""
+    first = t.movedim(-1, 0).contiguous()
+    out = first.new_empty((first.shape[0] // tp.size,) + first.shape[1:])
+    dist.reduce_scatter_tensor(out, first, group=tp.group)
+    return out.movedim(0, -1)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return model_all_reduce(grad.clone(memory_format=torch
+                                           .contiguous_format), ctx.tp), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return model_all_reduce(x.clone(memory_format=torch.contiguous_format),
+                                tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return model_all_gather(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return model_reduce_scatter(grad, ctx.tp), None
+
+
+def copy_to_model(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
+    """Megatron's *f*: identity forward; the backward sums the gradient
+    over the model group.  The input of a column-parallel layer (each
+    rank's share of the gradient covers only its own columns), and a
+    weight that the divisibility guard keeps whole inside one."""
+    return _CopyToModel.apply(x, tp)
+
+
+def reduce_from_model(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
+    """Megatron's *g*: sums the model ranks' partial ``x`` forward;
+    identity backward.  The output of a row-parallel layer."""
+    return _ReduceFromModel.apply(x, tp)
+
+
+def gather_from_model(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
+    """All-gather along the last dim forward; the backward
+    reduce-scatters, so each rank's gradient is the sum of every rank's
+    partial gradient of its own slice."""
+    return _GatherFromModel.apply(x, tp)

@@ -3,11 +3,16 @@
 
 A spec is a tuple with one entry a leaf dimension: the mesh axis that
 dimension is split over, or None.  The JAX package hands its specs to
-GSPMD; the port has no tensor parallelism yet, so the train step reads
-them for one thing: the coded sync plans each leaf's tiles around its
-``model`` dimension (``coding.plan_nd(shape, sharded_dim, n_rot)``),
-and that dimension is set whenever the mesh *has* a ``model`` axis,
-even of size 1.
+GSPMD; the port reads them itself: ``convert.shard_leaves`` keeps each
+rank's slice of the leaves split over ``model`` (tensor parallelism),
+the coded sync plans each leaf's tiles around its ``model`` dimension
+(``coding.plan_nd(shape, sharded_dim, n_rot)``; that dimension is set
+whenever the mesh *has* a ``model`` axis, even of size 1), and the
+model reads which leaves are split (``convert.model_group``).
+:func:`batch_specs` and :func:`zero1_specs` have no reader yet: the
+trainer takes its rows as ``shard_batch`` of its row-major dp index,
+which is what the batch specs give, and the JAX trainer places the
+optimizer state by ``zero1_specs`` only when it restores a checkpoint.
 
 TP policy (megatron-style over ``model``), as in the JAX package:
 - attention/MLP in-projections: column-parallel  (..., None, "model")

@@ -49,6 +49,30 @@ rank.  The coded sync tiles each leaf around its ``model`` dimension
 when the mesh has a ``model`` axis, even of size 1, as the JAX step's
 ``sharded_dim`` does (:mod:`repro_torch.train.sharding_rules`).
 
+**Tensor parallelism.**  On a mesh whose ``model`` axis is larger than 1
+each rank holds its shards of the leaves the specs split over ``model``
+(``convert.shard_leaves``) and runs the model tensor parallel over its
+``model`` group (:class:`repro_torch.sharding.ModelGroup`; Megatron
+column/row layers, the vocab-parallel embedding and cross-entropy), the
+collectives GSPMD emits for the JAX step written out.  The plans come
+from the leaves' global shapes, so the rotation runs along the
+unsharded axes and each model rank encodes, loses and decodes only its
+own columns of a (tiles, n_rot, Ns / tp) block; the masks and signs are
+per dp peer and the same on every model rank.  The one coupling is the
+int8 wire's scale: JAX takes its maximum over the global tile block,
+whose axis 2 is split, so the maximum runs over the ``model`` group as
+well as the lossy peers, and the rounding noise is drawn at the global
+shape, each rank keeping its columns.  The exact sync stays the float32
+pmean over the dp axes of each rank's shards, and the global norm adds
+up the split leaves' squares over ``model``.
+
+**Gradient accumulation** (``microbatches`` M > 1, the JAX step's
+``_accum_grads``): the rank's rows split in order into M microbatches,
+gradients summed in float32 and scaled by 1/M into each leaf's dtype,
+loss, nll and aux averaged; the sync runs once on the sum.  On one
+device (no dp axis) the batch is taken whole, as the JAX step's no-dp
+branch takes it.
+
 Collectives (:func:`_all_reduce`) are ``torch.distributed.all_reduce``
 on the group's ranks, on the gradients' own device: under gloo (four
 ranks on one card, which NCCL refuses) the backend itself moves a CUDA
@@ -69,18 +93,18 @@ generator (``repro_torch.generator(dev, seed, step)``) and draws, per
 coded leaf in leaf order, the masks of all mask peers (the dp peers, or
 the pods in ``hierarchical`` mode) and keeps its own; then the signs;
 then, leaf by leaf as it syncs, the int8 wire's rounding noise over the
-whole contribution.  So signs and noise are the same on every rank and
-the masks are per (leaf, peer), as the JAX package's ``fold_in`` draws
-are.  ``masks``/``signs``/``noise`` (leaf index -> tensor: this rank's
-mask, the signs, the noise) replace the draws; the tests hand in the
-JAX step's own.
+whole contribution at the leaf's global tile shape.  So signs and noise
+are the same on every rank and the masks are per (leaf, peer), as the
+JAX package's ``fold_in`` draws are.  ``masks``/``signs``/``noise``
+(leaf index -> tensor: this rank's mask, the signs, the noise at the
+global shape) replace the draws; the tests hand in the JAX step's own.
 
-Not ported yet, and refused: tensor parallelism (a ``model`` axis
-larger than 1), ``microbatches > 1`` and ``lossy_moe``.
+Not ported yet, and refused: ``lossy_moe`` (no MoE family).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -121,14 +145,40 @@ class CelerisConfig:
         return CollectiveMode.parse(self.mode)
 
 
-def loss_and_grads(cfg: ModelConfig, leaves, batch: Dict[str, torch.Tensor]):
+def loss_and_grads(cfg: ModelConfig, leaves, batch: Dict[str, torch.Tensor],
+                   tp: Optional[shd.ModelGroup] = None):
     """(loss, nll, aux, grads) of ``M.lm_loss`` at the JAX-leaf-view
-    parameters; the gradients come back as one tensor per leaf."""
+    parameters (this rank's shards with ``tp``); the gradients come back
+    as one tensor per leaf."""
     params = [leaf.detach().requires_grad_() for leaf in leaves]
     loss, (nll, aux) = M.lm_loss(convert.params_from_leaves(params), cfg,
-                                 batch)
+                                 batch, tp)
     grads = torch.autograd.grad(loss, params)
     return loss.detach(), nll.detach(), aux, list(grads)
+
+
+def accum_grads(cfg: ModelConfig, leaves, batch: Dict[str, torch.Tensor],
+                microbatches: int, tp: Optional[shd.ModelGroup] = None):
+    """:func:`loss_and_grads` over ``microbatches`` slices of the batch
+    rows, in order (the JAX step's ``_accum_grads``): gradients summed in
+    float32, then scaled by 1/M into each leaf's dtype; loss, nll and aux
+    averaged."""
+    if microbatches == 1:
+        return loss_and_grads(cfg, leaves, batch, tp)
+    mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                       + tuple(v.shape[1:])) for k, v in batch.items()}
+    gsum = [torch.zeros(leaf.shape, dtype=torch.float32, device=leaf.device)
+            for leaf in leaves]
+    loss = nll = aux = torch.zeros((), dtype=torch.float32,
+                                   device=leaves[0].device)
+    for i in range(microbatches):
+        l, n, a, g = loss_and_grads(cfg, leaves, {k: v[i] for k, v in
+                                                  mb.items()}, tp)
+        gsum = [x + y.to(torch.float32) for x, y in zip(gsum, g)]
+        loss, nll, aux = loss + l, nll + n, aux + a
+    inv = 1.0 / microbatches
+    return (loss * inv, nll * inv, aux * inv,
+            [(g * inv).to(leaf.dtype) for g, leaf in zip(gsum, leaves)])
 
 
 def _mean_frac(fracs, like: torch.Tensor) -> torch.Tensor:
@@ -232,14 +282,19 @@ def _pmean(x: torch.Tensor, axes: _Axes) -> torch.Tensor:
     return torch.div(s, torch.tensor(float(axes.size), device=s.device))
 
 
-def _int8_wire(contrib: torch.Tensor, noise: torch.Tensor, lossy: _Axes
+def _int8_wire(contrib: torch.Tensor, noise: torch.Tensor, lossy: _Axes,
+               model: Optional[shd.ModelGroup] = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The JAX package's inline int8 wire (``train_step.py:175-187``):
     one scale a wire row, the maximum of ``|contrib|`` over tiles, the
     sharded dim and every peer, / 127; codes ``floor(contrib / scale +
-    noise)`` clipped to +-127.  Returns (codes as int32, scale)."""
-    absmax = _all_reduce(torch.amax(torch.abs(contrib), dim=(0, 2)),
-                         lossy.group, dist.ReduceOp.MAX)
+    noise)`` clipped to +-127.  Returns (codes as int32, scale).
+    ``model``: the group over which the sharded dim is split (its
+    maximum is taken there too)."""
+    absmax = torch.amax(torch.abs(contrib), dim=(0, 2))
+    if model is not None:
+        shd.model_all_reduce(absmax, model, dist.ReduceOp.MAX)
+    absmax = _all_reduce(absmax, lossy.group, dist.ReduceOp.MAX)
     scale = torch.where(absmax > 0,
                         torch.div(absmax, torch.full_like(absmax, 127.0)),
                         1.0)
@@ -249,12 +304,15 @@ def _int8_wire(contrib: torch.Tensor, noise: torch.Tensor, lossy: _Axes
 
 def _sync_grads_celeris(grads, plans, masks, signs, noise, celeris,
                         dp: _Axes, lossy: _Axes,
-                        exact: Optional[_Axes] = None):
+                        exact: Optional[_Axes] = None,
+                        model: Optional[shd.ModelGroup] = None):
     """Per-leaf lossy pmean with Hadamard recovery over ``lossy``.  Small
     leaves take the exact pmean over ``dp``.  ``exact`` (hierarchical
     mode: the pod's data ranks) first takes the exact float32 pmean of
     each coded leaf, which then stays float32, as in the JAX package.
-    ``noise(i, shape)`` gives leaf i's int8 rounding noise."""
+    ``noise(i, shape)`` gives leaf i's int8 rounding noise for this
+    rank's block of that shape.  ``model``: the tensor-parallel group,
+    over which each leaf with a sharded dim is split."""
     out, fracs = [], []
     n_lossy = torch.tensor(float(lossy.size), device=grads[0].device)
     for i, (g, plan) in enumerate(zip(grads, plans)):
@@ -267,7 +325,9 @@ def _sync_grads_celeris(grads, plans, masks, signs, noise, celeris,
         mask = masks[i]
         contrib = tiles * mask[None, :, None].to(tiles.dtype)
         if celeris.quantize_wire:
-            q, scale = _int8_wire(contrib, noise(i, contrib.shape), lossy)
+            q, scale = _int8_wire(contrib, noise(i, contrib.shape), lossy,
+                                  model if plan.sharded_dim is not None
+                                  else None)
             tiles_sum = (_all_reduce(q, lossy.group).to(torch.float32)
                          * scale[None, :, None])
         else:
@@ -341,45 +401,49 @@ def _pod_rates(drop_rate, n_pods: int) -> torch.Tensor:
     return cross
 
 
-def plan_leaves(leaves, mesh, celeris: CelerisConfig):
-    """Each leaf's coding plan, None for a leaf that syncs exactly: tiles
-    of ``n_rot`` around the leaf's ``model`` dimension when the mesh has
-    that axis (the JAX train step's ``plans``)."""
-    specs = (rules.param_specs([tuple(l.shape) for l in leaves], mesh)
-             if mesh is not None else [()] * len(leaves))
-    return [coding.plan_nd(tuple(leaf.shape), rules.sharded_dim(spec),
-                           celeris.n_rot)
-            if leaf.numel() >= celeris.min_coded_size else None
-            for leaf, spec in zip(leaves, specs)]
+def plan_leaves(shapes, mesh, celeris: CelerisConfig):
+    """Each leaf's coding plan from its global shape, None for a leaf
+    that syncs exactly: tiles of ``n_rot`` around the leaf's ``model``
+    dimension when the mesh has that axis (the JAX train step's
+    ``plans``, which compare the global size with ``min_coded_size``)."""
+    shapes = [tuple(s) for s in shapes]
+    specs = (rules.param_specs(shapes, mesh) if mesh is not None
+             else [()] * len(shapes))
+    return [coding.plan_nd(shape, rules.sharded_dim(spec), celeris.n_rot)
+            if math.prod(shape) >= celeris.min_coded_size else None
+            for shape, spec in zip(shapes, specs)]
 
 
 @dataclasses.dataclass(frozen=True)
 class _DpSync:
-    """What the mesh path's sync needs: the mode, the dp group, and in
+    """What the mesh path's sync needs: the mode, the dp group, in
     hierarchical mode the pod group (mask peer: the pod) and the data
-    group (None when the mesh has no data axis)."""
+    group (None when the mesh has no data axis), and the model group
+    (None without tensor parallelism)."""
     mode: CollectiveMode
     celeris: CelerisConfig
     island: bool                     # a lossy sync; else the exact pmean
     dp: _Axes
     pod: Optional[_Axes] = None
     data: Optional[_Axes] = None
+    model: Optional[shd.ModelGroup] = None
 
     @classmethod
-    def make(cls, mesh, mode, celeris) -> "_DpSync":
+    def make(cls, mesh, mode, celeris,
+             model: Optional[shd.ModelGroup] = None) -> "_DpSync":
         dp = shd.dp_axes(mesh)
         pod_axes = tuple(a for a in dp if a == shd.POD_AXIS)
         data_axes = tuple(a for a in dp if a != shd.POD_AXIS)
         peer = shd.peer_index(mesh, dp)
         dp_ax = _Axes(shd.group(mesh, dp), shd.axis_size(mesh, dp), peer)
         if mode is not CollectiveMode.HIERARCHICAL:
-            return cls(mode, celeris, mode.lossy, dp_ax)
+            return cls(mode, celeris, mode.lossy, dp_ax, model=model)
         n_data = shd.axis_size(mesh, data_axes)
         pod = _Axes(shd.group(mesh, pod_axes), shd.axis_size(mesh, pod_axes),
                     peer // n_data)
         data = (_Axes(shd.group(mesh, data_axes), n_data,
                       shd.peer_index(mesh, data_axes)) if data_axes else None)
-        return cls(mode, celeris, True, dp_ax, pod, data)
+        return cls(mode, celeris, True, dp_ax, pod, data, model)
 
 
 def _sync_dp(sync: _DpSync, grads, plans, generator, drop_rate, masks,
@@ -392,13 +456,21 @@ def _sync_dp(sync: _DpSync, grads, plans, generator, drop_rate, masks,
     noise = noise or {}
 
     def draw_noise(i, shape):
+        # drawn (or given) at the leaf's global block; this rank's columns
+        tiles, n_rot, ns = shape
+        split = sync.model is not None and plans[i].sharded_dim is not None
         if i in noise:
-            return noise[i].to(dev)
-        if generator is None:
+            full = noise[i]
+        elif generator is None:
             raise ValueError("the int8 wire needs a generator, or noise "
                              "for every coded leaf")
-        return torch.rand(shape, generator=generator,
-                          device=generator.device).to(dev)
+        else:
+            full = torch.rand((tiles, n_rot, ns * sync.model.size if split
+                               else ns), generator=generator,
+                              device=generator.device)
+        if split:
+            full = full.narrow(2, sync.model.index * ns, ns)
+        return full.to(dev)
 
     if sync.mode is CollectiveMode.HIERARCHICAL:
         rates = _pod_rates(drop_rate, sync.pod.size)
@@ -406,7 +478,7 @@ def _sync_dp(sync: _DpSync, grads, plans, generator, drop_rate, masks,
                         signs, dev)
         return _sync_grads_celeris(grads, plans, m, s, draw_noise,
                                    sync.celeris, sync.dp, sync.pod,
-                                   sync.data)
+                                   sync.data, sync.model)
     rates = torch.full((sync.dp.size,), float(drop_rate),
                        dtype=torch.float32)
     m, s = _draw_dp(generator, plans, rates, sync.dp.peer, sync.mode.coded,
@@ -414,7 +486,7 @@ def _sync_dp(sync: _DpSync, grads, plans, generator, drop_rate, masks,
     if sync.mode is CollectiveMode.LOSSY:
         return _sync_grads_plain_island(grads, plans, m, sync.dp)
     return _sync_grads_celeris(grads, plans, m, s, draw_noise, sync.celeris,
-                               sync.dp, sync.dp)
+                               sync.dp, sync.dp, model=sync.model)
 
 
 def make_train_step(cfg: ModelConfig, mesh=None,
@@ -427,9 +499,14 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     ``mesh``: None (one device) or this rank's DeviceMesh; every rank of
     it builds its step together (the dp groups are made here).  The
     step's ``dp_group`` attribute is its process group over the dp axes
-    (None without a mesh).
+    (None without a mesh), and ``model_group`` its
+    :class:`~repro_torch.sharding.ModelGroup` (None without tensor
+    parallelism); the state's parameters are then this rank's shards
+    (``convert.shard_leaves``).
     ``batch`` = {"tokens", "labels"} (B, S) int64 on the parameters'
-    device: this rank's rows on a mesh.  ``drop_rate`` a float, or in
+    device: this rank's rows on a mesh (the same on every model rank);
+    on a mesh B divisible by ``microbatches``, which one device ignores
+    (as the JAX step does).  ``drop_rate`` a float, or in
     ``hierarchical`` mode the axis vector whose last component is the
     cross-pod rate.  The metrics are 0-dim tensors: ``loss``, ``nll``,
     ``aux``, ``recv_frac``, ``grad_norm``, ``lr``.
@@ -443,10 +520,6 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             "hierarchical collective mode needs a 'pod' mesh axis "
             "(launch.mesh.make_pod_mesh / make_scale_mesh >= 512); "
             f"got dp axes {dp}")
-    if shd.axis_sizes(mesh).get(shd.MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(
-            "tensor parallelism over the 'model' mesh axis is not ported "
-            "yet (ROADMAP Queue 1 [4.1b]); give the mesh a model axis of 1")
     if mode is CollectiveMode.HIERARCHICAL:
         # the sync order (exact intra-pod, then the coded cross-pod
         # exchange) mirrors the schedule's phases, and the mode masks only
@@ -461,19 +534,23 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             f"CollectiveMode.HIERARCHICAL masks only DCI shards, so the "
             f"DCI phase must be the lowest priority class; "
             f"HierarchicalSchedule.PRIORITY is {prio}")
-    if microbatches > 1:
-        raise NotImplementedError("microbatches > 1 is not ported yet")
+    if microbatches < 1:
+        raise ValueError(f"microbatches={microbatches}: need at least 1")
     if celeris.lossy_moe:
         raise NotImplementedError("lossy_moe is not ported yet (no MoE "
                                   "family)")
 
-    dp_sync = _DpSync.make(mesh, mode, celeris) if dp else None
+    tp = convert.model_group(cfg, mesh)
+    plans = plan_leaves(convert.leaf_shapes(cfg), mesh, celeris)
+    split = [tp is not None and n in tp.split for n in convert.SHORT_NAMES]
+    # one device takes the batch whole, as the JAX step's no-dp branch
+    accum = microbatches if dp else 1
+    dp_sync = _DpSync.make(mesh, mode, celeris, tp) if dp else None
 
     def train_step(state, batch, generator: Optional[torch.Generator],
                    drop_rate, *, masks=None, signs=None, noise=None):
         leaves = state["params"]
-        plans = plan_leaves(leaves, mesh, celeris)
-        loss, nll, aux, grads = loss_and_grads(cfg, leaves, batch)
+        loss, nll, aux, grads = accum_grads(cfg, leaves, batch, accum, tp)
         if dp_sync is not None:
             grads, frac = _sync_dp(dp_sync, grads, plans, generator,
                                    drop_rate, masks, signs, noise)
@@ -490,20 +567,25 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         else:
             frac = _mean_frac([], loss)
         new_params, new_opt, om = adamw.apply_updates(
-            leaves, grads, state["opt"], opt_cfg)
+            leaves, grads, state["opt"], opt_cfg, tp, split)
         metrics = {"loss": loss, "nll": nll, "aux": aux,
                    "recv_frac": frac, **om}
         return {"params": new_params, "opt": new_opt,
                 "step": state["step"] + 1}, metrics
 
     train_step.dp_group = dp_sync.dp.group if dp_sync is not None else None
+    train_step.model_group = tp
     return train_step
 
 
-def init_state(generator: torch.Generator, cfg: ModelConfig):
+def init_state(generator: torch.Generator, cfg: ModelConfig, mesh=None):
     """Random parameters on the generator's device, in the JAX leaf view,
-    with their optimizer state."""
+    with their optimizer state.  On a mesh with a ``model`` axis the
+    whole parameters are drawn and this rank keeps its shards
+    (``convert.shard_leaves``)."""
     leaves = convert.jax_leaves(M.init_params(cfg, generator))
+    if shd.model_group(mesh) is not None:
+        leaves = convert.shard_leaves(leaves, mesh)
     return {"params": leaves, "opt": adamw.init_opt_state(leaves),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=leaves[0].device)}

@@ -16,11 +16,12 @@ The step's JAX key becomes a generator seeded from (seed, step).
 ``checkpoint.py`` is not ported yet, so a ``ckpt_dir`` raises.
 
 With a ``mesh`` (a DeviceMesh) the trainer runs one rank: every rank
-builds it together, initializes the same weights from the same seed
-(checked once against the first dp rank's, bit for bit), draws the same
-drop rates and step generators, and feeds the step its own rows of the
-batch, those the JAX package's dp-sharded ``device_put`` gives its
-shard.  The timeout coordination stays the JAX trainer's emulated
+builds it together, initializes the same weights from the same seed and
+keeps its shards of them on a ``model`` axis (checked once against the
+first dp rank's, bit for bit), draws the same drop rates and step
+generators, and feeds the step its own rows of the batch, those the JAX
+package's dp-sharded ``device_put`` gives its shard, the same on every
+model rank.  The timeout coordination stays the JAX trainer's emulated
 8-node host median, so the numbers stay the JAX package's.
 """
 from __future__ import annotations
@@ -90,7 +91,7 @@ class Trainer:
         self.mesh = mesh
         self.step_fn = ts.make_train_step(cfg, mesh, self.opt_cfg,
                                           self.celeris)
-        self.state = ts.init_state(generator(self.device, seed), cfg)
+        self.state = ts.init_state(generator(self.device, seed), cfg, mesh)
         dp = shd.dp_axes(mesh)
         if dp:
             self.shard = (shd.peer_index(mesh, dp), shd.axis_size(mesh, dp))
@@ -102,9 +103,9 @@ class Trainer:
     def put_batch(self, step: int) -> Dict[str, torch.Tensor]:
         """The step's batch, or on a mesh this rank's rows of it:
         ``shard_batch(step, peer, n_shards)`` with ``peer`` the rank's
-        row-major index over the dp axes (so the world's rows together
-        are ``global_batch(step, n_shards)``, not ``global_batch(step)``).
-        """
+        row-major index over the dp axes, the same on every model rank
+        (so the world's rows together are ``global_batch(step,
+        n_shards)``, not ``global_batch(step)``)."""
         host = (self.source.global_batch(step) if self.shard is None
                 else self.source.shard_batch(step, *self.shard))
         return {k: torch.as_tensor(v, dtype=torch.long, device=self.device)

@@ -34,8 +34,9 @@ Cases and tolerances, all float32:
     at smoke and full width;
 (e) the median over the group against ``jnp.median`` (even and odd
     counts), and the in-step timeout forms against JAX's, exactly;
-(f) the refusals: ``hierarchical`` without ``pod`` (JAX's ValueError)
-    and a ``model`` axis larger than 1 (tensor parallelism).
+(f) the refusals: ``hierarchical`` without ``pod`` (JAX's ValueError);
+    a ``model`` axis larger than 1 builds (tensor parallelism, held to
+    JAX's step in ``tests/test_torch_tp_train.py``).
 """
 import contextlib
 import dataclasses
@@ -328,7 +329,7 @@ for name, (mk, mode, q, drop) in meta["step_cases"].items():
                   noise=noise)
     save(name, new, m)
     if q:
-        plans = ts.plan_leaves(leaves, mesh, cel)
+        plans = ts.plan_leaves([l.shape for l in leaves], mesh, cel)
         if mode == "hierarchical":
             lossy, exact = axes(mesh, ("pod",)), axes(mesh, ("data",))
         else:
@@ -691,8 +692,7 @@ def test_dp_refusals_match_jax():
             tts.make_train_step(tcfg, data, None,
                                 tts.CelerisConfig(mode="hierarchical"))
         tp = tmesh.make_host_mesh((2, 2), device_type="cpu")
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            tts.make_train_step(tcfg, tp)
+        assert tts.make_train_step(tcfg, tp).model_group.size == 2
         with pytest.raises(ValueError, match="needs 8 ranks"):
             tmesh.make_host_mesh(device_type="cpu")
         with pytest.raises(ValueError, match="n_pods=1"):
@@ -742,7 +742,8 @@ def test_mesh_draws_are_each_peers_row_of_one_draw():
 
 def test_launcher_trains_on_four_cpu_ranks():
     """``launch/train.py --mesh host`` under ``torch.distributed.run``:
-    gloo on the CPU, the (4, 1) mesh, rank 0 reporting each step."""
+    gloo on the CPU, JAX's host mesh (2, 2) over (data, model), rank 0
+    reporting each step."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1")
     run = subprocess.run(
@@ -805,14 +806,13 @@ def test_chip_smoke_fwht_shapes_are_the_train_paths(mk):
     shapes = [l.shape for l in jax.tree_util.tree_leaves(jax.eval_shape(
         lambda k: JM.init_params(k, JC.get("qwen2-0.5b")),
         jax.random.PRNGKey(0)))]
-    leaves = [torch.empty(s, device="meta") for s in shapes]
     with fake_world():
         mesh = {"none": lambda: None,
                 "host": lambda: tmesh.make_host_mesh((4, 1), device_type="cpu"),
                 "pods": lambda: tmesh.make_pod_mesh(2, 2, 1,
                                                     device_type="cpu")}[mk]()
         plans = [p for p in tts.plan_leaves(
-            leaves, mesh, tts.CelerisConfig(mode="lossy_hadamard"))
+            shapes, mesh, tts.CelerisConfig(mode="lossy_hadamard"))
             if p is not None]
     got = sorted({(p.tiles * (p.shape[p.sharded_dim]
                               if p.sharded_dim is not None else 1), p.n_rot)

@@ -260,13 +260,16 @@ def test_unported_paths_raise():
     _, tcfg = _cfgs()
     with fake_world(4):
         tp = tmesh.make_host_mesh((2, 2), device_type="cpu")
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            tts.make_train_step(tcfg, tp)
+        # tensor parallelism builds: a model group of 2
+        assert tts.make_train_step(tcfg, tp).model_group.size == 2
         with pytest.raises(ValueError, match="needs a 'pod' mesh axis"):
             tts.make_train_step(tcfg, tp, None,
                                 tts.CelerisConfig(mode="hierarchical"))
-    with pytest.raises(NotImplementedError, match="microbatches"):
-        tts.make_train_step(tcfg, None, None, None, microbatches=2)
+    # gradient accumulation builds; fewer than one microbatch raises
+    assert tts.make_train_step(tcfg, None, None, None,
+                               microbatches=2).model_group is None
+    with pytest.raises(ValueError, match="microbatches"):
+        tts.make_train_step(tcfg, None, None, None, microbatches=0)
     with pytest.raises(NotImplementedError, match="lossy_moe"):
         tts.make_train_step(tcfg, None, None,
                             tts.CelerisConfig(lossy_moe=True))

@@ -44,6 +44,17 @@ caught and carried on):
    Markov tokens, AdamW (lr 1e-3, warmup 10), three steps in each of
    ``exact``, ``lossy`` and ``lossy_hadamard``, with 16 FWHT launches a
    coded step (8 coded leaves, encode + decode);
+5b. checkpoint and restart at full width (run after 6, which takes
+    phase 5's trainer): an ``exact`` ``Trainer(ckpt_dir=...,
+    ckpt_every=2)`` fails at ``simulate_fault_at=2``; a fresh trainer
+    resumes at step 2 with the saved state bit for bit (bfloat16
+    parameters included) and the saved timeout, and its next step
+    equals an uninterrupted 3-step run's (run twice first; bit for bit
+    where the card repeats itself); a ``lossy_hadamard`` resume launches
+    the FWHT 16 times a step; the save, ``save_async``'s blocking part
+    and the restores are timed.  ~16 GB of checkpoints under
+    ``src/repro_torch/kernels/build/ckpt`` (the free space checked
+    first), deleted after;
 6. the gradient all-reduce: one step's gradient (499,540,864 values)
    through ``lossy_pmean`` on a one-rank NCCL group, on the int8 wire
    (one fused rotate+quantize launch a call) at drop 0 and 0.05 and on
@@ -54,8 +65,13 @@ caught and carried on):
     ``make_host_mesh((4, 1))`` ``exact``, ``lossy`` and
     ``lossy_hadamard`` at drop 0.05, and the int8 wire at drop 0 and
     0.05; on ``make_pod_mesh(2, 2, 1)`` ``hierarchical`` on the int8
-    wire at the per-pod vector [0.02, 0.0, 0.05].  Every rank must end
-    every step bit-identical, ``recv_frac`` lie within 0.04 of the mean
+    wire at the per-pod vector [0.02, 0.0, 0.05].  ZeRO-1: each rank holds
+    its ``zero1_specs`` slice of ``master``, ``mu`` and ``nu`` and the new
+    parameters are all-gathered over ``data`` (its ms and bytes a
+    rank-step printed); the peak a rank must fall below the replicated
+    state's (15.68 GiB on (4, 1), 16.61 on (2, 2, 1), measured on an
+    H100 80GB HBM3 at 700 W, PERF.md).
+    Every rank must end every step bit-identical, ``recv_frac`` lie within 0.04 of the mean
     mask rate's complement (1.0 at drop 0, where the int8 loss is within
     5e-3 of exact's), each coded step launch the FWHT 16 times a rank;
     the group's median equals the middle pair's midpoint; world-4 exact
@@ -74,8 +90,14 @@ caught and carried on):
     one device (float32, 2 layers, the shards gathered); each coded
     (2, 2) sync at drop 0 equals the exact pmean on the same gradients;
     ``microbatches=2`` equals the whole rows; every cell at smoke size
-    agrees card against CPU.  Each cell prints its step, dp sync and
-    model-group collective times and bytes a rank-step;
+    agrees card against CPU; ZeRO-1 on (2, 2) (peak below the replicated
+    state's 7.87 GiB a rank, on the same card).  Each cell prints its
+    step, dp sync, model-group collective and ZeRO-1 all-gather times
+    and bytes a rank-step.  Then the elastic
+    restart: one exact step on (2, 2) checkpointed at full width (every
+    rank gathers, rank 0 writes), restored by ``Trainer`` on (4, 1) and
+    on (1, 4), every rank's leaves its blocks of the saved state bit for
+    bit;
 7. smoke-size training on the card against the CPU (float32, the same
    masks, signs and batch: loss, the first moments, i.e. the synced
    gradient, and the updated parameters), and 14 coded steps that must
@@ -177,7 +199,7 @@ The protocols of phases 14-16, 18 and 21-22 (and Fig. 2's step window)
 are ``repro_torch.benchmarks.figs``'s functions, which the CPU tests also
 run (smoke tiers and cut grids).
 
-Each path (3-6c, and the engine's in 8-9, 11-13, 15-16, 18-19 and 21-22,
+Each path (3-6c with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19 and 21-22,
 Fig. 2's step window its own) runs with the kernels' launch counts set to
 0 just before it and read just after.  The last
 line is ``{"ok": true, "device": {...}}``; the lines before it carry the
@@ -951,6 +973,160 @@ def phase_allreduce(dev, ts, tr, coding, lc, counts):
         dist.destroy_process_group()
 
 
+# A full-width checkpoint: the parameters stored as float32 (2.0 GB) and
+# master, mu and nu (6.0 GB); phase 5b writes two, phase 6c one.
+CKPT_BYTES = 4 * 4 * 499_540_864
+CKPT_DIR = os.path.join(SRC, "repro_torch", "kernels", "build", "ckpt")
+
+
+def bit_view(x):
+    """``x``'s bits as integers, so that ``torch.equal`` compares them."""
+    return x.view({torch.bfloat16: torch.int16, torch.float32: torch.int32
+                   }.get(x.dtype, x.dtype))
+
+
+def ckpt_space(directory, n):
+    """Make ``directory`` anew and raise unless its disk holds ``n``
+    full-width checkpoints."""
+    import shutil
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    free = shutil.disk_usage(directory).free
+    if free < n * CKPT_BYTES:
+        raise RuntimeError(f"{directory}: {free / 1e9:.1f} GB free, "
+                           f"{n} checkpoints need {n * CKPT_BYTES / 1e9:.1f}")
+
+
+def timed_calls(module, names, log):
+    """Wrap ``module.<name>`` for each name so that every call appends its
+    host-clock seconds to ``log[name]``; returns the saved functions."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            log.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    return saved
+
+
+def phase_checkpoint(dev, C, ts, Trainer, DataConfig, OptConfig, ckpt,
+                     counts):
+    """Phase 5b: checkpoint and restart at full width on one device.  An
+    ``exact`` trainer checkpoints every 2 steps and fails after step 2; a
+    fresh one resumes at step 2 with the saved state bit for bit and the
+    saved timeout, and its next step equals an uninterrupted 3-step
+    run's (run twice first: bit for bit if the card repeats itself, else
+    within the spread of the two); a ``lossy_hadamard`` trainer resumes
+    from the same checkpoint and launches the FWHT 16 times a step; then
+    one ``save`` of the state is timed.  The checkpoints are deleted."""
+    import shutil
+    cfg = C.get("qwen2-0.5b")
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=1)
+    opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
+    run_dir, save_dir = (os.path.join(CKPT_DIR, n) for n in ("run", "save"))
+    ckpt_space(CKPT_DIR, 2)
+
+    def trainer(mode="exact", directory=None):
+        torch.cuda.empty_cache()
+        return Trainer(cfg, data_cfg=data_cfg, opt_cfg=opt,
+                       celeris=ts.CelerisConfig(mode=mode), seed=0,
+                       ckpt_dir=directory, ckpt_every=2, device=str(dev))
+
+    log = {}
+    saved_fns = timed_calls(ckpt, ("save", "save_async", "restore"), log)
+    try:
+        ref = []
+        for _ in range(2):
+            tr = trainer()
+            tr.run(3)
+            ref.append([p.cpu() for p in tr.state["params"]])
+            del tr
+        same = [torch.equal(bit_view(a), bit_view(b)) for a, b in zip(*ref)]
+        spread = [(a.double() - b.double()).abs().max().item()
+                  for a, b in zip(*ref)]
+
+        tr = trainer(directory=run_dir)
+        snap = {}
+
+        def on_metrics(step, m):
+            if step == 1:      # the state and timeout the save then takes
+                snap["leaves"] = [x.cpu() for _, x in
+                                  ts.state_leaves(tr.state)]
+                snap["timeout"] = tr.controller.timeout
+
+        try:
+            tr.run(3, on_metrics=on_metrics, simulate_fault_at=2)
+            raise AssertionError("simulate_fault_at=2 did not raise")
+        except RuntimeError as e:
+            assert "simulated node failure at step 2" in str(e), e
+        del tr
+        assert ckpt.latest_step(run_dir) == 2, ckpt.latest_step(run_dir)
+
+        tr = trainer(directory=run_dir)
+        assert tr.start_step == 2, tr.start_step
+        assert tr.controller.timeout == snap["timeout"], (
+            tr.controller.timeout, snap["timeout"])
+        for (path, x), want in zip(ts.state_leaves(tr.state), snap["leaves"]):
+            x = x.cpu()
+            assert x.dtype == want.dtype and torch.equal(
+                bit_view(x), bit_view(want)), f"restored {path} differs"
+        del snap
+        tr.run(1)
+        resumed = [p.cpu() for p in tr.state["params"]]
+        del tr
+        for i, (a, b) in enumerate(zip(resumed, ref[0])):
+            if same[i]:
+                assert torch.equal(bit_view(a), bit_view(b)), (
+                    f"resumed leaf {i} differs from the uninterrupted run")
+            else:
+                diff = (a.double() - b.double()).abs().max().item()
+                assert diff <= 2 * spread[i], (i, diff, spread[i])
+        del ref, resumed
+
+        tr = trainer("lossy_hadamard", run_dir)
+        assert tr.start_step == 2
+        _sync()
+        counts.reset()
+        hist = tr.run(1)
+        launches = counts.read()
+        assert launches == {"fwht": 2 * CODED_LEAVES, "fwht_quantize": 0,
+                            "masked_unbias": 0, "quantize_int8": 0,
+                            "dcqcn_scan": 0}, launches
+        assert np.isfinite(hist["loss"]).all(), hist
+        ckpt.save(save_dir, 3, ts.state_leaves(tr.state),
+                  {"timeout": tr.controller.timeout, "arch": cfg.name})
+        del tr
+        torch.cuda.empty_cache()
+        on_disk = sum(os.path.getsize(os.path.join(save_dir, "step_3", f))
+                      for f in os.listdir(os.path.join(save_dir, "step_3")))
+    finally:
+        for name, fn in saved_fns.items():
+            setattr(ckpt, name, fn)
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    # save: the trainer's background write, then the timed one; restore:
+    # the exact and the lossy_hadamard resumes
+    out = {"save_s": log["save"], "save_async_blocking_s": log["save_async"],
+           "restore_s": log["restore"], "bytes_on_disk": on_disk,
+           "deterministic_leaves": sum(same), "spread": spread,
+           "launches": launches, "loss_after_resume": hist["loss"]}
+    smi = card_name_and_power()
+    print(f"checkpoint (qwen2-0.5b full width, one device): the fault at "
+          f"step 2 left LATEST 2; the resume equals the saved state and "
+          f"timeout bit for bit, and its step the uninterrupted run's "
+          f"({sum(same)} of {len(same)} leaves deterministic run to run); "
+          f"{on_disk} B on disk; save s {log['save']}, save_async blocking "
+          f"s {log['save_async']}, restore s {log['restore']}; "
+          f"lossy_hadamard resume launches {launches} [{smi}]")
+    return out
+
+
 def check_first_step(name, new_dev, new_cpu, opt, steps=None):
     """One AdamW step's state, card against CPU.  The first moment is
     (1 - b1) times the synced, clipped gradient g, so it holds whatever
@@ -977,6 +1153,18 @@ def check_first_step(name, new_dev, new_cpu, opt, steps=None):
         assert not bad.any(), (
             f"{name} leaf {i} params card vs cpu: {int(bad.sum())} entries "
             f"beyond 2e-4 + explained, max diff {diff.max().item():.3g}")
+
+
+def over_data(state, dg):
+    """A step's new parameters and first moments, the moments gathered
+    over ``data`` (ZeRO-1, ``dg`` the step's data group) into this rank's
+    shards of the whole, as ``check_first_step`` compares them."""
+    from repro_torch import sharding as shd
+    mu = state["opt"]["mu"]
+    if dg is not None:
+        mu = [x if d is None else shd.data_all_gather(x, dg, d)
+              for x, d in zip(mu, dg.dims)]
+    return {"params": state["params"], "opt": {"mu": mu}}
 
 
 def int8_scales(grads, plans, masks, signs, lossy, exact=None, model=None):
@@ -1139,6 +1327,10 @@ TP_CELLS = (("exact", "dm22", "exact", False, 0.0, 1),
              (0.02, 0.0, 0.05), 1),
             ("exact_tp4", "dm14", "exact", False, 0.0, 1))
 MESH_OUT = os.path.join(SRC, "repro_torch", "kernels", "build", "{}_train")
+# the peak GiB a rank that the replicated optimizer state reached on
+# each mesh with a data axis larger than 1 (measured on an H100 80GB
+# HBM3 at 700 W, PERF.md section 5); ZeRO-1 must come in below
+REPLICATED_PEAK_GIB = {"host": 15.68, "pods": 16.61, "dm22": 7.87}
 
 
 def mesh_of(kind, device_type):
@@ -1156,6 +1348,8 @@ def mesh_of(kind, device_type):
              "pdm212": mesh_mod.make_pod_mesh(2, 1, 2,
                                               device_type=device_type),
              "dm14": mesh_mod.make_host_mesh((1, 4),
+                                             device_type=device_type),
+             "dm41": mesh_mod.make_host_mesh((4, 1),
                                              device_type=device_type)},
             TP_CELLS, TP_ZERO_CELLS, ("dm22", "dm14"))
 
@@ -1213,15 +1407,10 @@ def fingerprint(leaves, metrics):
     """Per leaf, integer sums of its bits (all, every third, every
     seventh from 1), and the metrics' float64 values: equal on two ranks
     when their parameters and metrics are equal bit for bit."""
-    sums = []
-    for p in leaves:
-        b = p.detach().reshape(-1).view(torch.int16 if p.element_size() == 2
-                                        else torch.int32)
-        sums += [b.sum(dtype=torch.int64), b[::3].sum(dtype=torch.int64),
-                 b[1::7].sum(dtype=torch.int64)]
+    sums = torch.cat([leaf_fingerprint(p.detach()) for p in leaves])
     vals = torch.tensor([metrics[k] for k in sorted(metrics)],
                         dtype=torch.float64)
-    return torch.cat([torch.stack(sums).cpu(), vals.view(torch.int64)])
+    return torch.cat([sums.cpu(), vals.view(torch.int64)])
 
 
 def dp_smoke_draws(cfg, mesh, celeris, drop):
@@ -1281,6 +1470,8 @@ def mesh_rank(kind, rank, port, out_dir, device="cuda"):
         rec["card_vs_cpu"] = dp_check_card_vs_cpu(dev, meshes, cells)
         if kind == "tp":
             rec["microbatches"] = tp_check_microbatches(dev, meshes["dm22"])
+            rec["elastic"] = tp_check_elastic_restart(rank, dev, meshes,
+                                                      out_dir)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
@@ -1316,7 +1507,7 @@ def dp_cells(rank, dev, meshes, cells):
 
     def reset():
         stats.update(sync_s=0.0, bytes=0, model_s=0.0, model_bytes=0,
-                     fwht_shapes=[])
+                     zero_s=0.0, zero_bytes=0, fwht_shapes=[])
 
     def timed(fn, key):
         def call(*a, **k):
@@ -1334,14 +1525,24 @@ def dp_cells(rank, dev, meshes, cells):
             return fn(t, *a, **k)
         return timed(call, seconds) if seconds else call
 
+    def gathered(fn):
+        # ZeRO-1's all-gather: the bytes of the parameters it rebuilds
+        def call(*a, **k):
+            out = fn(*a, **k)
+            stats["zero_bytes"] += out.numel() * out.element_size()
+            return out
+        return timed(call, "zero_s")
+
     def shaped_fwht(x, *a, **k):
         stats["fwht_shapes"].append(list(x.shape))
         return plain_fwht(x, *a, **k)
 
     saved = (ts._sync_dp, ts._all_reduce, shd.model_all_reduce,
-             shd.model_all_gather, shd.model_reduce_scatter, ops.fwht)
-    sync_dp, all_reduce, *model_ops, plain_fwht = saved
+             shd.model_all_gather, shd.model_reduce_scatter, ops.fwht,
+             shd.data_all_gather)
+    sync_dp, all_reduce, *model_ops, plain_fwht, data_gather = saved
     ts._sync_dp = timed(sync_dp, "sync_s")
+    shd.data_all_gather = gathered(data_gather)
     ts._all_reduce = counted(all_reduce, "bytes")
     (shd.model_all_reduce, shd.model_all_gather,
      shd.model_reduce_scatter) = (counted(f, "model_bytes", "model_s")
@@ -1372,6 +1573,8 @@ def dp_cells(rank, dev, meshes, cells):
                           "allreduce_bytes": stats["bytes"],
                           "model_ms": stats["model_s"] * 1e3,
                           "model_bytes": stats["model_bytes"],
+                          "zero_ms": stats["zero_s"] * 1e3,
+                          "zero_bytes": stats["zero_bytes"],
                           "launches": counts.read(),
                           "fwht_shapes": sorted(stats["fwht_shapes"])})
             fp = fingerprint(tr.state["params"], {
@@ -1391,6 +1594,14 @@ def dp_cells(rank, dev, meshes, cells):
         reset()
         hist = tr.run(DP_STEPS, on_metrics=on_metrics)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_zero1_layout(cfg, meshes[mk], tr.state, name)
+        zero = tr.step_fn.data_group is not None
+        assert all((s["zero_bytes"] > 0) == zero for s in steps), (name,
+                                                                  steps)
+        if mk in REPLICATED_PEAK_GIB:
+            assert zero and peak < REPLICATED_PEAK_GIB[mk], (
+                f"{mk} {name}: peak {peak:.2f} GiB a rank, the replicated "
+                f"state's was {REPLICATED_PEAK_GIB[mk]}")
         fwht = [s["launches"]["fwht"] for s in steps]
         coded = mode in ("lossy_hadamard", "hierarchical")
         want = {"fwht": 2 * CODED_LEAVES if coded else 0,
@@ -1415,7 +1626,7 @@ def dp_cells(rank, dev, meshes, cells):
             "steps": steps, "fwht_launches_per_step": fwht,
             "peak_gib": peak}
     (ts._sync_dp, ts._all_reduce, shd.model_all_reduce, shd.model_all_gather,
-     shd.model_reduce_scatter, ops.fwht) = saved
+     shd.model_reduce_scatter, ops.fwht, shd.data_all_gather) = saved
     exact, q0 = rec["cells"]["exact"], rec["cells"]["int8_drop0"]
     assert all(abs(a - b) < 5e-3 for a, b in zip(q0["loss"], exact["loss"])
                ), ("int8 wire at drop 0 vs exact", q0["loss"], exact["loss"])
@@ -1432,6 +1643,114 @@ def dp_cells(rank, dev, meshes, cells):
     return rec
 
 
+def local_shape(shape, spec, sizes):
+    """A leaf's shape on a rank that holds its block under ``spec`` (a
+    spec shorter than the shape leaves the rest whole)."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n // sizes[a] if a is not None else n
+                 for n, a in zip(shape, spec))
+
+
+def check_zero1_layout(cfg, mesh, state, name):
+    """Every rank holds its ZeRO-1 block of ``master``, ``mu`` and ``nu``
+    (``zero1_specs``: its model shard, split again over ``data``)."""
+    from repro_torch import sharding as shd
+    from repro_torch.models import convert
+    from repro_torch.train import sharding_rules as rules
+    shapes = convert.leaf_shapes(cfg)
+    sizes = shd.axis_sizes(mesh)
+    want = [local_shape(sh, sp, sizes)
+            for sh, sp in zip(shapes, rules.zero1_specs(shapes, mesh))]
+    for part in ("master", "mu", "nu"):
+        got = [tuple(x.shape) for x in state["opt"][part]]
+        assert got == want, (name, part, got, want)
+
+
+def tp_check_elastic_restart(rank, dev, meshes, out_dir):
+    """Phase 6c's elastic restart: ``Trainer(mesh=...)`` on (2, 2) takes
+    one exact step at full width and checkpoints it (every rank gathers,
+    rank 0 writes); ``Trainer`` on (4, 1) and on (1, 4) restores it, and
+    each rank's leaves must be its blocks of the saved state bit for bit.
+    The blocks' fingerprints are taken from the whole leaves as the save
+    gathers them (so no rank holds the whole state).  Returns the save's
+    and the restores' host-clock seconds."""
+    import shutil
+    import torch.distributed as dist
+    import repro_torch.configs as C
+    from repro_torch import sharding as shd
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import convert
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    cfg = C.get("qwen2-0.5b")
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=1)
+    opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
+    directory = os.path.join(out_dir, "ckpt")
+    if rank == 0:
+        ckpt_space(directory, 1)
+    dist.barrier()
+    shapes = convert.leaf_shapes(cfg)
+    targets = {mk: meshes[mk] for mk in ("dm41", "dm14")}
+    specs = {mk: [s for _, s in ts.state_leaves(ts.state_specs(shapes, m))]
+             for mk, m in targets.items()}
+    want = {mk: [] for mk in targets}
+    gather = convert.gather_state
+
+    def noting(leaves, leaf_specs, mesh):
+        for full in gather(leaves, leaf_specs, mesh):
+            for mk, m in targets.items():
+                block = shd.local_slice(full, specs[mk][len(want[mk])], m)
+                want[mk].append((tuple(block.shape), block.dtype,
+                                 leaf_fingerprint(block)))
+            yield full
+
+    log = {}
+    saved = timed_calls(ckpt, ("restore",), log)
+    convert.gather_state = noting
+    try:
+        tr = Trainer(cfg, data_cfg=data_cfg, opt_cfg=opt,
+                     mesh=meshes["dm22"], seed=0, ckpt_dir=directory,
+                     ckpt_every=1, device=str(dev))
+        _sync()
+        t0 = time.perf_counter()
+        tr.run(1)          # the step, the gather, rank 0's write, a barrier
+        run_s = time.perf_counter() - t0
+        del tr
+        torch.cuda.empty_cache()
+        assert all(len(w) == 4 * len(shapes) + 2 for w in want.values())
+        for mk, mesh in targets.items():
+            back = Trainer(cfg, data_cfg=data_cfg, opt_cfg=opt, mesh=mesh,
+                           seed=0, ckpt_dir=directory, device=str(dev))
+            assert back.start_step == 1, (mk, back.start_step)
+            for (path, x), (shape, dtype, fp) in zip(
+                    ts.state_leaves(back.state), want[mk]):
+                assert (tuple(x.shape), x.dtype) == (shape, dtype) and \
+                    torch.equal(leaf_fingerprint(x), fp), (
+                        f"{mk} rank {rank}: restored {path} is not its "
+                        "block of the saved state")
+            del back
+            torch.cuda.empty_cache()
+    finally:
+        convert.gather_state = gather
+        ckpt.restore = saved["restore"]
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(directory)
+    return {"step_and_save_s": run_s, "restore_s": dict(zip(targets,
+                                                            log["restore"]))}
+
+
+def leaf_fingerprint(x):
+    """Integer sums of a tensor's bits (all, every third, every seventh
+    from 1), on its device: equal for equal tensors."""
+    b = bit_view(x.contiguous()).reshape(-1)
+    return torch.stack([b.sum(dtype=torch.int64), b[::3].sum(dtype=torch.int64),
+                        b[1::7].sum(dtype=torch.int64)])
+
+
 def dp_check_one_device(rank, dev, mesh):
     """Exact on the mesh = one device: qwen2-0.5b at full width in
     float32, depth cut to 2 layers (the check's tolerances are float32's:
@@ -1446,6 +1765,7 @@ def dp_check_one_device(rank, dev, mesh):
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.models import convert
     from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import sharding_rules as rules
     from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer
     cfg = dataclasses.replace(C.get("qwen2-0.5b"), n_layers=2,
@@ -1459,8 +1779,8 @@ def dp_check_one_device(rank, dev, mesh):
     del tr
     shapes = convert.leaf_shapes(cfg)
     new = {"params": convert.gather_leaves(new["params"], mesh, shapes),
-           "opt": {"mu": convert.gather_leaves(new["opt"]["mu"], mesh,
-                                               shapes)}}
+           "opt": {"mu": list(convert.gather_state(
+               new["opt"]["mu"], rules.zero1_specs(shapes, mesh), mesh))}}
     out = {"loss": m["loss"].item()}
     if rank == 0:
         step = ts.make_train_step(cfg, None, opt)
@@ -1500,15 +1820,16 @@ def tp_check_microbatches(dev, mesh):
         global_batch=TRAIN_BATCH, seed=1), opt_cfg=opt, mesh=mesh, seed=0,
         device=str(dev))
     batch = tr.put_batch(0)
+    dg = tr.step_fn.data_group
     whole, m1 = tr.step_fn(tr.state, batch, None, 0.0)
-    whole = to_device({"params": whole["params"],
-                       "opt": {"mu": whole["opt"]["mu"]}}, "cpu")
+    whole = to_device(over_data(whole, dg), "cpu")
     acc, m2 = ts.make_train_step(cfg, mesh, opt, microbatches=2)(
         tr.state, batch, None, 0.0)
     del tr
     check("tp microbatches=2 loss vs whole rows", m2["loss"].cpu(),
           m1["loss"].cpu(), 1e-5, 0.0)
-    check_first_step("tp microbatches=2 vs whole rows", acc, whole, opt)
+    check_first_step("tp microbatches=2 vs whole rows", over_data(acc, dg),
+                     whole, opt)
     return {"loss": m1["loss"].item(), "loss_mb2": m2["loss"].item()}
 
 
@@ -1634,7 +1955,9 @@ def dp_check_card_vs_cpu(dev, meshes, cells):
                 cfg, state["params"], batch,
                 ts.plan_leaves(convert.leaf_shapes(cfg), mesh, celeris),
                 masks, signs, lossy, sync.data, step.model_group)
-        check_first_step(f"{mk} smoke {name}", new_dev, new_cpu, opt, steps)
+        dg = step.data_group
+        check_first_step(f"{mk} smoke {name}", over_data(new_dev, dg),
+                         over_data(new_cpu, dg), opt, steps)
         out[name] = {"loss": m_dev["loss"].item(),
                      "recv_frac": m_dev["recv_frac"].item()}
     return out
@@ -1707,6 +2030,8 @@ def phase_mesh_train(kind):
             allreduce_bytes_per_rank_step=steps[-1]["allreduce_bytes"],
             model_collective_ms=[s["model_ms"] for s in steps],
             model_collective_bytes_per_rank_step=steps[-1]["model_bytes"],
+            zero1_gather_ms=[s["zero_ms"] for s in steps],
+            zero1_gather_bytes_per_rank_step=steps[-1]["zero_bytes"],
             peak_gib_per_rank=[rk["cells"][name]["peak_gib"]
                                for rk in ranks])
         launches += sum(s["launches"]["fwht"] for rk in ranks
@@ -1721,6 +2046,8 @@ def phase_mesh_train(kind):
               f"{rec['allreduce_bytes_per_rank_step']}, model-group "
               f"collectives ms {rec['model_collective_ms']} and bytes/"
               f"rank-step {rec['model_collective_bytes_per_rank_step']}, "
+              f"ZeRO-1 all-gather ms {rec['zero1_gather_ms']} and bytes/"
+              f"rank-step {rec['zero1_gather_bytes_per_rank_step']}, "
               f"FWHT launches/rank-step {rec['fwht_launches_per_step']}, "
               f"peak GiB/rank "
               f"{[round(g, 2) for g in rec['peak_gib_per_rank']]} [{smi}]")
@@ -1729,6 +2056,8 @@ def phase_mesh_train(kind):
                coded_vs_exact=[rk["coded_vs_exact"] for rk in ranks],
                card_vs_cpu=ranks[0]["card_vs_cpu"],
                microbatches=ranks[0].get("microbatches"),
+               elastic=[rk.get("elastic") for rk in ranks]
+               if kind == "tp" else None,
                launches={"fwht": launches, "fwht_quantize": 0,
                          "masked_unbias": 0, "quantize_int8": 0,
                          "dcqcn_scan": 0})
@@ -1744,7 +2073,9 @@ def phase_mesh_train(kind):
           f" 2 layers, float32), worst error / tolerance by cell "
           f"{zero_worst}; microbatches=2 vs whole rows {out['microbatches']};"
           f" card = CPU at smoke size in {len(out['cells'])} cells; "
-          f"{seconds:.1f} s [{smi}]")
+          + (f"elastic restart (2, 2) -> (4, 1), (1, 4) bit for bit, rank "
+             f"0's seconds {out['elastic'][0]}; " if kind == "tp" else "")
+          + f"{seconds:.1f} s [{smi}]")
     return out
 
 
@@ -3591,6 +3922,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     torch.backends.cudnn.allow_tf32 = False
     import repro_torch.configs as C
     from repro_torch.benchmarks import figs
+    from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.core import coding
     from repro_torch.core import lossy_collectives as lc
     from repro_torch.core import qp_state, resource_model
@@ -3642,6 +3974,8 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     allreduce = phase_allreduce(dev, ts, tr, coding, lc, counts)
     del tr
     torch.cuda.empty_cache()
+    checkpoint = phase_checkpoint(dev, C, ts, Trainer, DataConfig, OptConfig,
+                                  ckpt, counts)
     dp_train = phase_mesh_train("dp")
     tp_train = phase_mesh_train("tp")
     small_train = phase_small_train(dev, C, ts, OptConfig, DataConfig,
@@ -3685,6 +4019,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "kernel_bench": bench["launches"],
                "train": train["launches"],
                "allreduce": allreduce["launches"],
+               "checkpoint": checkpoint["launches"],
                "dp_train": dp_train["launches"],
                "tp_train": tp_train["launches"],
                "fig1": fig1_launches, "fig2": fig2["launches"],
@@ -3706,6 +4041,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     smi = card_name_and_power()
     print(json.dumps({"main_path": main_path, "kernel_bench": bench,
                       "train": train, "allreduce": allreduce,
+                      "checkpoint": checkpoint,
                       "dp_train": dp_train, "tp_train": tp_train,
                       "small_train": small_train,
                       "engine_card_vs_cpu": engine_check, "fig1": fig1,

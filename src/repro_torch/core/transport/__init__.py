@@ -2,7 +2,7 @@
 ``repro/core/transport/``: the legacy-stream and shared-fabric engine
 modes, flat and multi-pod, with the rate-dependent core on the card; the
 priority cut, the per-step window and the flight recorder with its
-Perfetto export)."""
+Perfetto export, and the closed-form latency tail)."""
 from repro_torch.core.transport.params import (
     SimParams, NetworkParams, DcqcnParams, ReliabilityParams, WorkloadParams,
     TopologyParams, WindowPolicy, FaultParams)
@@ -15,7 +15,8 @@ from repro_torch.core.transport.topology import (
 from repro_torch.core.transport.schedule import (
     layer_priorities, make_plan, with_step_priorities)
 from repro_torch.core.transport.coupling import (
-    AxisSchedules, DropSchedule, PrioritySchedules,
+    AxisSchedules, DropSchedule, LatencyTail, PrioritySchedules,
+    closed_form_schedule,
     priority_schedules_from_round_stats, schedule_from_engine,
     schedule_from_round_stats, split_schedule_from_engine,
     split_schedule_from_round_stats)
@@ -32,7 +33,8 @@ __all__ = [
     "BatchedEngine", "BatchedSimParams", "RoundStats", "SweepResult",
     "sweep", "CollectiveSimulator", "DESIGNS", "TIERS", "hier_params",
     "hier_protocol", "layer_priorities", "make_plan", "with_step_priorities",
-    "AxisSchedules", "DropSchedule", "PrioritySchedules",
+    "AxisSchedules", "DropSchedule", "LatencyTail", "PrioritySchedules",
+    "closed_form_schedule",
     "priority_schedules_from_round_stats", "schedule_from_engine",
     "schedule_from_round_stats", "split_schedule_from_engine",
     "split_schedule_from_round_stats",

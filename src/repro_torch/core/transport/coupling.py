@@ -24,20 +24,23 @@ the bridge from the transport engine to the trainer and the server.
 
 - the priority-class schedules (:class:`PrioritySchedules`,
   :func:`priority_schedules_from_round_stats`): one drop schedule per
-  semantic class from a ``cut_order="priority"`` engine run.
+  semantic class from a ``cut_order="priority"`` engine run;
+- the closed form (:class:`LatencyTail`, :func:`closed_form_schedule`):
+  a schedule from a timeout trace under the lognormal latency tail of
+  the trainer's ``StragglerModel``, without running the engine.
 
 The schedules carry a :class:`telemetry.DropProvenance`: exact per-(tier,
 cause, phase) when the engine ran with the flight recorder
 (``record=True``), heuristic otherwise.
 
 numpy and the standard library around the engine, copied as they are, so
-the masks are bit-identical to the JAX package's.  The closed-form latency
-tail is not ported yet.
+the masks are bit-identical to the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+from math import erf, sqrt
 
 import numpy as np
 
@@ -416,6 +419,39 @@ def priority_schedules_from_round_stats(stats: RoundStats, *,
         for c in range(f.shape[1]))
     return PrioritySchedules(classes=classes, pkts=pk, source=tag)
 
+
+# ----------------------------------------------------------------------
+# Closed-form alternative (no engine run needed)
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LatencyTail:
+    """Lognormal per-chunk latency tail, the transport model's contention
+    shape.  Identical math to the trainer's standalone
+    ``StragglerModel`` with bursts disabled."""
+    median_latency: float = 1.0       # in units of clean step time
+    sigma: float = 0.6
+
+    def drop_rate(self, timeout: float) -> float:
+        """P(latency > timeout) under lognormal(ln median, sigma)."""
+        z = ((np.log(max(float(timeout), 1e-9))
+              - np.log(self.median_latency)) / self.sigma)
+        p_late = 0.5 * (1.0 - erf(z / sqrt(2.0)))
+        return float(np.clip(p_late, 0.0, MAX_DROP))
+
+
+def closed_form_schedule(timeouts, model: LatencyTail | None = None
+                         ) -> DropSchedule:
+    """Per-step drop from a timeout trace (e.g. the controller's
+    adopted windows), without running the engine."""
+    m = model or LatencyTail()
+    rates = np.array([m.drop_rate(t) for t in np.atleast_1d(timeouts)])
+    return DropSchedule(rates=rates, source="closed_form")
+
+
+# ----------------------------------------------------------------------
+# Trainer adapter
+# ----------------------------------------------------------------------
 
 class EngineStragglerModel:
     """Feed an engine-derived schedule into the Trainer.

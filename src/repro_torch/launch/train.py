@@ -21,9 +21,16 @@ local rank has a card of its own and gloo otherwise (ranks that share a
 card, or the CPU); the choice is printed, and a backend that fails
 raises.
 
+With ``--ckpt-dir D`` the trainer checkpoints into D every
+``--ckpt-every`` steps (default 50) and, started again, resumes from
+D's ``LATEST``; on a mesh rank 0 writes, and a checkpoint restores on
+any mesh:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+        --smoke --device cpu --steps 4 --ckpt-dir /tmp/run1 --ckpt-every 2
+
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
-missing.  Weights are random, from seed 0.  There is no checkpointing
-yet.
+missing.  Weights are random, from seed 0.
 """
 from __future__ import annotations
 
@@ -72,6 +79,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=6e-4)
     ap.add_argument("--celeris", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", type=str, default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", choices=["none", "host", "single", "multi"],
                     default="none",
                     help="mesh over the ranks of torch.distributed.run: "
@@ -112,7 +121,8 @@ def main(argv=None):
             opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps),
             celeris=CelerisConfig(
                 mode="lossy_hadamard" if args.celeris else "exact"),
-            mesh=mesh, device=device)
+            mesh=mesh, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+            device=device)
         return tr.run(args.steps, on_metrics=report)
     finally:
         if mesh is not None:

@@ -17,7 +17,10 @@ the same stacked leaves in the same order.
 On a mesh with a ``model`` axis each rank holds its slice of every leaf
 that the partition specs split over ``model`` (:func:`shard_leaves`;
 :func:`gather_leaves` puts them back together), and the whole of every
-other leaf.
+other leaf.  On a ``data`` axis larger than 1 it holds only its ZeRO-1
+slice of the optimizer state (:func:`data_group` names each leaf's
+dimension); :func:`gather_state` rebuilds a whole state leaf by leaf for
+a checkpoint, which stays in host layout and so restores on any mesh.
 """
 from __future__ import annotations
 
@@ -138,24 +141,52 @@ def model_group(cfg: ModelConfig, mesh) -> Optional[shd.ModelGroup]:
         n for n, d in zip(SHORT_NAMES, dims) if d is not None))
 
 
+def data_group(cfg: ModelConfig, mesh) -> Optional[shd.DataGroup]:
+    """This rank's :class:`~repro_torch.sharding.DataGroup` with each leaf
+    of ``cfg``'s dimension that the ZeRO-1 specs split over ``data``
+    (None for a leaf kept whole), which the optimizer reads; None
+    without ZeRO-1 (no ``data`` axis larger than 1)."""
+    dg = shd.data_group(mesh)
+    if dg is None:
+        return None
+    from repro_torch.train import sharding_rules as rules
+    specs = rules.zero1_specs(leaf_shapes(cfg), mesh)
+    return dataclasses.replace(dg, dims=tuple(
+        s.index(shd.DATA_AXIS) if shd.DATA_AXIS in s else None
+        for s in specs))
+
+
+def gather_state(leaves: Sequence[torch.Tensor], specs, mesh
+                 ) -> Iterator[torch.Tensor]:
+    """This rank's state leaves, placed by ``specs`` (e.g. the flat
+    ``train_step.state_specs``) -> the whole leaves, one at a time, so
+    that one whole leaf at a time is on the device: each leaf gathered
+    over ``data`` (ZeRO-1), then over ``model``.  Every rank of the mesh
+    iterates it together."""
+    dg, tp = shd.data_group(mesh), shd.model_group(mesh)
+    for x, spec in zip(leaves, specs):
+        if dg is not None and shd.DATA_AXIS in spec:
+            x = shd.data_all_gather(x, dg, spec.index(shd.DATA_AXIS))
+        if tp is not None and shd.MODEL_AXIS in spec:
+            dim = spec.index(shd.MODEL_AXIS)
+            x = (shd.model_all_gather(x.movedim(dim, -1), tp)
+                 .movedim(-1, dim).contiguous())
+        yield x
+
+
 def shard_leaves(leaves: Sequence[Any], mesh) -> List[torch.Tensor]:
     """The full JAX leaves (numpy arrays or tensors) -> this rank's
     leaves: its slice of each leaf that the partition specs split over
     ``model``, copies of the rest.  A leaf that the divisibility guard
     keeps whole stays whole."""
-    tp = shd.model_group(mesh)
+    from repro_torch.train import sharding_rules as rules
     leaves = [x if isinstance(x, torch.Tensor) else _tensor(x)
               for x in leaves]
-    if tp is None:
+    if shd.model_group(mesh) is None:
         return [x.clone() for x in leaves]
-    out = []
-    for x, dim in zip(leaves, split_dims([x.shape for x in leaves], mesh)):
-        if dim is None:
-            out.append(x.clone())
-        else:
-            n = x.shape[dim] // tp.size
-            out.append(x.narrow(dim, tp.index * n, n).clone())
-    return out
+    specs = rules.param_specs([x.shape for x in leaves], mesh)
+    return [shd.local_slice(x, s, mesh).clone()
+            for x, s in zip(leaves, specs)]
 
 
 def gather_leaves(shards: Sequence[torch.Tensor], mesh,
@@ -165,14 +196,5 @@ def gather_leaves(shards: Sequence[torch.Tensor], mesh,
     split leaf from one the guard kept whole): every model rank calls it
     together and gets the full leaves back, each split leaf all-gathered
     over the ``model`` group."""
-    tp = shd.model_group(mesh)
-    if tp is None:
-        return [x.clone() for x in shards]
-    out = []
-    for x, dim in zip(shards, split_dims(shapes, mesh)):
-        if dim is None:
-            out.append(x.clone())
-        else:
-            out.append(shd.model_all_gather(x.movedim(dim, -1), tp)
-                       .movedim(-1, dim).contiguous())
-    return out
+    from repro_torch.train import sharding_rules as rules
+    return list(gather_state(shards, rules.param_specs(shapes, mesh), mesh))

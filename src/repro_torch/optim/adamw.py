@@ -15,6 +15,14 @@ leaves that the specs split over ``model``: the global norm adds up
 their squares over the model group and counts the replicated leaves
 once, so the clip factor is the same on every rank.
 
+ZeRO-1 (``zero``, a :class:`~repro_torch.sharding.DataGroup`): on a
+``data`` axis larger than 1 each rank keeps only its slice of
+``master``, ``mu`` and ``nu`` along each leaf's ``zero.dims`` entry.  The
+clip factor still comes from the whole gradients; the update walks the
+slices, and the new parameters' slices are all-gathered over ``data``.
+AdamW is elementwise and the cast commutes with the gather, so the new
+parameters are bit for bit the replicated update's.
+
 Schedule: linear warmup -> cosine decay.
 """
 from __future__ import annotations
@@ -58,7 +66,22 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def init_opt_state(params: Leaves) -> Dict[str, Any]:
+def zero_slice(x: torch.Tensor, zero: Optional[shd.DataGroup], i: int
+               ) -> torch.Tensor:
+    """Leaf i's slice that this rank's ZeRO-1 state covers (a view; the
+    whole leaf without ZeRO-1 or when the leaf is kept whole)."""
+    dim = zero.dims[i] if zero is not None else None
+    if dim is None:
+        return x
+    n = x.shape[dim] // zero.size
+    return x.narrow(dim, zero.index * n, n)
+
+
+def init_opt_state(params: Leaves, zero: Optional[shd.DataGroup] = None
+                   ) -> Dict[str, Any]:
+    """Float32 master and zero moments for ``params`` (this rank's ZeRO-1
+    slices of them with ``zero``)."""
+    params = [zero_slice(p, zero, i) for i, p in enumerate(params)]
     return {
         "master": [p.detach().to(torch.float32, copy=True) for p in params],
         "mu": [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -92,9 +115,11 @@ def global_norm(leaves: Leaves, tp: Optional[shd.ModelGroup] = None,
 
 def apply_updates(params: Leaves, grads: Leaves, state: Dict[str, Any],
                   cfg: OptConfig, tp: Optional[shd.ModelGroup] = None,
-                  split: Sequence[bool] = ()):
+                  split: Sequence[bool] = (),
+                  zero: Optional[shd.DataGroup] = None):
     """Returns (new params in their dtypes, new state, metrics).  ``tp``
-    and ``split``: :func:`global_norm`'s."""
+    and ``split``: :func:`global_norm`'s; ``zero``: the state holds this
+    rank's ZeRO-1 slices (:func:`init_opt_state`)."""
     count = state["count"] + 1
     gnorm = global_norm(grads, tp, split)
     scale = torch.clamp(
@@ -111,9 +136,9 @@ def apply_updates(params: Leaves, grads: Leaves, state: Dict[str, Any],
     nu: List[torch.Tensor] = []
     master: List[torch.Tensor] = []
     new_params: List[torch.Tensor] = []
-    for g, m, v, w, p in zip(grads, state["mu"], state["nu"],
-                             state["master"], params):
-        g = g.to(torch.float32) * scale
+    for i, (g, m, v, w, p) in enumerate(zip(grads, state["mu"], state["nu"],
+                                            state["master"], params)):
+        g = zero_slice(g, zero, i).to(torch.float32) * scale
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * torch.square(g)
         step = torch.div(torch.div(m, bc1),
@@ -122,6 +147,10 @@ def apply_updates(params: Leaves, grads: Leaves, state: Dict[str, Any],
         mu.append(m)
         nu.append(v)
         master.append(w)
-        new_params.append(w.to(p.dtype))
+        if zero is not None and zero.dims[i] is not None:
+            new_params.append(shd.data_all_gather(w.to(p.dtype), zero,
+                                                  zero.dims[i]))
+        else:
+            new_params.append(w.to(p.dtype))
     new_state = {"master": master, "mu": mu, "nu": nu, "count": count}
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}

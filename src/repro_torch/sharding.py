@@ -22,6 +22,12 @@ constraints, and the port writes them out.  Every collective over the
 ``model`` group goes through :func:`model_all_reduce`,
 :func:`model_all_gather` or :func:`model_reduce_scatter`, in the
 tensor's own dtype, as GSPMD's do.
+
+ZeRO-1 over ``data`` (:class:`DataGroup`, :func:`data_all_gather`) has
+none either: GSPMD gathers the parameters that a ``data``-sharded
+optimizer state updates, and the port gathers them itself.
+:func:`local_slice` is the port's ``device_put`` with a partition spec:
+a rank's block of a whole array.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 MODEL_AXIS = "model"
+DATA_AXIS = "data"
 POD_AXIS = "pod"
 
 
@@ -84,7 +91,7 @@ def dp_axes(mesh: Optional[DeviceMesh] = None) -> Tuple[str, ...]:
     mesh = mesh if mesh is not None else _GLOBAL_MESH
     if mesh is None:
         return ()
-    return tuple(a for a in mesh.mesh_dim_names if a in (POD_AXIS, "data"))
+    return tuple(a for a in mesh.mesh_dim_names if a in (POD_AXIS, DATA_AXIS))
 
 
 def peer_index(mesh: DeviceMesh, axes: Sequence[str]) -> int:
@@ -96,6 +103,24 @@ def peer_index(mesh: DeviceMesh, axes: Sequence[str]) -> int:
     for a in (a for a in mesh.mesh_dim_names if a in axes):
         idx = idx * sizes[a] + coord[a]
     return idx
+
+
+def local_slice(x, spec: Sequence[Optional[str]], mesh: DeviceMesh):
+    """This rank's block of the whole array ``x`` (a numpy array, a
+    memory map or a tensor; a view of it) under the partition ``spec``:
+    each dimension named by a mesh axis is cut into that axis' size and
+    the block at this rank's coordinate along it kept."""
+    sizes = axis_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    index = []
+    for axis, n in zip(spec, x.shape):
+        if axis is None:
+            index.append(slice(None))
+        else:
+            block = n // sizes[axis]
+            index.append(slice(coord[axis] * block,
+                               (coord[axis] + 1) * block))
+    return x[tuple(index)]
 
 
 def group(mesh: DeviceMesh, axes: Sequence[str]):
@@ -176,6 +201,43 @@ def model_reduce_scatter(t: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
     out = first.new_empty((first.shape[0] // tp.size,) + first.shape[1:])
     dist.reduce_scatter_tensor(out, first, group=tp.group)
     return out.movedim(0, -1)
+
+
+# ----------------------------------------------------------------------
+# ZeRO-1 over the data axis
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DataGroup:
+    """This rank's place on the ``data`` axis, over which ZeRO-1 splits
+    the optimizer state: the process group of the ranks that differ from
+    it only along ``data``, its size, this rank's index along it, and
+    each leaf's dimension split over it, None for a leaf kept whole
+    (``convert.data_group`` fills them in from the ZeRO-1 specs)."""
+    group: object
+    size: int
+    index: int
+    dims: Tuple[Optional[int], ...] = ()
+
+
+def data_group(mesh: Optional[DeviceMesh]) -> Optional[DataGroup]:
+    """The ``data`` group of this rank, or None when the mesh has no
+    ``data`` axis larger than 1 (no ZeRO-1)."""
+    size = axis_sizes(mesh).get(DATA_AXIS, 1)
+    if size == 1:
+        return None
+    return DataGroup(group(mesh, (DATA_AXIS,)), size,
+                     peer_index(mesh, (DATA_AXIS,)))
+
+
+def data_all_gather(t: torch.Tensor, dg: DataGroup, dim: int
+                    ) -> torch.Tensor:
+    """The data ranks' ``t`` side by side along ``dim``, in rank order
+    (contiguous, as the whole leaf it rebuilds)."""
+    first = t.movedim(dim, 0).contiguous()
+    out = first.new_empty((dg.size * first.shape[0],) + first.shape[1:])
+    dist.all_gather_into_tensor(out, first, group=dg.group)
+    return out.movedim(0, dim).contiguous()
 
 
 class _CopyToModel(torch.autograd.Function):

@@ -9,10 +9,12 @@ the coded sync plans each leaf's tiles around its ``model`` dimension
 (``coding.plan_nd(shape, sharded_dim, n_rot)``; that dimension is set
 whenever the mesh *has* a ``model`` axis, even of size 1), and the
 model reads which leaves are split (``convert.model_group``).
-:func:`batch_specs` and :func:`zero1_specs` have no reader yet: the
-trainer takes its rows as ``shard_batch`` of its row-major dp index,
-which is what the batch specs give, and the JAX trainer places the
-optimizer state by ``zero1_specs`` only when it restores a checkpoint.
+:func:`zero1_specs` places the optimizer state (:func:`opt_state_specs`):
+each rank keeps its ``data`` slice of ``master``, ``mu`` and ``nu``
+(``convert.data_group``), from init and from a restored checkpoint, as
+the JAX package states its layout.  :func:`batch_specs` has no reader:
+the trainer takes its rows as ``shard_batch`` of its row-major dp
+index, which is what the batch specs give.
 
 TP policy (megatron-style over ``model``), as in the JAX package:
 - attention/MLP in-projections: column-parallel  (..., None, "model")
@@ -145,6 +147,15 @@ def zero1_specs(shapes: Sequence[Sequence[int]], mesh,
             parts[best_dim] = "data"
         out.append(tuple(parts))
     return out
+
+
+def opt_state_specs(shapes: Sequence[Sequence[int]], mesh,
+                    names: Sequence[str] = convert.LEAF_NAMES
+                    ) -> Dict[str, object]:
+    """The AdamW state's specs (JAX's ``opt_state_shardings``): ZeRO-1
+    for ``master``, ``mu`` and ``nu``, none for ``count``."""
+    z = zero1_specs(shapes, mesh, names)
+    return {"master": z, "mu": z, "nu": z, "count": ()}
 
 
 def batch_specs(mesh, batch: Dict[str, object]) -> Dict[str, tuple]:

@@ -80,7 +80,15 @@ tensor through host memory.  No collective sums int16, so the int8
 codes are summed as int32: the same integer sums as the JAX package's
 int16, at 4 bytes an entry on the wire instead of 2.
 
-Then AdamW (float32 master) updates the parameters.
+Then AdamW (float32 master) updates the parameters.  **ZeRO-1**: on a
+mesh whose ``data`` axis is larger than 1 each rank holds only its
+``zero1_specs`` slice of ``master``, ``mu`` and ``nu`` (from
+:func:`init_state` and from a restored checkpoint, :func:`state_specs`);
+the gradient is whole on every dp rank after the sync, the clip factor
+comes from it whole, the update walks this rank's slices, and the new
+bfloat16 parameter slices are all-gathered over ``data``
+(``sharding.data_all_gather``): bit for bit the replicated update.
+ZeRO-1 spans ``data`` only, so the ranks of a ``pod`` hold equal slices.
 
 The state is ``{"params", "opt", "step"}`` with the parameters in the
 JAX leaf view (``models.convert``): the JAX step plans, codes and draws
@@ -541,6 +549,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                                   "family)")
 
     tp = convert.model_group(cfg, mesh)
+    zero = convert.data_group(cfg, mesh)
     plans = plan_leaves(convert.leaf_shapes(cfg), mesh, celeris)
     split = [tp is not None and n in tp.split for n in convert.SHORT_NAMES]
     # one device takes the batch whole, as the JAX step's no-dp branch
@@ -567,7 +576,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         else:
             frac = _mean_frac([], loss)
         new_params, new_opt, om = adamw.apply_updates(
-            leaves, grads, state["opt"], opt_cfg, tp, split)
+            leaves, grads, state["opt"], opt_cfg, tp, split, zero)
         metrics = {"loss": loss, "nll": nll, "aux": aux,
                    "recv_frac": frac, **om}
         return {"params": new_params, "opt": new_opt,
@@ -575,6 +584,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
 
     train_step.dp_group = dp_sync.dp.group if dp_sync is not None else None
     train_step.model_group = tp
+    train_step.data_group = zero
     return train_step
 
 
@@ -586,6 +596,54 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, mesh=None):
     leaves = convert.jax_leaves(M.init_params(cfg, generator))
     if shd.model_group(mesh) is not None:
         leaves = convert.shard_leaves(leaves, mesh)
-    return {"params": leaves, "opt": adamw.init_opt_state(leaves),
+    return state_from_params(leaves, cfg, mesh)
+
+
+def state_from_params(leaves, cfg: ModelConfig, mesh=None):
+    """The train state at step 0 from this rank's parameter leaves: the
+    optimizer state over its ZeRO-1 slices on a ``data`` axis larger than
+    1 (``convert.data_group``)."""
+    return {"params": list(leaves),
+            "opt": adamw.init_opt_state(leaves,
+                                        convert.data_group(cfg, mesh)),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=leaves[0].device)}
+
+
+def state_specs(shapes, mesh):
+    """The partition spec of every state leaf on ``mesh``, shaped as the
+    state (JAX's ``state_shardings``), from the leaves' global
+    ``shapes``: the parameter specs, ZeRO-1 for the optimizer state."""
+    return {"params": rules.param_specs(shapes, mesh),
+            "opt": rules.opt_state_specs(shapes, mesh), "step": ()}
+
+
+_OPT_LISTS = ("master", "mu", "nu")
+
+
+def state_leaves(state) -> list:
+    """The state's leaves (or those of :func:`state_specs`) as
+    ``(path, leaf)`` in JAX's flatten order, the path JAX's ``keystr`` of
+    the same leaf of its state tree: ``['opt']['count']``, then
+    ``['opt']['master']`` + each leaf's ``keystr``, ``mu``, ``nu``, the
+    ``['params']``, and ``['step']``."""
+    out = [("['opt']['count']", state["opt"]["count"])]
+    for part in _OPT_LISTS:
+        out += [(f"['opt']['{part}']" + rules.keystr(n), x)
+                for n, x in zip(convert.LEAF_NAMES, state["opt"][part])]
+    out += [("['params']" + rules.keystr(n), x)
+            for n, x in zip(convert.LEAF_NAMES, state["params"])]
+    return out + [("['step']", state["step"])]
+
+
+def state_from_leaves(leaves):
+    """Inverse of :func:`state_leaves`, from the leaves alone in that
+    order."""
+    n = len(convert.LEAF_NAMES)
+    leaves = list(leaves)
+    if len(leaves) != 4 * n + 2:
+        raise ValueError(f"{len(leaves)} state leaves, expected {4 * n + 2}")
+    opt = {part: leaves[1 + k * n:1 + (k + 1) * n]
+           for k, part in enumerate(_OPT_LISTS)}
+    return {"params": leaves[1 + 3 * n:1 + 4 * n],
+            "opt": dict(opt, count=leaves[0]), "step": leaves[-1]}

@@ -398,3 +398,31 @@ def test_hierarchical_mode_on_a_mesh_raises():
         with pytest.raises(ValueError, match="needs a 'pod' mesh axis"):
             tts.make_train_step(TC.get_smoke("qwen2-0.5b"), mesh, None,
                                 tts.CelerisConfig(mode="hierarchical"))
+
+
+@pytest.mark.parametrize("median,sigma", [(1.0, 0.6), (1.3, 0.45)])
+def test_closed_form_schedule_matches_jax_and_the_straggler_model(median,
+                                                                  sigma):
+    """``LatencyTail`` is the trainer's StragglerModel with bursts off,
+    and ``closed_form_schedule`` the JAX package's (atol 1e-12, as
+    ``tests/test_coupling.py:71-81``); both are exported."""
+    from repro_torch.core import transport as ttransport
+    assert ttransport.LatencyTail is tcoupling.LatencyTail
+    assert ttransport.closed_form_schedule is tcoupling.closed_form_schedule
+    timeouts = np.linspace(0.2, 6.0, 23)
+    tail = tcoupling.LatencyTail(median_latency=median, sigma=sigma)
+    got = tcoupling.closed_form_schedule(timeouts, tail)
+    want = jcoupling.closed_form_schedule(
+        timeouts, jcoupling.LatencyTail(median_latency=median, sigma=sigma))
+    np.testing.assert_allclose(got.rates, want.rates, atol=1e-12)
+    assert got.source == want.source == "closed_form"
+    sm = ttrainer.StragglerModel(median_latency=median, sigma=sigma,
+                                 burst_prob=0.0)
+    rng = np.random.default_rng(0)
+    np.testing.assert_allclose(
+        got.rates, [sm.drop_rate(t, rng) for t in timeouts], atol=1e-12)
+    assert got.rates.max() <= tcoupling.MAX_DROP and got.rates.min() >= 0.0
+    # the default tail, and a scalar timeout
+    np.testing.assert_allclose(tcoupling.closed_form_schedule(2.0).rates,
+                               jcoupling.closed_form_schedule(2.0).rates,
+                               atol=1e-12)

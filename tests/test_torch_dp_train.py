@@ -36,7 +36,13 @@ Cases and tolerances, all float32:
     counts), and the in-step timeout forms against JAX's, exactly;
 (f) the refusals: ``hierarchical`` without ``pod`` (JAX's ValueError);
     a ``model`` axis larger than 1 builds (tensor parallelism, held to
-    JAX's step in ``tests/test_torch_tp_train.py``).
+    JAX's step in ``tests/test_torch_tp_train.py``);
+(g) ZeRO-1: after a step each rank holds its slice, by JAX's
+    ``zero1_specs``, of the whole ``master``, ``mu`` and ``nu`` (gathered
+    over ``data``), bit for bit, on every mesh (the step checks of (b)
+    and (c) read the moments gathered over ``data``); and AdamW over the
+    slices gives bit for bit the replicated update's parameters and the
+    slices of its state, on the same bfloat16 leaves and gradients.
 """
 import contextlib
 import dataclasses
@@ -70,6 +76,7 @@ import repro_torch.configs as TC
 from repro_torch import sharding as tshd
 from repro_torch.core import timeout as ttimeout
 from repro_torch.launch import mesh as tmesh
+from repro_torch.models import convert as tconvert
 from repro_torch.train import train_step as tts
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -107,6 +114,8 @@ STEP_CASES = {"d4_exact": ("d4", "exact", False, 0.0),
               "pd22_hier3_int8": ("pd22", "hierarchical", True,
                                   [0.02, 0.0, 0.1])}
 STEP_KEY = 5
+# (g): the cases whose ranks report their ZeRO-1 slices, one a mesh
+ZERO_CASES = ("d4_lh", "dm41_lh", "pd22_hier2")
 MEDIAN_VALUES = (1.7, 0.4, 2.9, 1.1)
 
 JAX_SIDE = """
@@ -229,6 +238,50 @@ json.dump(specs, open(d + "/jax_specs.json", "w"))
 np.savez(d + "/jax.npz", **out)
 """
 
+# ZeRO-1 helpers of the torch sides (here and tests/test_torch_tp_train.py):
+# ``out``, ``opt`` and ``shd``/``ts``/``adamw`` are the side's own
+ZERO_SIDE = """
+from chip_smoke import bit_view as bits
+from repro_torch.models import convert
+from repro_torch.train import sharding_rules as rules
+
+def save_zero(name, new, cfg, mesh):
+    # each rank's slices of master, mu, nu and the whole leaves
+    specs = rules.opt_state_specs(convert.leaf_shapes(cfg), mesh)
+    for part in ("master", "mu", "nu"):
+        whole = convert.gather_state(new["opt"][part], specs[part], mesh)
+        for i, (x, w) in enumerate(zip(new["opt"][part], whole)):
+            out[f"{name}_z{part}{i}"] = x.numpy()
+            out[f"{name}_w{part}{i}"] = w.numpy()
+
+def zero_vs_replicated(name, cfg, mesh, leaves):
+    # AdamW over the ZeRO-1 slices against the replicated update, on the
+    # same bfloat16 leaves, state and gradients (the same on every rank)
+    step = ts.make_train_step(cfg, mesh, opt)
+    tp, zero = step.model_group, step.data_group
+    split = [tp is not None and n in tp.split for n in convert.SHORT_NAMES]
+    g = torch.Generator().manual_seed(9)
+    leaves = [x.to(torch.bfloat16) for x in leaves]
+    grads = [torch.randn(x.shape, generator=g).to(x.dtype) for x in leaves]
+    full = adamw.init_opt_state(leaves)
+    full["mu"] = [torch.randn(x.shape, generator=g) for x in full["mu"]]
+    full["nu"] = [torch.rand(x.shape, generator=g) for x in full["nu"]]
+    full["count"] = full["count"] + 3
+    mine = {k: v if k == "count" else [adamw.zero_slice(x, zero, i)
+                                        for i, x in enumerate(v)]
+            for k, v in full.items()}
+    p1, s1, _ = adamw.apply_updates(leaves, grads, full, opt, tp, split)
+    p2, s2, _ = adamw.apply_updates(leaves, grads, mine, opt, tp, split,
+                                    zero)
+    same = all(torch.equal(bits(a), bits(b)) for a, b in zip(p1, p2))
+    for part in ("master", "mu", "nu"):
+        same &= all(torch.equal(bits(adamw.zero_slice(a, zero, i)), bits(b))
+                    for i, (a, b) in enumerate(zip(s1[part], s2[part])))
+    out[f"zero_same_{name}"] = np.bool_(same)
+    out[f"zero_sliced_{name}"] = np.int64(sum(
+        d is not None for d in (zero.dims if zero else ())))
+"""
+
 TORCH_SIDE = """
 import dataclasses, json, sys
 import numpy as np, torch
@@ -300,13 +353,10 @@ src = pipeline.make_source(pipeline.DataConfig(
     global_batch=meta["batch"], seed=1))
 opt = adamw.OptConfig(**meta["opt"])
 
-def fresh():
-    return {"params": list(leaves), "opt": adamw.init_opt_state(leaves),
-            "step": torch.zeros((), dtype=torch.int32)}
-
-def save(name, new, m):
-    for i, (p, mu) in enumerate(zip(new["params"], new["opt"]["mu"])):
-        out[f"{name}_p{i}"], out[f"{name}_mu{i}"] = p.numpy(), mu.numpy()
+def save(name, new, m, dg=None):
+    mu = chip_smoke.over_data(new, dg)["opt"]["mu"]
+    for i, (p, u) in enumerate(zip(new["params"], mu)):
+        out[f"{name}_p{i}"], out[f"{name}_mu{i}"] = p.numpy(), u.numpy()
     for k, v in m.items():
         out[f"{name}_m_{k}"] = v.numpy()
 
@@ -325,9 +375,11 @@ for name, (mk, mode, q, drop) in meta["step_cases"].items():
     signs = {i: t(inp[f"{name}_signs{i}"]) for i in coded}
     noise = {i: t(inp[f"{name}_noise{i}"]) for i in coded
              if f"{name}_noise{i}" in inp.files}
-    new, m = step(fresh(), batch, None, drop, masks=masks, signs=signs,
-                  noise=noise)
-    save(name, new, m)
+    new, m = step(ts.state_from_params(leaves, cfg, mesh), batch, None,
+                  drop, masks=masks, signs=signs, noise=noise)
+    save(name, new, m, step.data_group)
+    if name in meta["zero_cases"]:
+        save_zero(name, new, cfg, mesh)
     if q:
         plans = ts.plan_leaves([l.shape for l in leaves], mesh, cel)
         if mode == "hierarchical":
@@ -341,8 +393,11 @@ for name, (mk, mode, q, drop) in meta["step_cases"].items():
 if rank == 0:
     batch = {k: torch.as_tensor(v, dtype=torch.long)
              for k, v in src.global_batch(0, 4).items()}
-    new, m = ts.make_train_step(cfg, None, opt)(fresh(), batch, None, 0.0)
+    new, m = ts.make_train_step(cfg, None, opt)(
+        ts.state_from_params(leaves, cfg), batch, None, 0.0)
     save("single_exact", new, m)
+for mk, mesh in meshes.items():
+    zero_vs_replicated(mk, cfg, mesh, leaves)
 
 # chip_smoke's check of the syncs at drop 0 against the exact pmean
 zero = chip_smoke.dp_check_coded_syncs(
@@ -370,6 +425,15 @@ if rank < 3:
 np.savez(d + "/rank%d.npz" % rank, **out)
 dist.destroy_process_group()
 """
+
+
+def _torch_side(code):
+    """A torch side's script with the ZeRO-1 helpers defined after its
+    setup (the line ``opt = adamw.OptConfig(**meta["opt"])``)."""
+    head, sep, tail = textwrap.dedent(code).partition(
+        'opt = adamw.OptConfig(**meta["opt"])\n')
+    assert sep, "the torch side defines no opt"
+    return head + sep + ZERO_SIDE + tail
 
 
 def _free_port() -> int:
@@ -474,7 +538,7 @@ def runs(tmp_path_factory):
             "sync_keys": sync_keys, "step_cases": STEP_CASES,
             "step_key": STEP_KEY, "min_coded": MIN_CODED, "opt": OPT,
             "seq": SEQ, "batch": BATCH, "spec_shapes": spec_shapes,
-            "median_values": MEDIAN_VALUES}
+            "median_values": MEDIAN_VALUES, "zero_cases": ZERO_CASES}
     np.savez(os.path.join(d, "inputs.npz"), **inp)
     with open(os.path.join(d, "meta.json"), "w") as f:
         json.dump(meta, f)
@@ -487,7 +551,7 @@ def runs(tmp_path_factory):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
     port = str(_free_port())
     procs += [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(TORCH_SIDE), str(r), port, d],
+        [sys.executable, "-c", _torch_side(TORCH_SIDE), str(r), port, d],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(WORLD)]
     failed = []
@@ -740,10 +804,11 @@ def test_mesh_draws_are_each_peers_row_of_one_draw():
     assert bool(got[3][0][0].all())           # rate 0 drops nothing
 
 
-def test_launcher_trains_on_four_cpu_ranks():
+def test_launcher_trains_on_four_cpu_ranks(tmp_path):
     """``launch/train.py --mesh host`` under ``torch.distributed.run``:
     gloo on the CPU, JAX's host mesh (2, 2) over (data, model), rank 0
-    reporting each step."""
+    reporting each step and writing a checkpoint each step, of the whole
+    leaves (the ranks hold their model shards of ZeRO-1 slices)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1")
     run = subprocess.run(
@@ -751,9 +816,16 @@ def test_launcher_trains_on_four_cpu_ranks():
          "4", "--master-port", str(_free_port()), "-m",
          "repro_torch.launch.train", "--arch", "qwen2-0.5b", "--smoke",
          "--device", "cpu", "--mesh", "host", "--celeris", "--steps", "2",
-         "--seq-len", "32"], env=env, capture_output=True, text=True,
-        timeout=TIMEOUT)
+         "--seq-len", "32", "--ckpt-dir", str(tmp_path), "--ckpt-every",
+         "1"], env=env, capture_output=True, text=True, timeout=TIMEOUT)
     assert run.returncode == 0, run.stdout + run.stderr
+    assert (tmp_path / "LATEST").read_text() == "2"
+    with open(tmp_path / "step_2" / "manifest.json") as f:
+        manifest = json.load(f)
+    assert manifest["extra"]["arch"] == "qwen2-0.5b-smoke"
+    shapes = [m["shape"] for m in manifest["leaves"]]
+    want = [list(s) for s in tconvert.leaf_shapes(TC.get_smoke("qwen2-0.5b"))]
+    assert shapes == [[]] + want * 4 + [[]]
     assert "backend gloo, 4 ranks, rank 0 on cpu" in run.stdout
     steps = [l for l in run.stdout.splitlines() if l.startswith("step ")]
     recv = [float(l.split("recv ")[1].split()[0]) for l in steps]
@@ -821,3 +893,61 @@ def test_chip_smoke_fwht_shapes_are_the_train_paths(mk):
     want = ([(r, 4096) for r in chip_smoke.TRAIN_FWHT_ROWS] if mk == "none"
             else list(chip_smoke.DP_FWHT_SHAPES))
     assert got == sorted(want)
+
+
+
+def zero1_blocks(ranks, case, shape, names, specs):
+    """Hold each rank's ZeRO-1 slices of ``case`` to its block, by the
+    partition ``specs`` (JAX's ``zero1_specs``, leaf by leaf), of the
+    whole leaves it reported (gathered over ``data`` and ``model``), bit
+    for bit, on a mesh of ``shape`` over ``names``; every rank reports the
+    same whole leaves.  Returns the number of leaves split over a
+    ``data`` axis larger than 1."""
+    size = dict(zip(names, shape))
+    for r, out in enumerate(ranks):
+        coord = dict(zip(names, np.unravel_index(r, shape)))
+        for part in ("master", "mu", "nu"):
+            for i, spec in enumerate(specs):
+                whole = out[f"{case}_w{part}{i}"]
+                np.testing.assert_array_equal(whole,
+                                              ranks[0][f"{case}_w{part}{i}"])
+                index = tuple(
+                    slice(None) if a is None else
+                    slice(coord[a] * (n // size[a]),
+                          (coord[a] + 1) * (n // size[a]))
+                    for a, n in zip(spec, whole.shape))
+                np.testing.assert_array_equal(out[f"{case}_z{part}{i}"],
+                                              whole[index],
+                                              err_msg=f"{case} {part} {i}")
+    return sum("data" in spec and size.get("data", 1) > 1 for spec in specs)
+
+
+def _jax_zero1_specs(mk, cfg):
+    """JAX's ZeRO-1 specs of ``cfg``'s leaves on mesh ``mk`` (stubbed)."""
+    jparams = JM.init_params(jax.random.PRNGKey(0), cfg)
+    return [tuple(p) for p in jax.tree_util.tree_leaves(
+        jrules.zero1_specs(jparams, _stub_mesh(mk)),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))]
+
+
+@pytest.mark.parametrize("case", ZERO_CASES)
+def test_each_rank_holds_its_zero1_slices(runs, case):
+    *_, ranks, _, _ = runs
+    mk = STEP_CASES[case][0]
+    n_split = zero1_blocks(ranks, case, *MESHES[mk],
+                           _jax_zero1_specs(mk, _cfg()))
+    # the port's data group splits the leaves JAX's specs split: all
+    # but those with no free dim the data axis divides
+    assert n_split == int(ranks[0][f"zero_sliced_{mk}"]) >= 11
+    # the whole moments are the step's, which (b) holds to JAX's
+    for i in range(14):
+        np.testing.assert_array_equal(ranks[0][f"{case}_wmu{i}"],
+                                      ranks[0][f"{case}_mu{i}"])
+
+
+@pytest.mark.parametrize("mk", list(MESHES))
+def test_zero1_update_is_the_replicated_update(runs, mk):
+    *_, ranks, _, _ = runs
+    for out in ranks:
+        assert bool(out[f"zero_same_{mk}"])
+        assert int(out[f"zero_sliced_{mk}"]) >= 11

@@ -39,7 +39,17 @@ Cases, all float32:
 (g) ``Trainer(mesh=)`` on (2, 2) from the same shards ends its first
     step bit-identical to (b)'s exact step; ``convert.leaf_shapes`` and
     ``chip_smoke.tp_fwht_shapes`` against JAX's leaves and the plans of
-    (2, 2), (1, 4) and (4, 1) DeviceMeshes.
+    (2, 2), (1, 4) and (4, 1) DeviceMeshes;
+(h) ZeRO-1 on model shards: each rank's ``master``, ``mu`` and ``nu``
+    after a step on (2, 2) and (2, 1, 2) are its blocks, by JAX's
+    ``zero1_specs``, of the whole state, bit for bit, and AdamW over the
+    slices is the replicated update bit for bit on (2, 2) and (4, 1) (on
+    (2, 1, 2) the data axis is 1 and the slices are whole; the step
+    checks of (b)-(d) read the moments gathered over ``data``);
+(i) the elastic restart: (g)'s trainer checkpoints on (2, 2), and
+    ``Trainer(mesh=)`` restores it on (4, 1) and (1, 4), every rank's
+    leaves its blocks of the gathered state, bit for bit; JAX's
+    ``restore`` of the same checkpoint gives that state.
 """
 import dataclasses
 import functools
@@ -61,14 +71,17 @@ from repro.data import pipeline as jpipe
 from repro.models import model as JM
 from repro.train import sharding_rules as jrules
 from repro.train import train_step as jts
-from test_torch_dp_train import OPT, _case, _check_step, _draws, _free_port
+from repro.checkpoint import checkpoint as jckpt
+from test_torch_dp_train import (OPT, _case, _check_step, _draws, _free_port,
+                                 _torch_side, zero1_blocks)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD, TIMEOUT = 4, 300
 MIN_CODED, SEQ, BATCH = 1024, 32, 8
 MESHES = {"dm22": ((2, 2), ("data", "model")),
           "dm14": ((1, 4), ("data", "model")),
-          "pdm212": ((2, 1, 2), ("pod", "data", "model"))}
+          "pdm212": ((2, 1, 2), ("pod", "data", "model")),
+          "dm41": ((4, 1), ("data", "model"))}
 CFGS = {"smoke": {}, "kv2": {"n_heads": 8, "n_kv_heads": 2}}
 # name -> (mesh or None, config, mode, quantize_wire, drop, microbatches)
 STEP_CASES = {
@@ -83,6 +96,8 @@ STEP_CASES = {
     "dm14_exact": ("dm14", "smoke", "exact", False, 0.0, 1),
     "one_lh_mb2": (None, "smoke", "lossy_hadamard", False, 0.1, 2)}
 STEP_KEY = 7
+# the cases whose ranks report their ZeRO-1 slices (h)
+ZERO_CASES = ("dm22_lh", "pdm212_hier_int8")
 # (f): a leaf of (3, 64, 96) split over model along dim 2, n_rot 128
 SCALE_SHAPE, SCALE_ROT, SCALE_DROP = (3, 64, 96), 128, 0.1
 
@@ -176,9 +191,10 @@ def batch_of(n, peer=0, of=None):
     return {k: t(inp[f"{k}_n{n}"][peer * rows:(peer + 1) * rows]).long()
             for k in ("tokens", "labels")}
 
-def save(name, new, m):
-    for i, (p, mu) in enumerate(zip(new["params"], new["opt"]["mu"])):
-        out[f"{name}_p{i}"], out[f"{name}_mu{i}"] = p.numpy(), mu.numpy()
+def save(name, new, m, dg=None):
+    mu = chip_smoke.over_data(new, dg)["opt"]["mu"]
+    for i, (p, u) in enumerate(zip(new["params"], mu)):
+        out[f"{name}_p{i}"], out[f"{name}_mu{i}"] = p.numpy(), u.numpy()
     for k, v in m.items():
         out[f"{name}_m_{k}"] = v.numpy()
 
@@ -214,11 +230,11 @@ for name, (mk, ck, mode, q, drop, mb) in meta["step_cases"].items():
     signs = {i: t(inp[f"{name}_signs{i}"]) for i in coded}
     noise = {i: t(inp[f"{name}_noise{i}"]) for i in coded
              if f"{name}_noise{i}" in inp.files}
-    state = {"params": list(mine), "opt": adamw.init_opt_state(mine),
-             "step": torch.zeros((), dtype=torch.int32)}
-    new, m = step(state, batch, None, drop, masks=masks, signs=signs,
-                  noise=noise)
-    save(name, new, m)
+    new, m = step(ts.state_from_params(mine, cfg, mesh), batch, None, drop,
+                  masks=masks, signs=signs, noise=noise)
+    save(name, new, m, step.data_group)
+    if name in meta["zero_cases"]:
+        save_zero(name, new, cfg, mesh)
     if q:
         plans = ts.plan_leaves(convert.leaf_shapes(cfg), mesh, cel)
         if mode == "hierarchical":
@@ -236,24 +252,50 @@ if rank == 0:
     for n in (1, 2):
         fresh = list(leaves["smoke"])
         new, m = ts.make_train_step(cfgs["smoke"], None, opt)(
-            {"params": fresh, "opt": adamw.init_opt_state(fresh),
-             "step": torch.zeros((), dtype=torch.int32)}, batch_of(n, of=1),
+            ts.state_from_params(fresh, cfgs["smoke"]), batch_of(n, of=1),
             None, 0.0)
         save(f"single_n{n}", new, m)
 
 # the Trainer on (2, 2): its rows of the batch and its step, from the
-# carried weights' shards; it must end as dm22_exact does
+# carried weights' shards; it must end as dm22_exact does, and checkpoint
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.train.trainer import Trainer
-tr = Trainer(cfgs["smoke"], data_cfg=DataConfig(
-    vocab_size=cfgs["smoke"].vocab_size, seq_len=meta["seq"],
-    global_batch=meta["batch"], seed=1), opt_cfg=opt, mesh=meshes["dm22"],
-    device="cpu")
+data_cfg = DataConfig(vocab_size=cfgs["smoke"].vocab_size, seq_len=meta["seq"],
+                      global_batch=meta["batch"], seed=1)
+tr = Trainer(cfgs["smoke"], data_cfg=data_cfg, opt_cfg=opt,
+             mesh=meshes["dm22"], ckpt_dir=d + "/ckpt", ckpt_every=1,
+             device="cpu")
 mine = convert.shard_leaves(leaves["smoke"], meshes["dm22"])
-tr.state = {"params": mine, "opt": adamw.init_opt_state(mine),
-            "step": torch.zeros((), dtype=torch.int32)}
+tr.state = ts.state_from_params(mine, cfgs["smoke"], meshes["dm22"])
 hist = tr.run(1)
-save("trainer_dm22", tr.state, {"loss": torch.tensor(hist["loss"][0])})
+save("trainer_dm22", tr.state, {"loss": torch.tensor(hist["loss"][0])},
+     tr.step_fn.data_group)
+
+# the elastic restart: the (2, 2) checkpoint on (4, 1) and (1, 4), each
+# rank's leaves its blocks of the saved state (gathered here)
+shapes = convert.leaf_shapes(cfgs["smoke"])
+def flat_specs(mesh):
+    return [s for _, s in ts.state_leaves(ts.state_specs(shapes, mesh))]
+saved = list(convert.gather_state([x for _, x in ts.state_leaves(tr.state)],
+                                  flat_specs(meshes["dm22"]), meshes["dm22"]))
+if rank == 0:
+    for i, x in enumerate(saved):
+        out[f"elastic_saved{i}"] = x.numpy()
+for mk in ("dm41", "dm14"):
+    back = Trainer(cfgs["smoke"], data_cfg=data_cfg, opt_cfg=opt,
+                   mesh=meshes[mk], ckpt_dir=d + "/ckpt", device="cpu")
+    got = [x for _, x in ts.state_leaves(back.state)]
+    want = [shd.local_slice(x, s, meshes[mk])
+            for x, s in zip(saved, flat_specs(meshes[mk]))]
+    out[f"elastic_{mk}"] = np.bool_(back.start_step == 1 and all(
+        a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+        for a, b in zip(got, want)))
+
+# ZeRO-1 against the replicated update on the meshes with data > 1
+for mk in ("dm22", "dm41"):
+    zero_vs_replicated(mk, cfgs["smoke"], meshes[mk],
+                       convert.shard_leaves(leaves["smoke"], meshes[mk]))
 
 # (e) shard, gather, and the global norm
 mesh = meshes["dm22"]
@@ -388,7 +430,7 @@ def runs(tmp_path_factory):
     meta = {"meshes": MESHES, "cfgs": CFGS, "step_cases": STEP_CASES,
             "step_key": STEP_KEY, "min_coded": MIN_CODED, "opt": OPT,
             "seq": SEQ, "batch": BATCH,
-            "mask_peer": mask_peer, "n_dp": n_dp,
+            "mask_peer": mask_peer, "n_dp": n_dp, "zero_cases": ZERO_CASES,
             "scale_shape": SCALE_SHAPE, "scale_rot": SCALE_ROT}
     np.savez(os.path.join(d, "inputs.npz"), **inp)
     with open(os.path.join(d, "meta.json"), "w") as f:
@@ -402,7 +444,7 @@ def runs(tmp_path_factory):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
     port = str(_free_port())
     procs += [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(TORCH_SIDE), str(r), port, d],
+        [sys.executable, "-c", _torch_side(TORCH_SIDE), str(r), port, d],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(WORLD)]
     failed = []
@@ -418,9 +460,15 @@ def runs(tmp_path_factory):
                 p.communicate()
     assert not failed, "\n".join(failed)
     load = functools.partial(np.load, allow_pickle=False)
-    return (inp, dict(load(os.path.join(d, "jax.npz"))),
-            [dict(load(os.path.join(d, f"rank{r}.npz")))
-             for r in range(WORLD)])
+    jax_out = dict(load(os.path.join(d, "jax.npz")))
+    # JAX's restore of the port's (2, 2) checkpoint, into its own state
+    restored, jax_out["elastic_step"], _ = jckpt.restore(
+        os.path.join(d, "ckpt"),
+        jts.init_state(jax.random.PRNGKey(0), _cfg("smoke")))
+    for i, leaf in enumerate(jax.tree_util.tree_leaves(restored)):
+        jax_out[f"elastic_restored{i}"] = np.asarray(leaf)
+    return (inp, jax_out, [dict(load(os.path.join(d, f"rank{r}.npz")))
+                           for r in range(WORLD)])
 
 
 def _shard_of(want, case, mk, ck, rank):
@@ -613,3 +661,51 @@ def test_leaf_shapes_are_jaxs(ck):
     want = [tuple(l.shape) for l in jax.tree_util.tree_leaves(jax.eval_shape(
         lambda k: JM.init_params(k, jcfg), jax.random.PRNGKey(0)))]
     assert tconvert.leaf_shapes(tcfg) == want
+
+
+@pytest.mark.parametrize("case", ZERO_CASES)
+def test_each_rank_holds_its_zero1_slices(runs, case):
+    """(h) Each rank's ``master``, ``mu`` and ``nu`` after the step: its
+    block, by JAX's ``zero1_specs``, of the whole leaves (its model
+    shard of them, split again over ``data``)."""
+    _, _, ranks = runs
+    mk, ck = STEP_CASES[case][:2]
+    specs = [tuple(p) for p in jax.tree_util.tree_leaves(
+        jrules.zero1_specs(JM.init_params(jax.random.PRNGKey(0), _cfg(ck)),
+                           _stub_mesh(mk)),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))]
+    n_split = zero1_blocks(ranks, case, *MESHES[mk], specs)
+    # (2, 1, 2) has no data axis to split over: the slices are whole
+    data = dict(zip(MESHES[mk][1], MESHES[mk][0]))["data"]
+    if data == 1:
+        assert n_split == 0
+    else:   # the port's data group splits the leaves JAX's specs split
+        assert n_split == int(ranks[0][f"zero_sliced_{mk}"]) >= 11
+
+
+@pytest.mark.parametrize("mk", ["dm22", "dm41"])
+def test_zero1_update_is_the_replicated_update(runs, mk):
+    """(h) AdamW over the ZeRO-1 slices of model shards: the replicated
+    update's parameters and state slices, bit for bit."""
+    _, _, ranks = runs
+    for out in ranks:
+        assert bool(out[f"zero_same_{mk}"])
+        assert int(out[f"zero_sliced_{mk}"]) >= 11
+
+
+def test_elastic_restart_across_meshes(runs):
+    """(i) ``tests/test_distribution.py:138-159`` for the port: the
+    trainer's checkpoint on (2, 2) (ZeRO-1 slices of model shards,
+    gathered by every rank, written by rank 0) restores through
+    ``Trainer(mesh=...)`` on (4, 1) and (1, 4) with every rank's leaves its
+    blocks of the saved state, bit for bit; and JAX's ``restore`` of it
+    gives the saved state."""
+    _, jax_out, ranks = runs
+    for out in ranks:
+        assert bool(out["elastic_dm41"]) and bool(out["elastic_dm14"])
+    assert int(jax_out["elastic_step"]) == 1
+    for i in range(4 * 14 + 2):
+        want = ranks[0][f"elastic_saved{i}"]
+        got = jax_out[f"elastic_restored{i}"]
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)

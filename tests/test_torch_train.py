@@ -273,9 +273,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="lossy_moe"):
         tts.make_train_step(tcfg, None, None,
                             tts.CelerisConfig(lossy_moe=True))
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        ttrainer.Trainer(tcfg, data_cfg=tpipe.DataConfig(512, 16, 2),
-                         ckpt_dir="ckpt", device="cpu")
 
 
 @pytest.mark.parametrize("mode", list(jcoupling.CollectiveMode))

@@ -37,7 +37,10 @@ caught and carried on):
    8 prompts of 512 tokens, ship the KV caches through the coded lossy
    transfer at a delivered fraction of 0.9 (64 wire rows, fig8's cell),
    greedy-decode 32 tokens.  Uncoded and clean decodes, a full-mask
-   round trip, and a smoke-size run against the CPU check the results;
+   round trip, and smoke-size runs against the CPU (qwen2-0.5b, and
+   gemma2-9b on a prompt longer than its window, chatglm3-6b and
+   nemotron-4-15b: logits, every degraded KV leaf, greedy tokens) check
+   the results;
 4. the kernel bench (``benchmarks/kernel_bench.py``'s quantize rows) at
    (256, 4096) through ``kernels.ops``;
 5. train qwen2-0.5b at full width through ``Trainer``: batch 8 x 128
@@ -174,6 +177,28 @@ caught and carried on):
     on its caches ((197,376, 64) blocks); layer 0's tiled attention
     against the dense formula within two bf16 ulps of its largest
     output;
+19b. gemma2-9b at full width (42 layers alternating local (window
+     4,096) and global attention, softcaps 50 and 30, GeGLU, post-norms,
+     head_dim 256, vocab 256,000, bf16, random weights from seed 0):
+     phase 3's 8 x 512 path and bars on its four KV leaves (two caches
+     of two kinds, each K and V its own payload, 8 FWHT and 4 unbias
+     launches at least), the kernels held to their plain versions on
+     every leaf ((2,924,544, 64) blocks) and timed there;
+19c. gemma2-9b on 8,192 tokens (batch 1, the same weights), past its
+     window: prefill through the tiled path with local masks and the
+     softcap, the local layers' ring caches wrapped (4,096 slots, the
+     global ones 8,208), the coded transfer and 16 tokens decoded
+     through the ring, its kernels held to their plain versions at both
+     leaf sizes; layer 0 (local) and layer 1 (global) tiled attention
+     against the dense formula within 2^-6 of the largest output, both
+     timed (no library yardstick: SDPA takes no softcap); the clean
+     caches' decode at the last position against a teacher-forced
+     forward (padded with filler to 9,216 tokens, that position alone
+     unembedded) within 0.05 of the largest logit;
+19d. chatglm3-6b (partial rotary, untied embeddings) and nemotron-4-15b
+     (squared ReLU, untied) at full width through phase 3's path and
+     bars, their KV leaves' kernels held to their plain versions and
+     timed there;
 20. the priority cut, the per-step window and the flight recorder, card
     against CPU at 40 rounds: the 32-node 2-pod hier cell with
     layer-depth priority classes under both cut orders and both budget
@@ -199,9 +224,9 @@ The protocols of phases 14-16, 18 and 21-22 (and Fig. 2's step window)
 are ``repro_torch.benchmarks.figs``'s functions, which the CPU tests also
 run (smoke tiers and cut grids).
 
-Each path (3-6c with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19 and 21-22,
-Fig. 2's step window its own) runs with the kernels' launch counts set to
-0 just before it and read just after.  The last
+Each path (3-6c with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19d and
+21-22, Fig. 2's step window its own) runs with the kernels' launch counts set
+to 0 just before it and read just after.  The last
 line is ``{"ok": true, "device": {...}}``; the lines before it carry the
 card's name and power limit and a ``{"kernels": [...]}`` record.  Needs CUDA: without it the
 script raises before printing any result.
@@ -2079,10 +2104,17 @@ def phase_mesh_train(kind):
     return out
 
 
-def phase_main_path(dev, C, M, serve_step, coupling, counts):
-    """qwen2-0.5b at full width through prefill, coded KV, greedy decode."""
-    cfg = C.get("qwen2-0.5b")
-    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+def phase_main_path(dev, C, M, serve_step, coupling, counts,
+                    arch="qwen2-0.5b", params=None, wire_kernels=None):
+    """``arch`` (qwen2-0.5b) at full width through prefill, coded KV,
+    greedy decode; ``params`` its weights when the caller drew them
+    (else from seed 0).  With ``wire_kernels`` the coded transfer's
+    kernels are then held to their plain versions on every KV leaf of
+    this path (``check_kv_wire``) and timed at the first leaf's
+    shapes."""
+    cfg = C.get(arch)
+    if params is None:
+        params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                            generator=torch.Generator(dev).manual_seed(1),
                            device=dev)
@@ -2124,8 +2156,11 @@ def phase_main_path(dev, C, M, serve_step, coupling, counts):
     assert logits.shape == (BATCH, cfg.vocab_size), logits.shape
     assert torch.isfinite(logits.float()).all(), "non-finite prefill logits"
     assert coded_toks.shape == (BATCH, GEN), coded_toks.shape
-    assert launches["fwht"] >= 4 and launches["masked_unbias"] >= 2, (
-        f"main path missed the kernels: {launches}")
+    # each K and V leaf is one payload: two FWHTs and one unbias
+    n_leaves = len(clean.leaves())
+    assert (launches["fwht"] >= 2 * n_leaves
+            and launches["masked_unbias"] >= n_leaves), (
+        f"main path missed the kernels: {launches} for {n_leaves} leaves")
 
     # --- the references the main path is checked against ---
     clean_toks = serve_step.greedy_decode(cfg, params, clean.clone(), first,
@@ -2172,9 +2207,15 @@ def phase_main_path(dev, C, M, serve_step, coupling, counts):
         "token_agree_uncoded":
             (uncoded_toks == clean_toks).float().mean().item(),
         "full_mask_max_err": err_full, "peak_mem_gib": peak_gib,
+        "kv_leaves": [list(t.shape) for t in clean.leaves()],
         "launches": launches, "profile": profile}
-    print(f"prefill {BATCH}x{PROMPT}: {prefill_ms:.2f} ms; coded KV "
-          f"transfer: {degrade_ms:.2f} ms; decode: {BATCH * (GEN - 1)} "
+    if wire_kernels is not None:
+        code = wire_kernels[-1].plan(clean.leaves()[0].numel(), n_rot=N_ROT)
+        signs = wire_kernels[-1].rademacher(signs_gen(), code)
+        out["wire_check"] = check_kv_wire(f"serve {cfg.name}", clean, mask,
+                                          signs, *wire_kernels, timed=True)
+    print(f"{cfg.name} prefill {BATCH}x{PROMPT}: {prefill_ms:.2f} ms; coded "
+          f"KV transfer: {degrade_ms:.2f} ms; decode: {BATCH * (GEN - 1)} "
           f"tokens in {decode_s:.3f} s = {out['decode_tok_per_s']:.1f} tok/s")
     print(f"usable context (err <= {TAU}): coded {usable_coded:.4f}, "
           f"uncoded {usable_uncoded:.4f}; token agreement with clean: coded "
@@ -2182,36 +2223,52 @@ def phase_main_path(dev, C, M, serve_step, coupling, counts):
           f"{out['token_agree_uncoded']:.4f}; launches {launches}")
     for stage, rec in profile.items():
         print(f"profile {stage}: {rec}")
+    if wire_kernels is not None:
+        wire = out["wire_check"]
+        print(f"{cfg.name} KV leaves {out['kv_leaves']}: kernels vs plain "
+              f"max abs err {wire['max_abs_err']} at {wire['shapes']}")
     return out
 
 
+# the smoke-size card-vs-CPU runs: (arch, prompt length); gemma2's prompt
+# is longer than its 64-token smoke window, so its ring caches wrap
+SMALL_REFERENCE = (("qwen2-0.5b", 16), ("gemma2-9b", 80),
+                   ("chatglm3-6b", 16), ("nemotron-4-15b", 16))
+
+
 def phase_small_reference(dev, C, M, serve_step):
-    """Smoke-size qwen2-0.5b in float32: the card (kernels) against the
-    CPU (plain versions), same weights, prompt, mask and signs."""
-    cfg = dataclasses.replace(C.get_smoke("qwen2-0.5b"), dtype="float32")
+    """Smoke-size models in float32 (``SMALL_REFERENCE``): the card
+    (kernels) against the CPU (plain versions), same weights, prompt,
+    mask and signs: logits and every degraded KV leaf within 2e-4, the
+    greedy tokens identical."""
     cpu = torch.device("cpu")
-    params = M.init_params(cfg, torch.Generator(cpu).manual_seed(0))
-    prompt = torch.randint(0, cfg.vocab_size, (2, 16),
-                           generator=torch.Generator(cpu).manual_seed(1))
     mask = torch.rand(N_ROT,
                       generator=torch.Generator(cpu).manual_seed(3)) < 0.8
     signs = torch.randint(0, 2, (N_ROT,),
                           generator=torch.Generator(cpu).manual_seed(4)
                           ).float() * 2 - 1
-    res = {}
-    for d in (cpu, dev):
-        p = {k: v.to(d) for k, v in params.items()}
-        logits, caches = serve_step.make_prefill(cfg, 24)(p, prompt.to(d))
-        deg = serve_step.degrade_caches(caches, mask.to(d),
-                                        signs=signs.to(d))
-        toks = serve_step.greedy_generate(cfg, p, prompt.to(d), 6)
-        res[d.type] = [t.cpu() for t in (logits, deg.k, deg.v, toks)]
-    for name, a, b in zip(("logits", "degraded k", "degraded v"),
-                          res["cpu"], res["cuda"]):
-        check(f"smoke {name} card vs cpu", b, a, 2e-4, 2e-4)
-    assert torch.equal(res["cpu"][3], res["cuda"][3]), "smoke greedy tokens"
-    print("smoke qwen2-0.5b f32, card vs CPU: logits, degraded caches, "
-          "greedy tokens agree")
+    for arch, plen in SMALL_REFERENCE:
+        cfg = dataclasses.replace(C.get_smoke(arch), dtype="float32")
+        params = M.init_params(cfg, torch.Generator(cpu).manual_seed(0))
+        prompt = torch.randint(0, cfg.vocab_size, (2, plen),
+                               generator=torch.Generator(cpu).manual_seed(1))
+        res = []                             # the CPU's, then the card's
+        for d in (cpu, dev):
+            p = {k: v.to(d) for k, v in params.items()}
+            logits, caches = serve_step.make_prefill(cfg, plen + 8)(
+                p, prompt.to(d))
+            deg = serve_step.degrade_caches(caches, mask.to(d),
+                                            signs=signs.to(d))
+            toks = serve_step.greedy_generate(cfg, p, prompt.to(d), 6)
+            res.append([t.cpu() for t in (toks, logits, *deg.leaves())])
+        for i, (a, b) in enumerate(zip(res[0][1:], res[1][1:])):
+            what = "logits" if i == 0 else f"degraded KV leaf {i - 1}"
+            check(f"smoke {arch} {what} card vs cpu", b, a, 2e-4, 2e-4)
+        assert torch.equal(res[0][0], res[1][0]), (
+            f"smoke {arch} greedy tokens")
+        print(f"smoke {arch} f32 ({plen}-token prompt, KV leaves "
+              f"{[list(t.shape) for t in res[0][2:]]}), card vs CPU: "
+              "logits, degraded caches, greedy tokens agree")
 
 
 # ----------------------------------------------------------------------
@@ -3335,20 +3392,25 @@ def assert_committed(name, keys):
     return len(keys)
 
 
-def check_kv_wire(name, caches, mask, signs, kfwht, kunbias, ref, coding):
+def check_kv_wire(name, caches, mask, signs, kfwht, kunbias, ref, coding,
+                  timed=False):
     """The coded KV transfer's kernels against their plain versions on one
-    path's own caches, wire-row mask and signs, per stacked K and V
-    payload (``serve_step.kv_wire_roundtrip``): encode's FWHT on the
+    path's own caches, wire-row mask and signs, per K and V leaf
+    (``caches.leaves()``, each its own payload in
+    ``serve_step.kv_wire_roundtrip``): encode's FWHT on the
     (n_blocks, n_rot) blocks with signs and scale, decode's unbias on the
     masked (n_rot, n_blocks) wire with the mask as counts, and decode's
     FWHT with the scale alone.  The FWHT equal, unbias within rtol 1e-6
     (phase 2's bars).  Run outside a path's counted window.  Returns the
-    worst error by kernel and the shapes."""
+    worst error by kernel and the shapes; ``timed`` adds the timing
+    records (``fwht_record``, ``unbias_record``) of encode's FWHT and the
+    unbias at the first leaf's shapes."""
     n_rot = int(mask.shape[0])
     counts = mask.to(torch.float32)       # as kv_wire_roundtrip casts it
     worst = {"fwht": 0.0, "masked_unbias": 0.0}
     shapes = set()
-    for leaf in (caches.k, caches.v):
+    records = []
+    for leaf in caches.leaves():
         code = coding.plan(leaf.numel(), n_rot=n_rot)
         assert code.n_rot == n_rot, (code, n_rot)
         x = torch.nn.functional.pad(
@@ -3374,8 +3436,15 @@ def check_kv_wire(name, caches, mask, signs, kfwht, kunbias, ref, coding):
         worst["masked_unbias"] = max(worst["masked_unbias"], e2)
         shapes |= {("fwht", tuple(x.shape)),
                    ("masked_unbias", tuple(wire.shape))}
-    return {"max_abs_err": worst,
-            "shapes": sorted(f"{k} {list(v)}" for k, v in shapes)}
+        if timed and not records:
+            records = [fwht_record(kfwht, ref, x, signs, scale, e1),
+                       unbias_record(kunbias, ref, wire, counts, 1, e2)]
+        del x, rot, wire, est, rot_est
+    out = {"max_abs_err": worst,
+           "shapes": sorted(f"{k} {list(v)}" for k, v in shapes)}
+    if timed:
+        out["records"] = records
+    return out
 
 
 def phase_fig5(dev, E, topology, figs, counts):
@@ -3842,7 +3911,8 @@ def phase_serve_long(dev, C, M, L, serve_step, coupling, kernels, counts):
     prefill_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     first = torch.argmax(logits, -1)[:, None]
     signs = coding.rademacher(torch.Generator(dev).manual_seed(2),
-                              coding.plan(caches.k.numel(), n_rot=N_ROT))
+                              coding.plan(caches.leaves()[0].numel(),
+                                          n_rot=N_ROT))
     t0 = time.perf_counter()
     coded = serve_step.degrade_caches(caches, mask, signs=signs)
     toks = serve_step.greedy_decode(cfg, params, coded, first, LONG_PROMPT,
@@ -3905,6 +3975,188 @@ def phase_serve_long(dev, C, M, L, serve_step, coupling, kernels, counts):
           f"{LONG_ATTN_RTOL} x it; SDPA {sdpa_err:.3g}); layer 0 attention "
           f"ms {ms}; launches {launches}")
     return rec
+
+
+# phase 19c: gemma2-9b on a prompt longer than its 4,096-token window,
+# then a teacher-forced forward over prompt + generated tokens padded
+# with filler to a multiple of the tiled path's 1,024-token q tile
+GEMMA2_LONG_PROMPT, GEMMA2_FORCED_LEN = 8192, 9216
+RING_DECODE_BAR = 0.05         # tests/test_models.py:78-79's bar
+
+
+def phase_serve_gemma2(dev, C, M, L, serve_step, coupling, kernels, counts):
+    """gemma2-9b at full width: the 8 x 512 serve path
+    (``phase_main_path``, its KV leaves' kernels held to their plain
+    versions and timed), then the long prompt (``phase_serve_gemma2_long``)
+    on the same weights.  Returns both records and the kernel timing
+    records at the serve path's KV shapes."""
+    cfg = C.get("gemma2-9b")
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    serve = phase_main_path(dev, C, M, serve_step, coupling, counts,
+                            arch="gemma2-9b", params=params,
+                            wire_kernels=kernels)
+    records = serve["wire_check"].pop("records")
+    torch.cuda.empty_cache()
+    long = phase_serve_gemma2_long(dev, cfg, params, M, L, serve_step,
+                                   coupling, kernels, counts)
+    return serve, long, records
+
+
+def attention_check(dev, cfg, params, M, L, prompt, layer):
+    """Layer ``layer``'s attention on ``prompt``: the tiled path (the
+    prefill's, with the layer's softcap and window) against the dense
+    formula, whose (1, H, S, S) float32 logits are built whole, within
+    LONG_ATTN_RTOL of the largest dense output; both timed.  No library
+    yardstick: SDPA takes no softcap."""
+    sub = dataclasses.replace(cfg, n_layers=layer)
+    x = (M.hidden(params, sub, prompt) if layer else
+         L.embed(params["embed.table"], cfg, prompt))
+    p = M.sub_params(params, f"layers.{layer}.")
+    h = L.rmsnorm(p["ln1.scale"], x, cfg.norm_eps)
+    del x
+    n = prompt.shape[1]
+    pos = torch.arange(n, device=dev)
+    q, k, v = L.qkv(M.sub_params(p, "attn."), cfg, h, pos[None])
+    rep = cfg.n_heads_padded // cfg.n_kv_heads
+    k_rep, v_rep = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+    kind = cfg.block_pattern[layer % len(cfg.block_pattern)]
+    window = cfg.window_size if kind == "local" else None
+    kp, qp = pos[None, None, None, :], pos[None, None, :, None]
+    mask = (kp <= qp) & (kp > qp - window) if window else kp <= qp
+
+    def tiled_fn():
+        return L.tiled_attention(q, k_rep, v_rep, qpos=pos, kpos=pos,
+                                 softcap=cfg.attn_softcap, window=window)
+
+    def dense_fn():
+        return L.dense_attention(q, k, v, mask, cfg.attn_softcap)
+
+    tiled, dense = tiled_fn(), dense_fn().float()
+    scale = dense.abs().max().item()
+    err = (tiled - dense).abs().max().item()
+    assert err <= LONG_ATTN_RTOL * scale, (layer, kind, err, scale)
+    del tiled, dense
+    return {"kind": kind, "window": window, "max_abs_err": err,
+            "dense_max_abs": scale, "tiled_ms": time_ms(tiled_fn),
+            "dense_ms": time_ms(dense_fn),
+            "library_ms": None, "library": "none: SDPA takes no softcap"}
+
+
+def phase_serve_gemma2_long(dev, cfg, params, M, L, serve_step, coupling,
+                            kernels, counts):
+    """gemma2-9b at full width on a GEMMA2_LONG_PROMPT-token prompt (batch
+    1), past its 4,096-token window: prefill through the tiled path with
+    local masks and the softcap, the ring caches wrapped (local leaves
+    4,096 slots, global ones prompt + LONG_GEN); the coded KV transfer
+    and LONG_GEN greedy tokens through the ring; the transfer's kernels
+    held to their plain versions on its caches; layer 0 (local) and
+    layer 1 (global) tiled attention against the dense formula; and the
+    clean caches' decode through the ring against a teacher-forced
+    forward at the last position."""
+    coding = kernels[-1]
+    n = GEMMA2_LONG_PROMPT
+    prompt = torch.randint(0, cfg.vocab_size, (1, n),
+                           generator=torch.Generator(dev).manual_seed(5),
+                           device=dev)
+    assert n > cfg.window_size and n % 1024 == 0
+    prefill = serve_step.make_prefill(cfg, n + LONG_GEN)
+    mask = torch.as_tensor(coupling.kv_hole_masks(
+        np.array([KV_FRAC]), N_ROT, seed=0)[0], device=dev)
+    prefill(params, prompt)                 # warm-up
+    _sync()
+    counts.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, prompt)
+    _sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first = torch.argmax(logits, -1)[:, None]
+    signs = coding.rademacher(torch.Generator(dev).manual_seed(2),
+                              coding.plan(caches.leaves()[0].numel(),
+                                          n_rot=N_ROT))
+    t0 = time.perf_counter()
+    coded = serve_step.degrade_caches(caches, mask, signs=signs)
+    _sync()
+    degrade_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    toks = serve_step.greedy_decode(cfg, params, coded, first, n, LONG_GEN)
+    _sync()
+    decode_s = time.perf_counter() - t0
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    slots = [t.shape[2] for t in caches.leaves()]
+    assert slots == [cfg.window_size] * 2 + [n + LONG_GEN] * 2, slots
+    assert torch.isfinite(logits.float()).all() and toks.shape == (1,
+                                                                   LONG_GEN)
+    n_leaves = len(caches.leaves())
+    assert (launches["fwht"] >= 2 * n_leaves
+            and launches["masked_unbias"] >= n_leaves), launches
+    wire_check = check_kv_wire("serve_gemma2_long", caches, mask, signs,
+                               *kernels)
+    del coded
+    profile = profile_window(lambda: prefill(params, prompt))
+
+    # decode through the wrapped ring from the clean caches, then one
+    # more step feeding the last token, at position n + LONG_GEN - 1,
+    # against a teacher-forced forward over the same tokens; filler
+    # after them pads the forward to GEMMA2_FORCED_LEN (causal masks keep
+    # it out of that position), and only that position is unembedded
+    clean_toks = serve_step.greedy_decode(cfg, params, caches, first, n,
+                                          LONG_GEN)
+    last = n + LONG_GEN - 1
+    got, _ = serve_step.make_decode(cfg)(params, caches, clean_toks[:, -1:],
+                                         last)
+    del caches
+    seq = torch.cat([prompt, clean_toks], dim=1)
+    seq = torch.nn.functional.pad(seq, (0, GEMMA2_FORCED_LEN - seq.shape[1]))
+    want = M.head(params, cfg, M.hidden(params, cfg, seq)[:, last:last + 1])
+    got, want = got.float(), want[:, 0].float()
+    ring_scale = max(1.0, want.abs().max().item())
+    ring_err = (got - want).abs().max().item() / ring_scale
+    assert torch.isfinite(got).all() and ring_err < RING_DECODE_BAR, (
+        ring_err, ring_scale)
+    del seq, want
+    torch.cuda.empty_cache()
+
+    attention = {f"layer{i}": attention_check(dev, cfg, params, M, L, prompt,
+                                              i) for i in (0, 1)}
+    rec = {"model": cfg.name, "prompt": n, "gen": LONG_GEN,
+           "kv_leaf_slots": slots, "prefill_ms": prefill_ms,
+           "prefill_peak_mem_gib": prefill_peak,
+           "degrade_caches_ms": degrade_ms, "decode_s": decode_s,
+           "peak_mem_gib": peak, "prefill_profile": profile,
+           "wire_check": wire_check,
+           "ring_decode_vs_forced_rel_err": ring_err,
+           "ring_decode_bar": f"{RING_DECODE_BAR} x max(1, max |logits|)",
+           "forced_len": GEMMA2_FORCED_LEN,
+           "attention": attention,
+           "tolerance": f"{LONG_ATTN_RTOL} x max |dense|",
+           "launches": launches}
+    print(f"long prompt {n} tokens, gemma2-9b full width: prefill "
+          f"{prefill_ms:.1f} ms (peak {prefill_peak:.2f} GiB; {profile}), "
+          f"coded KV {degrade_ms:.1f} ms + {LONG_GEN} tokens {decode_s:.2f} "
+          f"s; ring slots {slots}; its kernels vs plain: {wire_check}; ring "
+          f"decode vs teacher-forced forward rel err {ring_err:.3g} (bar "
+          f"{RING_DECODE_BAR}); attention {attention}; launches {launches}")
+    return rec
+
+
+# phase 19d: the rest of the dense family at full width
+DENSE_ARCHS = ("chatglm3-6b", "nemotron-4-15b")
+
+
+def phase_serve_dense(dev, C, M, serve_step, coupling, kernels, counts, arch):
+    """``arch`` at full width through ``phase_main_path``'s 8 x 512 path
+    and bars, its KV leaves' kernels held to their plain versions; the
+    weights freed after.  Returns the record and the kernel timing
+    records at its KV shapes."""
+    rec = phase_main_path(dev, C, M, serve_step, coupling, counts, arch=arch,
+                          wire_kernels=kernels)
+    records = rec["wire_check"].pop("records")
+    rec.pop("profile")      # printed above; the record stays compact
+    torch.cuda.empty_cache()
+    return rec, records
 
 
 def card_name_and_power():
@@ -4012,6 +4264,15 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     serve_long = phase_serve_long(dev, C, M, L, serve_step, coupling,
                                   wire_kernels, counts)
     torch.cuda.empty_cache()
+    serve_gemma2, serve_gemma2_long, gemma2_records = phase_serve_gemma2(
+        dev, C, M, L, serve_step, coupling, wire_kernels, counts)
+    records += gemma2_records
+    torch.cuda.empty_cache()
+    serve_dense = {}
+    for arch in DENSE_ARCHS:
+        serve_dense[arch], dense_records = phase_serve_dense(
+            dev, C, M, serve_step, coupling, wire_kernels, counts, arch)
+        records += dense_records
     feature_check = phase_features_card_vs_cpu(dev, E, topology, figs)
     fig10 = phase_fig10(dev, figs, counts)
     fig9 = phase_fig9(dev, figs, trace_export, counts)
@@ -4029,9 +4290,16 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "fig5": fig5["launches"], "fig6": fig6["launches"],
                "fig8": fig8["launches"], "serve_long": serve_long["launches"],
                "fig10": fig10["launches"], "fig9": fig9["launches"],
-               "fig2_step": fig2["step_window"]["launches"]}
+               "fig2_step": fig2["step_window"]["launches"],
+               "serve_gemma2": serve_gemma2["launches"],
+               "serve_gemma2_long": serve_gemma2_long["launches"],
+               "serve_chatglm3": serve_dense["chatglm3-6b"]["launches"],
+               "serve_nemotron": serve_dense["nemotron-4-15b"]["launches"]}
+    wires = [fig8["wire_check"], serve_long["wire_check"],
+             serve_gemma2["wire_check"], serve_gemma2_long["wire_check"],
+             *(r["wire_check"] for r in serve_dense.values())]
     for rec in records:
-        for wire in (fig8["wire_check"], serve_long["wire_check"]):
+        for wire in wires:
             rec["max_abs_err"] = max(rec["max_abs_err"], wire[
                 "max_abs_err"].get(rec["name"], 0.0))
         rec["launches_by_path"] = {p: c[rec["name"]]
@@ -4052,6 +4320,9 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "fig8": fig8,
                       "features_card_vs_cpu": feature_check,
                       "fig10": fig10, "fig9": fig9, "serve_long": serve_long,
+                      "serve_gemma2": serve_gemma2,
+                      "serve_gemma2_long": serve_gemma2_long,
+                      "serve_dense": serve_dense,
                       "seconds": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -332,7 +332,7 @@ def fig8_recovery(device, kv_frac, seed):
         np.array([kv_frac]), FIG8_N_ROT, seed=seed)[0], device=device)
     signs = coding.rademacher(
         torch.Generator(device).manual_seed(FIG8_SIGN_SEED),
-        coding.plan(clean.k.numel(), n_rot=FIG8_N_ROT))
+        coding.plan(clean.leaves()[0].numel(), n_rot=FIG8_N_ROT))
     out = {}
     for coded in (True, False):
         caches = serve_step.degrade_caches(clean, mask, coded=coded,

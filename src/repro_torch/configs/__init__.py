@@ -1,11 +1,12 @@
-"""Architecture registry.  Holds the families ported so far: qwen2-0.5b."""
+"""Architecture registry.  Holds the families ported so far: the dense
+ones (qwen2-0.5b, gemma2-9b, chatglm3-6b, nemotron-4-15b)."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-ARCHS = ("qwen2_0_5b",)
+ARCHS = ("qwen2_0_5b", "gemma2_9b", "chatglm3_6b", "nemotron_4_15b")
 
 
 def canonical(name: str) -> str:

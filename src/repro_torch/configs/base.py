@@ -1,8 +1,9 @@
 """Model configuration (port of ``repro/configs/base.py``).
 
-Holds the fields the dense global-attention path reads.  The MoE,
-recurrent, enc-dec and frontend fields of the JAX ``ModelConfig``
-arrive with the slices that port those families.
+Holds the fields the dense families read (qwen2, gemma2, chatglm3,
+nemotron), with the JAX defaults.  The MoE, recurrent, enc-dec and
+frontend fields of the JAX ``ModelConfig`` arrive with the slices that
+port those families.
 """
 from __future__ import annotations
 
@@ -22,14 +23,21 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None  # default d_model // n_heads
 
+    # layer pattern, cycled to n_layers: "global" | "local" (the other
+    # kinds of the JAX package are not ported yet)
     block_pattern: Tuple[str, ...] = ("global",)
+    window_size: int = 4096         # local-attention window
 
     qkv_bias: bool = False
+    attn_softcap: Optional[float] = None
+    logit_softcap: Optional[float] = None
     rope_theta: float = 10_000.0
+    rope_fraction: float = 1.0      # chatglm partial rotary = 0.5
 
-    mlp_type: str = "swiglu"
+    mlp_type: str = "swiglu"        # swiglu | geglu | sqrelu
 
     norm_eps: float = 1e-6
+    post_norm: bool = False         # gemma2: extra post-block norms
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
 
@@ -46,3 +54,9 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    def pattern_layout(self) -> Tuple[int, Tuple[str, ...]]:
+        """(n_groups, tail_kinds): n_layers = n_groups*len(pattern)+tail."""
+        plen = len(self.block_pattern)
+        return (self.n_layers // plen,
+                self.block_pattern[: self.n_layers % plen])

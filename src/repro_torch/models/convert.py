@@ -2,13 +2,15 @@
 
 Takes the JAX package's parameter tree with its leaves as numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
-The scanned ``decoder.groups[0]`` leaves, stacked over layers, are
-unstacked into ``layers.{i}.*``; padded ``wq``/``wo`` and the leaves'
-dtypes (bfloat16, float32) are kept as they are.
+The scanned ``decoder.groups[j]`` leaves, stacked over pattern groups,
+are unstacked into ``layers.{i}.*`` (layer ``i = g * plen + j``), then
+the ``tail`` layers; padded ``wq``/``wo`` and the leaves' dtypes
+(bfloat16, float32) are kept as they are.
 
-The **JAX leaf view** (:func:`jax_leaves`, :func:`params_from_leaves`)
-is the list of the JAX parameter tree's 14 leaves in
-``jax.tree_util.tree_flatten`` order, per-layer entries stacked over
+The **JAX leaf view** (:func:`jax_leaves`, :func:`params_from_leaves`;
+qwen2's layout, the one the train step is ported for) is the list of
+the JAX parameter tree's 14 leaves in ``jax.tree_util.tree_flatten``
+order, per-layer entries stacked over
 layers as the scanned ``decoder.groups[0]`` holds them.  The trainer
 keeps its parameters in this view: the JAX train step plans, codes and
 draws one mask and one set of signs per leaf index, so the port codes
@@ -51,22 +53,40 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""
             yield prefix + k, v
 
 
+# a dense block's leaves (the other block kinds are not ported yet)
+BLOCK_PARTS = ("attn", "ln1", "ln2", "mlp", "pn1", "pn2")
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Params:
     """State dict (CPU tensors) from a JAX ``init_params`` tree of numpy
-    leaves.  Only ``block_pattern=("global",)`` decoders are ported."""
+    leaves, for any dense decoder: layer ``i < n_groups * plen`` is
+    ``groups[i % plen][i // plen]``, the rest the ``tail`` in order;
+    ``embed.unembed`` and the post-norms come across.  bfloat16 stays bit
+    for bit."""
     if set(tree) != {"embed", "decoder", "final_norm"}:
         raise NotImplementedError(f"unported parameter groups: {sorted(tree)}")
     groups, tail = tree["decoder"]["groups"], tree["decoder"]["tail"]
-    if len(groups) != 1 or tail:
-        raise NotImplementedError("only block_pattern=('global',) is ported")
+    blocks = [b for b in list(groups) + list(tail) if b is not None]
+    parts = sorted({k for b in blocks for k in b} - set(BLOCK_PARTS))
+    if parts:
+        raise NotImplementedError(f"unported block parts: {parts}")
     out: Params = {}
     for name, leaf in _flatten({"embed": tree["embed"],
                                 "final_norm": tree["final_norm"]}):
         out[name] = _tensor(leaf)
-    for name, leaf in _flatten(groups[0]):
-        stacked = _tensor(leaf)
-        for i in range(stacked.shape[0]):
-            out[f"layers.{i}.{name}"] = stacked[i].clone()
+    plen = len(groups)
+    for j, group in enumerate(groups):
+        if group is None:          # fewer layers than the pattern
+            continue
+        for name, leaf in _flatten(group):
+            stacked = _tensor(leaf)
+            for g in range(stacked.shape[0]):
+                out[f"layers.{g * plen + j}.{name}"] = stacked[g].clone()
+    n = 1 + max((int(k.split(".")[1]) for k in out if k.startswith("layers.")),
+                default=-1)
+    for t, block in enumerate(tail):
+        for name, leaf in _flatten(block):
+            out[f"layers.{n + t}.{name}"] = _tensor(leaf)
     return out
 
 

@@ -1,5 +1,8 @@
-"""Model layers for the dense global-attention path (port of
-``repro/models/layers.py``).
+"""Model layers for the dense families (port of
+``repro/models/layers.py``): GQA with QKV bias, global and local
+(sliding-window) attention with the attention softcap, the ring KV cache
+of local layers, partial rotary (chatglm), SwiGLU / GeGLU / squared-ReLU
+MLPs, tied or untied unembedding with the logit softcap.
 
 Plain functions on tensors.  Weights keep the JAX layout (``x @ w``,
 ``w`` of shape (in, out)), so weights carried across from the JAX
@@ -10,9 +13,9 @@ config's dtype.
 
 A prompt with ``s * s_kv > FLASH_THRESHOLD`` takes the tiled
 online-softmax path (:func:`tiled_attention`, the JAX package's
-``_flash_attention`` for global causal attention), which never builds
-the ``(s, s_kv)`` logits.  Local and softcapped attention,
-cross-attention and the ring cache arrive with later slices.
+``_flash_attention``, local masks and softcap included), which never
+builds the ``(s, s_kv)`` logits.  Cross-attention arrives with the
+enc-dec slice.
 
 Tensor parallelism (Megatron, as the JAX package's partition specs and
 ``_head_shard``/``_proj_shard`` constraints have GSPMD lay it out):
@@ -61,12 +64,14 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (x * (1.0 + scale)).to(dt)
 
 
-def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables (..., S, head_dim/2), float32.  Rotary over the
-    whole head; chatglm's partial rotary comes with its family."""
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=positions.device) / head_dim
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                fraction: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables (..., S, rot_dim/2), float32, over the rotary
+    sub-dimension rot_dim = head_dim * fraction rounded down to even
+    (chatglm's partial rotary: fraction 0.5)."""
+    rot_dim = int(head_dim * fraction) // 2 * 2
+    exps = torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                        device=positions.device) / rot_dim
     freq = 1.0 / torch.pow(theta, exps)
     angles = positions[..., None].to(torch.float32) * freq
     return torch.cos(angles), torch.sin(angles)
@@ -74,24 +79,40 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, H, Dh); rotates interleaved pairs (0, 1), (2, 3), ..."""
-    x1, x2 = x[..., 0::2], x[..., 1::2]
+    """x: (B, S, H, Dh); rotates interleaved pairs (0, 1), (2, 3), ... of
+    the first rot_dim = 2 * cos.shape[-1] dims, the rest passes through
+    (cast to the rotated part's float32, as JAX's concatenate does)."""
+    rot_dim = 2 * cos.shape[-1]
+    rot, rest = x[..., :rot_dim], x[..., rot_dim:]
+    x1, x2 = rot[..., 0::2], rot[..., 1::2]
     c, s = cos[:, :, None, :], sin[:, :, None, :]
     y1 = x1 * c - x2 * s
     y2 = x1 * s + x2 * c
-    return torch.stack([y1, y2], dim=-1).reshape(x.shape)
+    y = torch.stack([y1, y2], dim=-1).reshape(rot.shape)
+    if not rest.shape[-1]:
+        return y
+    return torch.cat([y, rest.to(y.dtype)], dim=-1)
+
+
+def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
 
 
 @dataclasses.dataclass
 class AttnCache:
-    """Decode-time KV cache.
+    """Decode-time KV cache of one attention layer, or of a stack of
+    layers (``k``/``v`` (n, B, S, KV, Dh), ``pos`` (n, S), as the JAX
+    model stacks the caches of its scanned layers; :meth:`layer` gives
+    one layer's views).
 
-    The model holds one stacked cache for all layers: ``k``/``v``
-    (n_layers, B, S, KV, Dh) and ``pos`` (n_layers, S), as the JAX model
-    stacks its scanned caches; :meth:`layer` gives one layer's views.
-    ``pos`` holds each slot's position, -1 while empty.  Prefill and
-    decode write into the views in place (the JAX decode donates its
-    caches); copy a cache that must outlive a decode.
+    ``pos`` holds each slot's true position, -1 while empty.  A local
+    layer's cache is a ring of ``min(window_size, s_max)`` slots: the
+    token at position ``i`` sits in slot ``i % S``, so masks and rotary
+    stay exact after it wraps.  Prefill and decode write into the views
+    in place (the JAX decode donates its caches); copy a cache that must
+    outlive a decode.
     """
     k: torch.Tensor
     v: torch.Tensor
@@ -159,22 +180,23 @@ def qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
         heads = (tp.index * h_local + torch.arange(h_local, device=x.device)
                  ) // (h // kv)
         k, v = k[:, :, heads], v[:, :, heads]
-    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+    cos, sin = rope_tables(positions, hd, cfg.rope_theta, cfg.rope_fraction)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def dense_attention(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, softcap: Optional[float] = None
+                    ) -> torch.Tensor:
     """Grouped-GQA attention against the unrepeated kv: float32 logits
-    (B, H, S, S_kv) under ``mask``, the softmax rounded to v's dtype.
-    Returns (B, S, H, Dh) in v's dtype."""
+    (B, H, S, S_kv), softcapped after the scale, under ``mask``, the
+    softmax rounded to v's dtype.  Returns (B, S, H, Dh) in v's dtype."""
     b, s, h, hd = q.shape
     kv, s_kv = kq.shape[2], kq.shape[1]
     rep = h // kv
     qg = q.reshape(b, s, kv, rep, hd)
     logits = torch.einsum("bqkrd,bskd->bkrqs", qg.to(torch.float32),
                           kq.to(torch.float32)) * hd ** -0.5
-    logits = logits.reshape(b, h, s, s_kv)
+    logits = _softcap(logits.reshape(b, h, s, s_kv), softcap)
     logits = torch.where(mask, logits, -1e30)
     attn = torch.softmax(logits, dim=-1).to(vq.dtype)
     attn_g = attn.reshape(b, kv, rep, s, s_kv)
@@ -184,18 +206,22 @@ def dense_attention(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
 
 def tiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     qpos: torch.Tensor, kpos: torch.Tensor,
+                    softcap: Optional[float] = None,
+                    window: Optional[int] = None,
                     q_blk: int = 1024, kv_blk: int = 1024) -> torch.Tensor:
     """Causal attention in tiles with an online softmax (the JAX
-    package's ``_flash_attention`` for global attention without softcap).
+    package's ``_flash_attention``).
 
     q: (B, Sq, H, D); k, v: (B, Skv, H, D), already repeated to q's heads;
     ``qpos`` (Sq,) and ``kpos`` (Skv,) the true positions.  Per q tile,
     a loop over kv tiles carries the running max, the normalizer and the
-    output in float32; logits are float32, the probabilities are rounded
-    to v's dtype before the product, which accumulates in float32, as
-    JAX's ``preferred_element_type`` does.  Masked logits are -1e30.
-    Never builds more than one (B, H, q_blk, kv_blk) tile.  Returns
-    (B, Sq, H, D) float32.
+    output in float32; logits are float32 (softcapped after the scale),
+    the probabilities are rounded to v's dtype before the product, which
+    accumulates in float32, as JAX's ``preferred_element_type`` does.
+    The mask: ``kp >= 0``, causal, and with ``window`` (a local layer)
+    ``kp > qp - window``; masked logits are -1e30.  Every tile is
+    visited, as in JAX.  Never builds more than one (B, H, q_blk, kv_blk)
+    tile.  Returns (B, Sq, H, D) float32.
     """
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -215,9 +241,12 @@ def tiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             kt = k[:, j:j + kv_blk].to(torch.float32)
             vt = v[:, j:j + kv_blk]
             kp = kpos[j:j + kv_blk]
-            logits = torch.einsum("bqhd,bkhd->bhqk", qt, kt) * scale
-            mask = ((kp[None, None, None, :] >= 0)
-                    & (kp[None, None, None, :] <= qp[None, None, :, None]))
+            logits = _softcap(torch.einsum("bqhd,bkhd->bhqk", qt, kt)
+                              * scale, softcap)
+            kp4, qp4 = kp[None, None, None, :], qp[None, None, :, None]
+            mask = (kp4 >= 0) & (kp4 <= qp4)
+            if window is not None:
+                mask = mask & (kp4 > qp4 - window)
             logits = torch.where(mask, logits, -1e30)
             m_new = torch.maximum(m, logits.amax(-1))
             p_ = torch.exp(logits - m_new[..., None])
@@ -232,38 +261,69 @@ def tiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def cache_prefill(cache: AttnCache, k: torch.Tensor, v: torch.Tensor
+                  ) -> None:
+    """Write a length-L prompt's K/V (B, L, KV, Dh) into one layer's
+    cache in place (JAX ``_cache_prefill``).  A prompt longer than the
+    cache's S slots (a local layer's ring) keeps its last S tokens, the
+    token at position i in slot i % S."""
+    l, sc = k.shape[1], cache.k.shape[1]
+    if l <= sc:
+        cache.k[:, :l] = k.to(cache.k.dtype)
+        cache.v[:, :l] = v.to(cache.v.dtype)
+        cache.pos[:l] = torch.arange(l, device=k.device)
+        return
+    kept = torch.arange(l - sc, l, device=k.device)
+    slots = kept % sc
+    cache.k[:, slots] = k[:, -sc:].to(cache.k.dtype)
+    cache.v[:, slots] = v[:, -sc:].to(cache.v.dtype)
+    cache.pos[slots] = kept.to(cache.pos.dtype)
+
+
+def cache_decode(cache: AttnCache, k: torch.Tensor, v: torch.Tensor,
+                 index: int) -> None:
+    """Write one token's K/V (B, 1, KV, Dh) at true position ``index``
+    into slot ``index % S`` in place (JAX ``_cache_decode``)."""
+    slot = index % cache.k.shape[1]
+    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    cache.pos[slot] = index
+
+
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+              kind: str = "global",
               positions: torch.Tensor,
               cache: Optional[AttnCache] = None,
               cache_index: Optional[int] = None,
               tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
-    """Causal GQA self-attention with optional QKV bias and padded heads.
+    """Causal GQA self-attention with optional QKV bias, padded heads and
+    the attention softcap; ``kind="local"`` masks keys at or beyond
+    ``window_size`` positions back.
 
-    - train/prefill: (B, S, D) in; with ``cache``, K/V are written to
-      slots [0, S).  Above ``FLASH_THRESHOLD`` (``s * s``) it tiles.
+    - train/prefill: (B, S, D) in; with ``cache``, K/V are written to it
+      (:func:`cache_prefill`).  Above ``FLASH_THRESHOLD`` (``s * s``) it
+      tiles.
     - decode: S == 1 with ``cache`` and ``cache_index``: K/V written at
-      slot ``cache_index``, attention over every filled slot.
+      slot ``cache_index % S``, attention over every filled slot by its
+      true position.
     - ``tp``: this rank's heads (:func:`qkv`), its rows of ``wo``, and
       the partial outputs summed over ``model``; no cache.
     """
     b, s, _ = x.shape
     q, k, v = qkv(p, cfg, x, positions, tp)
     h, kv, hd = q.shape[2], k.shape[2], cfg.resolved_head_dim
+    window = cfg.window_size if kind == "local" else None
 
     decode = cache is not None and s == 1 and cache_index is not None
     if decode:
-        cache.k[:, cache_index] = k[:, 0].to(cache.k.dtype)
-        cache.v[:, cache_index] = v[:, 0].to(cache.v.dtype)
-        cache.pos[cache_index] = cache_index
+        cache_decode(cache, k, v, cache_index)
         kq, vq = cache.k, cache.v
     else:
         if cache is not None:
-            if s > cache.k.shape[1]:
+            if window is None and s > cache.k.shape[1]:
                 raise ValueError(f"prompt of {s} tokens does not fit a "
                                  f"{cache.k.shape[1]}-slot cache")
-            cache.k[:, :s] = k.to(cache.k.dtype)
-            cache.v[:, :s] = v.to(cache.v.dtype)
-            cache.pos[:s] = torch.arange(s, device=x.device)
+            cache_prefill(cache, k, v)
         kq, vq = k, v
     s_kv = kq.shape[1]
 
@@ -274,17 +334,22 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
             q, kq.repeat_interleave(rep, dim=2),
             vq.repeat_interleave(rep, dim=2),
             qpos=positions[0] if positions.dim() == 2 else positions,
-            kpos=torch.arange(s_kv, device=x.device))
+            kpos=torch.arange(s_kv, device=x.device),
+            softcap=cfg.attn_softcap, window=window)
         return _out_proj(out.reshape(b, s, h * hd).to(x.dtype), p["wo"], tp)
 
     if decode:
         kpos = cache.pos[None, None, None, :]
         mask = (kpos >= 0) & (kpos <= cache_index)
+        if window is not None:
+            mask = mask & (kpos > cache_index - window)
     else:
         qpos = positions[:, None, :, None]
         kpos = torch.arange(s_kv, device=x.device)[None, None, None, :]
         mask = kpos <= qpos
-    out = dense_attention(q, kq, vq, mask)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+    out = dense_attention(q, kq, vq, mask, cfg.attn_softcap)
     return _out_proj(out.reshape(b, s, h * hd), p["wo"], tp)
 
 
@@ -296,13 +361,21 @@ def _out_proj(x: torch.Tensor, wo: torch.Tensor,
     return y if tp is None else shd.reduce_from_model(y, tp)
 
 
-def mlp(p: Params, x: torch.Tensor,
+def mlp(p: Params, cfg: ModelConfig, x: torch.Tensor,
         tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
-    """SwiGLU; with ``tp`` wi/wg are column shards and wo the matching
-    row shard."""
+    """SwiGLU, GeGLU (tanh GELU) or squared ReLU (``cfg.mlp_type``); with
+    ``tp`` wi/wg are column shards and wo the matching row shard."""
     if tp is not None:
         x = shd.copy_to_model(x, tp)
-    return _out_proj(F.silu(x @ p["wg"]) * (x @ p["wi"]), p["wo"], tp)
+    if cfg.mlp_type == "swiglu":
+        hidden = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    elif cfg.mlp_type == "geglu":
+        hidden = F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wi"])
+    elif cfg.mlp_type == "sqrelu":
+        hidden = torch.square(F.relu(x @ p["wi"]))
+    else:
+        raise ValueError(cfg.mlp_type)
+    return _out_proj(hidden, p["wo"], tp)
 
 
 def embed(table: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor,
@@ -324,11 +397,17 @@ def embed(table: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor,
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
 
 
-def unembed(table: torch.Tensor, x: torch.Tensor,
+def unembed(p: Params, cfg: ModelConfig, x: torch.Tensor,
             tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
-    """Tied unembedding; logits in the compute dtype.  With ``tp`` the
-    logits of this rank's rows of the vocabulary (split over ``model``,
-    as the JAX package constrains them)."""
+    """Logits in the compute dtype from the embedding's leaves ``p``
+    (``table``, and ``unembed`` (d, V) when untied): ``x @ table.T`` or
+    ``x @ unembed``, then the logit softcap on float32, rounded back.
+    With ``tp`` the logits of this rank's rows of the vocabulary (split
+    over ``model``, as the JAX package constrains them)."""
     if tp is not None:
         x = shd.copy_to_model(x, tp)
-    return x @ table.T
+    logits = x @ p["table"].T if cfg.tie_embeddings else x @ p["unembed"]
+    if cfg.logit_softcap is not None:
+        logits = _softcap(logits.to(torch.float32),
+                          cfg.logit_softcap).to(x.dtype)
+    return logits

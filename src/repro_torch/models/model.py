@@ -1,11 +1,15 @@
-"""Top-level causal LM (port of ``repro/models/model.py`` for
-``block_pattern=("global",)``): forward, caches, and the training loss.
+"""Top-level causal LM (port of ``repro/models/model.py`` for the dense
+families: ``block_pattern`` of ``"global"`` and ``"local"`` layers):
+forward, caches, and the training loss.
 
 Parameters are a flat state dict of tensors with dotted names
-(``embed.table``, ``layers.{i}.attn.wq``, ``final_norm.scale``, ...),
-each weight in the JAX layout.  The caches are one stacked
-:class:`~repro_torch.models.layers.AttnCache` for all layers, as the JAX
-model stacks the caches of its scanned layers.
+(``embed.table``, ``embed.unembed`` when untied, ``layers.{i}.attn.wq``,
+``layers.{i}.pn1.scale`` with post-norms, ``final_norm.scale``, ...),
+each weight in the JAX layout.  Layer ``i`` is of kind
+``block_pattern[i % len(block_pattern)]``.  The caches (:class:`Caches`)
+mirror the JAX model's cache tree: one stacked
+:class:`~repro_torch.models.layers.AttnCache` per position of the
+pattern, then one per tail layer.
 
 On a mesh with a ``model`` axis the parameters are this rank's shards
 (``convert.shard_leaves``) and ``tp`` its
@@ -16,7 +20,8 @@ parallel, the logits come out split over the vocabulary, and
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -28,12 +33,34 @@ from repro_torch.models import layers as L
 Params = L.Params
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    if (cfg.block_pattern != ("global",) or cfg.mlp_type != "swiglu"
-            or not cfg.tie_embeddings):
+ATTN_KINDS = ("global", "local")
+
+
+def qwen2_layout(cfg: ModelConfig) -> bool:
+    """True for qwen2's layer layout (global attention with QKV bias and
+    full rotary, SwiGLU, tied embeddings, no softcaps or post-norms): the
+    one the train step and the tensor-parallel layers are ported for."""
+    return (cfg.block_pattern == ("global",) and cfg.mlp_type == "swiglu"
+            and cfg.tie_embeddings and cfg.qkv_bias
+            and cfg.rope_fraction == 1.0 and cfg.attn_softcap is None
+            and cfg.logit_softcap is None and not cfg.post_norm)
+
+
+def check_supported(cfg: ModelConfig,
+                    tp: Optional[shd.ModelGroup] = None) -> None:
+    """Refuse what the port does not run yet: blocks other than global
+    and local attention (moe, rglru, mlstm, slstm, xattn), and tensor
+    parallelism on any layout but qwen2's (serving on a TP mesh is not
+    ported)."""
+    kinds = sorted(set(cfg.block_pattern) - set(ATTN_KINDS))
+    if kinds:
         raise NotImplementedError(
-            f"{cfg.name}: only tied-embedding swiglu models with "
-            "block_pattern=('global',) are ported yet")
+            f"{cfg.name}: {kinds} blocks are not ported yet "
+            f"(ported: {ATTN_KINDS})")
+    if tp is not None and not qwen2_layout(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism is ported for qwen2's layout "
+            "only")
 
 
 def _trunc_normal(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
@@ -60,6 +87,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
         return _trunc_normal(generator, shape, dt, dev)
 
     p: Params = {"embed.table": tn(cfg.vocab_size, d)}
+    if not cfg.tie_embeddings:
+        p["embed.unembed"] = tn(d, cfg.vocab_size)
     for i in range(cfg.n_layers):
         pre = f"layers.{i}."
         p[pre + "ln1.scale"] = torch.zeros(d, device=dev)
@@ -74,8 +103,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
             p[pre + "attn.bk"] = torch.zeros(kv * hd, dtype=dt, device=dev)
             p[pre + "attn.bv"] = torch.zeros(kv * hd, dtype=dt, device=dev)
         p[pre + "ln2.scale"] = torch.zeros(d, device=dev)
-        p.update({pre + "mlp.wi": tn(d, f), pre + "mlp.wg": tn(d, f),
-                  pre + "mlp.wo": tn(f, d)})
+        p[pre + "mlp.wi"] = tn(d, f)
+        if cfg.mlp_type != "sqrelu":
+            p[pre + "mlp.wg"] = tn(d, f)
+        p[pre + "mlp.wo"] = tn(f, d)
+        if cfg.post_norm:
+            p[pre + "pn1.scale"] = torch.zeros(d, device=dev)
+            p[pre + "pn2.scale"] = torch.zeros(d, device=dev)
     p["final_norm.scale"] = torch.zeros(d, device=dev)
     return p
 
@@ -86,13 +120,63 @@ def sub_params(params: Params, prefix: str) -> Params:
     return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
 
 
+def hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+           caches: Optional["Caches"] = None,
+           cache_index: Optional[int] = None,
+           positions: Optional[torch.Tensor] = None,
+           tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
+    """The residual stream (B, S, D) after the last block, before the
+    final norm.  With ``caches`` the K/V of every layer are written into
+    them in place (prefill, or one decode token at ``cache_index``).
+    Each block: pre-norm, attention of the layer's kind (``pn1`` on its
+    output with ``post_norm``), residual; pre-norm, MLP (``pn2``),
+    residual."""
+    check_supported(cfg, tp)
+    eps = cfg.norm_eps
+    vocab_tp = L.split_over_model("embed.table", tp)
+    x = L.embed(params["embed.table"], cfg, tokens, vocab_tp)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1],
+                                 device=tokens.device)[None, :]
+    plen = len(cfg.block_pattern)
+    for i in range(cfg.n_layers):
+        p = sub_params(params, f"layers.{i}.")
+        attn, mlp = sub_params(p, "attn."), sub_params(p, "mlp.")
+        h = L.rmsnorm(p["ln1.scale"], x, eps)
+        h = L.attention(attn, cfg, h, kind=cfg.block_pattern[i % plen],
+                        positions=positions,
+                        cache=None if caches is None else caches.layer(i),
+                        cache_index=cache_index,
+                        tp=L.split_over_model("attn.wq", tp))
+        if cfg.post_norm:
+            h = L.rmsnorm(p["pn1.scale"], h, eps)
+        x = x + h
+        h = L.rmsnorm(p["ln2.scale"], x, eps)
+        h = L.mlp(mlp, cfg, h, L.split_over_model("mlp.wi", tp))
+        if cfg.post_norm:
+            h = L.rmsnorm(p["pn2.scale"], h, eps)
+        x = x + h
+    return x
+
+
+def head(params: Params, cfg: ModelConfig, x: torch.Tensor,
+         tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
+    """Final norm and unembedding of residual-stream rows (B, S, D) ->
+    logits (B, S, V) in the compute dtype (V this rank's share of the
+    vocabulary when ``tp`` splits the table)."""
+    x = L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps)
+    return L.unembed(sub_params(params, "embed."), cfg, x,
+                     L.split_over_model("embed.table", tp))
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            caches: Optional[L.AttnCache] = None,
+            caches: Optional["Caches"] = None,
             cache_index: Optional[int] = None,
             positions: Optional[torch.Tensor] = None,
             last_only: bool = False,
             tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
-    """Logits (B, S or 1, V) in the compute dtype.
+    """Logits (B, S or 1, V) in the compute dtype: :func:`hidden`, then
+    :func:`head`.
 
     With ``caches`` the K/V of every layer are written into them in place
     (prefill, or one decode token at ``cache_index``).  With ``tp``
@@ -100,29 +184,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     runs tensor parallel, and V is this rank's share of the vocabulary
     when the table is split.
     """
-    check_supported(cfg)
-    eps = cfg.norm_eps
-    table = params["embed.table"]
-    vocab_tp = L.split_over_model("embed.table", tp)
-    x = L.embed(table, cfg, tokens, vocab_tp)
-    if positions is None:
-        positions = torch.arange(tokens.shape[1],
-                                 device=tokens.device)[None, :]
-    for i in range(cfg.n_layers):
-        p = sub_params(params, f"layers.{i}.")
-        attn, mlp = sub_params(p, "attn."), sub_params(p, "mlp.")
-        h = L.rmsnorm(p["ln1.scale"], x, eps)
-        h = L.attention(attn, cfg, h, positions=positions,
-                        cache=None if caches is None else caches.layer(i),
-                        cache_index=cache_index,
-                        tp=L.split_over_model("attn.wq", tp))
-        x = x + h
-        h = L.rmsnorm(p["ln2.scale"], x, eps)
-        x = x + L.mlp(mlp, h, L.split_over_model("mlp.wi", tp))
+    x = hidden(params, cfg, tokens, caches=caches, cache_index=cache_index,
+               positions=positions, tp=tp)
     if last_only:   # prefill: only the last position's logits are used
         x = x[:, -1:]
-    x = L.rmsnorm(params["final_norm.scale"], x, eps)
-    return L.unembed(table, x, vocab_tp)
+    return head(params, cfg, x, tp)
 
 
 def lm_loss(params: Params, cfg: ModelConfig,
@@ -171,13 +237,59 @@ def lm_loss(params: Params, cfg: ModelConfig,
     return nll.mean() + aux, (nll.mean(), aux)
 
 
+@dataclasses.dataclass
+class Caches:
+    """The model's decode caches, laid out as the JAX model's cache tree
+    (``init_caches``): ``groups[j]`` is one stacked
+    :class:`~repro_torch.models.layers.AttnCache` for layers ``j, j +
+    plen, ...`` (plen = ``len(block_pattern)``; empty when the model has
+    fewer layers than the pattern), then ``tail`` one per remaining
+    layer.  A qwen2 cache is the one-group case."""
+    groups: List[L.AttnCache]
+    tail: List[L.AttnCache]
+
+    def layer(self, i: int) -> L.AttnCache:
+        """Layer ``i``'s cache (views into the stacked tensors)."""
+        plen = len(self.groups)
+        n = plen * self.groups[0].k.shape[0] if plen else 0
+        if i < n:
+            return self.groups[i % plen].layer(i // plen)
+        return self.tail[i - n]
+
+    def nodes(self) -> List[L.AttnCache]:
+        """Groups, then tail: the JAX tree's ``AttnCache`` nodes in
+        ``tree_leaves`` order."""
+        return self.groups + self.tail
+
+    def leaves(self) -> List[torch.Tensor]:
+        """The K and V tensors in JAX's ``tree_leaves`` order (groups,
+        then tail; ``k`` before ``v``): the payloads the KV transfer
+        ships."""
+        return [t for c in self.nodes() for t in (c.k, c.v)]
+
+    def clone(self) -> "Caches":
+        return Caches(groups=[c.clone() for c in self.groups],
+                      tail=[c.clone() for c in self.tail])
+
+
 def init_caches(cfg: ModelConfig, batch: int, s_max: int,
-                device=None) -> L.AttnCache:
+                device=None) -> Caches:
+    """Empty caches for ``batch`` sequences of up to ``s_max`` tokens: a
+    local layer's ring holds ``min(window_size, s_max)`` slots, a global
+    layer's ``s_max``."""
     dt = L.dtype_of(cfg)
-    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return L.AttnCache(
-        k=torch.zeros(shape, dtype=dt, device=device),
-        v=torch.zeros(shape, dtype=dt, device=device),
-        pos=torch.full((cfg.n_layers, s_max), -1, dtype=torch.int32,
-                       device=device))
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    n_groups, tail = cfg.pattern_layout()
+
+    def empty(kind: str, lead: tuple) -> L.AttnCache:
+        sc = min(cfg.window_size, s_max) if kind == "local" else s_max
+        shape = lead + (batch, sc, kv, hd)
+        return L.AttnCache(
+            k=torch.zeros(shape, dtype=dt, device=device),
+            v=torch.zeros(shape, dtype=dt, device=device),
+            pos=torch.full(lead + (sc,), -1, dtype=torch.int32,
+                           device=device))
+
+    groups = ([empty(kind, (n_groups,)) for kind in cfg.block_pattern]
+              if n_groups else [])
+    return Caches(groups=groups, tail=[empty(kind, ()) for kind in tail])

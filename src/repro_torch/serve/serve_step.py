@@ -7,14 +7,15 @@ the lossy transport (port of ``repro/serve/serve_step.py``).
   caches): one new token written into the caches in place at ``index``.
 - ``degrade_caches``: the prefill -> decode KV transfer under wire-row
   loss, coded (Hadamard, through the FWHT and unbias kernels on the
-  card) or uncoded.
+  card) or uncoded: every K and V leaf of the cache tree
+  (``Caches.leaves()``) ships as its own payload.
 
 PyTorch runs eagerly, so the factories return plain closures where the
 JAX package returns jitted functions.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +24,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import coding
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+
+Signs = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
 def make_prefill(cfg: ModelConfig, s_max: int):
@@ -35,7 +38,7 @@ def make_prefill(cfg: ModelConfig, s_max: int):
 
 
 def make_decode(cfg: ModelConfig):
-    def decode(params: M.Params, caches: L.AttnCache, tokens: torch.Tensor,
+    def decode(params: M.Params, caches: M.Caches, tokens: torch.Tensor,
                index: int):
         """index: the position being generated.  Writes into ``caches``."""
         positions = torch.full((tokens.shape[0], 1), index,
@@ -46,7 +49,7 @@ def make_decode(cfg: ModelConfig):
     return decode
 
 
-def greedy_decode(cfg: ModelConfig, params: M.Params, caches: L.AttnCache,
+def greedy_decode(cfg: ModelConfig, params: M.Params, caches: M.Caches,
                   first_token: torch.Tensor, start_idx: int,
                   n_steps: int) -> torch.Tensor:
     """Greedy host-loop decode from an existing (possibly degraded) KV
@@ -105,59 +108,85 @@ def kv_wire_roundtrip(flat: torch.Tensor, mask: torch.Tensor,
     return chunks.reshape(-1)[: code.orig_len]
 
 
-def degrade_caches(caches: L.AttnCache, mask: torch.Tensor,
+def degrade_caches(caches: M.Caches, mask: torch.Tensor,
                    generator: Optional[torch.Generator] = None, *,
                    coded: bool = True,
-                   signs: Optional[torch.Tensor] = None) -> L.AttnCache:
+                   signs: Optional[Signs] = None) -> M.Caches:
     """Apply one request's KV-transfer loss to its decode caches.
 
-    The stacked K and the stacked V tensor are each flattened and shipped
-    as one payload through :func:`kv_wire_roundtrip` under the same
-    wire-row mask, and a new cache is returned; positions are metadata
-    the transport does not code, and are copied.  The rotation signs are
-    drawn once from ``generator`` and shared by both payloads (prefill
-    and decode sides seed it alike, as the JAX key is shared); tests pass
-    ``signs`` instead.
+    Every K and V leaf (``caches.leaves()``: groups, then tail; ``k``
+    before ``v``) is flattened and shipped as its own payload, with its
+    own plan, through :func:`kv_wire_roundtrip` under the same wire-row
+    mask, and a new cache is returned; positions are metadata the
+    transport does not code, and are copied.  The rotation signs: JAX
+    draws each leaf's from the same key, and every leaf's plan has the
+    mask's ``n_rot`` rows, so every leaf gets the same signs, drawn once
+    from ``generator`` (prefill and decode sides seed it alike).  Tests
+    pass ``signs`` instead: one tensor for every leaf, or one per leaf.
     """
     n_rot = int(mask.shape[0])
-    mask = mask.to(caches.k.device)
+    leaves = caches.leaves()
+    dev = leaves[0].device
+    mask = mask.to(dev)
 
-    def _ship(leaf: torch.Tensor) -> torch.Tensor:
+    def _plan(leaf: torch.Tensor) -> coding.HadamardCode:
         code = coding.plan(leaf.numel(), n_rot=n_rot)
         if code.n_rot != n_rot:
             raise ValueError(
                 f"KV leaf of {leaf.numel()} elements cannot carry a "
                 f"{n_rot}-row wire mask (plan chose {code.n_rot})")
-        out = kv_wire_roundtrip(leaf.reshape(-1).to(torch.float32), mask,
-                                signs, code, coded=coded)
-        return out.reshape(leaf.shape).to(leaf.dtype)
+        return code
 
     if coded and signs is None:
         if generator is None:
             raise ValueError("coded degrade_caches needs a generator or signs")
-        code = coding.plan(caches.k.numel(), n_rot=n_rot)
-        signs = coding.rademacher(generator, code).to(caches.k.device)
-    return L.AttnCache(k=_ship(caches.k), v=_ship(caches.v),
-                       pos=caches.pos.clone())
+        signs = coding.rademacher(generator, _plan(leaves[0])).to(dev)
+    if not isinstance(signs, (list, tuple)):
+        signs = [signs] * len(leaves)
+    if len(signs) != len(leaves):
+        raise ValueError(f"{len(signs)} sign vectors for {len(leaves)} "
+                         "KV leaves")
+    shipped = [
+        kv_wire_roundtrip(leaf.reshape(-1).to(torch.float32), mask, sg,
+                          _plan(leaf), coded=coded
+                          ).reshape(leaf.shape).to(leaf.dtype)
+        for leaf, sg in zip(leaves, signs)]
+
+    def _node(i: int, c: L.AttnCache) -> L.AttnCache:
+        return L.AttnCache(k=shipped[2 * i], v=shipped[2 * i + 1],
+                           pos=c.pos.clone())
+
+    nodes = [_node(i, c) for i, c in enumerate(caches.nodes())]
+    n = len(caches.groups)
+    return M.Caches(groups=nodes[:n], tail=nodes[n:])
 
 
-def kv_position_error(clean: L.AttnCache, degraded: L.AttnCache,
+def kv_position_error(clean: M.Caches, degraded: M.Caches,
                       n_ctx: int) -> torch.Tensor:
     """(n_ctx,) per-position relative KV error after lossy transfer.
 
     For each cache position ``s < n_ctx``, the relative L2 error of its
-    K/V vectors summed over every layer.  An uncoded lost chunk drives
-    whole positions to error ~1; the coded path spreads the same loss as
-    small noise over all positions.  The share of positions under an
-    error threshold is fig8's usable-context fraction.
+    K/V vectors summed over every leaf (every layer).  An uncoded lost
+    chunk drives whole positions to error ~1; the coded path spreads the
+    same loss as small noise over all positions.  The share of positions
+    under an error threshold is fig8's usable-context fraction.  A leaf
+    with fewer than ``n_ctx`` slots (a local layer's ring that wrapped:
+    slot is position mod its size) has no position axis: ValueError,
+    where the JAX function fails in its reshape.
     """
-    dev = clean.k.device
+    leaves0, leaves1 = clean.leaves(), degraded.leaves()
+    dev = leaves0[0].device
     err2 = torch.zeros(n_ctx, device=dev)
     ref2 = torch.zeros(n_ctx, device=dev)
-    for a0, a1 in ((clean.k, degraded.k), (clean.v, degraded.v)):
-        # (L, B, S, KV, Dh): fold everything but the position axis
-        d = torch.movedim((a1 - a0) ** 2, 2, 0)
-        r = torch.movedim(a0.to(torch.float32) ** 2, 2, 0)
+    for a0, a1 in zip(leaves0, leaves1):
+        # (..., B, S, KV, Dh): fold everything but the slot axis
+        s_ax = a0.dim() - 3
+        if a0.shape[s_ax] < n_ctx:
+            raise ValueError(
+                f"n_ctx {n_ctx} exceeds a {a0.shape[s_ax]}-slot KV leaf: a "
+                "ring cache that wrapped has no position axis")
+        d = torch.movedim((a1 - a0) ** 2, s_ax, 0)
+        r = torch.movedim(a0.to(torch.float32) ** 2, s_ax, 0)
         err2 = err2 + d[:n_ctx].reshape(n_ctx, -1).sum(1)
         ref2 = ref2 + r[:n_ctx].reshape(n_ctx, -1).sum(1)
     return torch.sqrt(err2 / torch.clamp(ref2, min=1e-12))

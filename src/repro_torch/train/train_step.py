@@ -497,6 +497,15 @@ def _sync_dp(sync: _DpSync, grads, plans, generator, drop_rate, masks,
                                sync.dp, sync.dp, model=sync.model)
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Training is ported for qwen2's layout only (the JAX leaf view,
+    ``convert.LAYER_LEAVES``); the other dense families serve."""
+    if not M.qwen2_layout(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the train step is ported for qwen2's layout "
+            "only; training this family is not ported yet")
+
+
 def make_train_step(cfg: ModelConfig, mesh=None,
                     opt_cfg: Optional[adamw.OptConfig] = None,
                     celeris: Optional[CelerisConfig] = None,
@@ -519,6 +528,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     cross-pod rate.  The metrics are 0-dim tensors: ``loss``, ``nll``,
     ``aux``, ``recv_frac``, ``grad_norm``, ``lr``.
     """
+    check_trainable(cfg)
     opt_cfg = opt_cfg or adamw.OptConfig()
     celeris = celeris or CelerisConfig()
     mode = celeris.collective_mode()
@@ -593,6 +603,7 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, mesh=None):
     with their optimizer state.  On a mesh with a ``model`` axis the
     whole parameters are drawn and this rank keeps its shards
     (``convert.shard_leaves``)."""
+    check_trainable(cfg)
     leaves = convert.jax_leaves(M.init_params(cfg, generator))
     if shd.model_group(mesh) is not None:
         leaves = convert.shard_leaves(leaves, mesh)

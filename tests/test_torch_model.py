@@ -102,12 +102,14 @@ def test_prefill_and_decode_match_jax(pair):
     tl, tc = TS.make_prefill(tcfg, S_MAX)(tp, torch.as_tensor(prompt))
     _close(tl, jl, dtype)
     jcache = jc["groups"][0]["attn"]
-    assert tc.k.shape == jcache.k.shape == (tcfg.n_layers, B, S_MAX,
-                                            tcfg.n_kv_heads,
-                                            tcfg.resolved_head_dim)
-    _close(tc.k, jcache.k, dtype)
-    _close(tc.v, jcache.v, dtype)
-    np.testing.assert_array_equal(tc.pos.numpy(), np.asarray(jcache.pos))
+    assert len(tc.groups) == 1 and not tc.tail
+    tcache = tc.groups[0]
+    assert tcache.k.shape == jcache.k.shape == (tcfg.n_layers, B, S_MAX,
+                                                tcfg.n_kv_heads,
+                                                tcfg.resolved_head_dim)
+    _close(tcache.k, jcache.k, dtype)
+    _close(tcache.v, jcache.v, dtype)
+    np.testing.assert_array_equal(tcache.pos.numpy(), np.asarray(jcache.pos))
 
     # one decode step on the same token (JAX's argmax, so a near-tie in
     # bfloat16 cannot send the two sides down different tokens)
@@ -117,8 +119,9 @@ def test_prefill_and_decode_match_jax(pair):
     tl2, tc2 = TS.make_decode(tcfg)(tp, tc, torch.as_tensor(tok), PLEN)
     _close(tl2, jl2, dtype)
     jcache2 = jc2["groups"][0]["attn"]
-    _close(tc2.k, jcache2.k, dtype)
-    np.testing.assert_array_equal(tc2.pos.numpy(), np.asarray(jcache2.pos))
+    _close(tc2.groups[0].k, jcache2.k, dtype)
+    np.testing.assert_array_equal(tc2.groups[0].pos.numpy(),
+                                  np.asarray(jcache2.pos))
 
 
 def test_long_prompt_prefill_tiles_and_matches_jax(pair, monkeypatch):
@@ -140,10 +143,10 @@ def test_long_prompt_prefill_tiles_and_matches_jax(pair, monkeypatch):
     tl, tc = TS.make_prefill(tcfg, s_max)(tp, torch.as_tensor(prompt))
     assert len(calls) == tcfg.n_layers
     _close(tl, jl, dtype)
-    jcache = jc["groups"][0]["attn"]
-    _close(tc.k, jcache.k, dtype)
-    _close(tc.v, jcache.v, dtype)
-    np.testing.assert_array_equal(tc.pos.numpy(), np.asarray(jcache.pos))
+    jcache, tcache = jc["groups"][0]["attn"], tc.groups[0]
+    _close(tcache.k, jcache.k, dtype)
+    _close(tcache.v, jcache.v, dtype)
+    np.testing.assert_array_equal(tcache.pos.numpy(), np.asarray(jcache.pos))
 
 
 @pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
@@ -186,8 +189,8 @@ def test_init_params_seeded_and_finite():
 
 def test_unported_configs_raise():
     cfg = dataclasses.replace(TC.get_smoke("qwen2-0.5b"),
-                              block_pattern=("local",))
+                              block_pattern=("rglru",))
     with pytest.raises(NotImplementedError):
         TM.init_params(cfg, torch.Generator())
     with pytest.raises(ValueError):
-        TC.get("gemma2-9b")
+        TC.get("recurrentgemma-9b")

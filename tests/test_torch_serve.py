@@ -90,12 +90,14 @@ def test_degrade_caches_matches_jax(served, coded, kv_frac):
                              coded=coded)["groups"][0]["attn"]
     tdeg = TS.degrade_caches(tcache, torch.as_tensor(mask), coded=coded,
                              signs=torch.as_tensor(signs))
-    for got, want in ((tdeg.k, jdeg.k), (tdeg.v, jdeg.v)):
-        assert got.dtype == tcache.k.dtype and got.shape == tcache.k.shape
+    clean, deg = tcache.groups[0], tdeg.groups[0]      # qwen2: one group
+    assert len(tdeg.groups) == 1 and not tdeg.tail
+    for got, want in ((deg.k, jdeg.k), (deg.v, jdeg.v)):
+        assert got.dtype == clean.k.dtype and got.shape == clean.k.shape
         np.testing.assert_allclose(got.float().numpy(), _np(want),
                                    **TOL[dtype])
-    assert torch.equal(tdeg.pos, tcache.pos)
-    assert tdeg.pos.data_ptr() != tcache.pos.data_ptr()  # no shared state
+    assert torch.equal(deg.pos, clean.pos)
+    assert deg.pos.data_ptr() != clean.pos.data_ptr()  # no shared state
 
     want_err = JS.kv_position_error(
         {"groups": [{"attn": jcache}]}, {"groups": [{"attn": jdeg}]}, PLEN)

@@ -137,7 +137,7 @@ def test_fig8_recovery_cell_on_cpu():
     out, (clean, mask, signs) = figs.fig8_recovery("cpu", 0.95, 0)
     assert out["wire_rows_lost"] == int((mask == 0).sum()) > 0
     assert mask.shape == signs.shape == (figs.FIG8_N_ROT,)
-    assert clean.k.dtype == clean.v.dtype
+    assert clean.leaves()[0].dtype == clean.leaves()[1].dtype
     assert out["coded"]["usable"] >= figs.FIG8_RECOVERY_BAR
     assert out["coded"]["usable"] > out["uncoded"]["usable"]
     assert 0.0 <= out["coded"]["token_agree"] <= 1.0
@@ -173,6 +173,7 @@ def test_kv_wire_check_on_recovery_inputs():
     kunbias = types.SimpleNamespace(masked_unbias_cuda=masked_unbias_cuda)
     out = chip_smoke.check_kv_wire("cpu", *wire, kfwht, kunbias, ref, coding)
     assert out["max_abs_err"] == {"fwht": 0.0, "masked_unbias": 0.0}
-    nb = coding.plan(wire[0].k.numel(), n_rot=figs.FIG8_N_ROT).n_blocks
+    nb = coding.plan(wire[0].leaves()[0].numel(),
+                     n_rot=figs.FIG8_N_ROT).n_blocks
     assert out["shapes"] == [f"fwht [{nb}, {figs.FIG8_N_ROT}]",
                              f"masked_unbias [{figs.FIG8_N_ROT}, {nb}]"]

@@ -38,9 +38,9 @@ caught and carried on):
    transfer at a delivered fraction of 0.9 (64 wire rows, fig8's cell),
    greedy-decode 32 tokens.  Uncoded and clean decodes, a full-mask
    round trip, and smoke-size runs against the CPU (qwen2-0.5b, and
-   gemma2-9b on a prompt longer than its window, chatglm3-6b and
-   nemotron-4-15b: logits, every degraded KV leaf, greedy tokens) check
-   the results;
+   gemma2-9b on a prompt longer than its window, chatglm3-6b,
+   nemotron-4-15b, qwen2-moe-a2.7b and granite-moe-3b-a800m: logits,
+   every degraded KV leaf, greedy tokens) check the results;
 4. the kernel bench (``benchmarks/kernel_bench.py``'s quantize rows) at
    (256, 4096) through ``kernels.ops``;
 5. train qwen2-0.5b at full width through ``Trainer``: batch 8 x 128
@@ -101,6 +101,25 @@ caught and carried on):
     rank gathers, rank 0 writes), restored by ``Trainer`` on (4, 1) and
     on (1, 4), every rank's leaves its blocks of the saved state bit for
     bit;
+6d. the expert-parallel train step: the same four rank processes,
+    qwen2-moe-a2.7b at full width (d 2048, 64 padded experts of 1,408,
+    4 shared experts, top-4, vocab 151,936), depth cut to 2 of 24
+    layers, 3 steps a cell: on ``make_host_mesh((1, 4))`` ``exact`` with
+    ``lossy_moe`` off and ``lossy_moe`` at drop 0.1, on (2, 2) ``exact``
+    with ``lossy_moe`` at 0.1 (the MoE layers route both dp ranks' rows
+    together, as JAX's one GSPMD program does) and ``lossy_hadamard``
+    with ``lossy_moe`` at drop 0.05 (ZeRO-1).  Each model rank
+    dispatches its quarter (half) of the sequence through the
+    ``all_to_all`` over ``model``.  Losses and aux finite; in every
+    lossy-MoE dispatch each (sender, expert-shard) block all zero
+    exactly where the layer's coin says it was dropped (the dropped
+    share equals the coins'); the dp ranks bit-identical; the coded
+    step's FWHT launched twice a coded leaf at its shapes (held to the
+    plain version there and timed); ``lossy_moe`` at drop 0 = off bit
+    for bit; EP = the local path on one full-width layer in float32 at
+    capacity factor 50 (rtol 1e-4 + atol 1e-5).  Each cell prints its
+    step, EP all-to-all and dp sync times, the all-to-all's bytes a
+    rank-step and the peak a rank;
 7. smoke-size training on the card against the CPU (float32, the same
    masks, signs and batch: loss, the first moments, i.e. the synced
    gradient, and the updated parameters), and 14 coded steps that must
@@ -199,6 +218,16 @@ caught and carried on):
      (squared ReLU, untied) at full width through phase 3's path and
      bars, their KV leaves' kernels held to their plain versions and
      timed there;
+19e. qwen2-moe-a2.7b at full width (24 MoE layers: 60 routed experts
+     padded to 64, top-4, 4 shared experts, d 2048, bf16, random weights
+     from seed 0) through phase 3's path and bars, each layer global
+     attention and the local expert dispatch; its two KV leaves'
+     kernels held to their plain versions and timed there ((3,342,336,
+     64) blocks); one more prefill counts the picks each layer's
+     capacity (320 slots) dropped;
+19f. granite-moe-3b-a800m (32 MoE layers, 40 experts padded to 48,
+     top-8, no shared experts, 24 heads padded to 32) the same way
+     ((1,114,112, 64) blocks);
 20. the priority cut, the per-step window and the flight recorder, card
     against CPU at 40 rounds: the 32-node 2-pod hier cell with
     layer-depth priority classes under both cut orders and both budget
@@ -224,7 +253,7 @@ The protocols of phases 14-16, 18 and 21-22 (and Fig. 2's step window)
 are ``repro_torch.benchmarks.figs``'s functions, which the CPU tests also
 run (smoke tiers and cut grids).
 
-Each path (3-6c with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19d and
+Each path (3-6d with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19f and
 21-22, Fig. 2's step window its own) runs with the kernels' launch counts set
 to 0 just before it and read just after.  The last
 line is ``{"ok": true, "device": {...}}``; the lines before it carry the
@@ -1391,7 +1420,8 @@ def tp_fwht_shapes(cfg, mesh=None):
     mesh = mesh or mesh_shape((2, 2), ("data", "model"))
     tp = shd.axis_size(mesh, (shd.MODEL_AXIS,))
     plans = ts.plan_leaves(convert.leaf_shapes(cfg), mesh,
-                           ts.CelerisConfig(mode="lossy_hadamard"))
+                           ts.CelerisConfig(mode="lossy_hadamard"),
+                           convert.leaf_names(cfg))
     return [(p.tiles * (p.shape[p.sharded_dim] // tp
                         if p.sharded_dim is not None else 1), p.n_rot)
             for p in plans if p is not None]
@@ -1486,6 +1516,11 @@ def mesh_rank(kind, rank, port, out_dir, device="cuda"):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=DP_WORLD)
     try:
+        if kind == "ep":
+            rec = ep_rank(rank, dev)
+            with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+                json.dump(rec, f)
+            return
         meshes, cells, zero_cells, one = mesh_of(kind, dev.type)
         rec = dp_cells(rank, dev, meshes, cells)
         rec["one_device"] = {mk: dp_check_one_device(rank, dev, meshes[mk])
@@ -1988,12 +2023,10 @@ def dp_check_card_vs_cpu(dev, meshes, cells):
     return out
 
 
-def phase_mesh_train(kind):
-    """The train step on a mesh at full width: four rank processes on the
-    one card over gloo (``mesh_rank``), each cell 2 steps through
-    ``Trainer(mesh=...)``; ``kind`` "dp" is phase 6b (data parallel),
-    "tp" phase 6c (tensor parallel over ``model``, and gradient
-    accumulation).  Any rank that fails fails the phase."""
+def run_mesh_ranks(kind):
+    """Four rank processes on the one card over gloo (``mesh_rank``),
+    under one deadline.  Any rank that fails fails the phase.  Returns
+    each rank's record and the seconds."""
     import shutil
     import socket
     out_dir = MESH_OUT.format(kind)
@@ -2039,6 +2072,16 @@ def phase_mesh_train(kind):
     for r in range(DP_WORLD):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
+    return ranks, seconds
+
+
+def phase_mesh_train(kind):
+    """The train step on a mesh at full width: four rank processes on the
+    one card over gloo (``run_mesh_ranks``), each cell 2 steps through
+    ``Trainer(mesh=...)``; ``kind`` "dp" is phase 6b (data parallel),
+    "tp" phase 6c (tensor parallel over ``model``, and gradient
+    accumulation).  Any rank that fails fails the phase."""
+    ranks, seconds = run_mesh_ranks(kind)
     smi = card_name_and_power()
     out, launches = {"cells": {}}, 0
     for name, *_ in DP_CELLS if kind == "dp" else TP_CELLS:
@@ -2102,6 +2145,312 @@ def phase_mesh_train(kind):
              f"0's seconds {out['elastic'][0]}; " if kind == "tp" else "")
           + f"{seconds:.1f} s [{smi}]")
     return out
+
+
+# phase 6d: expert-parallel training of qwen2-moe-a2.7b at full width,
+# depth cut to EP_LAYERS of 24; (name, mesh, mode, lossy_moe, drop)
+EP_CELLS = (("exact", "dm14", "exact", False, 0.0),
+            ("lossy_moe", "dm14", "exact", True, 0.1),
+            ("exact_lossy_moe", "dm22", "exact", True, 0.1),
+            ("lossy_hadamard_lossy_moe", "dm22", "lossy_hadamard", True,
+             0.05))
+EP_ARCH, EP_LAYERS, EP_STEPS = "qwen2-moe-a2.7b", 2, 3
+EP_CHECK_TOKENS = (2, 64)          # the EP = local layer's (B, S)
+
+
+def ep_config(C):
+    return dataclasses.replace(C.get(EP_ARCH), n_layers=EP_LAYERS)
+
+
+def ep_meshes(device_type):
+    from repro_torch.launch import mesh as mesh_mod
+    return {"dm14": mesh_mod.make_host_mesh((1, 4), device_type=device_type),
+            "dm22": mesh_mod.make_host_mesh((2, 2), device_type=device_type)}
+
+
+def ep_rank(rank, dev):
+    """One rank of phase 6d: ``EP_CELLS`` through ``Trainer(mesh=...)``,
+    ``EP_STEPS`` steps each, then the checks: EP = the local path on one
+    full-width MoE layer in float32 at capacity factor 50 (rtol 1e-4 +
+    atol 1e-5, ``tests/test_distribution.py``'s bar); ``lossy_moe`` at
+    drop 0 = off, bit for bit; and in every lossy-MoE step each
+    dispatched (sender, expert-shard) block all zero exactly where the
+    layer's coin says it was dropped.  Every step: losses and aux finite,
+    the ranks of a dp group bit-identical, the FWHT launched twice a
+    coded leaf at ``tp_fwht_shapes``."""
+    import torch.distributed as dist
+    import repro_torch.configs as C
+    from repro_torch import generator
+    from repro_torch import sharding as shd
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import dcqcn as kdcqcn
+    from repro_torch.kernels import fwht as kfwht
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as kquant
+    from repro_torch.kernels import unbias as kunbias
+    from repro_torch.models import convert
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    counts = Launches(kfwht, kunbias, kquant, kdcqcn)
+    cfg = ep_config(C)
+    meshes = ep_meshes(dev.type)
+    stats = {}
+
+    def reset():
+        stats.update(a2a_s=0.0, a2a_bytes=0, sync_s=0.0, fwht_shapes=[],
+                     blocks=0, dropped=0, coin_dropped=0, coin_match=True,
+                     dispatches=0)
+
+    def timed_a2a(t, tp):
+        _sync()
+        t0 = time.perf_counter()
+        out = a2a(t, tp)
+        _sync()
+        stats["a2a_s"] += time.perf_counter() - t0
+        stats["a2a_bytes"] += t.numel() * t.element_size()
+        return out
+
+    def dispatch_blocks(t, tp):
+        # forward calls only: a layer's dispatch, then its return
+        if stats["dispatches"] % 2 == 0 and stats.get("lossy"):
+            layer = (stats["dispatches"] // 2) % cfg.n_layers
+            zero = (t.reshape(tp.size, -1) == 0).all(1).cpu()
+            lost = MOE.layer_coins(layer, tp.size)[tp.index] < stats["drop"]
+            stats["blocks"] += tp.size
+            stats["dropped"] += int(zero.sum())
+            stats["coin_dropped"] += int(lost.sum())
+            stats["coin_match"] &= bool(torch.equal(zero, lost))
+        stats["dispatches"] += 1
+        return entry(t, tp)
+
+    def shaped_fwht(x, *a, **k):
+        stats["fwht_shapes"].append(list(x.shape))
+        return plain_fwht(x, *a, **k)
+
+    def timed_sync(*a, **k):
+        _sync()
+        t0 = time.perf_counter()
+        out = sync_dp(*a, **k)
+        _sync()
+        stats["sync_s"] += time.perf_counter() - t0
+        return out
+
+    saved = (shd.model_all_to_all, shd.all_to_all_model, ops.fwht,
+             ts._sync_dp)
+    a2a, entry, plain_fwht, sync_dp = saved
+    shd.model_all_to_all, shd.all_to_all_model = timed_a2a, dispatch_blocks
+    ops.fwht, ts._sync_dp = shaped_fwht, timed_sync
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=1)
+    opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
+    rec, tr = {"cells": {}}, None
+    try:
+        for name, mk, mode, lossy_moe, drop in EP_CELLS:
+            del tr
+            torch.cuda.empty_cache()
+            celeris = ts.CelerisConfig(mode=mode, lossy_moe=lossy_moe)
+            tr = Trainer(cfg, data_cfg=data_cfg, opt_cfg=opt,
+                         celeris=celeris, mesh=meshes[mk], seed=0,
+                         straggler=FixedDrop(drop), device=str(dev))
+            group = tr.step_fn.dp_group
+            n_coded = sum(p is not None for p in ts.plan_leaves(
+                convert.leaf_shapes(cfg), meshes[mk], celeris,
+                convert.leaf_names(cfg)))
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+
+            def on_metrics(step, m):
+                steps.append({
+                    "wall_ms": m["wall_s"] * 1e3,
+                    "a2a_ms": stats["a2a_s"] * 1e3,
+                    "a2a_bytes": stats["a2a_bytes"],
+                    "sync_ms": stats["sync_s"] * 1e3,
+                    "launches": counts.read(),
+                    "fwht_shapes": sorted(stats["fwht_shapes"]),
+                    "loss": m["loss"], "aux": m["aux"],
+                    "blocks": stats["blocks"], "dropped": stats["dropped"],
+                    "coin_dropped": stats["coin_dropped"],
+                    "coin_match": stats["coin_match"]})
+                fp = fingerprint(tr.state["params"], {
+                    k: v for k, v in m.items() if k not in ("wall_s",
+                                                            "drop_rate")})
+                every = [torch.empty_like(fp)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(every, fp, group=group)
+                assert all(torch.equal(e, fp) for e in every), (
+                    f"{mk} {name} step {step}: the dp ranks differ")
+                counts.reset()
+                reset()
+                stats.update(lossy=lossy_moe, drop=drop)
+
+            _sync()
+            counts.reset()
+            reset()
+            stats.update(lossy=lossy_moe, drop=drop)
+            hist = tr.run(EP_STEPS, on_metrics=on_metrics)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            assert np.isfinite(hist["loss"]).all(), (name, hist["loss"])
+            assert all(np.isfinite(s["aux"]) and s["aux"] > 0
+                       for s in steps), (name, steps)
+            coded = mode == "lossy_hadamard"
+            for s in steps:
+                assert s["launches"]["fwht"] == (2 * n_coded if coded
+                                                 else 0), (name, s)
+                assert s["a2a_bytes"] > 0, (name, s)
+                if lossy_moe:
+                    assert s["coin_match"] and s["blocks"] > 0, (name, s)
+            if coded:
+                shapes = sorted(2 * [list(x) for x in
+                                     tp_fwht_shapes(cfg, meshes[mk])])
+                assert all(s["fwht_shapes"] == shapes for s in steps), (
+                    name, shapes, steps)
+            rec["cells"][name] = {
+                "mesh": mk, "mode": mode, "lossy_moe": lossy_moe,
+                "drop": drop, "loss": hist["loss"],
+                "recv_frac": hist["recv_frac"], "steps": steps,
+                "peak_gib": peak, "coded_leaves": n_coded}
+            if name == "exact":
+                rec["off_vs_zero"] = ep_check_off_vs_zero(tr, cfg, opt, ts)
+    finally:
+        (shd.model_all_to_all, shd.all_to_all_model, ops.fwht,
+         ts._sync_dp) = saved
+    del tr
+    torch.cuda.empty_cache()
+    rec["ep_vs_local"] = ep_check_vs_local(dev, cfg, meshes["dm14"], MOE,
+                                           convert, shd, generator)
+    return rec
+
+
+def ep_check_off_vs_zero(tr, cfg, opt, ts):
+    """``lossy_moe`` at drop 0 against ``lossy_moe`` off: one step from
+    the trainer's state on its next batch, bit for bit."""
+    batch = tr.put_batch(tr.start_step)
+    ends = []
+    for on in (False, True):
+        step = ts.make_train_step(cfg, tr.mesh, opt, ts.CelerisConfig(
+            mode="exact", lossy_moe=on))
+        new, m = step(tr.state, batch, tr.step_generator(tr.start_step), 0.0)
+        ends.append(fingerprint(new["params"] + new["opt"]["mu"],
+                                {k: float(v) for k, v in m.items()}))
+        del new
+    assert torch.equal(*ends), "lossy_moe at drop 0 differs from off"
+    return True
+
+
+def ep_check_vs_local(dev, cfg, mesh, MOE, convert, shd, generator):
+    """One full-width MoE layer in float32 at capacity factor 50: the EP
+    block over the (1, 4) model group against the local path on the
+    whole layer, rtol 1e-4 + atol 1e-5; returns the worst error."""
+    c = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=50.0))
+    whole = MOE.init_moe(generator(dev, 5), c)
+    x = torch.randn(EP_CHECK_TOKENS + (c.d_model,),
+                    generator=generator(dev, 6), device=dev) * 0.3
+    tp = convert.model_group(c, mesh)
+    specs = MOE.param_specs(c)
+    mine = {k: shd.local_slice(v, specs[k], mesh) for k, v in whole.items()}
+    with torch.no_grad():
+        y_local, _ = MOE.moe_block(whole, c, x)
+        y_ep, _ = MOE.moe_block(mine, c, x, tp=tp)
+    err = check("EP vs local (full width, f32, capacity 50)", y_ep, y_local,
+                1e-4, 1e-5)
+    del whole, mine
+    torch.cuda.empty_cache()
+    return err
+
+
+def ep_fwht_shapes(C):
+    """The FWHT's (rows, n_rot) in phase 6d's coded cell: the MoE model's
+    coded leaves on the (2, 2) mesh."""
+    return tp_fwht_shapes(ep_config(C), mesh_shape((2, 2),
+                                                   ("data", "model")))
+
+
+def phase_ep_train(dev, C, kfwht, ref):
+    """Phase 6d: expert-parallel training of qwen2-moe-a2.7b at full
+    width (``EP_LAYERS`` layers), four rank processes on the one card
+    over gloo (``ep_rank``); then the FWHT held to its plain version at
+    every shape of the coded cell's sync, timed at the two largest.
+    Returns the phase's record and the timing records."""
+    ranks, seconds = run_mesh_ranks("ep")
+    smi = card_name_and_power()
+    out, launches = {"cells": {}}, 0
+    for name, *_ in EP_CELLS:
+        cell = ranks[0]["cells"][name]
+        steps = cell["steps"]
+        rec = {k: cell[k] for k in ("mesh", "mode", "lossy_moe", "drop",
+                                    "loss", "recv_frac", "coded_leaves")}
+        rec.update(
+            aux=[s["aux"] for s in steps],
+            step_ms=[s["wall_ms"] for s in steps],
+            median_step_ms_after_first=statistics.median(
+                s["wall_ms"] for s in steps[1:]),
+            ep_all_to_all_ms=[s["a2a_ms"] for s in steps],
+            ep_all_to_all_bytes_per_rank_step=steps[-1]["a2a_bytes"],
+            dp_sync_ms=[s["sync_ms"] for s in steps],
+            fwht_launches_per_rank_step=[s["launches"]["fwht"]
+                                         for s in steps],
+            blocks_dropped_share=(
+                sum(s["dropped"] for rk in ranks
+                    for s in rk["cells"][name]["steps"])
+                / max(1, sum(s["blocks"] for rk in ranks
+                             for s in rk["cells"][name]["steps"]))),
+            coins_share=(
+                sum(s["coin_dropped"] for rk in ranks
+                    for s in rk["cells"][name]["steps"])
+                / max(1, sum(s["blocks"] for rk in ranks
+                             for s in rk["cells"][name]["steps"]))),
+            peak_gib_per_rank=[rk["cells"][name]["peak_gib"]
+                               for rk in ranks])
+        assert rec["blocks_dropped_share"] == rec["coins_share"], rec
+        launches += sum(s["launches"]["fwht"] for rk in ranks
+                        for s in rk["cells"][name]["steps"])
+        out["cells"][name] = rec
+        print(f"ep train {name} ({rec['mesh']}, {rec['mode']}, lossy_moe "
+              f"{rec['lossy_moe']} at {rec['drop']}; {EP_ARCH} full width, "
+              f"{EP_LAYERS} layers; {DP_WORLD} ranks on one card, gloo): "
+              f"loss {rec['loss']}, aux {rec['aux']}, recv_frac "
+              f"{rec['recv_frac']}, step ms {rec['step_ms']} (median after "
+              f"the first {rec['median_step_ms_after_first']:.1f}), EP "
+              f"all-to-all ms {rec['ep_all_to_all_ms']} and bytes/rank-step "
+              f"{rec['ep_all_to_all_bytes_per_rank_step']}, dp sync ms "
+              f"{rec['dp_sync_ms']}, FWHT launches/rank-step "
+              f"{rec['fwht_launches_per_rank_step']}, dropped blocks "
+              f"{rec['blocks_dropped_share']:.4f} = coins' "
+              f"{rec['coins_share']:.4f}, peak GiB/rank "
+              f"{[round(g, 2) for g in rec['peak_gib_per_rank']]} [{smi}]")
+    assert all(rk["off_vs_zero"] for rk in ranks)
+    out.update(seconds=seconds,
+               ep_vs_local_max_abs_err=[rk["ep_vs_local"] for rk in ranks],
+               off_vs_zero_bit_equal=True,
+               launches={"fwht": launches, "fwht_quantize": 0,
+                         "masked_unbias": 0, "quantize_int8": 0,
+                         "dcqcn_scan": 0})
+    # the FWHT at the coded cell's own shapes
+    g = torch.Generator(dev).manual_seed(7)
+    shapes = sorted(set(ep_fwht_shapes(C)))
+    worst, records = 0.0, []
+    for rows, n in shapes:
+        x = torch.randn(rows, n, generator=g, device=dev)
+        signs = (torch.randint(0, 2, (n,), generator=g, device=dev).float()
+                 * 2 - 1)
+        err = check_equal(f"fwht ep sync {rows}x{n}",
+                          (kfwht.fwht_cuda(x, signs, n ** -0.5),),
+                          (ref.fwht(x, signs=signs, scale=n ** -0.5),))
+        worst = max(worst, err)
+        if (rows, n) in shapes[-2:]:
+            records.append(fwht_record(kfwht, ref, x, signs, n ** -0.5, err))
+        del x
+    out["fwht_sync_shapes"] = [list(x) for x in shapes]
+    out["fwht_sync_max_abs_err"] = worst
+    print(f"ep train: EP = local (full width, 1 layer, f32, capacity 50) "
+          f"worst err by rank {out['ep_vs_local_max_abs_err']}; lossy_moe at "
+          f"drop 0 = off bit for bit; fwht at the coded sync's shapes "
+          f"{out['fwht_sync_shapes']} worst err {worst:.3g}; "
+          f"{seconds:.1f} s [{smi}]")
+    return out, records
 
 
 def phase_main_path(dev, C, M, serve_step, coupling, counts,
@@ -2233,7 +2582,8 @@ def phase_main_path(dev, C, M, serve_step, coupling, counts,
 # the smoke-size card-vs-CPU runs: (arch, prompt length); gemma2's prompt
 # is longer than its 64-token smoke window, so its ring caches wrap
 SMALL_REFERENCE = (("qwen2-0.5b", 16), ("gemma2-9b", 80),
-                   ("chatglm3-6b", 16), ("nemotron-4-15b", 16))
+                   ("chatglm3-6b", 16), ("nemotron-4-15b", 16),
+                   ("qwen2-moe-a2.7b", 16), ("granite-moe-3b-a800m", 16))
 
 
 def phase_small_reference(dev, C, M, serve_step):
@@ -4159,6 +4509,51 @@ def phase_serve_dense(dev, C, M, serve_step, coupling, kernels, counts, arch):
     return rec, records
 
 
+MOE_ARCHS = ("qwen2-moe-a2.7b", "granite-moe-3b-a800m")
+
+
+def phase_serve_moe(dev, C, M, serve_step, coupling, kernels, counts, arch):
+    """Phases 19e/19f: the MoE model ``arch`` at full width through
+    ``phase_main_path``'s 8 x 512 path and bars (each MoE layer runs
+    global attention and the local expert dispatch, as one device does),
+    its KV leaves' kernels held to their plain versions; then one more
+    prefill counts the picks each layer's expert capacity dropped.  The
+    weights freed after.  Returns the record and the kernel timing
+    records at its KV shapes."""
+    from repro_torch.models import moe as MOE
+    cfg = C.get(arch)
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    rec = phase_main_path(dev, C, M, serve_step, coupling, counts, arch=arch,
+                          params=params, wire_kernels=kernels)
+    records = rec["wire_check"].pop("records")
+    rec.pop("profile")      # printed above; the record stays compact
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                           generator=torch.Generator(dev).manual_seed(1),
+                           device=dev)
+    MOE.drop_log = []
+    try:
+        serve_step.make_prefill(cfg, PROMPT + GEN)(params, prompt)
+        dropped = [int(t) for t in MOE.drop_log]
+    finally:
+        MOE.drop_log = None
+    picks = BATCH * PROMPT * cfg.moe.top_k
+    rec["capacity"] = MOE._capacity(cfg, BATCH * PROMPT, 1)
+    rec["picks_dropped_by_capacity"] = dropped
+    rec["picks_per_layer"] = picks
+    rec["dropped_share"] = sum(dropped) / (picks * cfg.n_layers)
+    assert len(dropped) == cfg.n_layers, dropped
+    print(f"{cfg.name}: {MOE.padded_experts(cfg)} padded experts, capacity "
+          f"{rec['capacity']} a prefill of {BATCH}x{PROMPT}; picks dropped by "
+          f"capacity per layer {dropped} of {picks} "
+          f"({rec['dropped_share']:.4f}); prefill {rec['prefill_ms']:.1f} ms,"
+          f" decode {rec['decode_tok_per_s']:.1f} tok/s, KV transfer "
+          f"{rec['degrade_caches_ms']:.1f} ms, peak {rec['peak_mem_gib']:.2f}"
+          f" GiB [{card_name_and_power()}]")
+    del params
+    torch.cuda.empty_cache()
+    return rec, records
+
+
 def card_name_and_power():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4230,6 +4625,8 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                                   ckpt, counts)
     dp_train = phase_mesh_train("dp")
     tp_train = phase_mesh_train("tp")
+    ep_train, ep_records = phase_ep_train(dev, C, kfwht, ref)
+    records += ep_records
     small_train = phase_small_train(dev, C, ts, OptConfig, DataConfig,
                                     make_source)
     engine_check = phase_engine_card_vs_cpu(dev, E, P)
@@ -4273,6 +4670,12 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
         serve_dense[arch], dense_records = phase_serve_dense(
             dev, C, M, serve_step, coupling, wire_kernels, counts, arch)
         records += dense_records
+    serve_moe = {}
+    for arch in MOE_ARCHS:
+        torch.cuda.empty_cache()
+        serve_moe[arch], moe_records = phase_serve_moe(
+            dev, C, M, serve_step, coupling, wire_kernels, counts, arch)
+        records += moe_records
     feature_check = phase_features_card_vs_cpu(dev, E, topology, figs)
     fig10 = phase_fig10(dev, figs, counts)
     fig9 = phase_fig9(dev, figs, trace_export, counts)
@@ -4294,10 +4697,15 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "serve_gemma2": serve_gemma2["launches"],
                "serve_gemma2_long": serve_gemma2_long["launches"],
                "serve_chatglm3": serve_dense["chatglm3-6b"]["launches"],
-               "serve_nemotron": serve_dense["nemotron-4-15b"]["launches"]}
+               "serve_nemotron": serve_dense["nemotron-4-15b"]["launches"],
+               "ep_train": ep_train["launches"],
+               "serve_qwen2_moe": serve_moe["qwen2-moe-a2.7b"]["launches"],
+               "serve_granite_moe":
+                   serve_moe["granite-moe-3b-a800m"]["launches"]}
     wires = [fig8["wire_check"], serve_long["wire_check"],
              serve_gemma2["wire_check"], serve_gemma2_long["wire_check"],
-             *(r["wire_check"] for r in serve_dense.values())]
+             *(r["wire_check"] for r in serve_dense.values()),
+             *(r["wire_check"] for r in serve_moe.values())]
     for rec in records:
         for wire in wires:
             rec["max_abs_err"] = max(rec["max_abs_err"], wire[
@@ -4311,7 +4719,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "train": train, "allreduce": allreduce,
                       "checkpoint": checkpoint,
                       "dp_train": dp_train, "tp_train": tp_train,
-                      "small_train": small_train,
+                      "ep_train": ep_train, "small_train": small_train,
                       "engine_card_vs_cpu": engine_check, "fig1": fig1,
                       "fig2": fig2, "fig3": fig3,
                       "hier_card_vs_cpu": hier_check, "fig4": fig4,
@@ -4322,7 +4730,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "fig10": fig10, "fig9": fig9, "serve_long": serve_long,
                       "serve_gemma2": serve_gemma2,
                       "serve_gemma2_long": serve_gemma2_long,
-                      "serve_dense": serve_dense,
+                      "serve_dense": serve_dense, "serve_moe": serve_moe,
                       "seconds": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"kernels": records}))
@@ -4343,7 +4751,7 @@ if __name__ == "__main__":
                     "without a workspace), in turns, on the engine's real "
                     "blocks")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
-    ap.add_argument("--mesh-kind", choices=("dp", "tp"),
+    ap.add_argument("--mesh-kind", choices=("dp", "tp", "ep"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", help=argparse.SUPPRESS)

@@ -1,12 +1,14 @@
 """Architecture registry.  Holds the families ported so far: the dense
-ones (qwen2-0.5b, gemma2-9b, chatglm3-6b, nemotron-4-15b)."""
+ones (qwen2-0.5b, gemma2-9b, chatglm3-6b, nemotron-4-15b) and the MoE
+ones (qwen2-moe-a2.7b, granite-moe-3b-a800m)."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig
 
-ARCHS = ("qwen2_0_5b", "gemma2_9b", "chatglm3_6b", "nemotron_4_15b")
+ARCHS = ("qwen2_0_5b", "gemma2_9b", "chatglm3_6b", "nemotron_4_15b",
+         "qwen2_moe_a2_7b", "granite_moe_3b_a800m")
 
 
 def canonical(name: str) -> str:
@@ -28,4 +30,4 @@ def get_smoke(name: str) -> ModelConfig:
     return _module(name).SMOKE
 
 
-__all__ = ["ModelConfig", "ARCHS", "get", "get_smoke", "canonical"]
+__all__ = ["ModelConfig", "MoEConfig", "ARCHS", "get", "get_smoke", "canonical"]

@@ -1,9 +1,9 @@
 """Model configuration (port of ``repro/configs/base.py``).
 
-Holds the fields the dense families read (qwen2, gemma2, chatglm3,
-nemotron), with the JAX defaults.  The MoE, recurrent, enc-dec and
-frontend fields of the JAX ``ModelConfig`` arrive with the slices that
-port those families.
+Holds the fields the dense families (qwen2, gemma2, chatglm3, nemotron)
+and the MoE family (qwen2-moe, granite-moe) read, with the JAX
+defaults.  The recurrent, enc-dec and frontend fields of the JAX
+``ModelConfig`` arrive with the slices that port those families.
 """
 from __future__ import annotations
 
@@ -12,9 +12,20 @@ from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int                  # routed experts
+    top_k: int
+    d_expert: int                   # per-expert FFN hidden dim
+    n_shared: int = 0               # always-on shared experts
+    capacity_factor: float = 1.25
+    router_z_weight: float = 1e-3   # router z-loss
+    aux_weight: float = 1e-2        # load-balance aux loss
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense (the only family ported yet)
+    family: str                     # dense | moe (the families ported yet)
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,8 +34,8 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None  # default d_model // n_heads
 
-    # layer pattern, cycled to n_layers: "global" | "local" (the other
-    # kinds of the JAX package are not ported yet)
+    # layer pattern, cycled to n_layers: "global" | "local" | "moe" (the
+    # other kinds of the JAX package are not ported yet)
     block_pattern: Tuple[str, ...] = ("global",)
     window_size: int = 4096         # local-attention window
 
@@ -35,6 +46,8 @@ class ModelConfig:
     rope_fraction: float = 1.0      # chatglm partial rotary = 0.5
 
     mlp_type: str = "swiglu"        # swiglu | geglu | sqrelu
+
+    moe: Optional[MoEConfig] = None
 
     norm_eps: float = 1e-6
     post_norm: bool = False         # gemma2: extra post-block norms

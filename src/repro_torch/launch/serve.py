@@ -9,8 +9,13 @@ caches shipped through the coded lossy transport (port of
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
         --batch 8 --prompt-len 512 --gen 32 --kv-frac 0.9
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+        --batch 8 --prompt-len 512 --gen 32 --kv-frac 0.9
+
 ``--arch`` takes any ported family: qwen2-0.5b, gemma2-9b, chatglm3-6b,
-nemotron-4-15b (full width, or ``--smoke`` for the reduced config).
+nemotron-4-15b, and the MoE models qwen2-moe-a2.7b and
+granite-moe-3b-a800m (full width, or ``--smoke`` for the reduced
+config).
 
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 missing.  Weights are random, from seed 0; the prompt from seed 1; the

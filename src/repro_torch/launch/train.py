@@ -29,6 +29,14 @@ any mesh:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --smoke --device cpu --steps 4 --ckpt-dir /tmp/run1 --ckpt-every 2
 
+MoE (qwen2-moe-a2.7b): on a mesh with a ``model`` axis the MoE layers
+run expert parallel, and ``--lossy-moe`` turns on the lossy expert
+dispatch at the step's drop rate:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch qwen2-moe-a2.7b --smoke \
+        --device cpu --mesh host --celeris --lossy-moe --steps 3
+
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 missing.  Weights are random, from seed 0.
 """
@@ -78,6 +86,7 @@ def main(argv=None):
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=6e-4)
     ap.add_argument("--celeris", action="store_true")
+    ap.add_argument("--lossy-moe", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ckpt-dir", type=str, default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -120,7 +129,8 @@ def main(argv=None):
                                 global_batch=args.global_batch),
             opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps),
             celeris=CelerisConfig(
-                mode="lossy_hadamard" if args.celeris else "exact"),
+                mode="lossy_hadamard" if args.celeris else "exact",
+                lossy_moe=args.lossy_moe),
             mesh=mesh, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
             device=device)
         return tr.run(args.steps, on_metrics=report)

@@ -8,13 +8,20 @@ the ``tail`` layers; padded ``wq``/``wo`` and the leaves' dtypes
 (bfloat16, float32) are kept as they are.
 
 The **JAX leaf view** (:func:`jax_leaves`, :func:`params_from_leaves`;
-qwen2's layout, the one the train step is ported for) is the list of
-the JAX parameter tree's 14 leaves in ``jax.tree_util.tree_flatten``
-order, per-layer entries stacked over
-layers as the scanned ``decoder.groups[0]`` holds them.  The trainer
-keeps its parameters in this view: the JAX train step plans, codes and
-draws one mask and one set of signs per leaf index, so the port codes
-the same stacked leaves in the same order.
+qwen2's layout, with an MLP or qwen2-moe's MoE block, the one the train
+step is ported for) is the list of the JAX parameter tree's leaves in
+``jax.tree_util.tree_flatten`` order (dict keys sorted at every level),
+per-layer entries stacked over layers as the scanned
+``decoder.groups[0]`` holds them: 14 leaves for qwen2 (the module
+constants :data:`LAYER_LEAVES`, :data:`LEAF_NAMES`, :data:`SHORT_NAMES`,
+the defaults where a function takes names), 18 for qwen2-moe
+(``attn.{bk,bq,bv,wk,wo,wq,wv}``, ``ln1``, ``ln2``, ``moe.router``,
+``moe.shared.{wg,wi,wo}``, ``moe.{wg,wi,wo}``, then ``embed.table``,
+``final_norm.scale``).  :func:`layer_leaves`, :func:`leaf_names`,
+:func:`short_names` and :func:`leaf_shapes` give the view of a config.
+The trainer keeps its parameters in this view: the JAX train step
+plans, codes and draws one mask and one set of signs per leaf index, so
+the port codes the same stacked leaves in the same order.
 
 On a mesh with a ``model`` axis each rank holds its slice of every leaf
 that the partition specs split over ``model`` (:func:`shard_leaves`;
@@ -34,6 +41,7 @@ import torch
 
 from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as MOE
 from repro_torch.models.model import Params
 
 
@@ -53,16 +61,17 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""
             yield prefix + k, v
 
 
-# a dense block's leaves (the other block kinds are not ported yet)
-BLOCK_PARTS = ("attn", "ln1", "ln2", "mlp", "pn1", "pn2")
+# a dense or MoE block's leaves (the other block kinds are not ported yet)
+BLOCK_PARTS = ("attn", "ln1", "ln2", "mlp", "moe", "pn1", "pn2")
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Params:
     """State dict (CPU tensors) from a JAX ``init_params`` tree of numpy
-    leaves, for any dense decoder: layer ``i < n_groups * plen`` is
-    ``groups[i % plen][i // plen]``, the rest the ``tail`` in order;
-    ``embed.unembed`` and the post-norms come across.  bfloat16 stays bit
-    for bit."""
+    leaves, for any dense or MoE decoder: layer ``i < n_groups * plen``
+    is ``groups[i % plen][i // plen]``, the rest the ``tail`` in order;
+    ``embed.unembed``, the post-norms and the nested ``moe`` group
+    (``moe.shared.*`` included, the (n_groups, E, d, f) expert leaves
+    unstacked) come across.  bfloat16 stays bit for bit."""
     if set(tree) != {"embed", "decoder", "final_norm"}:
         raise NotImplementedError(f"unported parameter groups: {sorted(tree)}")
     groups, tail = tree["decoder"]["groups"], tree["decoder"]["tail"]
@@ -90,75 +99,118 @@ def params_from_jax(tree: Dict[str, Any]) -> Params:
     return out
 
 
-# The JAX tree's leaves in tree_flatten order (dict keys sorted at every
-# level): decoder.groups[0].* stacked over layers, then embed, final_norm.
+def _tree_order(names) -> Tuple[str, ...]:
+    """Dotted names in ``tree_flatten`` order: dict keys sorted at every
+    level (``moe.shared.wg`` before ``moe.wg``)."""
+    return tuple(sorted(names, key=lambda n: n.split(".")))
+
+
+def _layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """One layer's leaves and shapes in the JAX leaf view (qwen2's
+    attention; an MLP, or an MoE block for ``block_pattern ==
+    ("moe",)``)."""
+    d, f = cfg.d_model, cfg.d_ff
+    q = cfg.n_heads_padded * cfg.resolved_head_dim
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim
+    layer = {"attn.bk": (kv,), "attn.bq": (q,), "attn.bv": (kv,),
+             "attn.wk": (d, kv), "attn.wo": (q, d), "attn.wq": (d, q),
+             "attn.wv": (d, kv), "ln1.scale": (d,), "ln2.scale": (d,)}
+    if cfg.block_pattern != ("moe",):
+        layer.update({"mlp.wg": (d, f), "mlp.wi": (d, f), "mlp.wo": (f, d)})
+        return layer
+    e, fe = MOE.padded_experts(cfg), cfg.moe.d_expert
+    layer.update({"moe.router": (d, e), "moe.wg": (e, d, fe),
+                  "moe.wi": (e, d, fe), "moe.wo": (e, fe, d)})
+    if cfg.moe.n_shared:
+        fs = cfg.moe.n_shared * fe
+        layer.update({"moe.shared.wg": (d, fs), "moe.shared.wi": (d, fs),
+                      "moe.shared.wo": (fs, d)})
+    return layer
+
+
+def layer_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
+    """One layer's leaf names of ``cfg``'s view, in leaf order."""
+    return _tree_order(_layer_shapes(cfg))
+
+
+def leaf_names(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The JAX tree's leaf paths of ``cfg``'s view, in leaf order."""
+    return tuple(f"decoder.groups[0].{n}" for n in layer_leaves(cfg)) + (
+        "embed.table", "final_norm.scale")
+
+
+def short_names(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The same leaves by their names in a layer's (or the model's)
+    params."""
+    return layer_leaves(cfg) + ("embed.table", "final_norm.scale")
+
+
+# qwen2's view, the default of the functions that take names
 LAYER_LEAVES = ("attn.bk", "attn.bq", "attn.bv", "attn.wk", "attn.wo",
                 "attn.wq", "attn.wv", "ln1.scale", "ln2.scale", "mlp.wg",
                 "mlp.wi", "mlp.wo")
 LEAF_NAMES = tuple(f"decoder.groups[0].{n}" for n in LAYER_LEAVES) + (
     "embed.table", "final_norm.scale")
-# the same leaves by their names in a layer's (or the model's) params
 SHORT_NAMES = LAYER_LEAVES + ("embed.table", "final_norm.scale")
 
 
 def jax_leaves(params: Params) -> List[torch.Tensor]:
-    """Per-layer state dict -> the 14 JAX leaves (new stacked tensors)."""
+    """Per-layer state dict -> the JAX leaves (new stacked tensors), the
+    layer leaves in tree order."""
     n_layers = 1 + max(int(k.split(".")[1]) for k in params
                        if k.startswith("layers."))
+    names = _tree_order(k[len("layers.0."):] for k in params
+                        if k.startswith("layers.0."))
     out = [torch.stack([params[f"layers.{i}.{n}"] for i in range(n_layers)])
-           for n in LAYER_LEAVES]
+           for n in names]
     return out + [params["embed.table"], params["final_norm.scale"]]
 
 
-def params_from_leaves(leaves: Sequence[torch.Tensor]) -> Params:
-    """The 14 JAX leaves -> per-layer state dict of views into them
+def params_from_leaves(leaves: Sequence[torch.Tensor],
+                       names: Sequence[str] = LAYER_LEAVES) -> Params:
+    """The JAX leaves, whose layer leaves are ``names`` (e.g.
+    :func:`layer_leaves`) -> per-layer state dict of views into them
     (``unbind``: autograd gathers the layers' gradients back into one
     stacked gradient per leaf)."""
-    if len(leaves) != len(LEAF_NAMES):
-        raise ValueError(f"expected {len(LEAF_NAMES)} leaves, "
+    if len(leaves) != len(names) + 2:
+        raise ValueError(f"expected {len(names) + 2} leaves, "
                          f"got {len(leaves)}")
     out: Params = {"embed.table": leaves[-2],
                    "final_norm.scale": leaves[-1]}
-    for name, stacked in zip(LAYER_LEAVES, leaves):
+    for name, stacked in zip(names, leaves):
         for i, layer in enumerate(stacked.unbind(0)):
             out[f"layers.{i}.{name}"] = layer
     return out
 
 
 def leaf_shapes(cfg: ModelConfig) -> List[Tuple[int, ...]]:
-    """The 14 JAX leaves' global shapes for ``cfg``, in leaf order."""
-    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
-    q = cfg.n_heads_padded * cfg.resolved_head_dim
-    kv = cfg.n_kv_heads * cfg.resolved_head_dim
-    layer = {"attn.bk": (kv,), "attn.bq": (q,), "attn.bv": (kv,),
-             "attn.wk": (d, kv), "attn.wo": (q, d), "attn.wq": (d, q),
-             "attn.wv": (d, kv), "ln1.scale": (d,), "ln2.scale": (d,),
-             "mlp.wg": (d, f), "mlp.wi": (d, f), "mlp.wo": (f, d)}
-    return [(n,) + layer[name] for name in LAYER_LEAVES] + [
-        (cfg.vocab_size, d), (d,)]
+    """The JAX leaves' global shapes for ``cfg``, in leaf order."""
+    layer = _layer_shapes(cfg)
+    return [(cfg.n_layers,) + layer[name] for name in layer_leaves(cfg)] + [
+        (cfg.vocab_size, cfg.d_model), (cfg.d_model,)]
 
 
-def split_dims(shapes: Sequence[Sequence[int]], mesh
-               ) -> List[Optional[int]]:
+def split_dims(shapes: Sequence[Sequence[int]], mesh,
+               names: Sequence[str] = LEAF_NAMES) -> List[Optional[int]]:
     """Each leaf's dim on the ``model`` axis of this mesh (split when the
     axis is larger than 1), or None, from the leaves' global shapes."""
     # sharding_rules imports this module (LEAF_NAMES), so not at the top
     from repro_torch.train import sharding_rules as rules
     return [rules.sharded_dim(spec)
-            for spec in rules.param_specs(shapes, mesh)]
+            for spec in rules.param_specs(shapes, mesh, names)]
 
 
 def model_group(cfg: ModelConfig, mesh) -> Optional[shd.ModelGroup]:
     """This rank's :class:`~repro_torch.sharding.ModelGroup` with the
     leaves of ``cfg`` that the specs split over ``model``
-    (:data:`SHORT_NAMES`), which the layers read; None without tensor
+    (:func:`short_names`), which the layers read; None without tensor
     parallelism."""
     tp = shd.model_group(mesh)
     if tp is None:
         return None
-    dims = split_dims(leaf_shapes(cfg), mesh)
+    dims = split_dims(leaf_shapes(cfg), mesh, leaf_names(cfg))
     return dataclasses.replace(tp, split=frozenset(
-        n for n, d in zip(SHORT_NAMES, dims) if d is not None))
+        n for n, d in zip(short_names(cfg), dims) if d is not None))
 
 
 def data_group(cfg: ModelConfig, mesh) -> Optional[shd.DataGroup]:
@@ -170,7 +222,7 @@ def data_group(cfg: ModelConfig, mesh) -> Optional[shd.DataGroup]:
     if dg is None:
         return None
     from repro_torch.train import sharding_rules as rules
-    specs = rules.zero1_specs(leaf_shapes(cfg), mesh)
+    specs = rules.zero1_specs(leaf_shapes(cfg), mesh, leaf_names(cfg))
     return dataclasses.replace(dg, dims=tuple(
         s.index(shd.DATA_AXIS) if shd.DATA_AXIS in s else None
         for s in specs))
@@ -194,27 +246,31 @@ def gather_state(leaves: Sequence[torch.Tensor], specs, mesh
         yield x
 
 
-def shard_leaves(leaves: Sequence[Any], mesh) -> List[torch.Tensor]:
-    """The full JAX leaves (numpy arrays or tensors) -> this rank's
-    leaves: its slice of each leaf that the partition specs split over
-    ``model``, copies of the rest.  A leaf that the divisibility guard
-    keeps whole stays whole."""
+def shard_leaves(leaves: Sequence[Any], mesh,
+                 names: Sequence[str] = LEAF_NAMES) -> List[torch.Tensor]:
+    """The full JAX leaves (numpy arrays or tensors) named ``names``
+    (e.g. :func:`leaf_names`) -> this rank's leaves: its slice of each
+    leaf that the partition specs split over ``model``, copies of the
+    rest.  A leaf that the divisibility guard keeps whole stays
+    whole."""
     from repro_torch.train import sharding_rules as rules
     leaves = [x if isinstance(x, torch.Tensor) else _tensor(x)
               for x in leaves]
     if shd.model_group(mesh) is None:
         return [x.clone() for x in leaves]
-    specs = rules.param_specs([x.shape for x in leaves], mesh)
+    specs = rules.param_specs([x.shape for x in leaves], mesh, names)
     return [shd.local_slice(x, s, mesh).clone()
             for x, s in zip(leaves, specs)]
 
 
 def gather_leaves(shards: Sequence[torch.Tensor], mesh,
-                  shapes: Sequence[Sequence[int]]) -> List[torch.Tensor]:
+                  shapes: Sequence[Sequence[int]],
+                  names: Sequence[str] = LEAF_NAMES) -> List[torch.Tensor]:
     """Inverse of :func:`shard_leaves`, given the leaves' global
     ``shapes`` (e.g. :func:`leaf_shapes`; a shard alone cannot tell a
     split leaf from one the guard kept whole): every model rank calls it
     together and gets the full leaves back, each split leaf all-gathered
     over the ``model`` group."""
     from repro_torch.train import sharding_rules as rules
-    return list(gather_state(shards, rules.param_specs(shapes, mesh), mesh))
+    return list(gather_state(shards, rules.param_specs(shapes, mesh, names),
+                             mesh))

@@ -48,6 +48,16 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def trunc_normal(generator: torch.Generator, shape, dtype,
+                 fan_in: int) -> torch.Tensor:
+    """Truncated normal in [-2, 2] std, std = 1/sqrt(fan_in), drawn in
+    float32 on the generator's device and rounded to ``dtype``, as in
+    JAX."""
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * fan_in ** -0.5).to(dtype)
+
+
 def split_over_model(name: str, tp: Optional[shd.ModelGroup]
                      ) -> Optional[shd.ModelGroup]:
     """``tp`` when the specs split leaf ``name`` (``convert.SHORT_NAMES``)

@@ -1,27 +1,37 @@
 """Top-level causal LM (port of ``repro/models/model.py`` for the dense
-families: ``block_pattern`` of ``"global"`` and ``"local"`` layers):
-forward, caches, and the training loss.
+families, ``block_pattern`` of ``"global"`` and ``"local"`` layers, and
+the MoE family, ``"moe"`` layers): forward, caches, and the training
+loss.
 
 Parameters are a flat state dict of tensors with dotted names
 (``embed.table``, ``embed.unembed`` when untied, ``layers.{i}.attn.wq``,
-``layers.{i}.pn1.scale`` with post-norms, ``final_norm.scale``, ...),
-each weight in the JAX layout.  Layer ``i`` is of kind
-``block_pattern[i % len(block_pattern)]``.  The caches (:class:`Caches`)
-mirror the JAX model's cache tree: one stacked
-:class:`~repro_torch.models.layers.AttnCache` per position of the
-pattern, then one per tail layer.
+``layers.{i}.pn1.scale`` with post-norms, ``layers.{i}.moe.wi`` in an
+MoE layer, ``final_norm.scale``, ...), each weight in the JAX layout.
+Layer ``i`` is of kind ``block_pattern[i % len(block_pattern)]``; an
+MoE layer runs global attention, then :func:`repro_torch.models.moe.
+moe_block` where a dense layer runs its MLP, and its aux loss adds up
+over the layers.  The caches (:class:`Caches`) mirror the JAX model's
+cache tree: one stacked :class:`~repro_torch.models.layers.AttnCache`
+per position of the pattern, then one per tail layer.
 
 On a mesh with a ``model`` axis the parameters are this rank's shards
 (``convert.shard_leaves``) and ``tp`` its
 :class:`~repro_torch.sharding.ModelGroup` (``convert.model_group``,
 which names the split leaves): the layers run tensor
-parallel, the logits come out split over the vocabulary, and
-:func:`lm_loss` is the JAX package's vocab-parallel cross-entropy.
+parallel (the MoE layers expert parallel), the logits come out split
+over the vocabulary, and :func:`lm_loss` is the JAX package's
+vocab-parallel cross-entropy.
+
+The JAX model never passes its ``base_key`` to ``_apply_stack``
+(``model.py:307-310``), so an MoE layer's lossy-dispatch key is
+``fold_in(PRNGKey(0), layer)`` whatever the step: the arrival uniforms
+are fixed per layer for the whole run, and only the drop rate changes.
+The port keeps that (:func:`repro_torch.models.moe.layer_coins`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -29,18 +39,33 @@ import torch.distributed as dist
 from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 Params = L.Params
 
 
-ATTN_KINDS = ("global", "local")
+ATTN_KINDS = ("global", "local", "moe")
+
+
+@dataclasses.dataclass(frozen=True)
+class LossyCtx:
+    """Celeris context threaded into the MoE layers (JAX's ``LossyCtx``):
+    the lossy expert dispatch on or off, its drop rate, and optionally
+    each layer's (tp, tp) arrival uniforms (``coins[i]`` for layer i;
+    None draws :func:`repro_torch.models.moe.layer_coins`).  JAX's
+    ``key`` has no counterpart: it never reaches the MoE block."""
+    enabled: bool = False
+    drop_rate: float = 0.0
+    coins: Optional[Sequence[torch.Tensor]] = None
 
 
 def qwen2_layout(cfg: ModelConfig) -> bool:
     """True for qwen2's layer layout (global attention with QKV bias and
-    full rotary, SwiGLU, tied embeddings, no softcaps or post-norms): the
-    one the train step and the tensor-parallel layers are ported for."""
-    return (cfg.block_pattern == ("global",) and cfg.mlp_type == "swiglu"
+    full rotary, SwiGLU, tied embeddings, no softcaps or post-norms; the
+    feed-forward an MLP, or qwen2-moe's MoE block): the one the train
+    step and the tensor-parallel layers are ported for."""
+    return (cfg.block_pattern in (("global",), ("moe",))
+            and cfg.mlp_type == "swiglu"
             and cfg.tie_embeddings and cfg.qkv_bias
             and cfg.rope_fraction == 1.0 and cfg.attn_softcap is None
             and cfg.logit_softcap is None and not cfg.post_norm)
@@ -49,9 +74,9 @@ def qwen2_layout(cfg: ModelConfig) -> bool:
 def check_supported(cfg: ModelConfig,
                     tp: Optional[shd.ModelGroup] = None) -> None:
     """Refuse what the port does not run yet: blocks other than global
-    and local attention (moe, rglru, mlstm, slstm, xattn), and tensor
-    parallelism on any layout but qwen2's (serving on a TP mesh is not
-    ported)."""
+    and local attention and MoE (rglru, mlstm, slstm, xattn), and tensor
+    parallelism on any layout but qwen2's, with an MLP or an MoE block
+    (serving on a TP mesh is not ported)."""
     kinds = sorted(set(cfg.block_pattern) - set(ATTN_KINDS))
     if kinds:
         raise NotImplementedError(
@@ -61,13 +86,6 @@ def check_supported(cfg: ModelConfig,
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism is ported for qwen2's layout "
             "only")
-
-
-def _trunc_normal(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
-    """Truncated normal in [-2, 2] std, std = 1/sqrt(fan_in), as in JAX."""
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * shape[0] ** -0.5).to(dtype)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
@@ -83,12 +101,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
     h, hp, kv = cfg.n_heads, cfg.n_heads_padded, cfg.n_kv_heads
 
-    def tn(*shape):
-        return _trunc_normal(generator, shape, dt, dev)
+    def tn(*shape):   # fan-in: the first dim
+        return L.trunc_normal(generator, shape, dt, shape[0])
 
     p: Params = {"embed.table": tn(cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
         p["embed.unembed"] = tn(d, cfg.vocab_size)
+    plen = len(cfg.block_pattern)
     for i in range(cfg.n_layers):
         pre = f"layers.{i}."
         p[pre + "ln1.scale"] = torch.zeros(d, device=dev)
@@ -103,10 +122,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
             p[pre + "attn.bk"] = torch.zeros(kv * hd, dtype=dt, device=dev)
             p[pre + "attn.bv"] = torch.zeros(kv * hd, dtype=dt, device=dev)
         p[pre + "ln2.scale"] = torch.zeros(d, device=dev)
-        p[pre + "mlp.wi"] = tn(d, f)
-        if cfg.mlp_type != "sqrelu":
-            p[pre + "mlp.wg"] = tn(d, f)
-        p[pre + "mlp.wo"] = tn(f, d)
+        if cfg.block_pattern[i % plen] == "moe":
+            p.update({pre + "moe." + k: v
+                      for k, v in MOE.init_moe(generator, cfg).items()})
+        else:
+            p[pre + "mlp.wi"] = tn(d, f)
+            if cfg.mlp_type != "sqrelu":
+                p[pre + "mlp.wg"] = tn(d, f)
+            p[pre + "mlp.wo"] = tn(f, d)
         if cfg.post_norm:
             p[pre + "pn1.scale"] = torch.zeros(d, device=dev)
             p[pre + "pn2.scale"] = torch.zeros(d, device=dev)
@@ -126,11 +149,28 @@ def hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
            positions: Optional[torch.Tensor] = None,
            tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
     """The residual stream (B, S, D) after the last block, before the
-    final norm.  With ``caches`` the K/V of every layer are written into
-    them in place (prefill, or one decode token at ``cache_index``).
-    Each block: pre-norm, attention of the layer's kind (``pn1`` on its
-    output with ``post_norm``), residual; pre-norm, MLP (``pn2``),
-    residual."""
+    final norm: :func:`hidden_aux` without the aux loss."""
+    return hidden_aux(params, cfg, tokens, caches=caches,
+                      cache_index=cache_index, positions=positions,
+                      tp=tp)[0]
+
+
+def hidden_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+               caches: Optional["Caches"] = None,
+               cache_index: Optional[int] = None,
+               positions: Optional[torch.Tensor] = None,
+               tp: Optional[shd.ModelGroup] = None,
+               lossy: Optional[LossyCtx] = None,
+               rows: Optional[shd.RowGroup] = None):
+    """(the residual stream (B, S, D) after the last block, before the
+    final norm; the MoE aux loss summed over the layers, float32, 0
+    without MoE layers).  With ``caches`` the K/V of every layer are
+    written into them in place (prefill, or one decode token at
+    ``cache_index``).  Each block: pre-norm, attention of the layer's
+    kind (``pn1`` on its output with ``post_norm``), residual; pre-norm,
+    MLP or MoE (``pn2``), residual.  ``lossy``: the lossy expert
+    dispatch of the MoE layers; ``rows``: the dp ranks whose rows the MoE
+    layers route together (``moe.moe_block``)."""
     check_supported(cfg, tp)
     eps = cfg.norm_eps
     vocab_tp = L.split_over_model("embed.table", tp)
@@ -139,11 +179,14 @@ def hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device)[None, :]
     plen = len(cfg.block_pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    on = bool(lossy and lossy.enabled)
     for i in range(cfg.n_layers):
         p = sub_params(params, f"layers.{i}.")
-        attn, mlp = sub_params(p, "attn."), sub_params(p, "mlp.")
+        kind = cfg.block_pattern[i % plen]
         h = L.rmsnorm(p["ln1.scale"], x, eps)
-        h = L.attention(attn, cfg, h, kind=cfg.block_pattern[i % plen],
+        h = L.attention(sub_params(p, "attn."), cfg, h,
+                        kind="local" if kind == "local" else "global",
                         positions=positions,
                         cache=None if caches is None else caches.layer(i),
                         cache_index=cache_index,
@@ -152,11 +195,19 @@ def hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             h = L.rmsnorm(p["pn1.scale"], h, eps)
         x = x + h
         h = L.rmsnorm(p["ln2.scale"], x, eps)
-        h = L.mlp(mlp, cfg, h, L.split_over_model("mlp.wi", tp))
+        if kind == "moe":
+            h, a = MOE.moe_block(
+                sub_params(p, "moe."), cfg, h, tp=tp, layer=i, lossy=on,
+                coins=lossy.coins[i] if on and lossy.coins else None,
+                drop_rate=lossy.drop_rate if lossy else 0.0, rows=rows)
+            aux = aux + a
+        else:
+            h = L.mlp(sub_params(p, "mlp."), cfg, h,
+                      L.split_over_model("mlp.wi", tp))
         if cfg.post_norm:
             h = L.rmsnorm(p["pn2.scale"], h, eps)
         x = x + h
-    return x
+    return x, aux
 
 
 def head(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -193,9 +244,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def lm_loss(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor],
-            tp: Optional[shd.ModelGroup] = None):
-    """Next-token cross-entropy.  Returns (loss, (nll, aux)) as JAX does;
-    ``aux`` is the MoE auxiliary loss, 0 for the dense family.
+            tp: Optional[shd.ModelGroup] = None,
+            lossy: Optional[LossyCtx] = None,
+            rows: Optional[shd.RowGroup] = None):
+    """Next-token cross-entropy plus the MoE aux loss.  Returns (loss,
+    (nll, aux)) as JAX does; ``aux`` is 0 for the dense families.
+    ``lossy``: the lossy expert dispatch (:class:`LossyCtx`); ``rows``:
+    the dp ranks whose rows the MoE layers route together.
 
     The cross-entropy is taken in float32 with the row max shifted out,
     as in JAX.  The label logit is gathered where JAX sums a one-hot
@@ -210,7 +265,9 @@ def lm_loss(params: Params, cfg: ModelConfig,
     ranks that do not hold the label) ``reduce_from_model``.  No rank
     builds logits over the whole vocabulary.
     """
-    logits = forward(params, cfg, batch["tokens"], tp=tp)
+    x, aux = hidden_aux(params, cfg, batch["tokens"], tp=tp, lossy=lossy,
+                        rows=rows)
+    logits = head(params, cfg, x, tp)
     labels = batch["labels"]
     n_txt = labels.shape[1]
     logits = logits[:, -n_txt:][:, :-1]
@@ -233,7 +290,6 @@ def lm_loss(params: Params, cfg: ModelConfig,
             torch.where(mine, label_logit, 0).to(torch.float32), vocab_tp)
     lse = torch.log(sum_exp) + mx[..., 0]
     nll = lse - label_logit.to(torch.float32)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return nll.mean() + aux, (nll.mean(), aux)
 
 
@@ -276,7 +332,7 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int,
                 device=None) -> Caches:
     """Empty caches for ``batch`` sequences of up to ``s_max`` tokens: a
     local layer's ring holds ``min(window_size, s_max)`` slots, a global
-    layer's ``s_max``."""
+    or MoE layer's ``s_max``."""
     dt = L.dtype_of(cfg)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     n_groups, tail = cfg.pattern_layout()

@@ -16,18 +16,22 @@ jax >= 0.8 behaviour.
 
 Tensor parallelism over ``model`` (:class:`ModelGroup` and the Megatron
 operators :func:`copy_to_model`, :func:`reduce_from_model` and
-:func:`gather_from_model`) has no counterpart either: GSPMD emits those
-collectives from the JAX package's partition specs and sharding
-constraints, and the port writes them out.  Every collective over the
-``model`` group goes through :func:`model_all_reduce`,
-:func:`model_all_gather` or :func:`model_reduce_scatter`, in the
+:func:`gather_from_model`; for expert parallelism :func:`scatter_to_model`,
+:func:`gather_replicated` and :func:`all_to_all_model`) has no
+counterpart either: GSPMD emits those collectives from the JAX package's
+partition specs and sharding constraints, and the port writes them out.
+Every collective over the ``model`` group goes through
+:func:`model_all_reduce`, :func:`model_all_gather`,
+:func:`model_reduce_scatter` or :func:`model_all_to_all`, in the
 tensor's own dtype, as GSPMD's do.
 
 ZeRO-1 over ``data`` (:class:`DataGroup`, :func:`data_all_gather`) has
 none either: GSPMD gathers the parameters that a ``data``-sharded
 optimizer state updates, and the port gathers them itself.
 :func:`local_slice` is the port's ``device_put`` with a partition spec:
-a rank's block of a whole array.
+a rank's block of a whole array.  :class:`RowGroup` and
+:func:`gather_rows` stand in for GSPMD's view of the global batch where
+the JAX step routes all dp shards' tokens through one MoE dispatch.
 """
 from __future__ import annotations
 
@@ -184,13 +188,14 @@ def model_all_reduce(t: torch.Tensor, tp: ModelGroup,
     return t
 
 
-def model_all_gather(t: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
-    """The model ranks' ``t`` side by side along the last dim, in rank
-    order."""
-    first = t.movedim(-1, 0).contiguous()
+def model_all_gather(t: torch.Tensor, tp: ModelGroup,
+                     dim: int = -1) -> torch.Tensor:
+    """The model ranks' ``t`` side by side along ``dim`` (the last by
+    default), in rank order."""
+    first = t.movedim(dim, 0).contiguous()
     out = first.new_empty((tp.size * first.shape[0],) + first.shape[1:])
     dist.all_gather_into_tensor(out, first, group=tp.group)
-    return out.movedim(0, -1)
+    return out.movedim(0, dim)
 
 
 def model_reduce_scatter(t: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
@@ -201,6 +206,16 @@ def model_reduce_scatter(t: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
     out = first.new_empty((first.shape[0] // tp.size,) + first.shape[1:])
     dist.reduce_scatter_tensor(out, first, group=tp.group)
     return out.movedim(0, -1)
+
+
+def model_all_to_all(t: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
+    """The all-to-all over the model group: ``t`` (tp, ...) sends its
+    block ``j`` to rank ``j``; block ``i`` of the result came from rank
+    ``i``."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=tp.group)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -240,6 +255,43 @@ def data_all_gather(t: torch.Tensor, dg: DataGroup, dim: int
     return out.movedim(0, dim).contiguous()
 
 
+@dataclasses.dataclass(frozen=True)
+class RowGroup:
+    """The dp ranks whose rows of the batch an MoE layer routes together
+    (the JAX step's global-batch dispatch outside the lossy island): the
+    process group, its size and this rank's index, whose rows are block
+    ``index`` of the gathered batch."""
+    group: object
+    size: int
+    index: int
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rg):
+        ctx.rg = rg
+        x = x.contiguous()
+        out = x.new_empty((rg.size * x.shape[0],) + x.shape[1:])
+        dist.all_gather_into_tensor(out, x, group=rg.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        out = grad.new_empty((grad.shape[0] // ctx.rg.size,)
+                             + grad.shape[1:])
+        dist.reduce_scatter_tensor(out, grad, group=ctx.rg.group)
+        return out, None
+
+
+def gather_rows(x: torch.Tensor, rg: RowGroup) -> torch.Tensor:
+    """The ranks' rows stacked along dim 0, in rank order; the backward
+    sums each rank's gradient of every block and hands a rank its own
+    (every rank computes the gathered rows' routing, and the aux loss
+    over all of them)."""
+    return _GatherRows.apply(x, rg)
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp):
@@ -272,6 +324,66 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return model_reduce_scatter(grad, ctx.tp), None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        n = x.shape[dim] // tp.size
+        return x.narrow(dim, tp.index * n, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return model_all_gather(grad, ctx.tp, ctx.dim), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return model_all_gather(x, tp, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = grad.shape[ctx.dim] // ctx.tp.size
+        return grad.narrow(ctx.dim, ctx.tp.index * n, n), None, None
+
+
+class _AllToAllModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return model_all_to_all(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return model_all_to_all(grad, ctx.tp), None
+
+
+def scatter_to_model(x: torch.Tensor, tp: ModelGroup,
+                     dim: int) -> torch.Tensor:
+    """This rank's slice of the replicated ``x`` along ``dim``; the
+    backward all-gathers the slices' gradients, so the replicated
+    gradient is whole on every rank (expert parallelism's sequence
+    split: each rank's slice gets its gradient on that rank alone)."""
+    return _ScatterToModel.apply(x, tp, dim)
+
+
+def gather_replicated(x: torch.Tensor, tp: ModelGroup,
+                      dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` into a tensor every rank then uses alike;
+    the backward keeps this rank's slice of the (replicated) gradient.
+    The inverse of :func:`scatter_to_model`, and the gather of a split
+    leaf that every rank uses whole and identically (the MoE experts on
+    the local path)."""
+    return _GatherReplicated.apply(x, tp, dim)
+
+
+def all_to_all_model(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
+    """:func:`model_all_to_all` with the reverse all-to-all as its
+    backward (the EP dispatch and return)."""
+    return _AllToAllModel.apply(x, tp)
 
 
 def copy_to_model(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:

@@ -107,7 +107,23 @@ JAX package's ``fold_in`` draws are.  ``masks``/``signs``/``noise``
 (leaf index -> tensor: this rank's mask, the signs, the noise at the
 global shape) replace the draws; the tests hand in the JAX step's own.
 
-Not ported yet, and refused: ``lossy_moe`` (no MoE family).
+**MoE** (qwen2-moe): the loss adds the layers' aux loss, and on a
+``model`` axis larger than 1 the MoE layers run expert parallel
+(:mod:`repro_torch.models.moe`).  ``lossy_moe`` turns on the lossy
+expert dispatch at the last component of ``drop_rate`` (the JAX step's
+``LossyCtx``; inert on a dense model and off the EP path, as in JAX);
+the arrival uniforms are each layer's fixed ones
+(``moe.layer_coins``), or ``coins`` (layer -> (tp, tp) tensor) where
+given.  The coded syncs plan, draw and code the MoE leaves at their JAX
+leaf indices (``convert.leaf_names``).  Outside the lossy island on dp
+ranks (``exact``, or a lossy mode with nothing to code) the JAX step is
+one GSPMD program over the global batch, whose MoE layers fill every
+expert's capacity from all dp shards' tokens together: there each rank
+gathers the dp ranks' rows into its MoE layers (``sharding.RowGroup``)
+and keeps its own rows of their output.  Not ported, and refused:
+``microbatches`` there (JAX's microbatch is a block of the global
+batch's rows, not of each shard's), and training granite-moe, whose
+attention is not qwen2's.
 """
 from __future__ import annotations
 
@@ -154,25 +170,31 @@ class CelerisConfig:
 
 
 def loss_and_grads(cfg: ModelConfig, leaves, batch: Dict[str, torch.Tensor],
-                   tp: Optional[shd.ModelGroup] = None):
+                   tp: Optional[shd.ModelGroup] = None,
+                   lossy: Optional[M.LossyCtx] = None,
+                   rows: Optional[shd.RowGroup] = None):
     """(loss, nll, aux, grads) of ``M.lm_loss`` at the JAX-leaf-view
     parameters (this rank's shards with ``tp``); the gradients come back
-    as one tensor per leaf."""
+    as one tensor per leaf.  ``lossy``: the MoE layers' lossy
+    dispatch; ``rows``: the dp ranks whose rows they route together."""
     params = [leaf.detach().requires_grad_() for leaf in leaves]
-    loss, (nll, aux) = M.lm_loss(convert.params_from_leaves(params), cfg,
-                                 batch, tp)
+    loss, (nll, aux) = M.lm_loss(
+        convert.params_from_leaves(params, convert.layer_leaves(cfg)), cfg,
+        batch, tp, lossy, rows)
     grads = torch.autograd.grad(loss, params)
-    return loss.detach(), nll.detach(), aux, list(grads)
+    return loss.detach(), nll.detach(), aux.detach(), list(grads)
 
 
 def accum_grads(cfg: ModelConfig, leaves, batch: Dict[str, torch.Tensor],
-                microbatches: int, tp: Optional[shd.ModelGroup] = None):
+                microbatches: int, tp: Optional[shd.ModelGroup] = None,
+                lossy: Optional[M.LossyCtx] = None,
+                rows: Optional[shd.RowGroup] = None):
     """:func:`loss_and_grads` over ``microbatches`` slices of the batch
     rows, in order (the JAX step's ``_accum_grads``): gradients summed in
     float32, then scaled by 1/M into each leaf's dtype; loss, nll and aux
     averaged."""
     if microbatches == 1:
-        return loss_and_grads(cfg, leaves, batch, tp)
+        return loss_and_grads(cfg, leaves, batch, tp, lossy, rows)
     mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
                        + tuple(v.shape[1:])) for k, v in batch.items()}
     gsum = [torch.zeros(leaf.shape, dtype=torch.float32, device=leaf.device)
@@ -181,7 +203,7 @@ def accum_grads(cfg: ModelConfig, leaves, batch: Dict[str, torch.Tensor],
                                    device=leaves[0].device)
     for i in range(microbatches):
         l, n, a, g = loss_and_grads(cfg, leaves, {k: v[i] for k, v in
-                                                  mb.items()}, tp)
+                                                  mb.items()}, tp, lossy)
         gsum = [x + y.to(torch.float32) for x, y in zip(gsum, g)]
         loss, nll, aux = loss + l, nll + n, aux + a
     inv = 1.0 / microbatches
@@ -409,13 +431,15 @@ def _pod_rates(drop_rate, n_pods: int) -> torch.Tensor:
     return cross
 
 
-def plan_leaves(shapes, mesh, celeris: CelerisConfig):
+def plan_leaves(shapes, mesh, celeris: CelerisConfig,
+                names=convert.LEAF_NAMES):
     """Each leaf's coding plan from its global shape, None for a leaf
     that syncs exactly: tiles of ``n_rot`` around the leaf's ``model``
     dimension when the mesh has that axis (the JAX train step's
-    ``plans``, which compare the global size with ``min_coded_size``)."""
+    ``plans``, which compare the global size with ``min_coded_size``).
+    ``names``: the leaves' (``convert.leaf_names``)."""
     shapes = [tuple(s) for s in shapes]
-    specs = (rules.param_specs(shapes, mesh) if mesh is not None
+    specs = (rules.param_specs(shapes, mesh, names) if mesh is not None
              else [()] * len(shapes))
     return [coding.plan_nd(shape, rules.sharded_dim(spec), celeris.n_rot)
             if math.prod(shape) >= celeris.min_coded_size else None
@@ -498,8 +522,14 @@ def _sync_dp(sync: _DpSync, grads, plans, generator, drop_rate, masks,
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Training is ported for qwen2's layout only (the JAX leaf view,
-    ``convert.LAYER_LEAVES``); the other dense families serve."""
+    """Training is ported for qwen2's layout only, with an MLP or an MoE
+    block (the JAX leaf view, ``convert.layer_leaves``); the other dense
+    families and granite-moe serve."""
+    if cfg.family == "moe" and not M.qwen2_layout(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: training this MoE model is not ported yet: its "
+            "attention (no QKV bias, grouped kv heads) is not qwen2's, and "
+            "goes with training the dense families")
     if not M.qwen2_layout(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the train step is ported for qwen2's layout "
@@ -511,7 +541,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                     celeris: Optional[CelerisConfig] = None,
                     microbatches: int = 1):
     """Returns ``step(state, batch, generator, drop_rate, *, masks=None,
-    signs=None, noise=None) -> (state, metrics)``.
+    signs=None, noise=None, coins=None) -> (state, metrics)``.
 
     ``mesh``: None (one device) or this rank's DeviceMesh; every rank of
     it builds its step together (the dp groups are made here).  The
@@ -554,22 +584,40 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             f"HierarchicalSchedule.PRIORITY is {prio}")
     if microbatches < 1:
         raise ValueError(f"microbatches={microbatches}: need at least 1")
-    if celeris.lossy_moe:
-        raise NotImplementedError("lossy_moe is not ported yet (no MoE "
-                                  "family)")
 
     tp = convert.model_group(cfg, mesh)
     zero = convert.data_group(cfg, mesh)
-    plans = plan_leaves(convert.leaf_shapes(cfg), mesh, celeris)
-    split = [tp is not None and n in tp.split for n in convert.SHORT_NAMES]
+    plans = plan_leaves(convert.leaf_shapes(cfg), mesh, celeris,
+                        convert.leaf_names(cfg))
+    split = [tp is not None and n in tp.split
+             for n in convert.short_names(cfg)]
     # one device takes the batch whole, as the JAX step's no-dp branch
     accum = microbatches if dp else 1
     dp_sync = _DpSync.make(mesh, mode, celeris, tp) if dp else None
+    # outside the lossy island JAX's step is one GSPMD program over the
+    # global batch: its MoE layers route every dp shard's rows together
+    rows = None
+    if (cfg.moe is not None and dp_sync is not None
+            and dp_sync.dp.size > 1
+            and not (dp_sync.island and any(p is not None for p in plans))):
+        if accum > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: microbatches on dp ranks outside the lossy "
+                "island are not ported for MoE (JAX's microbatch is a block "
+                "of the global batch's rows)")
+        rows = shd.RowGroup(dp_sync.dp.group, dp_sync.dp.size,
+                            dp_sync.dp.peer)
 
     def train_step(state, batch, generator: Optional[torch.Generator],
-                   drop_rate, *, masks=None, signs=None, noise=None):
+                   drop_rate, *, masks=None, signs=None, noise=None,
+                   coins=None):
         leaves = state["params"]
-        loss, nll, aux, grads = accum_grads(cfg, leaves, batch, accum, tp)
+        # the expert exchange crosses pods: the drop vector's last component
+        lossy = M.LossyCtx(enabled=celeris.lossy_moe,
+                           drop_rate=float(np.reshape(drop_rate, -1)[-1]),
+                           coins=coins)
+        loss, nll, aux, grads = accum_grads(cfg, leaves, batch, accum, tp,
+                                            lossy, rows)
         if dp_sync is not None:
             grads, frac = _sync_dp(dp_sync, grads, plans, generator,
                                    drop_rate, masks, signs, noise)
@@ -606,7 +654,7 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, mesh=None):
     check_trainable(cfg)
     leaves = convert.jax_leaves(M.init_params(cfg, generator))
     if shd.model_group(mesh) is not None:
-        leaves = convert.shard_leaves(leaves, mesh)
+        leaves = convert.shard_leaves(leaves, mesh, convert.leaf_names(cfg))
     return state_from_params(leaves, cfg, mesh)
 
 
@@ -621,39 +669,44 @@ def state_from_params(leaves, cfg: ModelConfig, mesh=None):
                                 device=leaves[0].device)}
 
 
-def state_specs(shapes, mesh):
+def state_specs(shapes, mesh, names=convert.LEAF_NAMES):
     """The partition spec of every state leaf on ``mesh``, shaped as the
     state (JAX's ``state_shardings``), from the leaves' global
-    ``shapes``: the parameter specs, ZeRO-1 for the optimizer state."""
-    return {"params": rules.param_specs(shapes, mesh),
-            "opt": rules.opt_state_specs(shapes, mesh), "step": ()}
+    ``shapes`` and ``names``: the parameter specs, ZeRO-1 for the
+    optimizer state."""
+    return {"params": rules.param_specs(shapes, mesh, names),
+            "opt": rules.opt_state_specs(shapes, mesh, names), "step": ()}
 
 
 _OPT_LISTS = ("master", "mu", "nu")
 
 
-def state_leaves(state) -> list:
+def state_leaves(state, names=convert.LEAF_NAMES) -> list:
     """The state's leaves (or those of :func:`state_specs`) as
     ``(path, leaf)`` in JAX's flatten order, the path JAX's ``keystr`` of
     the same leaf of its state tree: ``['opt']['count']``, then
     ``['opt']['master']`` + each leaf's ``keystr``, ``mu``, ``nu``, the
-    ``['params']``, and ``['step']``."""
+    ``['params']``, and ``['step']``.  ``names``: the parameter leaves'
+    (``convert.leaf_names``)."""
+    if len(names) != len(state["params"]):
+        raise ValueError(f"{len(names)} names for {len(state['params'])} "
+                         "parameter leaves")
     out = [("['opt']['count']", state["opt"]["count"])]
     for part in _OPT_LISTS:
         out += [(f"['opt']['{part}']" + rules.keystr(n), x)
-                for n, x in zip(convert.LEAF_NAMES, state["opt"][part])]
+                for n, x in zip(names, state["opt"][part])]
     out += [("['params']" + rules.keystr(n), x)
-            for n, x in zip(convert.LEAF_NAMES, state["params"])]
+            for n, x in zip(names, state["params"])]
     return out + [("['step']", state["step"])]
 
 
 def state_from_leaves(leaves):
     """Inverse of :func:`state_leaves`, from the leaves alone in that
     order."""
-    n = len(convert.LEAF_NAMES)
     leaves = list(leaves)
-    if len(leaves) != 4 * n + 2:
-        raise ValueError(f"{len(leaves)} state leaves, expected {4 * n + 2}")
+    n = (len(leaves) - 2) // 4
+    if len(leaves) != 4 * n + 2 or n < 1:
+        raise ValueError(f"{len(leaves)} state leaves, expected 4 n + 2")
     opt = {part: leaves[1 + k * n:1 + (k + 1) * n]
            for k, part in enumerate(_OPT_LISTS)}
     return {"params": leaves[1 + 3 * n:1 + 4 * n],

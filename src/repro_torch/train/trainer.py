@@ -108,6 +108,7 @@ class Trainer:
         self.ckpt_every = ckpt_every
         self.step_fn = ts.make_train_step(cfg, mesh, self.opt_cfg,
                                           self.celeris)
+        self.names = convert.leaf_names(cfg)
         self.state = ts.init_state(generator(self.device, seed), cfg, mesh)
         dp = shd.dp_axes(mesh)
         if dp:
@@ -125,14 +126,15 @@ class Trainer:
         ``ts.state_leaves`` order (None without a mesh)."""
         if self.mesh is None:
             return None
-        specs = ts.state_specs(convert.leaf_shapes(self.cfg), self.mesh)
-        return [s for _, s in ts.state_leaves(specs)]
+        specs = ts.state_specs(convert.leaf_shapes(self.cfg), self.mesh,
+                               self.names)
+        return [s for _, s in ts.state_leaves(specs, self.names)]
 
     def restore(self):
         """Load ``LATEST`` from ``ckpt_dir``, this rank's blocks of it on a
         mesh, and adopt its timeout."""
         leaves, step, extra = ckpt.restore(
-            self.ckpt_dir, ts.state_leaves(self.state),
+            self.ckpt_dir, ts.state_leaves(self.state, self.names),
             shardings=self._specs(), mesh=self.mesh)
         self.state = ts.state_from_leaves(leaves)
         self.start_step = int(step)
@@ -145,7 +147,7 @@ class Trainer:
         rank 0 copies them to the host and writes them in the
         background."""
         self._wait_ckpt()
-        named = ts.state_leaves(self.state)
+        named = ts.state_leaves(self.state, self.names)
         extra = {"timeout": self.controller.timeout, "arch": self.cfg.name}
         if self.mesh is None:
             self._pending_ckpt = ckpt.save_async(self.ckpt_dir, step, named,
@@ -199,7 +201,7 @@ class Trainer:
                                    "drop_rate": [], "timeout": []}
         for step in range(self.start_step, self.start_step + n_steps):
             batch = self.put_batch(step)
-            if self.celeris.collective_mode().lossy:
+            if self.celeris.collective_mode().lossy or self.celeris.lossy_moe:
                 # a float for the flat modes; the axis vector of a
                 # HierStragglerModel in hierarchical mode
                 drop = self.straggler.drop_rate(self.controller.timeout,

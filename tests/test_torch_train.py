@@ -270,9 +270,17 @@ def test_unported_paths_raise():
                                microbatches=2).model_group is None
     with pytest.raises(ValueError, match="microbatches"):
         tts.make_train_step(tcfg, None, None, None, microbatches=0)
-    with pytest.raises(NotImplementedError, match="lossy_moe"):
-        tts.make_train_step(tcfg, None, None,
-                            tts.CelerisConfig(lossy_moe=True))
+    # lossy_moe is inert on a dense model, as in JAX: the same step as
+    # off, bit for bit
+    _, _, _, _, leaves, batch = _setup()
+    ends = []
+    for on in (False, True):
+        step = tts.make_train_step(tcfg, None, tadamw.OptConfig(**OPT),
+                                   tts.CelerisConfig(lossy_moe=on))
+        new, m = step(tts.state_from_params(list(leaves), tcfg),
+                      _tbatch(batch), None, DROP)
+        ends.append(new["params"] + new["opt"]["mu"] + [m["loss"]])
+    assert all(torch.equal(a, b) for a, b in zip(*ends))
 
 
 @pytest.mark.parametrize("mode", list(jcoupling.CollectiveMode))

@@ -39,8 +39,9 @@ caught and carried on):
    greedy-decode 32 tokens.  Uncoded and clean decodes, a full-mask
    round trip, and smoke-size runs against the CPU (qwen2-0.5b, and
    gemma2-9b on a prompt longer than its window, chatglm3-6b,
-   nemotron-4-15b, qwen2-moe-a2.7b and granite-moe-3b-a800m: logits,
-   every degraded KV leaf, greedy tokens) check the results;
+   nemotron-4-15b, qwen2-moe-a2.7b, granite-moe-3b-a800m,
+   recurrentgemma-9b on a prompt longer than its window and xlstm-350m:
+   logits, every degraded KV leaf, greedy tokens) check the results;
 4. the kernel bench (``benchmarks/kernel_bench.py``'s quantize rows) at
    (256, 4096) through ``kernels.ops``;
 5. train qwen2-0.5b at full width through ``Trainer``: batch 8 x 128
@@ -63,7 +64,8 @@ caught and carried on):
    (one fused rotate+quantize launch a call) at drop 0 and 0.05 and on
    the float32 wire at 0.05;
 6b. the data-parallel train step: four rank processes on the one card
-    over gloo, qwen2-0.5b at full width through ``Trainer(mesh=...)``,
+    over gloo, qwen2-0.5b at full width, depth cut to 2 of 24 layers
+    (``MESH_LAYERS``), through ``Trainer(mesh=...)``,
     global batch 8 x 128 (2 rows a rank), 2 steps in each cell: on
     ``make_host_mesh((4, 1))`` ``exact``, ``lossy`` and
     ``lossy_hadamard`` at drop 0.05, and the int8 wire at drop 0 and
@@ -71,9 +73,10 @@ caught and carried on):
     wire at the per-pod vector [0.02, 0.0, 0.05].  ZeRO-1: each rank holds
     its ``zero1_specs`` slice of ``master``, ``mu`` and ``nu`` and the new
     parameters are all-gathered over ``data`` (its ms and bytes a
-    rank-step printed); the peak a rank must fall below the replicated
-    state's (15.68 GiB on (4, 1), 16.61 on (2, 2, 1), measured on an
-    H100 80GB HBM3 at 700 W, PERF.md).
+    rank-step printed); every cell's peak a rank must fall below the
+    replicated state's, measured in the same run: one step of the cell
+    that peaked highest on the mesh with the state replicated
+    (``replicated_peak``).
     Every rank must end every step bit-identical, ``recv_frac`` lie within 0.04 of the mean
     mask rate's complement (1.0 at drop 0, where the int8 loss is within
     5e-3 of exact's), each coded step launch the FWHT 16 times a rank;
@@ -81,8 +84,8 @@ caught and carried on):
     equals one device on ``global_batch(0, 4)`` (full width in float32,
     2 layers); every cell at smoke size agrees card against CPU;
 6c. the tensor-parallel train step: the same four rank processes, each
-    holding its shards of the leaves split over ``model``, 2 steps a
-    cell: on ``make_host_mesh((2, 2))`` (data x model) ``exact``,
+    holding its shards of the leaves split over ``model``, 2 of 24
+    layers as 6b, 2 steps a cell: on ``make_host_mesh((2, 2))`` (data x model) ``exact``,
     ``lossy`` and ``lossy_hadamard`` at drop 0.05, the int8 wire at 0
     and 0.05, and ``lossy_hadamard`` with ``microbatches=2``; on
     ``make_pod_mesh(2, 1, 2)`` ``hierarchical`` int8 at [0.02, 0.0,
@@ -94,7 +97,7 @@ caught and carried on):
     (2, 2) sync at drop 0 equals the exact pmean on the same gradients;
     ``microbatches=2`` equals the whole rows; every cell at smoke size
     agrees card against CPU; ZeRO-1 on (2, 2) (peak below the replicated
-    state's 7.87 GiB a rank, on the same card).  Each cell prints its
+    state's, measured as 6b's).  Each cell prints its
     step, dp sync, model-group collective and ZeRO-1 all-gather times
     and bytes a rank-step.  Then the elastic
     restart: one exact step on (2, 2) checkpointed at full width (every
@@ -228,6 +231,28 @@ caught and carried on):
 19f. granite-moe-3b-a800m (32 MoE layers, 40 experts padded to 48,
      top-8, no shared experts, 24 heads padded to 32) the same way
      ((1,114,112, 64) blocks);
+19g. recurrentgemma-9b at full width (38 layers: (rglru, rglru, local)
+     x 12, then two rglru; d 4096, RG-LRU width 4096, local window
+     2,048, 16 heads of 256, one kv head, GeGLU, vocab 256,000, bf16,
+     random weights from seed 0) through phase 3's path and bars: its
+     two K/V leaves (the 12 local layers' rings, (12, 8, 544, 1, 256))
+     each a payload, exactly 4 FWHT and 2 unbias launches, the kernels
+     held to their plain versions and timed at (208,896, 64); then the
+     RG-LRU scan's share of one prefill and its launches
+     (``loop_shares``);
+19h. recurrentgemma-9b on 4,096 tokens (batch 1, the same weights): the
+     RG-LRU scan in 8 chunks of 512 (208 scan calls), the tiled
+     attention, the local rings wrapped (2,048 slots); the coded
+     transfer and 16 tokens, its kernels held to their plain versions;
+     layer 2's (local) tiled attention against the dense formula; every
+     greedy step from the clean caches against a teacher-forced forward
+     (padded with filler to 5,120 tokens) at its position, within 0.05
+     of the largest logit;
+19i. xlstm-350m at full width (24 layers, (mlstm x 3, slstm) x 6, d
+     1024, 4 heads, vocab 50,304, bf16) through phase 3's path and bars:
+     no K/V leaf, so no kernel launch on the path, and
+     ``degrade_caches`` returns the prefill's caches bit for bit; the
+     mLSTM's and the sLSTM's shares of one prefill;
 20. the priority cut, the per-step window and the flight recorder, card
     against CPU at 40 rounds: the 32-node 2-pod hier cell with
     layer-depth priority classes under both cut orders and both budget
@@ -253,11 +278,12 @@ The protocols of phases 14-16, 18 and 21-22 (and Fig. 2's step window)
 are ``repro_torch.benchmarks.figs``'s functions, which the CPU tests also
 run (smoke tiers and cut grids).
 
-Each path (3-6d with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19f and
+Each path (3-6d with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19i and
 21-22, Fig. 2's step window its own) runs with the kernels' launch counts set
 to 0 just before it and read just after.  The last
-line is ``{"ok": true, "device": {...}}``; the lines before it carry the
-card's name and power limit and a ``{"kernels": [...]}`` record.  Needs CUDA: without it the
+line is ``{"ok": true, "device": {...}}``; the lines before it carry each
+phase's wall seconds (``{"phase_seconds": {...}}``), the card's name and
+power limit and a ``{"kernels": [...]}`` record.  Needs CUDA: without it the
 script raises before printing any result.
 
 ``--ab-fwht`` builds the kernels, then only times ``csrc/fwht.cu``
@@ -307,12 +333,11 @@ GRAD_VALUES, GRAD_PAYLOAD = 499_540_864, (121_959, 4096)   # its gradient
 # the FWHT's rows on the train path: the tiles of 4096 of each coded leaf
 # (wk/wv, wq/wo, the MLP weights, embed.table)
 TRAIN_FWHT_ROWS = (672, 5376, 25536, 33236)
-# ... and on a mesh with a model axis (dp_train's (4, 1) and (2, 2, 1)),
-# where each leaf tiles around its model dim: (rows, n_rot) of wk/wv,
-# wq/wo, the MLP weights and embed.table, whose model dim leaves 896
-# entries a column, so n_rot 512; on tp_train's (2, 2) mesh each rank
-# rotates its half of the model dim (tp_fwht_shapes)
-DP_FWHT_SHAPES = ((768, 4096), (6144, 4096), (29184, 4096), (303872, 512))
+# ... and on a mesh with a model axis (dp_train's (4, 1) and (2, 2, 1),
+# at phases 6b/6c's MESH_LAYERS), where each leaf tiles around its model
+# dim (tp_fwht_shapes on a (4, 1) mesh; embed.table's model dim leaves
+# 896 entries a column, so n_rot 512); on tp_train's (2, 2) mesh each
+# rank rotates its half of the model dim
 ALLREDUCE_PEERS = (1, 4)   # unbias counts: the one-rank group's and 4 peers'
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
 # tensor cores (the kernels' arithmetic) in operations/s
@@ -323,6 +348,7 @@ TOP_KERNELS = 4
 # L2 is timed cold, a FLUSH_BYTES buffer written before every call
 RUN_MS, MAX_K, REPEATS, FLUSH_BYTES = 2.0, 50, 5, 64 << 20
 SPIN_HZ = 2e9              # above the H100's SM clock: a spin lasts long enough
+PROFILE_WARMUP = 64        # spin kernels that open each profile window
 
 
 def _sync():
@@ -394,30 +420,44 @@ def check(name, got, want, rtol, atol):
 
 def profile_window(fn):
     """Host wall time, device busy time (union of kernel intervals) and
-    the kernels that took the most device time, for one call of fn."""
+    the kernels that took the most device time, for one call of fn.
+    The device intervals are read from the profiler's raw events, not
+    ``prof.events()``, whose tree of Python objects takes tens of
+    seconds to build over a host-bound call's ~10^5 launches.  Late in
+    a long process a window was seen to lose its first device events
+    (37 of a 43-kernel call), so each window opens with PROFILE_WARMUP
+    spin kernels, kept out of the counts: how many of them the profiler
+    saw is reported beside."""
     from torch.profiler import ProfilerActivity, profile
     _sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WARMUP):
+            torch.cuda._sleep(1)
+        _sync()
         t0 = time.perf_counter()
         fn()
         _sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3,
+               e.name())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    kernels = [k for k in device if "spin_kernel" not in k[2]]
+    warm_seen = len(device) - len(kernels)
     busy_us, end = 0.0, -math.inf
     by_name = {}
-    for e in sorted(kernels, key=lambda e: e.time_range.start):
-        start, stop = e.time_range.start, e.time_range.end
+    for start, stop, name in sorted(kernels):
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
-        by_name[e.name] = by_name.get(e.name, 0.0) + (stop - start) / 1e3
+        by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
     if not kernels:                  # the profiler saw no device activity
-        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured",
+                "warmup_seen": warm_seen}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
             "busy_share": busy_us / 1e3 / wall_ms,
-            "n_kernel_launches": len(kernels),
+            "n_kernel_launches": len(kernels), "warmup_seen": warm_seen,
             "top_kernels_ms": {k[:60]: v for k, v in ranked}}
 
 
@@ -612,12 +652,16 @@ def check_train_shapes(dev, g, cfg, kfwht, kunbias, ref):
     largest leaf's, the payload's, the dp mesh's n_rot-512 leaf and the
     TP rank's two largest; masked unbias at the payload's wire layout
     with counts from drop-0.05 masks at its tolerance, timed at one
-    peer's.  Returns the worst error by kernel and the timing records."""
-    tp = sorted(set(tp_fwht_shapes(cfg)))
+    peer's.  The dp and tp shapes are phases 6b/6c's, at MESH_LAYERS.
+    Returns the worst error by kernel and the timing records."""
+    mesh_cfg = dataclasses.replace(cfg, n_layers=MESH_LAYERS)
+    dp = tp_fwht_shapes(mesh_cfg, mesh_shape((DP_WORLD, 1),
+                                             ("data", "model")))
+    tp = sorted(set(tp_fwht_shapes(mesh_cfg)))
     shapes = ([(rows, GRAD_PAYLOAD[1]) for rows in TRAIN_FWHT_ROWS]
-              + list(DP_FWHT_SHAPES) + tp + [GRAD_PAYLOAD])
-    timed = ((TRAIN_FWHT_ROWS[-1], GRAD_PAYLOAD[1]), DP_FWHT_SHAPES[-1],
-             *tp[-2:], GRAD_PAYLOAD)
+              + sorted(set(dp)) + tp + [GRAD_PAYLOAD])
+    timed = ((TRAIN_FWHT_ROWS[-1], GRAD_PAYLOAD[1]), dp[-1], *tp[-2:],
+             GRAD_PAYLOAD)
     worst = {"fwht": 0.0, "masked_unbias": 0.0}
     records = []
     for rows, n in shapes:
@@ -1364,6 +1408,10 @@ def to_device(tree, d):
 # make_pod_mesh(2, 1, 2) and "dm14" make_host_mesh((1, 4)), where wk/wv
 # split over the 4 model ranks but qwen2-0.5b's 2 kv heads do not.
 DP_WORLD, DP_STEPS, DP_TIMEOUT = 4, 2, 900
+# phases 6b/6c run qwen2-0.5b at full width, the depth cut to MESH_LAYERS
+# of its 24 layers (as 6d's EP_LAYERS): most of a 24-layer step was the
+# gloo sync of all 494 M parameters
+MESH_LAYERS = 2
 DP_CELLS = (("exact", "host", "exact", False, 0.0, 1),
             ("lossy", "host", "lossy", False, 0.05, 1),
             ("lossy_hadamard", "host", "lossy_hadamard", False, 0.05, 1),
@@ -1381,10 +1429,15 @@ TP_CELLS = (("exact", "dm22", "exact", False, 0.0, 1),
              (0.02, 0.0, 0.05), 1),
             ("exact_tp4", "dm14", "exact", False, 0.0, 1))
 MESH_OUT = os.path.join(SRC, "repro_torch", "kernels", "build", "{}_train")
-# the peak GiB a rank that the replicated optimizer state reached on
-# each mesh with a data axis larger than 1 (measured on an H100 80GB
-# HBM3 at 700 W, PERF.md section 5); ZeRO-1 must come in below
-REPLICATED_PEAK_GIB = {"host": 15.68, "pods": 16.61, "dm22": 7.87}
+# the meshes with a data axis larger than 1, where ZeRO-1 places the
+# optimizer state: every cell's peak a rank must come in below the
+# replicated state's, measured in the same run (``replicated_peak``)
+ZERO_MESHES = ("host", "pods", "dm22")
+
+
+def mesh_config(C):
+    """Phases 6b/6c's model: qwen2-0.5b at full width, MESH_LAYERS deep."""
+    return dataclasses.replace(C.get("qwen2-0.5b"), n_layers=MESH_LAYERS)
 
 
 def mesh_of(kind, device_type):
@@ -1608,7 +1661,7 @@ def dp_cells(rank, dev, meshes, cells):
      shd.model_reduce_scatter) = (counted(f, "model_bytes", "model_s")
                                   for f in model_ops)
     ops.fwht = shaped_fwht
-    cfg = C.get("qwen2-0.5b")
+    cfg = mesh_config(C)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                           global_batch=TRAIN_BATCH, seed=1)
     opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
@@ -1658,10 +1711,7 @@ def dp_cells(rank, dev, meshes, cells):
         zero = tr.step_fn.data_group is not None
         assert all((s["zero_bytes"] > 0) == zero for s in steps), (name,
                                                                   steps)
-        if mk in REPLICATED_PEAK_GIB:
-            assert zero and peak < REPLICATED_PEAK_GIB[mk], (
-                f"{mk} {name}: peak {peak:.2f} GiB a rank, the replicated "
-                f"state's was {REPLICATED_PEAK_GIB[mk]}")
+        assert zero == (mk in ZERO_MESHES), (mk, name, zero)
         fwht = [s["launches"]["fwht"] for s in steps]
         coded = mode in ("lossy_hadamard", "hierarchical")
         want = {"fwht": 2 * CODED_LEAVES if coded else 0,
@@ -1700,7 +1750,52 @@ def dp_cells(rank, dev, meshes, cells):
     rec["median"] = {"local": float(local), "agreed": agreed.item()}
     del tr
     torch.cuda.empty_cache()
+    # the replicated state's peak, against the ZeRO-1 cell that peaked
+    # highest on each mesh that places it
+    for mk in sorted({c[1] for c in cells} & set(ZERO_MESHES)):
+        on = {n: c for n, c in rec["cells"].items() if c["mesh"] == mk}
+        top = max(on, key=lambda n: on[n]["peak_gib"])
+        cell = next(c for c in cells if c[0] == top)
+        rep_peak = replicated_peak(cfg, meshes[mk], cell, data_cfg, opt, dev)
+        assert all(c["peak_gib"] < rep_peak for c in on.values()), (
+            f"{mk}: ZeRO-1 peaks a rank "
+            f"{ {n: c['peak_gib'] for n, c in on.items()} } GiB, the "
+            f"replicated state's {rep_peak:.3f} ({top})")
+        for c in on.values():
+            c["replicated_peak_gib"] = rep_peak
     return rec
+
+
+def replicated_peak(cfg, mesh, cell, data_cfg, opt, dev):
+    """The peak GiB a rank of one step of ``cell`` with the optimizer
+    state replicated (``convert.data_group`` patched to None, as before
+    ZeRO-1): the bar each ZeRO-1 cell's peak on that mesh must come in
+    below."""
+    from repro_torch.models import convert
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    name, _, mode, q, drop, mb = cell
+    saved = convert.data_group
+    convert.data_group = lambda *a, **k: None
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        celeris = ts.CelerisConfig(mode=mode, quantize_wire=q)
+        tr = Trainer(cfg, data_cfg=data_cfg, opt_cfg=opt, celeris=celeris,
+                     mesh=mesh, seed=0, straggler=FixedDrop(drop),
+                     device=str(dev))
+        if mb > 1:
+            tr.step_fn = ts.make_train_step(cfg, mesh, opt, celeris,
+                                            microbatches=mb)
+        assert tr.step_fn.data_group is None
+        tr.run(1)
+        _sync()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        convert.data_group = saved
+    del tr
+    torch.cuda.empty_cache()
+    return peak
 
 
 def local_shape(shape, spec, sizes):
@@ -1744,7 +1839,7 @@ def tp_check_elastic_restart(rank, dev, meshes, out_dir):
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer
-    cfg = C.get("qwen2-0.5b")
+    cfg = mesh_config(C)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                           global_batch=TRAIN_BATCH, seed=1)
     opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
@@ -2101,12 +2196,16 @@ def phase_mesh_train(kind):
             zero1_gather_ms=[s["zero_ms"] for s in steps],
             zero1_gather_bytes_per_rank_step=steps[-1]["zero_bytes"],
             peak_gib_per_rank=[rk["cells"][name]["peak_gib"]
-                               for rk in ranks])
+                               for rk in ranks],
+            replicated_peak_gib_per_rank=[
+                rk["cells"][name].get("replicated_peak_gib")
+                for rk in ranks])
         launches += sum(s["launches"]["fwht"] for rk in ranks
                         for s in rk["cells"][name]["steps"])
         out["cells"][name] = rec
-        print(f"{kind} train {name} ({rec['mesh']}, microbatches "
-              f"{rec['microbatches']}, {DP_WORLD} ranks on one card, gloo): "
+        print(f"{kind} train {name} ({rec['mesh']}, {MESH_LAYERS} of 24 "
+              f"layers, microbatches {rec['microbatches']}, {DP_WORLD} ranks "
+              f"on one card, gloo): "
               f"loss {rec['loss']}, recv_frac {rec['recv_frac']}, step ms "
               f"{rec['step_ms']} (median after the first "
               f"{rec['median_step_ms_after_first']:.1f}), dp sync ms "
@@ -2118,7 +2217,9 @@ def phase_mesh_train(kind):
               f"rank-step {rec['zero1_gather_bytes_per_rank_step']}, "
               f"FWHT launches/rank-step {rec['fwht_launches_per_step']}, "
               f"peak GiB/rank "
-              f"{[round(g, 2) for g in rec['peak_gib_per_rank']]} [{smi}]")
+              f"{[round(g, 2) for g in rec['peak_gib_per_rank']]} (the "
+              f"replicated state's {rec['replicated_peak_gib_per_rank']}) "
+              f"[{smi}]")
     out.update(seconds=seconds, median=[rk["median"] for rk in ranks],
                one_device=ranks[0]["one_device"],
                coded_vs_exact=[rk["coded_vs_exact"] for rk in ranks],
@@ -2579,11 +2680,13 @@ def phase_main_path(dev, C, M, serve_step, coupling, counts,
     return out
 
 
-# the smoke-size card-vs-CPU runs: (arch, prompt length); gemma2's prompt
-# is longer than its 64-token smoke window, so its ring caches wrap
+# the smoke-size card-vs-CPU runs: (arch, prompt length); gemma2's and
+# recurrentgemma's prompts are longer than their 64-token smoke window,
+# so their ring caches wrap
 SMALL_REFERENCE = (("qwen2-0.5b", 16), ("gemma2-9b", 80),
                    ("chatglm3-6b", 16), ("nemotron-4-15b", 16),
-                   ("qwen2-moe-a2.7b", 16), ("granite-moe-3b-a800m", 16))
+                   ("qwen2-moe-a2.7b", 16), ("granite-moe-3b-a800m", 16),
+                   ("recurrentgemma-9b", 80), ("xlstm-350m", 16))
 
 
 def phase_small_reference(dev, C, M, serve_step):
@@ -4357,7 +4460,7 @@ def attention_check(dev, cfg, params, M, L, prompt, layer):
     prefill's, with the layer's softcap and window) against the dense
     formula, whose (1, H, S, S) float32 logits are built whole, within
     LONG_ATTN_RTOL of the largest dense output; both timed.  No library
-    yardstick: SDPA takes no softcap."""
+    yardstick (SDPA takes no softcap)."""
     sub = dataclasses.replace(cfg, n_layers=layer)
     x = (M.hidden(params, sub, prompt) if layer else
          L.embed(params["embed.table"], cfg, prompt))
@@ -4389,7 +4492,9 @@ def attention_check(dev, cfg, params, M, L, prompt, layer):
     return {"kind": kind, "window": window, "max_abs_err": err,
             "dense_max_abs": scale, "tiled_ms": time_ms(tiled_fn),
             "dense_ms": time_ms(dense_fn),
-            "library_ms": None, "library": "none: SDPA takes no softcap"}
+            "library_ms": None,
+            "library": ("none: SDPA takes no softcap" if cfg.attn_softcap
+                        else "none timed")}
 
 
 def phase_serve_gemma2_long(dev, cfg, params, M, L, serve_step, coupling,
@@ -4554,6 +4659,250 @@ def phase_serve_moe(dev, C, M, serve_step, coupling, kernels, counts, arch):
     return rec, records
 
 
+# phases 19g-19i: the recurrent families at full width
+RG_ARCH, XLSTM_ARCH = "recurrentgemma-9b", "xlstm-350m"
+# 19h: one 4,096-token prompt (8 RG-LRU chunks of 512, the local rings'
+# 2,048 slots wrapped, tiled attention), then a teacher-forced forward
+# over prompt + generated tokens padded with filler to a multiple of the
+# tiled path's 1,024-token q tile
+RG_LONG_PROMPT, RG_FORCED_LEN = 4096, 5120
+
+
+def loop_shares(run, targets):
+    """One call of ``run`` (a prefill) with each ``(module, name)`` of
+    ``targets`` (a recurrent loop: the RG-LRU doubling scan, the
+    chunkwise mLSTM, the sLSTM time loop) wrapped in a synchronize on
+    each side: per loop its calls, host-clock ms and share of that
+    call's wall, and the device kernels one call launches (a profiled
+    call on the first call's inputs) times the calls.  The synchronizes
+    cost the wrapped call its overlap, so the shares are upper bounds."""
+    saved, stats = {}, {}
+    for mod, name in targets:
+        fn = saved[name] = getattr(mod, name)
+        st = stats[name] = {"calls": 0, "s": 0.0, "first": None}
+
+        def wrapped(*a, _fn=fn, _st=st, **k):
+            _sync()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            _sync()
+            _st["s"] += time.perf_counter() - t0
+            _st["calls"] += 1
+            if _st["first"] is None:
+                _st["first"] = (a, k)
+            return out
+        setattr(mod, name, wrapped)
+    try:
+        _sync()
+        t0 = time.perf_counter()
+        run()
+        _sync()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, name in targets:
+            setattr(mod, name, saved[name])
+    out = {"wall_ms": wall * 1e3}
+    for _, name in targets:
+        st = stats[name]
+        a, k = st.pop("first")
+        one = profile_window(lambda: saved[name](*a, **k))
+        per_call = one.get("n_kernel_launches", "not measured")
+        out[name] = {"calls": st["calls"], "ms": st["s"] * 1e3,
+                     "share": st["s"] / wall,
+                     "launches_per_call": per_call,
+                     "launches": (per_call * st["calls"]
+                                  if isinstance(per_call, int)
+                                  else per_call)}
+        del a, k
+    return out
+
+
+def phase_serve_recurrentgemma(dev, C, M, L, serve_step, coupling, kernels,
+                               counts):
+    """Phases 19g-19h: recurrentgemma-9b at full width.  19g: the 8 x 512
+    serve path (``phase_main_path``; its two K/V leaves, the 12 local
+    layers' rings stacked, each its own payload: exactly 4 FWHT and 2
+    unbias launches, held to their plain versions and timed), and the
+    RG-LRU scan's share of one prefill.  19h (``phase_serve_rg_long``) on
+    the same weights.  Returns both records and the kernel timing
+    records at the serve path's KV shapes."""
+    from repro_torch.models import rglru as RG
+    cfg = C.get(RG_ARCH)
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    serve = phase_main_path(dev, C, M, serve_step, coupling, counts,
+                            arch=RG_ARCH, params=params,
+                            wire_kernels=kernels)
+    records = serve["wire_check"].pop("records")
+    want = {"fwht": 4, "masked_unbias": 2, "fwht_quantize": 0,
+            "quantize_int8": 0, "dcqcn_scan": 0}
+    assert serve["launches"] == want, serve["launches"]
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                           generator=torch.Generator(dev).manual_seed(1),
+                           device=dev)
+    prefill = serve_step.make_prefill(cfg, PROMPT + GEN)
+    serve["loops"] = loop_shares(lambda: prefill(params, prompt),
+                                 [(RG, "linear_scan")])
+    print(f"{cfg.name} 8 x {PROMPT}: the RG-LRU scan in one prefill "
+          f"{serve['loops']} [{card_name_and_power()}]")
+    del prompt
+    torch.cuda.empty_cache()
+    long = phase_serve_rg_long(dev, cfg, params, M, L, serve_step, coupling,
+                               kernels, counts)
+    del params
+    torch.cuda.empty_cache()
+    return serve, long, records
+
+
+def phase_serve_rg_long(dev, cfg, params, M, L, serve_step, coupling,
+                        kernels, counts):
+    """Phase 19h: recurrentgemma-9b on RG_LONG_PROMPT tokens (batch 1):
+    the prefill runs JAX's chunked RG-LRU scan (8 chunks of 512) and the
+    tiled attention, its local rings wrapped (2,048 slots); the coded KV
+    transfer and LONG_GEN greedy tokens; the kernels held to their plain
+    versions on its caches; layer 2's (local) tiled attention against
+    the dense formula; and every decode step from the clean caches
+    against a teacher-forced forward (padded with filler to
+    RG_FORCED_LEN) at its position, within RING_DECODE_BAR of the
+    largest logit."""
+    from repro_torch.models import rglru as RG
+    coding = kernels[-1]
+    n = RG_LONG_PROMPT
+    prompt = torch.randint(0, cfg.vocab_size, (1, n),
+                           generator=torch.Generator(dev).manual_seed(5),
+                           device=dev)
+    assert n ** 2 > L.FLASH_THRESHOLD and n % RG.CHUNK == 0
+    prefill = serve_step.make_prefill(cfg, n + LONG_GEN)
+    mask = torch.as_tensor(coupling.kv_hole_masks(
+        np.array([KV_FRAC]), N_ROT, seed=0)[0], device=dev)
+    prefill(params, prompt)                 # warm-up
+    _sync()
+    counts.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, prompt)
+    _sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first = torch.argmax(logits, -1)[:, None]
+    signs = coding.rademacher(torch.Generator(dev).manual_seed(2),
+                              coding.plan(caches.leaves()[0].numel(),
+                                          n_rot=N_ROT))
+    t0 = time.perf_counter()
+    coded = serve_step.degrade_caches(caches, mask, signs=signs)
+    _sync()
+    degrade_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    toks = serve_step.greedy_decode(cfg, params, coded, first, n, LONG_GEN)
+    _sync()
+    decode_s = time.perf_counter() - t0
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    slots = [t.shape[2] for t in caches.leaves()]
+    assert slots == [cfg.window_size] * 2, slots
+    assert torch.isfinite(logits.float()).all() and toks.shape == (1,
+                                                                   LONG_GEN)
+    assert launches == {"fwht": 4, "masked_unbias": 2, "fwht_quantize": 0,
+                        "quantize_int8": 0, "dcqcn_scan": 0}, launches
+    wire_check = check_kv_wire("serve_rg_long", caches, mask, signs,
+                               *kernels)
+    del coded
+    profile = profile_window(lambda: prefill(params, prompt))
+    loops = loop_shares(lambda: prefill(params, prompt),
+                        [(RG, "linear_scan")])
+    n_rglru = sum(k == "rglru" for k in (
+        cfg.block_pattern * cfg.n_layers)[:cfg.n_layers])
+    assert loops["linear_scan"]["calls"] == n_rglru * n // RG.CHUNK, loops
+
+    # greedy decode from the clean caches, each step's logits kept, and
+    # every step against the teacher-forced forward at its position
+    # (causal layers keep the filler out; only those positions are
+    # unembedded)
+    decode = serve_step.make_decode(cfg)
+    tok, fed, got = first, [], []
+    for i in range(LONG_GEN):
+        fed.append(tok)
+        lg, caches = decode(params, caches, tok, n + i)
+        got.append(lg.float())
+        tok = torch.argmax(lg, -1)[:, None]
+    del caches, lg
+    seq = torch.cat([prompt] + fed, dim=1)
+    seq = torch.nn.functional.pad(seq, (0, RG_FORCED_LEN - seq.shape[1]))
+    want = M.head(params, cfg, M.hidden(params, cfg, seq)[:, n:n + LONG_GEN])
+    errs = []
+    for i, g in enumerate(got):
+        w = want[:, i].float()
+        errs.append((g - w).abs().max().item() / max(1.0, w.abs().max()
+                                                     .item()))
+        assert torch.isfinite(g).all() and errs[-1] < RING_DECODE_BAR, (
+            i, errs)
+    del seq, want, got
+    torch.cuda.empty_cache()
+    attention = {"layer2": attention_check(dev, cfg, params, M, L, prompt,
+                                           2)}
+    rec = {"model": cfg.name, "prompt": n, "gen": LONG_GEN,
+           "kv_leaf_slots": slots, "prefill_ms": prefill_ms,
+           "prefill_peak_mem_gib": prefill_peak,
+           "degrade_caches_ms": degrade_ms, "decode_s": decode_s,
+           "peak_mem_gib": peak, "prefill_profile": profile,
+           "loops": loops, "wire_check": wire_check,
+           "decode_vs_forced_rel_err": errs,
+           "decode_bar": f"{RING_DECODE_BAR} x max(1, max |logits|)",
+           "forced_len": RG_FORCED_LEN, "attention": attention,
+           "tolerance": f"{LONG_ATTN_RTOL} x max |dense|",
+           "launches": launches}
+    print(f"long prompt {n} tokens, {cfg.name} full width: prefill "
+          f"{prefill_ms:.1f} ms (peak {prefill_peak:.2f} GiB; {profile}); "
+          f"RG-LRU scan {loops}; coded KV {degrade_ms:.1f} ms + {LONG_GEN} "
+          f"tokens {decode_s:.2f} s; ring slots {slots}; its kernels vs "
+          f"plain: {wire_check}; decode vs teacher-forced forward rel err "
+          f"max {max(errs):.3g} over {LONG_GEN} steps (bar "
+          f"{RING_DECODE_BAR}); attention {attention}; launches {launches} "
+          f"[{card_name_and_power()}]")
+    return rec
+
+
+def phase_serve_xlstm(dev, C, M, serve_step, coupling, counts):
+    """Phase 19i: xlstm-350m at full width through ``phase_main_path``'s
+    8 x 512 path and bars.  It has no K/V leaf: no kernel may launch on
+    the path, and ``degrade_caches`` must hand back the prefill's
+    caches bit for bit.  Then the mLSTM's and the sLSTM's shares of one
+    prefill."""
+    from repro_torch.models import xlstm as XL
+    cfg = C.get(XLSTM_ARCH)
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    rec = phase_main_path(dev, C, M, serve_step, coupling, counts,
+                          arch=XLSTM_ARCH, params=params)
+    assert not rec["kv_leaves"], rec["kv_leaves"]
+    assert not any(rec["launches"].values()), rec["launches"]
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                           generator=torch.Generator(dev).manual_seed(1),
+                           device=dev)
+    prefill = serve_step.make_prefill(cfg, PROMPT + GEN)
+    _, clean = prefill(params, prompt)
+    mask = torch.as_tensor(coupling.kv_hole_masks(
+        np.array([KV_FRAC]), N_ROT, seed=0)[0], device=dev)
+    counts.reset()
+    shipped = serve_step.degrade_caches(clean, mask,
+                                        torch.Generator(dev).manual_seed(2))
+    assert not any(counts.read().values())
+    for a, b in zip(shipped.nodes(), clean.nodes()):
+        for x, y in zip(a.tensors(), b.tensors()):
+            assert torch.equal(x, y), "degrade_caches changed xLSTM state"
+    rec["degrade_unchanged_nodes"] = len(clean.nodes())
+    del shipped, clean
+    rec["loops"] = loop_shares(lambda: prefill(params, prompt),
+                               [(XL, "mlstm_parallel"), (XL, "slstm_scan")])
+    rec.pop("profile")      # printed above; the record stays compact
+    print(f"{cfg.name} 8 x {PROMPT}: no K/V leaf, 0 kernel launches, caches "
+          f"unchanged by degrade_caches; prefill {rec['prefill_ms']:.1f} "
+          f"ms, decode {rec['decode_tok_per_s']:.1f} tok/s, peak "
+          f"{rec['peak_mem_gib']:.2f} GiB; loops in one prefill "
+          f"{rec['loops']} [{card_name_and_power()}]")
+    del params, prompt
+    torch.cuda.empty_cache()
+    return rec
+
+
 def card_name_and_power():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4596,8 +4945,17 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    seconds, t_lap = {}, [t_start]
+
+    def lap(name):
+        """The wall seconds since the last lap, under ``name``."""
+        now = time.perf_counter()
+        seconds[name] = seconds.get(name, 0.0) + now - t_lap[0]
+        t_lap[0] = now
+
     counts = Launches(kfwht, kunbias, kquant, kdcqcn)
     phase_build(_build)
+    lap("1_build")
     if earlier_fwht is not None or earlier_dcqcn is not None:
         ab = {}
         if earlier_fwht is not None:
@@ -4613,26 +4971,36 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                             coding, coupling)
     records += phase_quant_kernels(dev, kfwht, kquant, ref)
     records += phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology)
+    lap("2_kernel_checks")
     main_path = phase_main_path(dev, C, M, serve_step, coupling, counts)
     phase_small_reference(dev, C, M, serve_step)
+    lap("3_serve")
     bench = phase_kernel_bench(dev, ops, counts)
     train, tr = phase_train(dev, C, ts, Trainer, DataConfig, OptConfig,
                             counts)
+    lap("4-5_bench_train")
     allreduce = phase_allreduce(dev, ts, tr, coding, lc, counts)
     del tr
     torch.cuda.empty_cache()
+    lap("6_allreduce")
     checkpoint = phase_checkpoint(dev, C, ts, Trainer, DataConfig, OptConfig,
                                   ckpt, counts)
+    lap("5b_checkpoint")
     dp_train = phase_mesh_train("dp")
+    lap("6b_dp_train")
     tp_train = phase_mesh_train("tp")
+    lap("6c_tp_train")
     ep_train, ep_records = phase_ep_train(dev, C, kfwht, ref)
     records += ep_records
+    lap("6d_ep_train")
     small_train = phase_small_train(dev, C, ts, OptConfig, DataConfig,
                                     make_source)
+    lap("7_small_train")
     engine_check = phase_engine_card_vs_cpu(dev, E, P)
     fig2 = phase_fig2(dev, E, P, figs, counts)
     fig3 = phase_fig3(dev, E, ET, P, counts)
     torch.cuda.empty_cache()
+    lap("8_engine_fig2_fig3")
     fig1, paper_sched = phase_fig1(dev, C, ts, Trainer, DataConfig,
                                    OptConfig, coupling, counts)
     fig1["full_width"] = phase_fig1_full_width(
@@ -4640,10 +5008,12 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
         counts)
     fig1_launches = {k: v + fig1["full_width"]["launches"][k]
                      for k, v in fig1["launches"].items()}
+    lap("9_fig1")
     hier_check = phase_hier_card_vs_cpu(dev, E, P, topology)
     fig4 = phase_fig4(dev, E, P, topology, counts)
     fig7 = phase_fig7(dev, E, P, topology, counts)
     torch.cuda.empty_cache()
+    lap("10-12_hier_fig4_fig7")
     fig7["loop"], fault_sched = phase_fig7_loop(
         dev, C, ts, Trainer, DataConfig, OptConfig, coupling, counts)
     fig7["loop"]["full_width"] = phase_fig7_full_width(
@@ -4651,6 +5021,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
         counts)
     loop_launches = {k: v + fig7["loop"]["full_width"]["launches"][k]
                      for k, v in fig7["loop"]["launches"].items()}
+    lap("13_fig7_loop")
     tables = phase_tables(figs, qp_state, resource_model)
     fig5 = phase_fig5(dev, E, topology, figs, counts)
     fig6 = phase_fig6(dev, E, topology, figs, counts)
@@ -4658,27 +5029,40 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     wire_kernels = (kfwht, kunbias, ref, coding)
     fig8 = phase_fig8(dev, traffic, figs, wire_kernels, counts)
     torch.cuda.empty_cache()
+    lap("14-18_tables_fig5_fig6_incast_fig8")
     serve_long = phase_serve_long(dev, C, M, L, serve_step, coupling,
                                   wire_kernels, counts)
     torch.cuda.empty_cache()
+    lap("19_serve_long")
     serve_gemma2, serve_gemma2_long, gemma2_records = phase_serve_gemma2(
         dev, C, M, L, serve_step, coupling, wire_kernels, counts)
     records += gemma2_records
     torch.cuda.empty_cache()
+    lap("19b-19c_gemma2")
     serve_dense = {}
     for arch in DENSE_ARCHS:
         serve_dense[arch], dense_records = phase_serve_dense(
             dev, C, M, serve_step, coupling, wire_kernels, counts, arch)
         records += dense_records
+    lap("19d_dense")
     serve_moe = {}
     for arch in MOE_ARCHS:
         torch.cuda.empty_cache()
         serve_moe[arch], moe_records = phase_serve_moe(
             dev, C, M, serve_step, coupling, wire_kernels, counts, arch)
         records += moe_records
+    lap("19e-19f_moe")
+    torch.cuda.empty_cache()
+    serve_rg, serve_rg_long, rg_records = phase_serve_recurrentgemma(
+        dev, C, M, L, serve_step, coupling, wire_kernels, counts)
+    records += rg_records
+    lap("19g-19h_recurrentgemma")
+    serve_xlstm = phase_serve_xlstm(dev, C, M, serve_step, coupling, counts)
+    lap("19i_xlstm")
     feature_check = phase_features_card_vs_cpu(dev, E, topology, figs)
     fig10 = phase_fig10(dev, figs, counts)
     fig9 = phase_fig9(dev, figs, trace_export, counts)
+    lap("20-22_features_fig10_fig9")
     by_path = {"serve": main_path["launches"],
                "kernel_bench": bench["launches"],
                "train": train["launches"],
@@ -4701,11 +5085,15 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "ep_train": ep_train["launches"],
                "serve_qwen2_moe": serve_moe["qwen2-moe-a2.7b"]["launches"],
                "serve_granite_moe":
-                   serve_moe["granite-moe-3b-a800m"]["launches"]}
+                   serve_moe["granite-moe-3b-a800m"]["launches"],
+               "serve_recurrentgemma": serve_rg["launches"],
+               "serve_recurrentgemma_long": serve_rg_long["launches"],
+               "serve_xlstm": serve_xlstm["launches"]}
     wires = [fig8["wire_check"], serve_long["wire_check"],
              serve_gemma2["wire_check"], serve_gemma2_long["wire_check"],
              *(r["wire_check"] for r in serve_dense.values()),
-             *(r["wire_check"] for r in serve_moe.values())]
+             *(r["wire_check"] for r in serve_moe.values()),
+             serve_rg["wire_check"], serve_rg_long["wire_check"]]
     for rec in records:
         for wire in wires:
             rec["max_abs_err"] = max(rec["max_abs_err"], wire[
@@ -4731,7 +5119,12 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "serve_gemma2": serve_gemma2,
                       "serve_gemma2_long": serve_gemma2_long,
                       "serve_dense": serve_dense, "serve_moe": serve_moe,
+                      "serve_recurrentgemma": serve_rg,
+                      "serve_recurrentgemma_long": serve_rg_long,
+                      "serve_xlstm": serve_xlstm,
                       "seconds": time.perf_counter() - t_start}))
+    lap("report")
+    print(json.dumps({"phase_seconds": seconds}))
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Architecture registry.  Holds the families ported so far: the dense
-ones (qwen2-0.5b, gemma2-9b, chatglm3-6b, nemotron-4-15b) and the MoE
-ones (qwen2-moe-a2.7b, granite-moe-3b-a800m)."""
+ones (qwen2-0.5b, gemma2-9b, chatglm3-6b, nemotron-4-15b), the MoE ones
+(qwen2-moe-a2.7b, granite-moe-3b-a800m) and the recurrent ones
+(recurrentgemma-9b, xlstm-350m)."""
 from __future__ import annotations
 
 import importlib
@@ -8,7 +9,8 @@ import importlib
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
 ARCHS = ("qwen2_0_5b", "gemma2_9b", "chatglm3_6b", "nemotron_4_15b",
-         "qwen2_moe_a2_7b", "granite_moe_3b_a800m")
+         "qwen2_moe_a2_7b", "granite_moe_3b_a800m", "recurrentgemma_9b",
+         "xlstm_350m")
 
 
 def canonical(name: str) -> str:

@@ -1,9 +1,10 @@
 """Model configuration (port of ``repro/configs/base.py``).
 
-Holds the fields the dense families (qwen2, gemma2, chatglm3, nemotron)
-and the MoE family (qwen2-moe, granite-moe) read, with the JAX
-defaults.  The recurrent, enc-dec and frontend fields of the JAX
-``ModelConfig`` arrive with the slices that port those families.
+Holds the fields the dense families (qwen2, gemma2, chatglm3, nemotron),
+the MoE family (qwen2-moe, granite-moe) and the recurrent families
+(recurrentgemma, xLSTM) read, with the JAX defaults.  The enc-dec and
+frontend fields of the JAX ``ModelConfig`` arrive with the slice that
+ports those families.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ class MoEConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe (the families ported yet)
+    family: str                     # dense | moe | hybrid | ssm (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -34,8 +35,8 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None  # default d_model // n_heads
 
-    # layer pattern, cycled to n_layers: "global" | "local" | "moe" (the
-    # other kinds of the JAX package are not ported yet)
+    # layer pattern, cycled to n_layers:
+    #   "global" | "local" | "rglru" | "mlstm" | "slstm" | "moe"
     block_pattern: Tuple[str, ...] = ("global",)
     window_size: int = 4096         # local-attention window
 
@@ -54,6 +55,10 @@ class ModelConfig:
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
 
+    # recurrent blocks
+    rglru_conv_width: int = 4
+    lru_width: Optional[int] = None
+
     # TP head padding, kept so the parameter shapes (and so the carried
     # JAX weights) match: qwen2's 14 heads become 16, the two extra heads
     # zero-initialised in wq and wo and so inert.
@@ -67,6 +72,12 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True when no block needs full-sequence quadratic attention."""
+        return all(k in ("rglru", "mlstm", "slstm", "local")
+                   for k in self.block_pattern)
 
     def pattern_layout(self) -> Tuple[int, Tuple[str, ...]]:
         """(n_groups, tail_kinds): n_layers = n_groups*len(pattern)+tail."""

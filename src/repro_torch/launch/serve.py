@@ -11,11 +11,15 @@ caches shipped through the coded lossy transport (port of
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
         --batch 8 --prompt-len 512 --gen 32 --kv-frac 0.9
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --batch 8 --prompt-len 512 --gen 32 \
+        --kv-frac 0.9
 
 ``--arch`` takes any ported family: qwen2-0.5b, gemma2-9b, chatglm3-6b,
-nemotron-4-15b, and the MoE models qwen2-moe-a2.7b and
-granite-moe-3b-a800m (full width, or ``--smoke`` for the reduced
-config).
+nemotron-4-15b, the MoE models qwen2-moe-a2.7b and granite-moe-3b-a800m,
+and the recurrent models recurrentgemma-9b (its local-attention layers'
+K/V ship; the RG-LRU state is not coded) and xlstm-350m (no K/V cache:
+nothing ships) (full width, or ``--smoke`` for the reduced config).
 
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 missing.  Weights are random, from seed 0; the prompt from seed 1; the
@@ -75,8 +79,12 @@ def main(argv=None):
             np.array([args.kv_frac]), N_ROT, seed=0)[0], device=dev)
         caches = serve_step.degrade_caches(
             caches, mask, torch.Generator(dev).manual_seed(2))
-        print(f"KV shipped at delivered fraction {args.kv_frac:g} "
-              f"({N_ROT - int(mask.sum())}/{N_ROT} wire rows lost, coded)")
+        if caches.leaves():
+            print(f"KV shipped at delivered fraction {args.kv_frac:g} "
+                  f"({N_ROT - int(mask.sum())}/{N_ROT} wire rows lost, "
+                  "coded)")
+        else:
+            print("no K/V cache to ship: the recurrent state is not coded")
 
     t0 = time.perf_counter()
     out = serve_step.greedy_decode(cfg, params, caches, first,

@@ -61,17 +61,21 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""
             yield prefix + k, v
 
 
-# a dense or MoE block's leaves (the other block kinds are not ported yet)
-BLOCK_PARTS = ("attn", "ln1", "ln2", "mlp", "moe", "pn1", "pn2")
+# the parts of a dense, MoE or recurrent block (the cross-attention of
+# the encoder-decoder family is not ported yet)
+BLOCK_PARTS = ("attn", "ln1", "ln2", "mlp", "moe", "pn1", "pn2", "rglru",
+               "mlstm", "slstm")
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Params:
     """State dict (CPU tensors) from a JAX ``init_params`` tree of numpy
-    leaves, for any dense or MoE decoder: layer ``i < n_groups * plen``
-    is ``groups[i % plen][i // plen]``, the rest the ``tail`` in order;
-    ``embed.unembed``, the post-norms and the nested ``moe`` group
+    leaves, for any dense, MoE or recurrent decoder: layer ``i < n_groups
+    * plen`` is ``groups[i % plen][i // plen]``, the rest the ``tail`` in
+    order; ``embed.unembed``, the post-norms, the nested ``moe`` group
     (``moe.shared.*`` included, the (n_groups, E, d, f) expert leaves
-    unstacked) come across.  bfloat16 stays bit for bit."""
+    unstacked) and the recurrent blocks (``rglru.*``, ``mlstm.*``,
+    ``slstm.*`` with their float32 gate leaves) come across.  bfloat16
+    stays bit for bit."""
     if set(tree) != {"embed", "decoder", "final_norm"}:
         raise NotImplementedError(f"unported parameter groups: {sorted(tree)}")
     groups, tail = tree["decoder"]["groups"], tree["decoder"]["tail"]

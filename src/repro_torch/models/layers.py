@@ -110,8 +110,29 @@ def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+class StateCache:
+    """What every cache node of the model shares (a dataclass of tensors,
+    one layer's or a stack of layers' with a leading layer axis):
+    :meth:`layer` gives layer ``i``'s views of a stack, :meth:`clone` a
+    copy, :meth:`store` writes another node's values into this one in
+    place."""
+
+    def tensors(self) -> list:
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    def layer(self, i: int):
+        return type(self)(*(t[i] for t in self.tensors()))
+
+    def clone(self):
+        return type(self)(*(t.clone() for t in self.tensors()))
+
+    def store(self, new) -> None:
+        for t, n in zip(self.tensors(), new.tensors()):
+            t.copy_(n)
+
+
 @dataclasses.dataclass
-class AttnCache:
+class AttnCache(StateCache):
     """Decode-time KV cache of one attention layer, or of a stack of
     layers (``k``/``v`` (n, B, S, KV, Dh), ``pos`` (n, S), as the JAX
     model stacks the caches of its scanned layers; :meth:`layer` gives
@@ -127,13 +148,6 @@ class AttnCache:
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
-
-    def layer(self, i: int) -> "AttnCache":
-        return AttnCache(k=self.k[i], v=self.v[i], pos=self.pos[i])
-
-    def clone(self) -> "AttnCache":
-        return AttnCache(k=self.k.clone(), v=self.v.clone(),
-                         pos=self.pos.clone())
 
 
 def _kv_weights(p: Params, cfg: ModelConfig,

@@ -1,7 +1,8 @@
 """Top-level causal LM (port of ``repro/models/model.py`` for the dense
-families, ``block_pattern`` of ``"global"`` and ``"local"`` layers, and
-the MoE family, ``"moe"`` layers): forward, caches, and the training
-loss.
+families, ``block_pattern`` of ``"global"`` and ``"local"`` layers, the
+MoE family, ``"moe"`` layers, and the recurrent families, ``"rglru"``
+(recurrentgemma) and ``"mlstm"``/``"slstm"`` (xLSTM) layers): forward,
+caches, and the training loss.
 
 Parameters are a flat state dict of tensors with dotted names
 (``embed.table``, ``embed.unembed`` when untied, ``layers.{i}.attn.wq``,
@@ -10,9 +11,13 @@ MoE layer, ``final_norm.scale``, ...), each weight in the JAX layout.
 Layer ``i`` is of kind ``block_pattern[i % len(block_pattern)]``; an
 MoE layer runs global attention, then :func:`repro_torch.models.moe.
 moe_block` where a dense layer runs its MLP, and its aux loss adds up
-over the layers.  The caches (:class:`Caches`) mirror the JAX model's
-cache tree: one stacked :class:`~repro_torch.models.layers.AttnCache`
-per position of the pattern, then one per tail layer.
+over the layers.  An rglru layer (``layers.{i}.rglru.*``) runs the RG-LRU
+block where attention would be, then its MLP, with no post-norms; an
+mlstm or slstm layer (``layers.{i}.mlstm.*``, ``.slstm.*``) is a pre-norm
+and its block, with no MLP.  The caches (:class:`Caches`) mirror the JAX
+model's cache tree: one stacked node per position of the pattern (an
+:class:`~repro_torch.models.layers.AttnCache`, or the layer kind's
+recurrent state), then one per tail layer.
 
 On a mesh with a ``model`` axis the parameters are this rank's shards
 (``convert.shard_leaves``) and ``tp`` its
@@ -40,11 +45,14 @@ from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
+from repro_torch.models import xlstm as XL
 
 Params = L.Params
 
 
 ATTN_KINDS = ("global", "local", "moe")
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,15 +81,16 @@ def qwen2_layout(cfg: ModelConfig) -> bool:
 
 def check_supported(cfg: ModelConfig,
                     tp: Optional[shd.ModelGroup] = None) -> None:
-    """Refuse what the port does not run yet: blocks other than global
-    and local attention and MoE (rglru, mlstm, slstm, xattn), and tensor
-    parallelism on any layout but qwen2's, with an MLP or an MoE block
-    (serving on a TP mesh is not ported)."""
-    kinds = sorted(set(cfg.block_pattern) - set(ATTN_KINDS))
+    """Refuse what the port does not run yet: cross-attention blocks
+    (xattn; the encoder-decoder and frontend configs are not in the
+    registry), and tensor parallelism on any layout but qwen2's, with an
+    MLP or an MoE block (serving on a TP mesh is not ported)."""
+    ported = ATTN_KINDS + RECURRENT_KINDS
+    kinds = sorted(set(cfg.block_pattern) - set(ported))
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: {kinds} blocks are not ported yet "
-            f"(ported: {ATTN_KINDS})")
+            f"(ported: {ported})")
     if tp is not None and not qwen2_layout(cfg):
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism is ported for qwen2's layout "
@@ -98,11 +107,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     check_supported(cfg)
     dev = generator.device
     dt = L.dtype_of(cfg)
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    d, hd = cfg.d_model, cfg.resolved_head_dim
     h, hp, kv = cfg.n_heads, cfg.n_heads_padded, cfg.n_kv_heads
 
     def tn(*shape):   # fan-in: the first dim
         return L.trunc_normal(generator, shape, dt, shape[0])
+
+    def sub(prefix: str, part: Params) -> None:
+        p.update({prefix + k: v for k, v in part.items()})
 
     p: Params = {"embed.table": tn(cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
@@ -110,7 +122,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     plen = len(cfg.block_pattern)
     for i in range(cfg.n_layers):
         pre = f"layers.{i}."
+        kind = cfg.block_pattern[i % plen]
         p[pre + "ln1.scale"] = torch.zeros(d, device=dev)
+        if kind == "mlstm":
+            sub(pre + "mlstm.", XL.init_mlstm(generator, cfg))
+            continue
+        if kind == "slstm":
+            sub(pre + "slstm.", XL.init_slstm(generator, cfg))
+            continue
+        if kind == "rglru":
+            sub(pre + "rglru.", RG.init_rglru(generator, cfg))
+            p[pre + "ln2.scale"] = torch.zeros(d, device=dev)
+            sub(pre + "mlp.", _init_mlp(cfg, tn))
+            continue
         p[pre + "attn.wq"] = wq = tn(d, hp * hd)
         p[pre + "attn.wk"] = tn(d, kv * hd)
         p[pre + "attn.wv"] = tn(d, kv * hd)
@@ -122,18 +146,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
             p[pre + "attn.bk"] = torch.zeros(kv * hd, dtype=dt, device=dev)
             p[pre + "attn.bv"] = torch.zeros(kv * hd, dtype=dt, device=dev)
         p[pre + "ln2.scale"] = torch.zeros(d, device=dev)
-        if cfg.block_pattern[i % plen] == "moe":
-            p.update({pre + "moe." + k: v
-                      for k, v in MOE.init_moe(generator, cfg).items()})
+        if kind == "moe":
+            sub(pre + "moe.", MOE.init_moe(generator, cfg))
         else:
-            p[pre + "mlp.wi"] = tn(d, f)
-            if cfg.mlp_type != "sqrelu":
-                p[pre + "mlp.wg"] = tn(d, f)
-            p[pre + "mlp.wo"] = tn(f, d)
+            sub(pre + "mlp.", _init_mlp(cfg, tn))
         if cfg.post_norm:
             p[pre + "pn1.scale"] = torch.zeros(d, device=dev)
             p[pre + "pn2.scale"] = torch.zeros(d, device=dev)
     p["final_norm.scale"] = torch.zeros(d, device=dev)
+    return p
+
+
+def _init_mlp(cfg: ModelConfig, tn) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"wi": tn(d, f)}
+    if cfg.mlp_type != "sqrelu":
+        p["wg"] = tn(d, f)
+    p["wo"] = tn(f, d)
     return p
 
 
@@ -164,11 +193,14 @@ def hidden_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                rows: Optional[shd.RowGroup] = None):
     """(the residual stream (B, S, D) after the last block, before the
     final norm; the MoE aux loss summed over the layers, float32, 0
-    without MoE layers).  With ``caches`` the K/V of every layer are
-    written into them in place (prefill, or one decode token at
-    ``cache_index``).  Each block: pre-norm, attention of the layer's
-    kind (``pn1`` on its output with ``post_norm``), residual; pre-norm,
-    MLP or MoE (``pn2``), residual.  ``lossy``: the lossy expert
+    without MoE layers).  With ``caches`` the K/V of every attention
+    layer and the state of every recurrent one are written into them in
+    place (prefill, or one decode token at ``cache_index``).  Each
+    attention block: pre-norm, attention of the layer's kind (``pn1`` on
+    its output with ``post_norm``), residual; pre-norm, MLP or MoE
+    (``pn2``), residual.  An rglru block: pre-norm, RG-LRU, residual;
+    pre-norm, MLP, residual.  An mlstm or slstm block: pre-norm, the
+    block, residual.  ``lossy``: the lossy expert
     dispatch of the MoE layers; ``rows``: the dp ranks whose rows the MoE
     layers route together (``moe.moe_block``)."""
     check_supported(cfg, tp)
@@ -185,6 +217,18 @@ def hidden_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         p = sub_params(params, f"layers.{i}.")
         kind = cfg.block_pattern[i % plen]
         h = L.rmsnorm(p["ln1.scale"], x, eps)
+        if kind in RECURRENT_KINDS:
+            block = {"rglru": RG.rglru_block, "mlstm": XL.mlstm_block,
+                     "slstm": XL.slstm_block}[kind]
+            cache = None if caches is None else caches.layer(i)
+            h, new = block(sub_params(p, kind + "."), cfg, h, cache=cache)
+            if cache is not None:
+                cache.store(new)
+            x = x + h
+            if kind == "rglru":
+                h = L.rmsnorm(p["ln2.scale"], x, eps)
+                x = x + L.mlp(sub_params(p, "mlp."), cfg, h)
+            continue
         h = L.attention(sub_params(p, "attn."), cfg, h,
                         kind="local" if kind == "local" else "global",
                         positions=positions,
@@ -296,32 +340,39 @@ def lm_loss(params: Params, cfg: ModelConfig,
 @dataclasses.dataclass
 class Caches:
     """The model's decode caches, laid out as the JAX model's cache tree
-    (``init_caches``): ``groups[j]`` is one stacked
-    :class:`~repro_torch.models.layers.AttnCache` for layers ``j, j +
-    plen, ...`` (plen = ``len(block_pattern)``; empty when the model has
-    fewer layers than the pattern), then ``tail`` one per remaining
-    layer.  A qwen2 cache is the one-group case."""
-    groups: List[L.AttnCache]
-    tail: List[L.AttnCache]
+    (``init_caches``): ``groups[j]`` is one stacked node for layers ``j,
+    j + plen, ...`` (plen = ``len(block_pattern)``; empty when the model
+    has fewer layers than the pattern), then ``tail`` one per remaining
+    layer.  A node is an :class:`~repro_torch.models.layers.AttnCache`
+    for an attention layer, else the layer kind's recurrent state
+    (``rglru.RglruCache``, ``xlstm.MlstmCache``, ``xlstm.SlstmCache``).
+    A qwen2 cache is the one-group case."""
+    groups: List[L.StateCache]
+    tail: List[L.StateCache]
 
-    def layer(self, i: int) -> L.AttnCache:
+    def layer(self, i: int) -> L.StateCache:
         """Layer ``i``'s cache (views into the stacked tensors)."""
         plen = len(self.groups)
-        n = plen * self.groups[0].k.shape[0] if plen else 0
+        n = plen * self.groups[0].tensors()[0].shape[0] if plen else 0
         if i < n:
             return self.groups[i % plen].layer(i // plen)
         return self.tail[i - n]
 
-    def nodes(self) -> List[L.AttnCache]:
-        """Groups, then tail: the JAX tree's ``AttnCache`` nodes in
+    def nodes(self) -> List[L.StateCache]:
+        """Groups, then tail: the JAX tree's cache nodes in
         ``tree_leaves`` order."""
         return self.groups + self.tail
 
     def leaves(self) -> List[torch.Tensor]:
         """The K and V tensors in JAX's ``tree_leaves`` order (groups,
         then tail; ``k`` before ``v``): the payloads the KV transfer
-        ships."""
-        return [t for c in self.nodes() for t in (c.k, c.v)]
+        ships.  Recurrent state is no payload."""
+        return [t for c in self.nodes() if isinstance(c, L.AttnCache)
+                for t in (c.k, c.v)]
+
+    @property
+    def device(self) -> torch.device:
+        return self.nodes()[0].tensors()[0].device
 
     def clone(self) -> "Caches":
         return Caches(groups=[c.clone() for c in self.groups],
@@ -332,12 +383,16 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int,
                 device=None) -> Caches:
     """Empty caches for ``batch`` sequences of up to ``s_max`` tokens: a
     local layer's ring holds ``min(window_size, s_max)`` slots, a global
-    or MoE layer's ``s_max``."""
+    or MoE layer's ``s_max``; a recurrent layer's state is zeros."""
     dt = L.dtype_of(cfg)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     n_groups, tail = cfg.pattern_layout()
+    recurrent = {"rglru": RG.init_cache, "mlstm": XL.init_mlstm_cache,
+                 "slstm": XL.init_slstm_cache}
 
-    def empty(kind: str, lead: tuple) -> L.AttnCache:
+    def empty(kind: str, lead: tuple) -> L.StateCache:
+        if kind in recurrent:
+            return recurrent[kind](cfg, batch, lead, device)
         sc = min(cfg.window_size, s_max) if kind == "local" else s_max
         shape = lead + (batch, sc, kv, hd)
         return L.AttnCache(

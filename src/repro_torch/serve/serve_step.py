@@ -8,7 +8,8 @@ the lossy transport (port of ``repro/serve/serve_step.py``).
 - ``degrade_caches``: the prefill -> decode KV transfer under wire-row
   loss, coded (Hadamard, through the FWHT and unbias kernels on the
   card) or uncoded: every K and V leaf of the cache tree
-  (``Caches.leaves()``) ships as its own payload.
+  (``Caches.leaves()``) ships as its own payload; recurrent state
+  (recurrentgemma's RG-LRU layers, xLSTM's) is not coded.
 
 PyTorch runs eagerly, so the factories return plain closures where the
 JAX package returns jitted functions.
@@ -117,8 +118,10 @@ def degrade_caches(caches: M.Caches, mask: torch.Tensor,
     Every K and V leaf (``caches.leaves()``: groups, then tail; ``k``
     before ``v``) is flattened and shipped as its own payload, with its
     own plan, through :func:`kv_wire_roundtrip` under the same wire-row
-    mask, and a new cache is returned; positions are metadata the
-    transport does not code, and are copied.  The rotation signs: JAX
+    mask, and a new cache is returned; positions and recurrent state are
+    metadata the transport does not code, and are copied bit for bit.  A
+    tree without K/V leaves (xLSTM) comes back as a copy, nothing drawn
+    or launched, as JAX's ``tree_map`` leaves it.  The rotation signs: JAX
     draws each leaf's from the same key, and every leaf's plan has the
     mask's ``n_rot`` rows, so every leaf gets the same signs, drawn once
     from ``generator`` (prefill and decode sides seed it alike).  Tests
@@ -126,6 +129,8 @@ def degrade_caches(caches: M.Caches, mask: torch.Tensor,
     """
     n_rot = int(mask.shape[0])
     leaves = caches.leaves()
+    if not leaves:
+        return caches.clone()
     dev = leaves[0].device
     mask = mask.to(dev)
 
@@ -152,11 +157,14 @@ def degrade_caches(caches: M.Caches, mask: torch.Tensor,
                           ).reshape(leaf.shape).to(leaf.dtype)
         for leaf, sg in zip(leaves, signs)]
 
-    def _node(i: int, c: L.AttnCache) -> L.AttnCache:
-        return L.AttnCache(k=shipped[2 * i], v=shipped[2 * i + 1],
-                           pos=c.pos.clone())
+    kv = iter(shipped)
 
-    nodes = [_node(i, c) for i, c in enumerate(caches.nodes())]
+    def _node(c: L.StateCache) -> L.StateCache:
+        if not isinstance(c, L.AttnCache):
+            return c.clone()
+        return L.AttnCache(k=next(kv), v=next(kv), pos=c.pos.clone())
+
+    nodes = [_node(c) for c in caches.nodes()]
     n = len(caches.groups)
     return M.Caches(groups=nodes[:n], tail=nodes[n:])
 
@@ -172,10 +180,11 @@ def kv_position_error(clean: M.Caches, degraded: M.Caches,
     under an error threshold is fig8's usable-context fraction.  A leaf
     with fewer than ``n_ctx`` slots (a local layer's ring that wrapped:
     slot is position mod its size) has no position axis: ValueError,
-    where the JAX function fails in its reshape.
+    where the JAX function fails in its reshape.  A tree without K/V
+    leaves (xLSTM) has no error: zeros, as JAX's ``sqrt(0 / 1e-12)``.
     """
     leaves0, leaves1 = clean.leaves(), degraded.leaves()
-    dev = leaves0[0].device
+    dev = clean.device
     err2 = torch.zeros(n_ctx, device=dev)
     ref2 = torch.zeros(n_ctx, device=dev)
     for a0, a1 in zip(leaves0, leaves1):

@@ -524,7 +524,14 @@ def _sync_dp(sync: _DpSync, grads, plans, generator, drop_rate, masks,
 def check_trainable(cfg: ModelConfig) -> None:
     """Training is ported for qwen2's layout only, with an MLP or an MoE
     block (the JAX leaf view, ``convert.layer_leaves``); the other dense
-    families and granite-moe serve."""
+    families, granite-moe and the recurrent families serve."""
+    recurrent = sorted(set(cfg.block_pattern) & set(M.RECURRENT_KINDS))
+    if recurrent:
+        raise NotImplementedError(
+            f"{cfg.name}: the train step is ported for qwen2's layout "
+            f"only; training the recurrent families ({recurrent} blocks) "
+            "comes with training the other families (ROADMAP Queue 1, "
+            "item 2)")
     if cfg.family == "moe" and not M.qwen2_layout(cfg):
         raise NotImplementedError(
             f"{cfg.name}: training this MoE model is not ported yet: its "

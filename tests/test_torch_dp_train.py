@@ -873,11 +873,15 @@ def test_scale_mesh_shapes(n, shape):
 @pytest.mark.parametrize("mk", ["none", "host", "pods"])
 def test_chip_smoke_fwht_shapes_are_the_train_paths(mk):
     """``chip_smoke``'s FWHT shapes for the train paths are those the
-    coded step rotates at full width: one device's, and on the dp
-    meshes' (4, 1) and (2, 2, 1), where tiles form around the model dim."""
+    coded step rotates at full width: one device's (24 layers), and on
+    the dp meshes' (4, 1) and (2, 2, 1), where tiles form around the
+    model dim, at phase 6b's depth (``chip_smoke.MESH_LAYERS``) as
+    ``check_train_shapes`` computes them."""
+    jcfg = JC.get("qwen2-0.5b")
+    if mk != "none":
+        jcfg = dataclasses.replace(jcfg, n_layers=chip_smoke.MESH_LAYERS)
     shapes = [l.shape for l in jax.tree_util.tree_leaves(jax.eval_shape(
-        lambda k: JM.init_params(k, JC.get("qwen2-0.5b")),
-        jax.random.PRNGKey(0)))]
+        lambda k: JM.init_params(k, jcfg), jax.random.PRNGKey(0)))]
     with fake_world():
         mesh = {"none": lambda: None,
                 "host": lambda: tmesh.make_host_mesh((4, 1), device_type="cpu"),
@@ -890,9 +894,18 @@ def test_chip_smoke_fwht_shapes_are_the_train_paths(mk):
                               if p.sharded_dim is not None else 1), p.n_rot)
                   for p in plans})
     assert len(plans) == chip_smoke.CODED_LEAVES
-    want = ([(r, 4096) for r in chip_smoke.TRAIN_FWHT_ROWS] if mk == "none"
-            else list(chip_smoke.DP_FWHT_SHAPES))
-    assert got == sorted(want)
+    if mk == "none":
+        want = [(r, 4096) for r in chip_smoke.TRAIN_FWHT_ROWS]
+    else:
+        import repro_torch.configs as TC
+        want = chip_smoke.tp_fwht_shapes(
+            dataclasses.replace(TC.get("qwen2-0.5b"),
+                                n_layers=chip_smoke.MESH_LAYERS),
+            chip_smoke.mesh_shape((4, 1), ("data", "model")))
+    assert got == sorted(set(want))
+    if mk != "none":
+        assert got == [(256, 1024), (2048, 1024), (9728, 1024),
+                       (303872, 512)]
 
 
 

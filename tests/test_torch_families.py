@@ -1,5 +1,7 @@
 """The port's dense families (gemma2-9b, chatglm3-6b, nemotron-4-15b)
-against the JAX package's, at smoke size.
+against the JAX package's, at smoke size; the tests that apply to any
+family unchanged also take the recurrent ones (recurrentgemma-9b,
+xlstm-350m; their blocks are in ``tests/test_torch_recurrent.py``).
 
 The JAX weights are carried across with ``params_from_jax``, so both
 sides compute the same function on the same numpy prompt.  Tolerances
@@ -34,6 +36,7 @@ from repro_torch.train import train_step as TTS
 from repro_torch.train.trainer import Trainer
 
 FAMILIES = ["gemma2-9b", "chatglm3-6b", "nemotron-4-15b"]
+RECURRENT = ["recurrentgemma-9b", "xlstm-350m"]
 TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
        "bfloat16": dict(rtol=2 ** -6, atol=6.25e-2)}
 B, PLEN, S_MAX = 2, 16, 24
@@ -58,19 +61,34 @@ def _pair(arch, dtype, **kw):
 
 
 def _jax_nodes(jc):
-    """The JAX cache tree's AttnCache nodes: groups, then tail."""
-    return [n["attn"] for n in list(jc["groups"]) + list(jc["tail"])]
+    """The JAX cache tree's nodes (an AttnCache, or a layer kind's
+    recurrent state), each the one value of its layer's dict: groups,
+    then tail."""
+    nodes = []
+    for n in list(jc["groups"]) + list(jc["tail"]):
+        (node,) = n.values()
+        nodes.append(node)
+    return nodes
 
 
 def _close_caches(tc: TM.Caches, jc, dtype):
+    """Every node of the tree against JAX's, field by field in the
+    dataclass order: shapes and dtypes equal, ``pos`` exact, the rest at
+    ``dtype``'s tolerance."""
     nodes = _jax_nodes(jc)
     assert len(tc.nodes()) == len(nodes)
     for got, want in zip(tc.nodes(), nodes):
-        assert got.k.shape == want.k.shape
-        assert got.pos.shape == want.pos.shape
-        _close(got.k, want.k, dtype)
-        _close(got.v, want.v, dtype)
-        np.testing.assert_array_equal(got.pos.numpy(), np.asarray(want.pos))
+        assert type(got).__name__ == type(want).__name__
+        fields = [f.name for f in dataclasses.fields(want)]
+        assert [f.name for f in dataclasses.fields(got)] == fields
+        for name in fields:
+            g, w = getattr(got, name), np.asarray(getattr(want, name))
+            assert tuple(g.shape) == w.shape, name
+            assert str(g.dtype) == f"torch.{w.dtype}", (name, g.dtype)
+            if name == "pos":
+                np.testing.assert_array_equal(g.numpy(), w)
+            else:
+                _close(g, w, dtype)
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -115,7 +133,7 @@ def test_params_from_jax_tail_layer():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + RECURRENT)
 def test_forward_logits_match_jax(arch, dtype):
     jcfg, tcfg, jp, tp = _pair(arch, dtype)
     prompt = np.random.default_rng(0).integers(0, jcfg.vocab_size,
@@ -129,13 +147,14 @@ def test_forward_logits_match_jax(arch, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + RECURRENT)
 def test_prefill_and_decode_match_jax(arch, dtype):
     """Prefill, then decode steps, logits and every cache leaf (k, v,
-    pos) against JAX's.  gemma2 also runs a 96-token prompt over its
-    64-token window: the ring prefill wraps and 8 decode steps write
-    past it.  The tokens fed are JAX's argmax, so a near-tie in bfloat16
-    cannot send the two sides down different tokens."""
+    pos; a recurrent layer's state) against JAX's.  gemma2 and
+    recurrentgemma also run a 96-token prompt over their 64-token window:
+    the ring prefill wraps and 8 decode steps write past it.  The tokens
+    fed are JAX's argmax, so a near-tie in bfloat16 cannot send the two
+    sides down different tokens."""
     jcfg, tcfg, jp, tp = _pair(arch, dtype)
     cases = [(PLEN, S_MAX - PLEN)]
     if "local" in tcfg.block_pattern:
@@ -158,7 +177,7 @@ def test_prefill_and_decode_match_jax(arch, dtype):
         _close_caches(tc, jc, dtype)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + RECURRENT)
 def test_greedy_tokens_identical_f32(arch):
     jcfg, tcfg, jp, tp = _pair(arch, "float32")
     prompt = np.random.default_rng(3).integers(0, jcfg.vocab_size,
@@ -327,7 +346,7 @@ def test_serve_launcher_gemma2_smoke_on_cpu(capsys):
     assert tfwht.launches == 0 and tunbias.launches == 0
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + RECURRENT)
 def test_training_refuses_the_families(arch):
     cfg = TC.get_smoke(arch)
     with pytest.raises(NotImplementedError, match="qwen2's layout"):
@@ -340,7 +359,7 @@ def test_training_refuses_the_families(arch):
                 device="cpu")
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + RECURRENT)
 def test_tensor_parallel_refused_off_qwen2_layout(arch):
     from repro_torch import sharding as shd
     cfg = TC.get_smoke(arch)

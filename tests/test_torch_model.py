@@ -189,8 +189,9 @@ def test_init_params_seeded_and_finite():
 
 def test_unported_configs_raise():
     cfg = dataclasses.replace(TC.get_smoke("qwen2-0.5b"),
-                              block_pattern=("rglru",))
+                              block_pattern=("xattn",))
     with pytest.raises(NotImplementedError):
         TM.init_params(cfg, torch.Generator())
-    with pytest.raises(ValueError):
-        TC.get("recurrentgemma-9b")
+    for name in ("phi-3-vision-4.2b", "seamless-m4t-medium"):
+        with pytest.raises(ValueError):
+            TC.get(name)

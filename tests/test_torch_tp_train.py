@@ -621,7 +621,8 @@ def test_chip_smoke_fwht_shapes_are_the_tp_path():
     on a data x model DeviceMesh at full width, per coded leaf its tiles
     times its share of the model dim: on (2, 2) (also the default,
     phase 2's stand-in mesh), on (1, 4), and on (4, 1), where they are
-    the DP path's."""
+    the DP path's; and at phases 6b/6c's depth
+    (``chip_smoke.MESH_LAYERS``), the shapes phase 2 checks."""
     import chip_smoke
     import repro_torch.configs as TC
     from repro_torch.launch import mesh as tmesh
@@ -645,7 +646,11 @@ def test_chip_smoke_fwht_shapes_are_the_tp_path():
                                         (14592, 4096), (151936, 512)]
     assert sorted(set(got[(1, 4)])) == [(192, 4096), (1536, 4096),
                                         (7296, 4096), (75968, 512)]
-    assert sorted(set(got[(4, 1)])) == sorted(chip_smoke.DP_FWHT_SHAPES)
+    assert sorted(set(got[(4, 1)])) == [(768, 4096), (6144, 4096),
+                                        (29184, 4096), (303872, 512)]
+    cut = dataclasses.replace(cfg, n_layers=chip_smoke.MESH_LAYERS)
+    assert sorted(set(chip_smoke.tp_fwht_shapes(cut))) == [
+        (128, 1024), (1024, 1024), (4864, 1024), (151936, 512)]
 
 
 @pytest.mark.parametrize("ck", ["smoke", "kv2", "full"])

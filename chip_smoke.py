@@ -48,7 +48,8 @@ caught and carried on):
    Markov tokens, AdamW (lr 1e-3, warmup 10), three steps in each of
    ``exact``, ``lossy`` and ``lossy_hadamard``, with 16 FWHT launches a
    coded step (8 coded leaves, encode + decode);
-5b. checkpoint and restart at full width (run after 6, which takes
+5b. checkpoint and restart at full width, the depth cut to
+    ``MESH_LAYERS`` of 24 layers as 6b/6c's (run after 6, which takes
     phase 5's trainer): an ``exact`` ``Trainer(ckpt_dir=...,
     ckpt_every=2)`` fails at ``simulate_fault_at=2``; a fresh trainer
     resumes at step 2 with the saved state bit for bit (bfloat16
@@ -56,7 +57,7 @@ caught and carried on):
     equals an uninterrupted 3-step run's (run twice first; bit for bit
     where the card repeats itself); a ``lossy_hadamard`` resume launches
     the FWHT 16 times a step; the save, ``save_async``'s blocking part
-    and the restores are timed.  ~16 GB of checkpoints under
+    and the restores are timed.  ~5 GB of checkpoints under
     ``src/repro_torch/kernels/build/ckpt`` (the free space checked
     first), deleted after;
 6. the gradient all-reduce: one step's gradient (499,540,864 values)
@@ -106,7 +107,7 @@ caught and carried on):
     bit;
 6d. the expert-parallel train step: the same four rank processes,
     qwen2-moe-a2.7b at full width (d 2048, 64 padded experts of 1,408,
-    4 shared experts, top-4, vocab 151,936), depth cut to 2 of 24
+    4 shared experts, top-4, vocab 151,936), depth cut to 1 of 24
     layers, 3 steps a cell: on ``make_host_mesh((1, 4))`` ``exact`` with
     ``lossy_moe`` off and ``lossy_moe`` at drop 0.1, on (2, 2) ``exact``
     with ``lossy_moe`` at 0.1 (the MoE layers route both dp ranks' rows
@@ -253,6 +254,32 @@ caught and carried on):
      no K/V leaf, so no kernel launch on the path, and
      ``degrade_caches`` returns the prefill's caches bit for bit; the
      mLSTM's and the sLSTM's shares of one prefill;
+19j. phi-3-vision-4.2b at full width (32 layers, d 3072, untied vocab
+     32,064, bf16, random weights from seed 0): 8 x 512 text tokens
+     after 144 image positions (image embeddings (8, 144, 1024) from
+     seed 3, through ``frontend_proj``) through phase 3's path and bars,
+     ``kv_position_error`` over all 656 positions; its two K/V leaves
+     (32, 8, 688, 32, 96), the largest payloads shipped (2.16 GB each as
+     float32): exactly 4 FWHT and 2 unbias launches, the kernels held to
+     their plain versions and timed at (8,454,144, 64); 16 decode steps
+     from position 656 each within 0.05 of a teacher-forced forward with
+     the same image;
+19k. seamless-m4t-medium at full width (12 encoder + 12 decoder layers,
+     d 1024, tied vocab 256,206, bf16): 8 x 512 frames from seed 3
+     encoded once (timed apart), phase 3's path and bars with that
+     memory at prefill and every decode step (the cross-attention's
+     K/V recomputed from it each step, as in JAX): exactly 4 FWHT and 2
+     unbias launches at (835,584, 64), the memory unchanged bit for bit
+     (it is not shipped); 16 decode steps against a teacher-forced
+     forward with the memory; the cross K/V's share of a decode step;
+19l. seamless-m4t-medium on 4,096 frames and 4,096 tokens (batch 1, the
+     same weights): the encoder's bidirectional and the decoder's
+     cross-attention tiled at 4,096 x 4,096 (and its causal
+     self-attention), phase 3's path and bars with 16 tokens; layer 0's
+     tiled encoder attention and tiled cross-attention against the
+     dense formula within 2^-6 of the largest output (tiled, dense and
+     SDPA timed); 16 decode steps against a teacher-forced forward
+     padded with filler to 5,120 tokens;
 20. the priority cut, the per-step window and the flight recorder, card
     against CPU at 40 rounds: the 32-node 2-pod hier cell with
     layer-depth priority classes under both cut orders and both budget
@@ -278,7 +305,7 @@ The protocols of phases 14-16, 18 and 21-22 (and Fig. 2's step window)
 are ``repro_torch.benchmarks.figs``'s functions, which the CPU tests also
 run (smoke tiers and cut grids).
 
-Each path (3-6d with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19i and
+Each path (3-6d with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19l and
 21-22, Fig. 2's step window its own) runs with the kernels' launch counts set
 to 0 just before it and read just after.  The last
 line is ``{"ok": true, "device": {...}}``; the lines before it carry each
@@ -297,6 +324,7 @@ for bit, and prints ``{"dcqcn_ab": [...]}``.
 """
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1115,7 +1143,9 @@ def timed_calls(module, names, log):
 
 def phase_checkpoint(dev, C, ts, Trainer, DataConfig, OptConfig, ckpt,
                      counts):
-    """Phase 5b: checkpoint and restart at full width on one device.  An
+    """Phase 5b: checkpoint and restart on one device at full width,
+    MESH_LAYERS deep (``mesh_config``: at 24 layers the phase took ~46 s
+    of the script's limit on an H100 80GB HBM3).  An
     ``exact`` trainer checkpoints every 2 steps and fails after step 2; a
     fresh one resumes at step 2 with the saved state bit for bit and the
     saved timeout, and its next step equals an uninterrupted 3-step
@@ -1124,7 +1154,7 @@ def phase_checkpoint(dev, C, ts, Trainer, DataConfig, OptConfig, ckpt,
     from the same checkpoint and launches the FWHT 16 times a step; then
     one ``save`` of the state is timed.  The checkpoints are deleted."""
     import shutil
-    cfg = C.get("qwen2-0.5b")
+    cfg = mesh_config(C)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                           global_batch=TRAIN_BATCH, seed=1)
     opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
@@ -1212,10 +1242,12 @@ def phase_checkpoint(dev, C, ts, Trainer, DataConfig, OptConfig, ckpt,
     # the exact and the lossy_hadamard resumes
     out = {"save_s": log["save"], "save_async_blocking_s": log["save_async"],
            "restore_s": log["restore"], "bytes_on_disk": on_disk,
+           "layers": cfg.n_layers,
            "deterministic_leaves": sum(same), "spread": spread,
            "launches": launches, "loss_after_resume": hist["loss"]}
     smi = card_name_and_power()
-    print(f"checkpoint (qwen2-0.5b full width, one device): the fault at "
+    print(f"checkpoint (qwen2-0.5b full width, {cfg.n_layers} of 24 layers, "
+          f"one device): the fault at "
           f"step 2 left LATEST 2; the resume equals the saved state and "
           f"timeout bit for bit, and its step the uninterrupted run's "
           f"({sum(same)} of {len(same)} leaves deterministic run to run); "
@@ -2249,13 +2281,16 @@ def phase_mesh_train(kind):
 
 
 # phase 6d: expert-parallel training of qwen2-moe-a2.7b at full width,
-# depth cut to EP_LAYERS of 24; (name, mesh, mode, lossy_moe, drop)
+# depth cut to EP_LAYERS of 24 (at 2 the (2, 2) cells' gloo sync of the
+# expert leaves took up to ~12 s a step on an H100 80GB HBM3's host;
+# layer 0's coins still drop blocks at 0.1); (name, mesh, mode,
+# lossy_moe, drop)
 EP_CELLS = (("exact", "dm14", "exact", False, 0.0),
             ("lossy_moe", "dm14", "exact", True, 0.1),
             ("exact_lossy_moe", "dm22", "exact", True, 0.1),
             ("lossy_hadamard_lossy_moe", "dm22", "lossy_hadamard", True,
              0.05))
-EP_ARCH, EP_LAYERS, EP_STEPS = "qwen2-moe-a2.7b", 2, 3
+EP_ARCH, EP_LAYERS, EP_STEPS = "qwen2-moe-a2.7b", 1, 3
 EP_CHECK_TOKENS = (2, 64)          # the EP = local layer's (B, S)
 
 
@@ -2555,20 +2590,31 @@ def phase_ep_train(dev, C, kfwht, ref):
 
 
 def phase_main_path(dev, C, M, serve_step, coupling, counts,
-                    arch="qwen2-0.5b", params=None, wire_kernels=None):
+                    arch="qwen2-0.5b", params=None, wire_kernels=None,
+                    extra=None, batch=None, prompt_len=None, gen=None):
     """``arch`` (qwen2-0.5b) at full width through prefill, coded KV,
     greedy decode; ``params`` its weights when the caller drew them
     (else from seed 0).  With ``wire_kernels`` the coded transfer's
     kernels are then held to their plain versions on every KV leaf of
     this path (``check_kv_wire``) and timed at the first leaf's
-    shapes."""
+    shapes.  ``extra``: a modality stub's prefill inputs
+    (``image_embeds``, whose positions come first: the context is
+    n_front + prompt_len positions; or an enc-dec model's ``memory``,
+    which every decode step reads too); ``batch`` x ``prompt_len``
+    tokens, ``gen`` decoded (BATCH, PROMPT and GEN by default)."""
+    batch, prompt_len = batch or BATCH, prompt_len or PROMPT
+    gen = gen or GEN
     cfg = C.get(arch)
+    extra = extra or {}
+    memory = extra.get("memory")
+    n_ctx = cfg.n_front + prompt_len
     if params is None:
         params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=torch.Generator(dev).manual_seed(1),
                            device=dev)
-    prefill = serve_step.make_prefill(cfg, PROMPT + GEN)
+    prefill = functools.partial(serve_step.make_prefill(cfg, n_ctx + gen),
+                                **extra)
     mask = torch.as_tensor(coupling.kv_hole_masks(
         np.array([KV_FRAC]), N_ROT, seed=0)[0], device=dev)
 
@@ -2578,7 +2624,7 @@ def phase_main_path(dev, C, M, serve_step, coupling, counts,
     # warm-up: cuBLAS handles, allocator pools, kernel modules
     _, warm = prefill(params, prompt)
     serve_step.greedy_decode(cfg, params, serve_step.degrade_caches(
-        warm, mask, signs_gen()), prompt[:, -1:], PROMPT, 3)
+        warm, mask, signs_gen()), prompt[:, -1:], n_ctx, 3, memory)
     del warm
     _sync()
 
@@ -2594,18 +2640,18 @@ def phase_main_path(dev, C, M, serve_step, coupling, counts,
     coded = serve_step.degrade_caches(clean, mask, signs_gen())
     _sync()
     degrade_ms = (time.perf_counter() - t0) * 1e3
-    err_coded = serve_step.kv_position_error(clean, coded, PROMPT)
+    err_coded = serve_step.kv_position_error(clean, coded, n_ctx)
     t0 = time.perf_counter()
-    coded_toks = serve_step.greedy_decode(cfg, params, coded, first, PROMPT,
-                                          GEN)
+    coded_toks = serve_step.greedy_decode(cfg, params, coded, first, n_ctx,
+                                          gen, memory)
     _sync()
     decode_s = time.perf_counter() - t0
     launches = counts.read()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    assert logits.shape == (BATCH, cfg.vocab_size), logits.shape
+    assert logits.shape == (batch, cfg.vocab_size), logits.shape
     assert torch.isfinite(logits.float()).all(), "non-finite prefill logits"
-    assert coded_toks.shape == (BATCH, GEN), coded_toks.shape
+    assert coded_toks.shape == (batch, gen), coded_toks.shape
     # each K and V leaf is one payload: two FWHTs and one unbias
     n_leaves = len(clean.leaves())
     assert (launches["fwht"] >= 2 * n_leaves
@@ -2614,14 +2660,14 @@ def phase_main_path(dev, C, M, serve_step, coupling, counts,
 
     # --- the references the main path is checked against ---
     clean_toks = serve_step.greedy_decode(cfg, params, clean.clone(), first,
-                                          PROMPT, GEN)
+                                          n_ctx, gen, memory)
     uncoded = serve_step.degrade_caches(clean, mask, coded=False)
-    err_uncoded = serve_step.kv_position_error(clean, uncoded, PROMPT)
+    err_uncoded = serve_step.kv_position_error(clean, uncoded, n_ctx)
     uncoded_toks = serve_step.greedy_decode(cfg, params, uncoded, first,
-                                            PROMPT, GEN)
+                                            n_ctx, gen, memory)
     full = serve_step.degrade_caches(
         clean, torch.ones(N_ROT, dtype=torch.bool, device=dev), signs_gen())
-    err_full = serve_step.kv_position_error(clean, full, PROMPT).max().item()
+    err_full = serve_step.kv_position_error(clean, full, n_ctx).max().item()
     assert err_full <= 1e-2, (
         f"full mask is not a bf16-noise round trip: {err_full}")
     assert torch.isfinite(err_coded).all()
@@ -2634,7 +2680,7 @@ def phase_main_path(dev, C, M, serve_step, coupling, counts,
     def decode_steps():
         caches, tok = full.clone(), first
         for i in range(steps):
-            logits, caches = decode(params, caches, tok, PROMPT + i)
+            logits, caches = decode(params, caches, tok, n_ctx + i, memory)
             tok = torch.argmax(logits, -1)[:, None]
 
     profile = {
@@ -2647,11 +2693,12 @@ def phase_main_path(dev, C, M, serve_step, coupling, counts,
     usable_uncoded = (err_uncoded <= TAU).float().mean().item()
     assert usable_coded >= usable_uncoded, (usable_coded, usable_uncoded)
     out = {
-        "model": cfg.name, "batch": BATCH, "prompt": PROMPT, "gen": GEN,
-        "kv_frac": KV_FRAC, "wire_rows_lost": int(N_ROT - mask.sum().item()),
+        "model": cfg.name, "batch": batch, "prompt": prompt_len, "gen": gen,
+        "n_ctx": n_ctx, "kv_frac": KV_FRAC,
+        "wire_rows_lost": int(N_ROT - mask.sum().item()),
         "prefill_ms": prefill_ms, "degrade_caches_ms": degrade_ms,
         "decode_s": decode_s,
-        "decode_tok_per_s": BATCH * (GEN - 1) / decode_s,
+        "decode_tok_per_s": batch * (gen - 1) / decode_s,
         "usable_coded": usable_coded, "usable_uncoded": usable_uncoded,
         "token_agree_coded": (coded_toks == clean_toks).float().mean().item(),
         "token_agree_uncoded":
@@ -2664,9 +2711,10 @@ def phase_main_path(dev, C, M, serve_step, coupling, counts,
         signs = wire_kernels[-1].rademacher(signs_gen(), code)
         out["wire_check"] = check_kv_wire(f"serve {cfg.name}", clean, mask,
                                           signs, *wire_kernels, timed=True)
-    print(f"{cfg.name} prefill {BATCH}x{PROMPT}: {prefill_ms:.2f} ms; coded "
-          f"KV transfer: {degrade_ms:.2f} ms; decode: {BATCH * (GEN - 1)} "
-          f"tokens in {decode_s:.3f} s = {out['decode_tok_per_s']:.1f} tok/s")
+    print(f"{cfg.name} prefill {batch}x{prompt_len} ({n_ctx} positions): "
+          f"{prefill_ms:.2f} ms; coded KV transfer: {degrade_ms:.2f} ms; "
+          f"decode: {batch * (gen - 1)} tokens in {decode_s:.3f} s = "
+          f"{out['decode_tok_per_s']:.1f} tok/s")
     print(f"usable context (err <= {TAU}): coded {usable_coded:.4f}, "
           f"uncoded {usable_uncoded:.4f}; token agreement with clean: coded "
           f"{out['token_agree_coded']:.4f}, uncoded "
@@ -2686,14 +2734,17 @@ def phase_main_path(dev, C, M, serve_step, coupling, counts,
 SMALL_REFERENCE = (("qwen2-0.5b", 16), ("gemma2-9b", 80),
                    ("chatglm3-6b", 16), ("nemotron-4-15b", 16),
                    ("qwen2-moe-a2.7b", 16), ("granite-moe-3b-a800m", 16),
-                   ("recurrentgemma-9b", 80), ("xlstm-350m", 16))
+                   ("recurrentgemma-9b", 80), ("xlstm-350m", 16),
+                   ("phi-3-vision-4.2b", 16), ("seamless-m4t-medium", 16))
 
 
 def phase_small_reference(dev, C, M, serve_step):
     """Smoke-size models in float32 (``SMALL_REFERENCE``): the card
     (kernels) against the CPU (plain versions), same weights, prompt,
-    mask and signs: logits and every degraded KV leaf within 2e-4, the
-    greedy tokens identical."""
+    frontend inputs, mask and signs: logits and every degraded KV leaf
+    within 2e-4, the greedy tokens identical (a modality stub's through
+    ``greedy_generate(extra=)``: the image positions first, the memory at
+    every step)."""
     cpu = torch.device("cpu")
     mask = torch.rand(N_ROT,
                       generator=torch.Generator(cpu).manual_seed(3)) < 0.8
@@ -2705,14 +2756,18 @@ def phase_small_reference(dev, C, M, serve_step):
         params = M.init_params(cfg, torch.Generator(cpu).manual_seed(0))
         prompt = torch.randint(0, cfg.vocab_size, (2, plen),
                                generator=torch.Generator(cpu).manual_seed(1))
+        extra = serve_step.frontend_inputs(
+            cfg, 2, plen, torch.Generator(cpu).manual_seed(3))
         res = []                             # the CPU's, then the card's
         for d in (cpu, dev):
             p = {k: v.to(d) for k, v in params.items()}
-            logits, caches = serve_step.make_prefill(cfg, plen + 8)(
-                p, prompt.to(d))
+            ex = {k: v.to(d) for k, v in extra.items()}
+            logits, caches = serve_step.make_prefill(
+                cfg, cfg.n_front + plen + 8)(p, prompt.to(d), **ex)
             deg = serve_step.degrade_caches(caches, mask.to(d),
                                             signs=signs.to(d))
-            toks = serve_step.greedy_generate(cfg, p, prompt.to(d), 6)
+            toks = serve_step.greedy_generate(cfg, p, prompt.to(d), 6,
+                                              extra=ex)
             res.append([t.cpu() for t in (toks, logits, *deg.leaves())])
         for i, (a, b) in enumerate(zip(res[0][1:], res[1][1:])):
             what = "logits" if i == 0 else f"degraded KV leaf {i - 1}"
@@ -4437,6 +4492,43 @@ GEMMA2_LONG_PROMPT, GEMMA2_FORCED_LEN = 8192, 9216
 RING_DECODE_BAR = 0.05         # tests/test_models.py:78-79's bar
 
 
+def forced_decode_check(cfg, params, M, serve_step, prompt, extra,
+                        n_steps=LONG_GEN, pad_to=None):
+    """Prefill ``prompt`` with the frontend inputs ``extra`` (clean
+    caches), then ``n_steps`` greedy decode steps from position n_front
+    + S (the ``memory`` of ``extra`` read by each), every step's logits
+    against a teacher-forced forward over the prompt and the tokens fed,
+    with the same ``extra``, at that position (``pad_to``: filler after
+    them, which the causal masks keep out; only those positions are
+    unembedded), within RING_DECODE_BAR of the largest logit
+    (``tests/test_models.py:78``'s bar).  Returns the errors."""
+    memory = extra.get("memory")
+    n_ctx = cfg.n_front + prompt.shape[1]
+    logits, caches = serve_step.make_prefill(cfg, n_ctx + n_steps)(
+        params, prompt, **extra)
+    decode = serve_step.make_decode(cfg)
+    tok, fed, got = torch.argmax(logits, -1)[:, None], [], []
+    for i in range(n_steps):
+        fed.append(tok)
+        lg, caches = decode(params, caches, tok, n_ctx + i, memory)
+        got.append(lg.float())
+        tok = torch.argmax(lg, -1)[:, None]
+    del caches, lg
+    seq = torch.cat([prompt] + fed, dim=1)
+    if pad_to is not None:
+        seq = torch.nn.functional.pad(seq, (0, pad_to - seq.shape[1]))
+    want = M.head(params, cfg, M.hidden(params, cfg, seq, **extra)[
+        :, n_ctx:n_ctx + n_steps])
+    errs = []
+    for i, g in enumerate(got):
+        w = want[:, i].float()
+        errs.append((g - w).abs().max().item() / max(1.0, w.abs().max()
+                                                     .item()))
+        assert torch.isfinite(g).all() and errs[-1] < RING_DECODE_BAR, (
+            cfg.name, i, errs)
+    return errs
+
+
 def phase_serve_gemma2(dev, C, M, L, serve_step, coupling, kernels, counts):
     """gemma2-9b at full width: the 8 x 512 serve path
     (``phase_main_path``, its KV leaves' kernels held to their plain
@@ -4813,29 +4905,9 @@ def phase_serve_rg_long(dev, cfg, params, M, L, serve_step, coupling,
         cfg.block_pattern * cfg.n_layers)[:cfg.n_layers])
     assert loops["linear_scan"]["calls"] == n_rglru * n // RG.CHUNK, loops
 
-    # greedy decode from the clean caches, each step's logits kept, and
-    # every step against the teacher-forced forward at its position
-    # (causal layers keep the filler out; only those positions are
-    # unembedded)
-    decode = serve_step.make_decode(cfg)
-    tok, fed, got = first, [], []
-    for i in range(LONG_GEN):
-        fed.append(tok)
-        lg, caches = decode(params, caches, tok, n + i)
-        got.append(lg.float())
-        tok = torch.argmax(lg, -1)[:, None]
-    del caches, lg
-    seq = torch.cat([prompt] + fed, dim=1)
-    seq = torch.nn.functional.pad(seq, (0, RG_FORCED_LEN - seq.shape[1]))
-    want = M.head(params, cfg, M.hidden(params, cfg, seq)[:, n:n + LONG_GEN])
-    errs = []
-    for i, g in enumerate(got):
-        w = want[:, i].float()
-        errs.append((g - w).abs().max().item() / max(1.0, w.abs().max()
-                                                     .item()))
-        assert torch.isfinite(g).all() and errs[-1] < RING_DECODE_BAR, (
-            i, errs)
-    del seq, want, got
+    del caches
+    errs = forced_decode_check(cfg, params, M, serve_step, prompt, {},
+                               pad_to=RG_FORCED_LEN)
     torch.cuda.empty_cache()
     attention = {"layer2": attention_check(dev, cfg, params, M, L, prompt,
                                            2)}
@@ -4901,6 +4973,270 @@ def phase_serve_xlstm(dev, C, M, serve_step, coupling, counts):
     del params, prompt
     torch.cuda.empty_cache()
     return rec
+
+
+# phases 19j-19l: the modality stubs at full width
+VISION_ARCH, AUDIO_ARCH = "phi-3-vision-4.2b", "seamless-m4t-medium"
+# a K/V transfer of a tree with two K/V leaves, and no other kernel
+TRANSFER_LAUNCHES = {"fwht": 4, "masked_unbias": 2, "fwht_quantize": 0,
+                     "quantize_int8": 0, "dcqcn_scan": 0}
+# 19l: one 4,096-frame, 4,096-token request (the encoder's and the
+# cross-attention's non-causal tiled paths at 4,096 x 4,096); the
+# teacher-forced forward pads prompt + generated tokens with filler to a
+# multiple of the tiled path's 1,024-token q tile
+AUDIO_LONG, AUDIO_FORCED_LEN = 4096, 5120
+
+
+def phase_serve_phi3_vision(dev, C, M, serve_step, coupling, kernels,
+                            counts):
+    """Phase 19j: phi-3-vision-4.2b at full width (32 layers, d 3072, 32
+    heads of 96, untied vocab 32,064, bf16, random weights from seed 0):
+    BATCH x PROMPT text tokens after 144 image positions (image_embeds
+    (8, 144, 1024) standard normal from seed 3, as the launcher draws
+    them) through ``phase_main_path``'s path and bars over n_ctx = 656
+    positions, the image's included.  Its two K/V leaves, (32, 8, 688,
+    32, 96), are the largest payloads the transfer ships (541,065,216
+    values, 2.16 GB as float32): exactly 4 FWHT and 2 unbias launches,
+    the kernels held to their plain versions and timed at (8,454,144,
+    64).  Then LONG_GEN decode steps from position 656 against a
+    teacher-forced forward with the same image.  Returns the record and
+    the kernel timing records."""
+    cfg = C.get(VISION_ARCH)
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    extra = serve_step.frontend_inputs(cfg, BATCH, PROMPT,
+                                       torch.Generator(dev).manual_seed(3))
+    rec = phase_main_path(dev, C, M, serve_step, coupling, counts,
+                          arch=VISION_ARCH, params=params,
+                          wire_kernels=kernels, extra=extra)
+    records = rec["wire_check"].pop("records")
+    assert rec["launches"] == TRANSFER_LAUNCHES, rec["launches"]
+    n_ctx = cfg.n_front + PROMPT
+    assert rec["kv_leaves"] == [[cfg.n_layers, BATCH, n_ctx + GEN,
+                                 cfg.n_kv_heads,
+                                 cfg.resolved_head_dim]] * 2, rec["kv_leaves"]
+    rec.pop("profile")      # printed above; the record stays compact
+    torch.cuda.empty_cache()
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                           generator=torch.Generator(dev).manual_seed(1),
+                           device=dev)
+    rec["decode_vs_forced_rel_err"] = forced_decode_check(
+        cfg, params, M, serve_step, prompt, extra)
+    rec["decode_bar"] = f"{RING_DECODE_BAR} x max(1, max |logits|)"
+    print(f"{cfg.name} {BATCH} x ({cfg.n_front} + {PROMPT}): prefill "
+          f"{rec['prefill_ms']:.1f}"
+          f" ms, KV transfer {rec['degrade_caches_ms']:.1f} ms over leaves "
+          f"{rec['kv_leaves']}, decode {rec['decode_tok_per_s']:.1f} tok/s, "
+          f"peak {rec['peak_mem_gib']:.2f} GiB; {LONG_GEN} steps from "
+          f"{n_ctx} vs teacher-forced forward rel err max "
+          f"{max(rec['decode_vs_forced_rel_err']):.3g} (bar {RING_DECODE_BAR})"
+          f" [{card_name_and_power()}]")
+    del params, extra, prompt
+    torch.cuda.empty_cache()
+    return rec, records
+
+
+def timed_encode(M, params, cfg, frames):
+    """The encoder on ``frames``: (memory, host ms ending in a
+    synchronize, one profiled call), after a warm-up call."""
+    M.encode(params, cfg, frames)
+    _sync()
+    t0 = time.perf_counter()
+    memory = M.encode(params, cfg, frames)
+    _sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    return memory, ms, profile_window(lambda: M.encode(params, cfg, frames))
+
+
+def phase_serve_seamless(dev, C, M, L, serve_step, coupling, kernels,
+                         counts):
+    """Phase 19k: seamless-m4t-medium at full width (12 encoder and 12
+    decoder layers, d 1024, 16 heads of 64, tied vocab 256,206, bf16,
+    random weights from seed 0): BATCH x PROMPT frames (standard normal
+    from seed 3) encoded once (timed and profiled apart), then
+    ``phase_main_path``'s BATCH x PROMPT path and bars with that
+    ``memory`` at prefill and every decode step: the decoder's two K/V
+    leaves, exactly 4 FWHT and 2 unbias launches, the kernels held to
+    their plain versions and timed at (835,584, 64); ``memory`` is no
+    payload and must come through the path bit for bit.  Then
+    LONG_GEN decode steps against a teacher-forced forward with the
+    memory, and the share of a decode step that computes the cross K/V
+    from the memory anew (``loop_shares`` over ``layers.cross_kv``).
+    Returns the record, the kernel timing records and the weights, which
+    phase 19l reuses."""
+    cfg = C.get(AUDIO_ARCH)
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    frames = serve_step.frontend_inputs(
+        cfg, BATCH, PROMPT, torch.Generator(dev).manual_seed(3))[
+            "frame_embeds"]
+    memory, encode_ms, encode_profile = timed_encode(M, params, cfg, frames)
+    before = memory.clone()
+    rec = phase_main_path(dev, C, M, serve_step, coupling, counts,
+                          arch=AUDIO_ARCH, params=params,
+                          wire_kernels=kernels, extra={"memory": memory})
+    records = rec["wire_check"].pop("records")
+    assert rec["launches"] == TRANSFER_LAUNCHES, rec["launches"]
+    assert torch.equal(memory, before), "the path changed the encoder memory"
+    rec.pop("profile")      # printed above; the record stays compact
+    rec["encode_ms"], rec["encode_profile"] = encode_ms, encode_profile
+    rec["prefill_with_encoder_ms"] = encode_ms + rec["prefill_ms"]
+    rec["memory"] = {"shape": list(memory.shape), "dtype": str(memory.dtype),
+                     "mib": memory.numel() * memory.element_size() / 2 ** 20,
+                     "shipped": False, "unchanged": True}
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                           generator=torch.Generator(dev).manual_seed(1),
+                           device=dev)
+    rec["decode_vs_forced_rel_err"] = forced_decode_check(
+        cfg, params, M, serve_step, prompt, {"memory": memory})
+    rec["decode_bar"] = f"{RING_DECODE_BAR} x max(1, max |logits|)"
+
+    # the cross K/V a decode step recomputes from the memory
+    steps = 4
+    logits, caches = serve_step.make_prefill(cfg, PROMPT + steps)(
+        params, prompt, memory=memory)
+    first = torch.argmax(logits, -1)[:, None]
+    decode = serve_step.make_decode(cfg)
+
+    def decode_steps():
+        c, tok = caches.clone(), first
+        for i in range(steps):
+            lg, c = decode(params, c, tok, PROMPT + i, memory)
+            tok = torch.argmax(lg, -1)[:, None]
+
+    decode_steps()                          # warm-up
+    rec["cross_kv"] = loop_shares(decode_steps, [(L, "cross_kv")])
+    rec["cross_kv"]["decode_steps"] = steps
+    print(f"{cfg.name} {BATCH} x {PROMPT}: encode {encode_ms:.1f} ms + prefill "
+          f"{rec['prefill_ms']:.1f} ms, KV transfer "
+          f"{rec['degrade_caches_ms']:.1f} ms over leaves {rec['kv_leaves']}"
+          f" (memory {rec['memory']['shape']} {rec['memory']['mib']:g} MiB "
+          f"not shipped, unchanged), decode {rec['decode_tok_per_s']:.1f} "
+          f"tok/s, peak {rec['peak_mem_gib']:.2f} GiB; {LONG_GEN} steps "
+          f"vs teacher-forced forward rel err max "
+          f"{max(rec['decode_vs_forced_rel_err']):.3g}; cross K/V in "
+          f"{steps} decode steps {rec['cross_kv']} [{card_name_and_power()}]")
+    del memory, before, frames, prompt, caches
+    torch.cuda.empty_cache()
+    return rec, records, params
+
+
+def noncausal_check(L, q, k, v):
+    """One non-causal attention, q (1, S, H, Dh) against k/v (1, S_kv,
+    KV, Dh): the tiled path (kv repeated to q's heads, no causal mask)
+    against the dense formula with no mask, within LONG_ATTN_RTOL of the
+    largest dense output; tiled, dense and the library yardstick (SDPA,
+    float32, no mask: these layers have no softcap) timed."""
+    rep = q.shape[2] // k.shape[2]
+    k_rep, v_rep = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+    qpos = torch.arange(q.shape[1], device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+
+    def tiled_fn():
+        return L.tiled_attention(q, k_rep, v_rep, qpos=qpos, kpos=kpos,
+                                 causal=False)
+
+    def dense_fn():
+        return L.dense_attention(q, k, v, None)
+
+    def sdpa_fn():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.float().transpose(1, 2), k_rep.float().transpose(1, 2),
+            v_rep.float().transpose(1, 2)).transpose(1, 2)
+
+    tiled, dense = tiled_fn(), dense_fn().float()
+    scale = dense.abs().max().item()
+    err = (tiled - dense).abs().max().item()
+    assert err <= LONG_ATTN_RTOL * scale, (err, scale)
+    sdpa_err = (sdpa_fn() - dense).abs().max().item()
+    del tiled, dense
+    return {"shape": [list(q.shape), list(k.shape)], "max_abs_err": err,
+            "dense_max_abs": scale, "sdpa_vs_dense_max_abs_err": sdpa_err,
+            "tiled_ms": time_ms(tiled_fn), "dense_ms": time_ms(dense_fn),
+            "library_ms": time_ms(sdpa_fn),
+            "library": "SDPA, float32, no mask"}
+
+
+def encdec_attention_check(cfg, params, M, L, frames, prompt, memory):
+    """Layer 0's two non-causal tiled attentions at phase 19l's length
+    (``noncausal_check``): the encoder's self-attention (rotary, no
+    mask) on the projected frames, and the decoder's cross-attention
+    (no rotary, no mask) on layer 0's input to it, after its
+    self-attention, against the encoder's memory."""
+    eps = cfg.norm_eps
+    enc = M.sub_params(params, "encoder.layers.0.")
+    x = frames.to(L.dtype_of(cfg)) @ params["frontend_proj"]
+    pos = torch.arange(x.shape[1], device=x.device)[None]
+    q, k, v = L.qkv(M.sub_params(enc, "attn."), cfg,
+                    L.rmsnorm(enc["ln1.scale"], x, eps), pos)
+    out = {"encoder_layer0": noncausal_check(L, q, k, v)}
+    del q, k, v
+    dec = M.sub_params(params, "layers.0.")
+    x = L.embed(params["embed.table"], cfg, prompt)
+    pos = torch.arange(x.shape[1], device=x.device)[None]
+    x = x + L.attention(M.sub_params(dec, "attn."), cfg,
+                        L.rmsnorm(dec["ln1.scale"], x, eps), positions=pos)
+    xattn = M.sub_params(dec, "xattn.")
+    q, _, _ = L.project(xattn, cfg, L.rmsnorm(dec["lnx.scale"], x, eps))
+    k, v = L.cross_kv(xattn, cfg, memory)
+    out["cross_layer0"] = noncausal_check(L, q, k, v)
+    return out
+
+
+def phase_serve_seamless_long(dev, C, params, M, L, serve_step, coupling,
+                              kernels, counts):
+    """Phase 19l: seamless-m4t-medium on AUDIO_LONG frames and AUDIO_LONG
+    tokens (batch 1, phase 19k's weights): the encoder's bidirectional
+    self-attention at 4,096 x 4,096 and the decoder's self- and
+    cross-attention on the tiled path; then ``phase_main_path``'s path
+    and bars with that memory (LONG_GEN tokens; exactly 4 FWHT and 2
+    unbias launches, its kernels held to their plain versions); layer
+    0's tiled encoder attention and tiled cross-attention against the
+    dense formula (``encdec_attention_check``); and LONG_GEN decode
+    steps against a teacher-forced forward (padded with filler to
+    AUDIO_FORCED_LEN tokens) with the memory.  Returns the record and
+    the kernel timing records."""
+    cfg = C.get(AUDIO_ARCH)
+    n = AUDIO_LONG
+    assert n * n > L.FLASH_THRESHOLD and n % 1024 == 0
+    frames = serve_step.frontend_inputs(
+        cfg, 1, n, torch.Generator(dev).manual_seed(4))["frame_embeds"]
+    memory, encode_ms, encode_profile = timed_encode(M, params, cfg, frames)
+    before = memory.clone()
+    rec = phase_main_path(dev, C, M, serve_step, coupling, counts,
+                          arch=AUDIO_ARCH, params=params,
+                          wire_kernels=kernels, extra={"memory": memory},
+                          batch=1, prompt_len=n, gen=LONG_GEN)
+    records = rec["wire_check"].pop("records")
+    assert rec["launches"] == TRANSFER_LAUNCHES, rec["launches"]
+    assert torch.equal(memory, before), "the path changed the encoder memory"
+    del before
+    rec["encode_ms"], rec["encode_profile"] = encode_ms, encode_profile
+    rec["prefill_with_encoder_ms"] = encode_ms + rec["prefill_ms"]
+    torch.cuda.empty_cache()
+    prompt = torch.randint(0, cfg.vocab_size, (1, n),
+                           generator=torch.Generator(dev).manual_seed(1),
+                           device=dev)
+    rec["decode_vs_forced_rel_err"] = forced_decode_check(
+        cfg, params, M, serve_step, prompt, {"memory": memory},
+        pad_to=AUDIO_FORCED_LEN)
+    rec["decode_bar"] = f"{RING_DECODE_BAR} x max(1, max |logits|)"
+    rec["forced_len"] = AUDIO_FORCED_LEN
+    torch.cuda.empty_cache()
+    rec["attention"] = encdec_attention_check(cfg, params, M, L, frames,
+                                              prompt, memory)
+    rec["tolerance"] = f"{LONG_ATTN_RTOL} x max |dense|"
+    print(f"long request {n} frames + {n} tokens, {cfg.name} full width: "
+          f"encode {encode_ms:.1f} ms + prefill {rec['prefill_ms']:.1f} ms "
+          f"({rec['profile']['prefill']}), KV transfer "
+          f"{rec['degrade_caches_ms']:.1f} ms, {LONG_GEN} tokens "
+          f"{rec['decode_s']:.2f} s, peak {rec['peak_mem_gib']:.2f} GiB; "
+          f"decode vs teacher-forced forward rel err max "
+          f"{max(rec['decode_vs_forced_rel_err']):.3g}; attention "
+          f"{rec['attention']}; launches {rec['launches']} "
+          f"[{card_name_and_power()}]")
+    rec.pop("profile")
+    del memory, frames, prompt
+    torch.cuda.empty_cache()
+    return rec, records
 
 
 def card_name_and_power():
@@ -5059,6 +5395,21 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     lap("19g-19h_recurrentgemma")
     serve_xlstm = phase_serve_xlstm(dev, C, M, serve_step, coupling, counts)
     lap("19i_xlstm")
+    serve_phi3, phi3_records = phase_serve_phi3_vision(
+        dev, C, M, serve_step, coupling, wire_kernels, counts)
+    records += phi3_records
+    lap("19j_serve_phi3_vision")
+    serve_seamless, seamless_records, seamless_params = phase_serve_seamless(
+        dev, C, M, L, serve_step, coupling, wire_kernels, counts)
+    records += seamless_records
+    lap("19k_serve_seamless")
+    serve_seamless_long, long_records = phase_serve_seamless_long(
+        dev, C, seamless_params, M, L, serve_step, coupling, wire_kernels,
+        counts)
+    records += long_records
+    del seamless_params
+    torch.cuda.empty_cache()
+    lap("19l_serve_seamless_long")
     feature_check = phase_features_card_vs_cpu(dev, E, topology, figs)
     fig10 = phase_fig10(dev, figs, counts)
     fig9 = phase_fig9(dev, figs, trace_export, counts)
@@ -5088,12 +5439,17 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                    serve_moe["granite-moe-3b-a800m"]["launches"],
                "serve_recurrentgemma": serve_rg["launches"],
                "serve_recurrentgemma_long": serve_rg_long["launches"],
-               "serve_xlstm": serve_xlstm["launches"]}
+               "serve_xlstm": serve_xlstm["launches"],
+               "serve_phi3_vision": serve_phi3["launches"],
+               "serve_seamless": serve_seamless["launches"],
+               "serve_seamless_long": serve_seamless_long["launches"]}
     wires = [fig8["wire_check"], serve_long["wire_check"],
              serve_gemma2["wire_check"], serve_gemma2_long["wire_check"],
              *(r["wire_check"] for r in serve_dense.values()),
              *(r["wire_check"] for r in serve_moe.values()),
-             serve_rg["wire_check"], serve_rg_long["wire_check"]]
+             serve_rg["wire_check"], serve_rg_long["wire_check"],
+             serve_phi3["wire_check"], serve_seamless["wire_check"],
+             serve_seamless_long["wire_check"]]
     for rec in records:
         for wire in wires:
             rec["max_abs_err"] = max(rec["max_abs_err"], wire[
@@ -5122,6 +5478,9 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "serve_recurrentgemma": serve_rg,
                       "serve_recurrentgemma_long": serve_rg_long,
                       "serve_xlstm": serve_xlstm,
+                      "serve_phi3_vision": serve_phi3,
+                      "serve_seamless": serve_seamless,
+                      "serve_seamless_long": serve_seamless_long,
                       "seconds": time.perf_counter() - t_start}))
     lap("report")
     print(json.dumps({"phase_seconds": seconds}))

@@ -1,7 +1,8 @@
-"""Architecture registry.  Holds the families ported so far: the dense
-ones (qwen2-0.5b, gemma2-9b, chatglm3-6b, nemotron-4-15b), the MoE ones
-(qwen2-moe-a2.7b, granite-moe-3b-a800m) and the recurrent ones
-(recurrentgemma-9b, xlstm-350m)."""
+"""Architecture registry: every architecture of the JAX package, the
+dense ones (qwen2-0.5b, gemma2-9b, chatglm3-6b, nemotron-4-15b), the MoE
+ones (qwen2-moe-a2.7b, granite-moe-3b-a800m), the recurrent ones
+(recurrentgemma-9b, xlstm-350m) and the modality stubs
+(phi-3-vision-4.2b, seamless-m4t-medium)."""
 from __future__ import annotations
 
 import importlib
@@ -10,7 +11,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 
 ARCHS = ("qwen2_0_5b", "gemma2_9b", "chatglm3_6b", "nemotron_4_15b",
          "qwen2_moe_a2_7b", "granite_moe_3b_a800m", "recurrentgemma_9b",
-         "xlstm_350m")
+         "xlstm_350m", "phi_3_vision_4_2b", "seamless_m4t_medium")
 
 
 def canonical(name: str) -> str:
@@ -19,7 +20,7 @@ def canonical(name: str) -> str:
 
 def _module(name: str):
     if canonical(name) not in ARCHS:
-        raise ValueError(f"{name!r} is not ported yet (ported: {ARCHS})")
+        raise ValueError(f"{name!r} is not an architecture ({ARCHS})")
     return importlib.import_module(f"repro_torch.configs.{canonical(name)}")
 
 

@@ -1,10 +1,12 @@
 """Model configuration (port of ``repro/configs/base.py``).
 
-Holds the fields the dense families (qwen2, gemma2, chatglm3, nemotron),
-the MoE family (qwen2-moe, granite-moe) and the recurrent families
-(recurrentgemma, xLSTM) read, with the JAX defaults.  The enc-dec and
-frontend fields of the JAX ``ModelConfig`` arrive with the slice that
-ports those families.
+Holds the fields every family of the JAX package reads, with the JAX
+defaults: the dense families (qwen2, gemma2, chatglm3, nemotron), the
+MoE family (qwen2-moe, granite-moe), the recurrent families
+(recurrentgemma, xLSTM), and the modality stubs: phi-3-vision's
+projected image embeddings and seamless's encoder-decoder stacks with
+its projected audio frames.  JAX's ``ShapeConfig`` and dry-run shapes
+are not ported.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ class MoEConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | hybrid | ssm (ported)
+    family: str                     # dense | moe | hybrid | ssm | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -49,6 +51,14 @@ class ModelConfig:
     mlp_type: str = "swiglu"        # swiglu | geglu | sqrelu
 
     moe: Optional[MoEConfig] = None
+
+    # encoder-decoder (seamless): n_layers applies to EACH stack
+    encoder_layers: int = 0
+
+    # modality frontend stubs
+    frontend: Optional[str] = None  # "vision_stub" | "audio_stub"
+    n_frontend_tokens: int = 0
+    frontend_dim: int = 0
 
     norm_eps: float = 1e-6
     post_norm: bool = False         # gemma2: extra post-block norms
@@ -74,6 +84,18 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def n_front(self) -> int:
+        """Positions the frontend prepends to the text: the image tokens
+        of a vision stub, 0 otherwise (the audio frames feed the
+        encoder)."""
+        return (self.n_frontend_tokens if self.frontend == "vision_stub"
+                else 0)
+
+    @property
     def is_subquadratic(self) -> bool:
         """True when no block needs full-sequence quadratic attention."""
         return all(k in ("rglru", "mlstm", "slstm", "local")
@@ -84,3 +106,38 @@ class ModelConfig:
         plen = len(self.block_pattern)
         return (self.n_layers // plen,
                 self.block_pattern[: self.n_layers % plen])
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), JAX's
+        formula: an encoder-decoder counts its blocks twice (the
+        cross-attention taken as the size of an attention), a frontend
+        adds its projection."""
+        d, dff, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        qo = d * (self.n_heads * hd) * 2
+        kv = d * (self.n_kv_heads * hd) * 2
+        mlp_mult = 3 if self.mlp_type in ("swiglu", "geglu") else 2
+        per_kind = {}
+        for kind in set(self.block_pattern):
+            if kind in ("global", "local"):
+                per_kind[kind] = qo + kv + mlp_mult * d * dff
+            elif kind == "rglru":
+                w = self.lru_width or d
+                per_kind[kind] = 2 * d * w + w * d + 3 * w + mlp_mult * d * dff
+            elif kind == "mlstm":
+                per_kind[kind] = qo + kv + 2 * d * (2 * d)
+            elif kind == "slstm":
+                per_kind[kind] = 4 * d * d + 4 * d * d // 4 + 2 * d * (2 * d)
+            elif kind == "moe":
+                m = self.moe
+                e_params = (m.n_experts + m.n_shared) * 3 * d * m.d_expert
+                per_kind[kind] = qo + kv + e_params + d * m.n_experts
+        n_groups, tail = self.pattern_layout()
+        blocks = n_groups * sum(per_kind[k] for k in self.block_pattern)
+        blocks += sum(per_kind[k] for k in tail)
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.is_encdec:
+            blocks *= 2   # encoder + decoder stacks (cross-attn ~ attn)
+        if self.frontend:
+            emb += self.frontend_dim * d
+        return blocks + emb

@@ -14,16 +14,27 @@ caches shipped through the coded lossy transport (port of
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-9b --batch 8 --prompt-len 512 --gen 32 \
         --kv-frac 0.9
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch phi-3-vision-4.2b --batch 8 --prompt-len 512 --gen 32 \
+        --kv-frac 0.9
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium --smoke --device cpu --kv-frac 0.9
 
 ``--arch`` takes any ported family: qwen2-0.5b, gemma2-9b, chatglm3-6b,
 nemotron-4-15b, the MoE models qwen2-moe-a2.7b and granite-moe-3b-a800m,
-and the recurrent models recurrentgemma-9b (its local-attention layers'
+the recurrent models recurrentgemma-9b (its local-attention layers'
 K/V ship; the RG-LRU state is not coded) and xlstm-350m (no K/V cache:
-nothing ships) (full width, or ``--smoke`` for the reduced config).
+nothing ships), and the modality stubs phi-3-vision-4.2b (144 image
+positions prepended to the prompt; their K/V ship with the text's) and
+seamless-m4t-medium (one frame a prompt token through the encoder,
+encoded once; its memory reaches prefill and every decode step and is
+not shipped) (full width, or ``--smoke`` for the reduced config).
 
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 missing.  Weights are random, from seed 0; the prompt from seed 1; the
-rotation signs from seed 2.
+rotation signs from seed 2; the image or frame embeddings (standard
+normal, bfloat16, as ``serve_step.frontend_inputs`` shapes them) from
+seed 3.
 """
 from __future__ import annotations
 
@@ -66,10 +77,16 @@ def main(argv=None):
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=torch.Generator(dev).manual_seed(1),
                            device=dev)
-    s_max = args.prompt_len + args.gen
+    extra = serve_step.frontend_inputs(
+        cfg, args.batch, args.prompt_len, torch.Generator(dev).manual_seed(3))
+    start = cfg.n_front + args.prompt_len    # the first decoded position
+    s_max = start + args.gen
 
     t0 = time.perf_counter()
-    logits, caches = serve_step.make_prefill(cfg, s_max)(params, prompt)
+    if "frame_embeds" in extra:              # encode once
+        extra["memory"] = M.encode(params, cfg, extra.pop("frame_embeds"))
+    logits, caches = serve_step.make_prefill(cfg, s_max)(params, prompt,
+                                                         **extra)
     _sync(dev)
     print(f"prefill: {time.perf_counter() - t0:.3f}s")
     first = torch.argmax(logits, -1)[:, None]
@@ -85,10 +102,15 @@ def main(argv=None):
                   "coded)")
         else:
             print("no K/V cache to ship: the recurrent state is not coded")
+        if "memory" in extra:
+            mem = extra["memory"]
+            print(f"encoder memory {tuple(mem.shape)} {mem.dtype} "
+                  f"({mem.numel() * mem.element_size() / 2 ** 20:g} MiB) "
+                  "stays with the decoder: not coded, not shipped")
 
     t0 = time.perf_counter()
-    out = serve_step.greedy_decode(cfg, params, caches, first,
-                                   args.prompt_len, args.gen)
+    out = serve_step.greedy_decode(cfg, params, caches, first, start,
+                                   args.gen, memory=extra.get("memory"))
     _sync(dev)
     dt = time.perf_counter() - t0
     n = args.batch * (args.gen - 1)

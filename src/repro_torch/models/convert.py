@@ -4,8 +4,9 @@ Takes the JAX package's parameter tree with its leaves as numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
 The scanned ``decoder.groups[j]`` leaves, stacked over pattern groups,
 are unstacked into ``layers.{i}.*`` (layer ``i = g * plen + j``), then
-the ``tail`` layers; padded ``wq``/``wo`` and the leaves' dtypes
-(bfloat16, float32) are kept as they are.
+the ``tail`` layers, and an enc-dec model's ``encoder`` stack likewise
+into ``encoder.layers.{i}.*``; padded ``wq``/``wo`` and the leaves'
+dtypes (bfloat16, float32) are kept as they are.
 
 The **JAX leaf view** (:func:`jax_leaves`, :func:`params_from_leaves`;
 qwen2's layout, with an MLP or qwen2-moe's MoE block, the one the train
@@ -61,45 +62,62 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""
             yield prefix + k, v
 
 
-# the parts of a dense, MoE or recurrent block (the cross-attention of
-# the encoder-decoder family is not ported yet)
+# the parts of a block: dense, MoE, recurrent, and an enc-dec decoder
+# block's cross-attention (xattn, lnx)
 BLOCK_PARTS = ("attn", "ln1", "ln2", "mlp", "moe", "pn1", "pn2", "rglru",
-               "mlstm", "slstm")
+               "mlstm", "slstm", "xattn", "lnx")
+# the top-level groups: every model's, an enc-dec model's encoder, a
+# frontend's projection
+GROUPS = ("embed", "decoder", "final_norm", "encoder", "enc_norm",
+          "frontend_proj")
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Params:
     """State dict (CPU tensors) from a JAX ``init_params`` tree of numpy
-    leaves, for any dense, MoE or recurrent decoder: layer ``i < n_groups
-    * plen`` is ``groups[i % plen][i // plen]``, the rest the ``tail`` in
-    order; ``embed.unembed``, the post-norms, the nested ``moe`` group
-    (``moe.shared.*`` included, the (n_groups, E, d, f) expert leaves
-    unstacked) and the recurrent blocks (``rglru.*``, ``mlstm.*``,
-    ``slstm.*`` with their float32 gate leaves) come across.  bfloat16
-    stays bit for bit."""
-    if set(tree) != {"embed", "decoder", "final_norm"}:
-        raise NotImplementedError(f"unported parameter groups: {sorted(tree)}")
-    groups, tail = tree["decoder"]["groups"], tree["decoder"]["tail"]
+    leaves, for any family.  Each stack (``decoder`` into ``layers.*``,
+    an enc-dec model's ``encoder`` into ``encoder.layers.*``) is
+    unstacked (:func:`_unstack`); ``embed.unembed``, the post-norms,
+    the nested ``moe`` group (``moe.shared.*`` included, the
+    (n_groups, E, d, f) expert leaves unstacked), the recurrent blocks
+    (``rglru.*``, ``mlstm.*``, ``slstm.*`` with their float32 gate
+    leaves), the cross-attention (``xattn.*``, ``lnx.scale``),
+    ``enc_norm`` and ``frontend_proj`` come across.  bfloat16 stays bit
+    for bit."""
+    groups = sorted(set(tree) - set(GROUPS))
+    if groups:
+        raise NotImplementedError(f"unknown parameter groups: {groups}")
+    out: Params = {}
+    for name, leaf in _flatten({k: v for k, v in tree.items()
+                                if k not in ("decoder", "encoder")}):
+        out[name] = _tensor(leaf)
+    out.update(_unstack(tree["decoder"], "layers."))
+    if "encoder" in tree:
+        out.update(_unstack(tree["encoder"], "encoder.layers."))
+    return out
+
+
+def _unstack(stack: Dict[str, Any], prefix: str) -> Params:
+    """One scanned stack (``groups``, stacked over pattern groups, then
+    ``tail``) -> ``{prefix}{i}.*``: layer ``i < n_groups * plen`` is
+    ``groups[i % plen][i // plen]``, the rest the ``tail`` in order."""
+    groups, tail = stack["groups"], stack["tail"]
     blocks = [b for b in list(groups) + list(tail) if b is not None]
     parts = sorted({k for b in blocks for k in b} - set(BLOCK_PARTS))
     if parts:
-        raise NotImplementedError(f"unported block parts: {parts}")
+        raise NotImplementedError(f"unknown block parts: {parts}")
     out: Params = {}
-    for name, leaf in _flatten({"embed": tree["embed"],
-                                "final_norm": tree["final_norm"]}):
-        out[name] = _tensor(leaf)
-    plen = len(groups)
+    plen, n = len(groups), 0
     for j, group in enumerate(groups):
         if group is None:          # fewer layers than the pattern
             continue
         for name, leaf in _flatten(group):
             stacked = _tensor(leaf)
+            n = stacked.shape[0] * plen
             for g in range(stacked.shape[0]):
-                out[f"layers.{g * plen + j}.{name}"] = stacked[g].clone()
-    n = 1 + max((int(k.split(".")[1]) for k in out if k.startswith("layers.")),
-                default=-1)
+                out[f"{prefix}{g * plen + j}.{name}"] = stacked[g].clone()
     for t, block in enumerate(tail):
         for name, leaf in _flatten(block):
-            out[f"layers.{n + t}.{name}"] = _tensor(leaf)
+            out[f"{prefix}{n + t}.{name}"] = _tensor(leaf)
     return out
 
 

@@ -14,8 +14,11 @@ config's dtype.
 A prompt with ``s * s_kv > FLASH_THRESHOLD`` takes the tiled
 online-softmax path (:func:`tiled_attention`, the JAX package's
 ``_flash_attention``, local masks and softcap included), which never
-builds the ``(s, s_kv)`` logits.  Cross-attention arrives with the
-enc-dec slice.
+builds the ``(s, s_kv)`` logits.  :func:`attention` also runs the
+encoder's bidirectional self-attention (``causal=False``: rotary, no
+mask) and cross-attention (``memory``: k/v projected from the encoder's
+output, no rotary, no mask, no cache), on the dense or the tiled path
+as the JAX package chooses.
 
 Tensor parallelism (Megatron, as the JAX package's partition specs and
 ``_head_shard``/``_proj_shard`` constraints have GSPMD lay it out):
@@ -173,17 +176,25 @@ def _kv_weights(p: Params, cfg: ModelConfig,
     return [shd.copy_to_model(t, tp) for t in w], False
 
 
-def qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
-        positions: torch.Tensor, tp: Optional[shd.ModelGroup] = None):
-    """The projections with optional bias, split into heads, q and k
-    rotated: q (B, S, H, Dh) and k (B, S, KV, Dh) in float32, v
-    (B, S, KV, Dh) in the compute dtype.
+def _heads(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+           hd: int) -> torch.Tensor:
+    """``x @ w`` (+ ``b``), split into heads of ``hd``: (B, S, -1, hd)."""
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y.reshape(*x.shape[:2], -1, hd)
+
+
+def project(p: Params, cfg: ModelConfig, x: torch.Tensor,
+            tp: Optional[shd.ModelGroup] = None):
+    """The self-attention projections with optional bias, split into
+    heads and not rotated: q (B, S, H, Dh), k and v (B, S, KV, Dh), in
+    the compute dtype.
 
     With ``tp`` (wq/bq split by heads) H is this rank's H / tp heads;
     KV is its own kv heads, or, where the kv heads stay whole, the kv
     head of each of its q heads (head j uses kv head j // (H / n_kv),
     as unsharded GQA does), so the grouping is one q head a kv head."""
-    b, s, _ = x.shape
     h, kv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.resolved_head_dim
     if tp is not None:
         if h % tp.size:
@@ -191,29 +202,47 @@ def qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
                              "model ranks")
         x = shd.copy_to_model(x, tp)
     (wk, wv, *bkv), own = _kv_weights(p, cfg, tp)
-    q = x @ p["wq"]
-    k = x @ wk
-    v = x @ wv
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + bkv[0], v + bkv[1]
-    q = q.reshape(b, s, -1, hd)
-    k = k.reshape(b, s, -1, hd)
-    v = v.reshape(b, s, -1, hd)
+    bias = cfg.qkv_bias
+    q = _heads(x, p["wq"], p["bq"] if bias else None, hd)
+    k = _heads(x, wk, bkv[0] if bias else None, hd)
+    v = _heads(x, wv, bkv[1] if bias else None, hd)
     if not own:
         h_local = q.shape[2]
         heads = (tp.index * h_local + torch.arange(h_local, device=x.device)
                  ) // (h // kv)
         k, v = k[:, :, heads], v[:, :, heads]
-    cos, sin = rope_tables(positions, hd, cfg.rope_theta, cfg.rope_fraction)
+    return q, k, v
+
+
+def cross_kv(p: Params, cfg: ModelConfig, memory: torch.Tensor):
+    """Cross-attention's k and v (B, S_enc, KV, Dh) from the encoder's
+    output ``memory`` (B, S_enc, D): projected with optional bias, no
+    rotary.  The JAX model keeps no cross cache, so a decode step
+    computes them anew, as here."""
+    hd = cfg.resolved_head_dim
+    bias = cfg.qkv_bias
+    return (_heads(memory, p["wk"], p["bk"] if bias else None, hd),
+            _heads(memory, p["wv"], p["bv"] if bias else None, hd))
+
+
+def qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
+        positions: torch.Tensor, tp: Optional[shd.ModelGroup] = None):
+    """:func:`project`, then rotary at ``positions``: q (B, S, H, Dh)
+    and k (B, S, KV, Dh) rotated, in float32 (the JAX code's float32
+    tables make them so), v (B, S, KV, Dh) in the compute dtype."""
+    q, k, v = project(p, cfg, x, tp)
+    cos, sin = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                           cfg.rope_fraction)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def dense_attention(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
-                    mask: torch.Tensor, softcap: Optional[float] = None
-                    ) -> torch.Tensor:
+                    mask: Optional[torch.Tensor],
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """Grouped-GQA attention against the unrepeated kv: float32 logits
-    (B, H, S, S_kv), softcapped after the scale, under ``mask``, the
-    softmax rounded to v's dtype.  Returns (B, S, H, Dh) in v's dtype."""
+    (B, H, S, S_kv), softcapped after the scale, under ``mask`` (None:
+    every key), the softmax rounded to v's dtype.  Returns (B, S, H, Dh)
+    in v's dtype."""
     b, s, h, hd = q.shape
     kv, s_kv = kq.shape[2], kq.shape[1]
     rep = h // kv
@@ -221,7 +250,8 @@ def dense_attention(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
     logits = torch.einsum("bqkrd,bskd->bkrqs", qg.to(torch.float32),
                           kq.to(torch.float32)) * hd ** -0.5
     logits = _softcap(logits.reshape(b, h, s, s_kv), softcap)
-    logits = torch.where(mask, logits, -1e30)
+    if mask is not None:
+        logits = torch.where(mask, logits, -1e30)
     attn = torch.softmax(logits, dim=-1).to(vq.dtype)
     attn_g = attn.reshape(b, kv, rep, s, s_kv)
     out = torch.einsum("bkrqs,bskd->bqkrd", attn_g, vq)
@@ -231,10 +261,10 @@ def dense_attention(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
 def tiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     qpos: torch.Tensor, kpos: torch.Tensor,
                     softcap: Optional[float] = None,
-                    window: Optional[int] = None,
+                    window: Optional[int] = None, causal: bool = True,
                     q_blk: int = 1024, kv_blk: int = 1024) -> torch.Tensor:
-    """Causal attention in tiles with an online softmax (the JAX
-    package's ``_flash_attention``).
+    """Attention in tiles with an online softmax (the JAX package's
+    ``_flash_attention``).
 
     q: (B, Sq, H, D); k, v: (B, Skv, H, D), already repeated to q's heads;
     ``qpos`` (Sq,) and ``kpos`` (Skv,) the true positions.  Per q tile,
@@ -242,8 +272,8 @@ def tiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     output in float32; logits are float32 (softcapped after the scale),
     the probabilities are rounded to v's dtype before the product, which
     accumulates in float32, as JAX's ``preferred_element_type`` does.
-    The mask: ``kp >= 0``, causal, and with ``window`` (a local layer)
-    ``kp > qp - window``; masked logits are -1e30.  Every tile is
+    The mask: ``kp >= 0``; with ``causal`` ``kp <= qp``; with ``window``
+    (a local layer) ``kp > qp - window``; masked logits are -1e30.  Every tile is
     visited, as in JAX.  Never builds more than one (B, H, q_blk, kv_blk)
     tile.  Returns (B, Sq, H, D) float32.
     """
@@ -268,7 +298,9 @@ def tiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             logits = _softcap(torch.einsum("bqhd,bkhd->bhqk", qt, kt)
                               * scale, softcap)
             kp4, qp4 = kp[None, None, None, :], qp[None, None, :, None]
-            mask = (kp4 >= 0) & (kp4 <= qp4)
+            mask = kp4 >= 0
+            if causal:
+                mask = mask & (kp4 <= qp4)
             if window is not None:
                 mask = mask & (kp4 > qp4 - window)
             logits = torch.where(mask, logits, -1e30)
@@ -317,26 +349,38 @@ def cache_decode(cache: AttnCache, k: torch.Tensor, v: torch.Tensor,
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
               kind: str = "global",
               positions: torch.Tensor,
+              causal: bool = True,
               cache: Optional[AttnCache] = None,
               cache_index: Optional[int] = None,
+              memory: Optional[torch.Tensor] = None,
               tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
-    """Causal GQA self-attention with optional QKV bias, padded heads and
-    the attention softcap; ``kind="local"`` masks keys at or beyond
+    """GQA attention with optional QKV bias, padded heads and the
+    attention softcap; ``kind="local"`` masks keys at or beyond
     ``window_size`` positions back.
 
     - train/prefill: (B, S, D) in; with ``cache``, K/V are written to it
-      (:func:`cache_prefill`).  Above ``FLASH_THRESHOLD`` (``s * s``) it
-      tiles.
+      (:func:`cache_prefill`).  Above ``FLASH_THRESHOLD`` (``s * s_kv``)
+      it tiles.  ``causal=False`` (the encoder) drops the causal mask.
     - decode: S == 1 with ``cache`` and ``cache_index``: K/V written at
       slot ``cache_index % S``, attention over every filled slot by its
       true position.
-    - ``tp``: this rank's heads (:func:`qkv`), its rows of ``wo``, and
-      the partial outputs summed over ``model``; no cache.
+    - cross-attention: ``memory`` (B, S_enc, D) gives k and v
+      (:func:`cross_kv`); q is not rotated, no key is masked, and it
+      tiles above the threshold as self-attention does (JAX
+      ``layers.py:355-363``).  No cache: JAX keeps no cross cache.
+    - ``tp``: this rank's heads (:func:`project`), its rows of ``wo``,
+      and the partial outputs summed over ``model``; no cache.
     """
     b, s, _ = x.shape
-    q, k, v = qkv(p, cfg, x, positions, tp)
-    h, kv, hd = q.shape[2], k.shape[2], cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
     window = cfg.window_size if kind == "local" else None
+    if memory is not None:
+        q = _heads(x, p["wq"], p["bq"] if cfg.qkv_bias else None, hd)
+        k, v = cross_kv(p, cfg, memory)
+        causal = False
+    else:
+        q, k, v = qkv(p, cfg, x, positions, tp)
+    h, kv = q.shape[2], k.shape[2]
 
     decode = cache is not None and s == 1 and cache_index is not None
     if decode:
@@ -359,7 +403,7 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
             vq.repeat_interleave(rep, dim=2),
             qpos=positions[0] if positions.dim() == 2 else positions,
             kpos=torch.arange(s_kv, device=x.device),
-            softcap=cfg.attn_softcap, window=window)
+            softcap=cfg.attn_softcap, window=window, causal=causal)
         return _out_proj(out.reshape(b, s, h * hd).to(x.dtype), p["wo"], tp)
 
     if decode:
@@ -370,9 +414,10 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         qpos = positions[:, None, :, None]
         kpos = torch.arange(s_kv, device=x.device)[None, None, None, :]
-        mask = kpos <= qpos
+        mask = kpos <= qpos if causal else None
         if window is not None:
-            mask = mask & (kpos > qpos - window)
+            local = kpos > qpos - window
+            mask = local if mask is None else mask & local
     out = dense_attention(q, kq, vq, mask, cfg.attn_softcap)
     return _out_proj(out.reshape(b, s, h * hd), p["wo"], tp)
 

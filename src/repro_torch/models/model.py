@@ -1,8 +1,9 @@
-"""Top-level causal LM (port of ``repro/models/model.py`` for the dense
-families, ``block_pattern`` of ``"global"`` and ``"local"`` layers, the
-MoE family, ``"moe"`` layers, and the recurrent families, ``"rglru"``
-(recurrentgemma) and ``"mlstm"``/``"slstm"`` (xLSTM) layers): forward,
-caches, and the training loss.
+"""Top-level model (port of ``repro/models/model.py`` for every family:
+the dense ones, ``block_pattern`` of ``"global"`` and ``"local"``
+layers, the MoE family, ``"moe"`` layers, the recurrent families,
+``"rglru"`` (recurrentgemma) and ``"mlstm"``/``"slstm"`` (xLSTM) layers,
+and the modality stubs, phi-3-vision's image frontend and seamless's
+encoder-decoder): forward, caches, and the training loss.
 
 Parameters are a flat state dict of tensors with dotted names
 (``embed.table``, ``embed.unembed`` when untied, ``layers.{i}.attn.wq``,
@@ -18,6 +19,18 @@ and its block, with no MLP.  The caches (:class:`Caches`) mirror the JAX
 model's cache tree: one stacked node per position of the pattern (an
 :class:`~repro_torch.models.layers.AttnCache`, or the layer kind's
 recurrent state), then one per tail layer.
+
+The modality stubs (JAX ``model.py:245-316``): a ``frontend_proj``
+(frontend_dim, d) maps precomputed embeddings into the model width.
+phi-3-vision's image embeddings, projected, are prepended to the
+sqrt(d)-scaled text embeddings.  seamless's frames, projected (no
+sqrt(d) scale), run through the encoder stack (``encoder.layers.{i}.*``,
+bidirectional: rotary, no causal mask) and ``enc_norm`` (:func:`encode`)
+into ``memory``; each decoder layer then runs cross-attention
+(``layers.{i}.lnx.scale``, ``layers.{i}.xattn.*``) on it between its
+self-attention and its MLP, only when ``memory`` is given.  The caches
+hold the decoder's self-attention only: the cross K/V are computed from
+``memory`` at every step, as in JAX.
 
 On a mesh with a ``model`` axis the parameters are this rank's shards
 (``convert.shard_leaves``) and ``tp`` its
@@ -36,6 +49,7 @@ The port keeps that (:func:`repro_torch.models.moe.layer_coins`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -81,16 +95,14 @@ def qwen2_layout(cfg: ModelConfig) -> bool:
 
 def check_supported(cfg: ModelConfig,
                     tp: Optional[shd.ModelGroup] = None) -> None:
-    """Refuse what the port does not run yet: cross-attention blocks
-    (xattn; the encoder-decoder and frontend configs are not in the
-    registry), and tensor parallelism on any layout but qwen2's, with an
-    MLP or an MoE block (serving on a TP mesh is not ported)."""
-    ported = ATTN_KINDS + RECURRENT_KINDS
-    kinds = sorted(set(cfg.block_pattern) - set(ported))
+    """Refuse a block kind no model has (``ValueError``, as JAX's
+    ``init_block`` raises on any other kind, an ``"xattn"`` block kind
+    included: cross-attention is part of an enc-dec decoder block), and
+    tensor parallelism on any layout but qwen2's, with an MLP or an MoE
+    block (serving on a TP mesh is not ported)."""
+    kinds = sorted(set(cfg.block_pattern) - set(ATTN_KINDS + RECURRENT_KINDS))
     if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: {kinds} blocks are not ported yet "
-            f"(ported: {ported})")
+        raise ValueError(f"{cfg.name}: no block of kind {kinds}")
     if tp is not None and not qwen2_layout(cfg):
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism is ported for qwen2's layout "
@@ -102,67 +114,95 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
 
     The draws differ from ``jax.random``'s; tests carry the JAX weights
     across with :func:`repro_torch.models.convert.params_from_jax`.
-    The TP padding heads are zero in wq and wo, so they are inert.
+    The TP padding heads are zero in wq and wo, so they are inert.  An
+    enc-dec config also gets the encoder stack, ``enc_norm`` and each
+    decoder layer's cross-attention; a frontend its ``frontend_proj``
+    (fan-in ``frontend_dim``, as JAX's ``frontend_dim ** -0.5``).
     """
     check_supported(cfg)
-    dev = generator.device
-    dt = L.dtype_of(cfg)
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    h, hp, kv = cfg.n_heads, cfg.n_heads_padded, cfg.n_kv_heads
-
-    def tn(*shape):   # fan-in: the first dim
-        return L.trunc_normal(generator, shape, dt, shape[0])
-
-    def sub(prefix: str, part: Params) -> None:
-        p.update({prefix + k: v for k, v in part.items()})
-
-    p: Params = {"embed.table": tn(cfg.vocab_size, d)}
+    d = cfg.d_model
+    zeros = functools.partial(torch.zeros, d, device=generator.device)
+    p: Params = {"embed.table": _tn(generator, cfg, cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
-        p["embed.unembed"] = tn(d, cfg.vocab_size)
+        p["embed.unembed"] = _tn(generator, cfg, d, cfg.vocab_size)
     plen = len(cfg.block_pattern)
     for i in range(cfg.n_layers):
-        pre = f"layers.{i}."
-        kind = cfg.block_pattern[i % plen]
-        p[pre + "ln1.scale"] = torch.zeros(d, device=dev)
-        if kind == "mlstm":
-            sub(pre + "mlstm.", XL.init_mlstm(generator, cfg))
-            continue
-        if kind == "slstm":
-            sub(pre + "slstm.", XL.init_slstm(generator, cfg))
-            continue
-        if kind == "rglru":
-            sub(pre + "rglru.", RG.init_rglru(generator, cfg))
-            p[pre + "ln2.scale"] = torch.zeros(d, device=dev)
-            sub(pre + "mlp.", _init_mlp(cfg, tn))
-            continue
-        p[pre + "attn.wq"] = wq = tn(d, hp * hd)
-        p[pre + "attn.wk"] = tn(d, kv * hd)
-        p[pre + "attn.wv"] = tn(d, kv * hd)
-        p[pre + "attn.wo"] = wo = tn(hp * hd, d)
-        wq[:, h * hd:] = 0
-        wo[h * hd:, :] = 0
-        if cfg.qkv_bias:
-            p[pre + "attn.bq"] = torch.zeros(hp * hd, dtype=dt, device=dev)
-            p[pre + "attn.bk"] = torch.zeros(kv * hd, dtype=dt, device=dev)
-            p[pre + "attn.bv"] = torch.zeros(kv * hd, dtype=dt, device=dev)
-        p[pre + "ln2.scale"] = torch.zeros(d, device=dev)
-        if kind == "moe":
-            sub(pre + "moe.", MOE.init_moe(generator, cfg))
-        else:
-            sub(pre + "mlp.", _init_mlp(cfg, tn))
-        if cfg.post_norm:
-            p[pre + "pn1.scale"] = torch.zeros(d, device=dev)
-            p[pre + "pn2.scale"] = torch.zeros(d, device=dev)
-    p["final_norm.scale"] = torch.zeros(d, device=dev)
+        p.update(_init_block(cfg, cfg.block_pattern[i % plen], generator,
+                             f"layers.{i}.", cross=cfg.is_encdec))
+    p["final_norm.scale"] = zeros()
+    for i in range(cfg.encoder_layers):
+        p.update(_init_block(cfg, cfg.block_pattern[i % plen], generator,
+                             f"encoder.layers.{i}."))
+    if cfg.is_encdec:
+        p["enc_norm.scale"] = zeros()
+    if cfg.frontend:
+        p["frontend_proj"] = _tn(generator, cfg, cfg.frontend_dim, d)
     return p
 
 
-def _init_mlp(cfg: ModelConfig, tn) -> Params:
+def _tn(generator: torch.Generator, cfg: ModelConfig, *shape
+        ) -> torch.Tensor:
+    """A weight of ``shape`` in the compute dtype, fan-in its first
+    dim."""
+    return L.trunc_normal(generator, shape, L.dtype_of(cfg), shape[0])
+
+
+def _init_block(cfg: ModelConfig, kind: str, generator: torch.Generator,
+                pre: str, cross: bool = False) -> Params:
+    """One block's weights, named under ``pre`` (JAX ``init_block``);
+    ``cross`` adds the cross-attention (``xattn.*``, ``lnx.scale``) to
+    an attention block."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, hp, kv = cfg.n_heads, cfg.n_heads_padded, cfg.n_kv_heads
+    dev, dt = generator.device, L.dtype_of(cfg)
+    zeros = functools.partial(torch.zeros, d, device=dev)
+    p: Params = {}
+
+    def sub(prefix: str, part: Params) -> None:
+        p.update({pre + prefix + k: v for k, v in part.items()})
+
+    def attn(prefix: str) -> None:
+        a = {"wq": _tn(generator, cfg, d, hp * hd),
+             "wk": _tn(generator, cfg, d, kv * hd),
+             "wv": _tn(generator, cfg, d, kv * hd),
+             "wo": _tn(generator, cfg, hp * hd, d)}
+        a["wq"][:, h * hd:] = 0
+        a["wo"][h * hd:, :] = 0
+        if cfg.qkv_bias:
+            for n, w in (("bq", hp * hd), ("bk", kv * hd), ("bv", kv * hd)):
+                a[n] = torch.zeros(w, dtype=dt, device=dev)
+        sub(prefix, a)
+
+    p[pre + "ln1.scale"] = zeros()
+    if kind in RECURRENT_KINDS:
+        init = {"rglru": RG.init_rglru, "mlstm": XL.init_mlstm,
+                "slstm": XL.init_slstm}[kind]
+        sub(kind + ".", init(generator, cfg))
+        if kind == "rglru":
+            p[pre + "ln2.scale"] = zeros()
+            sub("mlp.", _init_mlp(cfg, generator))
+        return p
+    attn("attn.")
+    p[pre + "ln2.scale"] = zeros()
+    if kind == "moe":
+        sub("moe.", MOE.init_moe(generator, cfg))
+    else:
+        sub("mlp.", _init_mlp(cfg, generator))
+    if cfg.post_norm:
+        p[pre + "pn1.scale"] = zeros()
+        p[pre + "pn2.scale"] = zeros()
+    if cross:
+        attn("xattn.")
+        p[pre + "lnx.scale"] = zeros()
+    return p
+
+
+def _init_mlp(cfg: ModelConfig, generator: torch.Generator) -> Params:
     d, f = cfg.d_model, cfg.d_ff
-    p = {"wi": tn(d, f)}
+    p = {"wi": _tn(generator, cfg, d, f)}
     if cfg.mlp_type != "sqrelu":
-        p["wg"] = tn(d, f)
-    p["wo"] = tn(f, d)
+        p["wg"] = _tn(generator, cfg, d, f)
+    p["wo"] = _tn(generator, cfg, f, d)
     return p
 
 
@@ -176,12 +216,16 @@ def hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
            caches: Optional["Caches"] = None,
            cache_index: Optional[int] = None,
            positions: Optional[torch.Tensor] = None,
-           tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
+           tp: Optional[shd.ModelGroup] = None,
+           image_embeds: Optional[torch.Tensor] = None,
+           frame_embeds: Optional[torch.Tensor] = None,
+           memory: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The residual stream (B, S, D) after the last block, before the
     final norm: :func:`hidden_aux` without the aux loss."""
     return hidden_aux(params, cfg, tokens, caches=caches,
                       cache_index=cache_index, positions=positions,
-                      tp=tp)[0]
+                      tp=tp, image_embeds=image_embeds,
+                      frame_embeds=frame_embeds, memory=memory)[0]
 
 
 def hidden_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -190,31 +234,75 @@ def hidden_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                positions: Optional[torch.Tensor] = None,
                tp: Optional[shd.ModelGroup] = None,
                lossy: Optional[LossyCtx] = None,
-               rows: Optional[shd.RowGroup] = None):
+               rows: Optional[shd.RowGroup] = None,
+               image_embeds: Optional[torch.Tensor] = None,
+               frame_embeds: Optional[torch.Tensor] = None,
+               memory: Optional[torch.Tensor] = None):
     """(the residual stream (B, S, D) after the last block, before the
     final norm; the MoE aux loss summed over the layers, float32, 0
     without MoE layers).  With ``caches`` the K/V of every attention
     layer and the state of every recurrent one are written into them in
     place (prefill, or one decode token at ``cache_index``).  Each
     attention block: pre-norm, attention of the layer's kind (``pn1`` on
-    its output with ``post_norm``), residual; pre-norm, MLP or MoE
-    (``pn2``), residual.  An rglru block: pre-norm, RG-LRU, residual;
-    pre-norm, MLP, residual.  An mlstm or slstm block: pre-norm, the
-    block, residual.  ``lossy``: the lossy expert
+    its output with ``post_norm``), residual; with ``memory`` and a
+    cross-attention, pre-norm (``lnx``), cross-attention, residual;
+    pre-norm, MLP or MoE (``pn2``), residual.  An rglru block: pre-norm,
+    RG-LRU, residual; pre-norm, MLP, residual.  An mlstm or slstm block:
+    pre-norm, the block, residual.  ``lossy``: the lossy expert
     dispatch of the MoE layers; ``rows``: the dp ranks whose rows the MoE
-    layers route together (``moe.moe_block``)."""
+    layers route together (``moe.moe_block``).
+
+    The frontend inputs, as JAX's ``forward`` takes them:
+    ``image_embeds`` (B, n_frontend_tokens, frontend_dim) of a vision
+    stub, projected and prepended to the text, so S counts them;
+    ``frame_embeds`` (B, S_enc, frontend_dim) of an enc-dec config,
+    encoded (:func:`encode`) into ``memory`` unless ``memory`` is
+    given.  ``positions`` default to 0 .. S - 1."""
     check_supported(cfg, tp)
-    eps = cfg.norm_eps
     vocab_tp = L.split_over_model("embed.table", tp)
     x = L.embed(params["embed.table"], cfg, tokens, vocab_tp)
+    if cfg.frontend == "vision_stub" and image_embeds is not None:
+        img = image_embeds.to(x.dtype) @ params["frontend_proj"]
+        x = torch.cat([img, x], dim=1)
+    if cfg.is_encdec and memory is None and frame_embeds is not None:
+        memory = encode(params, cfg, frame_embeds)
     if positions is None:
-        positions = torch.arange(tokens.shape[1],
-                                 device=tokens.device)[None, :]
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    return _stack(params, cfg, "layers.", cfg.n_layers, x,
+                  positions=positions, caches=caches,
+                  cache_index=cache_index, memory=memory, tp=tp,
+                  lossy=lossy, rows=rows)
+
+
+def encode(params: Params, cfg: ModelConfig,
+           frame_embeds: torch.Tensor) -> torch.Tensor:
+    """The enc-dec encoder (JAX ``_encode``): frame embeddings (B,
+    S_enc, frontend_dim) cast to the compute dtype @ ``frontend_proj``
+    (no sqrt(d) scale), the encoder stack at positions 0 .. S_enc - 1
+    with ``causal=False``, then ``enc_norm``: ``memory`` (B, S_enc, D)."""
+    x = frame_embeds.to(L.dtype_of(cfg)) @ params["frontend_proj"]
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, _ = _stack(params, cfg, "encoder.layers.", cfg.encoder_layers, x,
+                  positions=pos, causal=False)
+    return L.rmsnorm(params["enc_norm.scale"], x, cfg.norm_eps)
+
+
+def _stack(params: Params, cfg: ModelConfig, prefix: str, n_layers: int,
+           x: torch.Tensor, *, positions: torch.Tensor,
+           caches: Optional["Caches"] = None,
+           cache_index: Optional[int] = None,
+           memory: Optional[torch.Tensor] = None, causal: bool = True,
+           tp: Optional[shd.ModelGroup] = None,
+           lossy: Optional[LossyCtx] = None,
+           rows: Optional[shd.RowGroup] = None):
+    """The blocks ``{prefix}{i}.*``, i < ``n_layers`` (JAX
+    ``_apply_stack``): (x, the MoE aux loss)."""
+    eps = cfg.norm_eps
     plen = len(cfg.block_pattern)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     on = bool(lossy and lossy.enabled)
-    for i in range(cfg.n_layers):
-        p = sub_params(params, f"layers.{i}.")
+    for i in range(n_layers):
+        p = sub_params(params, f"{prefix}{i}.")
         kind = cfg.block_pattern[i % plen]
         h = L.rmsnorm(p["ln1.scale"], x, eps)
         if kind in RECURRENT_KINDS:
@@ -231,13 +319,17 @@ def hidden_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             continue
         h = L.attention(sub_params(p, "attn."), cfg, h,
                         kind="local" if kind == "local" else "global",
-                        positions=positions,
+                        positions=positions, causal=causal,
                         cache=None if caches is None else caches.layer(i),
                         cache_index=cache_index,
                         tp=L.split_over_model("attn.wq", tp))
         if cfg.post_norm:
             h = L.rmsnorm(p["pn1.scale"], h, eps)
         x = x + h
+        if memory is not None and "lnx.scale" in p:
+            h = L.rmsnorm(p["lnx.scale"], x, eps)
+            x = x + L.attention(sub_params(p, "xattn."), cfg, h,
+                                positions=positions, memory=memory)
         h = L.rmsnorm(p["ln2.scale"], x, eps)
         if kind == "moe":
             h, a = MOE.moe_block(
@@ -269,7 +361,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache_index: Optional[int] = None,
             positions: Optional[torch.Tensor] = None,
             last_only: bool = False,
-            tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
+            tp: Optional[shd.ModelGroup] = None,
+            image_embeds: Optional[torch.Tensor] = None,
+            frame_embeds: Optional[torch.Tensor] = None,
+            memory: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Logits (B, S or 1, V) in the compute dtype: :func:`hidden`, then
     :func:`head`.
 
@@ -277,10 +372,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     (prefill, or one decode token at ``cache_index``).  With ``tp``
     (``convert.model_group``) each block whose leaves the specs split
     runs tensor parallel, and V is this rank's share of the vocabulary
-    when the table is split.
+    when the table is split.  ``image_embeds``, ``frame_embeds`` and
+    ``memory``: the frontend inputs (:func:`hidden_aux`); with
+    ``image_embeds`` S counts the image positions first.
     """
     x = hidden(params, cfg, tokens, caches=caches, cache_index=cache_index,
-               positions=positions, tp=tp)
+               positions=positions, tp=tp, image_embeds=image_embeds,
+               frame_embeds=frame_embeds, memory=memory)
     if last_only:   # prefill: only the last position's logits are used
         x = x[:, -1:]
     return head(params, cfg, x, tp)

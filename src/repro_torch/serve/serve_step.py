@@ -1,22 +1,24 @@
 """Serving: prefill, decode, and decode from KV caches shipped through
 the lossy transport (port of ``repro/serve/serve_step.py``).
 
-- ``make_prefill``: (params, tokens (B, S)) -> (last-position logits,
-  caches).
-- ``make_decode``: (params, caches, tokens (B, 1), index) -> (logits,
-  caches): one new token written into the caches in place at ``index``.
+- ``make_prefill``: (params, tokens (B, S), frontend inputs) -> (last-
+  position logits, caches).
+- ``make_decode``: (params, caches, tokens (B, 1), index, memory) ->
+  (logits, caches): one new token written into the caches in place at
+  ``index``.
 - ``degrade_caches``: the prefill -> decode KV transfer under wire-row
   loss, coded (Hadamard, through the FWHT and unbias kernels on the
   card) or uncoded: every K and V leaf of the cache tree
   (``Caches.leaves()``) ships as its own payload; recurrent state
-  (recurrentgemma's RG-LRU layers, xLSTM's) is not coded.
+  (recurrentgemma's RG-LRU layers, xLSTM's) is not coded, and an enc-dec
+  model's encoder ``memory`` is no cache at all: it is not shipped.
 
 PyTorch runs eagerly, so the factories return plain closures where the
 JAX package returns jitted functions.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -29,51 +31,102 @@ from repro_torch.models import model as M
 Signs = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
+def frontend_inputs(cfg: ModelConfig, batch: int, seq: int,
+                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """The frontend stub's inputs, shaped as the JAX package's
+    ``launch/specs.token_extras``: a vision stub's ``image_embeds``
+    (batch, n_frontend_tokens, frontend_dim), an audio stub's
+    ``frame_embeds`` (batch, seq, frontend_dim); standard normal from
+    ``generator``, on its device, in bfloat16.  Empty without a
+    frontend."""
+    dev = generator.device
+    shape = {"vision_stub": (batch, cfg.n_frontend_tokens, cfg.frontend_dim),
+             "audio_stub": (batch, seq, cfg.frontend_dim)}.get(cfg.frontend)
+    if shape is None:
+        return {}
+    name = "image_embeds" if cfg.frontend == "vision_stub" else "frame_embeds"
+    return {name: torch.randn(shape, generator=generator, device=dev
+                              ).to(torch.bfloat16)}
+
+
 def make_prefill(cfg: ModelConfig, s_max: int):
-    def prefill(params: M.Params, tokens: torch.Tensor):
+    def prefill(params: M.Params, tokens: torch.Tensor, *,
+                image_embeds: Optional[torch.Tensor] = None,
+                frame_embeds: Optional[torch.Tensor] = None,
+                memory: Optional[torch.Tensor] = None):
+        """Prefill positions 0 .. n_front + S - 1: a vision stub's image
+        positions first (``cfg.n_front``), then the text.  An enc-dec
+        model takes its encoder's ``memory``, or ``frame_embeds`` to
+        encode."""
+        if cfg.n_front and image_embeds is None:
+            raise ValueError(f"{cfg.name} prefills with image_embeds")
         caches = M.init_caches(cfg, tokens.shape[0], s_max, tokens.device)
+        positions = torch.arange(cfg.n_front + tokens.shape[1],
+                                 device=tokens.device)[None, :]
         logits = M.forward(params, cfg, tokens, caches=caches,
-                           last_only=True)
+                           positions=positions, last_only=True,
+                           image_embeds=image_embeds,
+                           frame_embeds=frame_embeds, memory=memory)
         return logits[:, -1], caches
     return prefill
 
 
 def make_decode(cfg: ModelConfig):
     def decode(params: M.Params, caches: M.Caches, tokens: torch.Tensor,
-               index: int):
-        """index: the position being generated.  Writes into ``caches``."""
+               index: int, memory: Optional[torch.Tensor] = None):
+        """index: the position being generated.  Writes into ``caches``.
+        ``memory``: an enc-dec model's encoder output, which its
+        cross-attention reads (no cross cache: K/V from it each step)."""
         positions = torch.full((tokens.shape[0], 1), index,
                                device=tokens.device)
         logits = M.forward(params, cfg, tokens, caches=caches,
-                           cache_index=index, positions=positions)
+                           cache_index=index, positions=positions,
+                           memory=memory)
         return logits[:, -1], caches
     return decode
 
 
 def greedy_decode(cfg: ModelConfig, params: M.Params, caches: M.Caches,
                   first_token: torch.Tensor, start_idx: int,
-                  n_steps: int) -> torch.Tensor:
+                  n_steps: int, memory: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Greedy host-loop decode from an existing (possibly degraded) KV
     cache: ``first_token`` (B, 1) seeds the loop, ``start_idx`` is the
     cache position of the first generated token.  Returns (B, n_steps)
-    tokens including ``first_token``.  Consumes ``caches``."""
+    tokens including ``first_token``.  Consumes ``caches``.  ``memory``
+    reaches every step; JAX's loop passes none (``serve_step.py:70``),
+    which ``memory=None`` keeps: an enc-dec model then decodes without
+    its cross-attention."""
     decode = make_decode(cfg)
     out = [first_token]
     idx = start_idx
     for _ in range(n_steps - 1):
-        logits, caches = decode(params, caches, out[-1], idx)
+        logits, caches = decode(params, caches, out[-1], idx, memory)
         out.append(torch.argmax(logits, -1)[:, None])
         idx += 1
     return torch.cat(out, dim=1)
 
 
 def greedy_generate(cfg: ModelConfig, params: M.Params, prompt: torch.Tensor,
-                    n_steps: int, s_max: Optional[int] = None) -> torch.Tensor:
-    """Small host-loop generator for examples/tests (greedy)."""
-    s_max = s_max or (prompt.shape[1] + n_steps)
-    logits, caches = make_prefill(cfg, s_max)(params, prompt)
+                    n_steps: int, s_max: Optional[int] = None,
+                    extra: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """Small host-loop generator for examples/tests (greedy).  ``extra``:
+    the frontend inputs (:func:`frontend_inputs`).  Decoding starts at
+    position ``n_front + S``, after the positions the prefill wrote (JAX
+    starts at S, ``serve_step.py:85``, so a vision model's first token
+    overwrites slot S there), and ``s_max`` defaults to the positions
+    written; an enc-dec model encodes once and every step reads the
+    memory."""
+    extra = dict(extra or {})
+    start = cfg.n_front + prompt.shape[1]
+    s_max = s_max or (start + n_steps)
+    if cfg.is_encdec and "frame_embeds" in extra:
+        extra["memory"] = M.encode(params, cfg, extra.pop("frame_embeds"))
+    logits, caches = make_prefill(cfg, s_max)(params, prompt, **extra)
     first = torch.argmax(logits, -1)[:, None]
-    return greedy_decode(cfg, params, caches, first, prompt.shape[1], n_steps)
+    return greedy_decode(cfg, params, caches, first, start, n_steps,
+                         memory=extra.get("memory"))
 
 
 # ----------------------------------------------------------------------

@@ -524,7 +524,14 @@ def _sync_dp(sync: _DpSync, grads, plans, generator, drop_rate, masks,
 def check_trainable(cfg: ModelConfig) -> None:
     """Training is ported for qwen2's layout only, with an MLP or an MoE
     block (the JAX leaf view, ``convert.layer_leaves``); the other dense
-    families, granite-moe and the recurrent families serve."""
+    families, granite-moe, the recurrent families and the modality stubs
+    serve."""
+    if cfg.frontend or cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: training the modality stubs is not ported yet "
+            "(ROADMAP Queue 1, item 2): its leaf view is not qwen2's "
+            "(phi-3-vision has untied embeddings and a frontend projection; "
+            "seamless has no QKV bias, an encoder stack and cross-attention)")
     recurrent = sorted(set(cfg.block_pattern) & set(M.RECURRENT_KINDS))
     if recurrent:
         raise NotImplementedError(

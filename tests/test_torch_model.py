@@ -188,10 +188,18 @@ def test_init_params_seeded_and_finite():
 
 
 def test_unported_configs_raise():
+    """Every architecture of the JAX package is ported; what still
+    raises is what JAX cannot run either: an unknown name, and an
+    ``"xattn"`` block kind (``ValueError``, as JAX's ``init_block``)."""
     cfg = dataclasses.replace(TC.get_smoke("qwen2-0.5b"),
                               block_pattern=("xattn",))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="xattn"):
         TM.init_params(cfg, torch.Generator())
-    for name in ("phi-3-vision-4.2b", "seamless-m4t-medium"):
+    with pytest.raises(ValueError):
+        JM.init_params(jax.random.PRNGKey(0), dataclasses.replace(
+            JC.get_smoke("qwen2-0.5b"), block_pattern=("xattn",)))
+    for name in ("phi-4", "seamless-m4t-large"):
         with pytest.raises(ValueError):
             TC.get(name)
+    for name in ("phi-3-vision-4.2b", "seamless-m4t-medium"):
+        assert TC.get(name).name == name

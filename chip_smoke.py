@@ -124,6 +124,28 @@ caught and carried on):
     capacity factor 50 (rtol 1e-4 + atol 1e-5).  Each cell prints its
     step, EP all-to-all and dp sync times, the all-to-all's bytes a
     rank-step and the peak a rank;
+6e. the other families trained at full width on one device through
+    ``Trainer``, 8 x 128 tokens, 3 steps in ``exact`` and 3 in
+    ``lossy_hadamard`` each: chatglm3-6b, gemma2-9b and
+    granite-moe-3b-a800m at 2 layers, nemotron-4-15b at 1 (the AdamW
+    state, 16 B a parameter, fits no deeper); losses finite, step 0's
+    within 1.5 of ln V, the FWHT launched twice a coded leaf a coded
+    step and never in ``exact``, recv_frac in [0.4, 1]; the step ms and
+    the peak beside the reckoned state.  Then each family's smoke config
+    in float32, one ``lossy_hadamard`` step on the card against the CPU
+    (96 tokens: gemma2's window binds) within ``tests/test_torch_train
+    .py``'s tolerances, granite-moe's routing ids equal first; and the
+    FWHT held to its plain version at every shape of 6e's and 6f's
+    coded syncs, timed at each family's largest leaf;
+6f. the same four rank processes on the one card over gloo, 2 of the
+    families' layers (``MESH_LAYERS``), 2 steps a cell, in one launch:
+    gemma2-9b on (2, 2) ``lossy_hadamard`` at drop 0.05 with ZeRO-1 (two
+    pattern groups, both softcaps on vocabulary-split logits, the 256k
+    tied table split over ``model``) and chatglm3-6b on (1, 4) ``exact``
+    (the column-split untied ``embed.unembed``, partial rotary, 2 kv
+    heads kept whole): the ranks that share a model index bit-identical,
+    the FWHT twice a coded leaf at ``tp_fwht_shapes``; each rank's peak,
+    sync ms and bytes a rank-step printed;
 7. smoke-size training on the card against the CPU (float32, the same
    masks, signs and batch: loss, the first moments, i.e. the synced
    gradient, and the updated parameters), and 14 coded steps that must
@@ -305,7 +327,7 @@ The protocols of phases 14-16, 18 and 21-22 (and Fig. 2's step window)
 are ``repro_torch.benchmarks.figs``'s functions, which the CPU tests also
 run (smoke tiers and cut grids).
 
-Each path (3-6d with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19l and
+Each path (3-6f with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19l and
 21-22, Fig. 2's step window its own) runs with the kernels' launch counts set
 to 0 just before it and read just after.  The last
 line is ``{"ok": true, "device": {...}}``; the lines before it carry each
@@ -1025,8 +1047,14 @@ def phase_train(dev, C, ts, Trainer, DataConfig, OptConfig, counts):
               f"first {out[mode]['median_step_ms_after_first']:.1f}), "
               f"FWHT launches/step {fwht_per_step}, peak {peak_gib:.2f} GiB")
     batch = tr.put_batch(TRAIN_STEPS)
-    out["profile_lossy_hadamard_step"] = profile_window(
-        lambda: tr.step_fn(tr.state, batch, tr.step_generator(99), 0.05))
+
+    def profiled_step():
+        # The step donates its state, so the profiled step's state is
+        # kept: it is the only one whose buffers are still whole.
+        tr.state, _ = tr.step_fn(tr.state, batch, tr.step_generator(99),
+                                 0.05)
+
+    out["profile_lossy_hadamard_step"] = profile_window(profiled_step)
     print(f"profile lossy_hadamard step: "
           f"{out['profile_lossy_hadamard_step']}")
     out["launches"] = total
@@ -1185,8 +1213,9 @@ def phase_checkpoint(dev, C, ts, Trainer, DataConfig, OptConfig, ckpt,
 
         def on_metrics(step, m):
             if step == 1:      # the state and timeout the save then takes
-                snap["leaves"] = [x.cpu() for _, x in
-                                  ts.state_leaves(tr.state)]
+                # (a copy: the next step updates the state in place)
+                snap["leaves"] = [x.to("cpu", copy=True) for _, x in
+                                  ts.state_leaves(tr.state, tr.names)]
                 snap["timeout"] = tr.controller.timeout
 
         try:
@@ -1201,7 +1230,8 @@ def phase_checkpoint(dev, C, ts, Trainer, DataConfig, OptConfig, ckpt,
         assert tr.start_step == 2, tr.start_step
         assert tr.controller.timeout == snap["timeout"], (
             tr.controller.timeout, snap["timeout"])
-        for (path, x), want in zip(ts.state_leaves(tr.state), snap["leaves"]):
+        for (path, x), want in zip(ts.state_leaves(tr.state, tr.names),
+                                   snap["leaves"]):
             x = x.cpu()
             assert x.dtype == want.dtype and torch.equal(
                 bit_view(x), bit_view(want)), f"restored {path} differs"
@@ -1228,7 +1258,7 @@ def phase_checkpoint(dev, C, ts, Trainer, DataConfig, OptConfig, ckpt,
                             "masked_unbias": 0, "quantize_int8": 0,
                             "dcqcn_scan": 0}, launches
         assert np.isfinite(hist["loss"]).all(), hist
-        ckpt.save(save_dir, 3, ts.state_leaves(tr.state),
+        ckpt.save(save_dir, 3, ts.state_leaves(tr.state, tr.names),
                   {"timeout": tr.controller.timeout, "arch": cfg.name})
         del tr
         torch.cuda.empty_cache()
@@ -1257,32 +1287,83 @@ def phase_checkpoint(dev, C, ts, Trainer, DataConfig, OptConfig, ckpt,
     return out
 
 
-def check_first_step(name, new_dev, new_cpu, opt, steps=None):
-    """One AdamW step's state, card against CPU.  The first moment is
-    (1 - b1) times the synced, clipped gradient g, so it holds whatever
-    the sync (masking, the FWHT encode and decode) made of the gradient:
-    rtol 1e-4 plus 1e-4 of its leaf's largest entry.  The first update
-    is lr * g / (|g| + eps), i.e. lr (1e-3) per entry, whose slope near
-    g = 0 is lr / eps: each parameter is held to 2e-4 plus the update
-    difference that the two sides' own g explain, so a sign that rounds
-    the other way at |g| ~ eps is not taken for a fault.  ``steps``
-    (leaf index -> float, the int8 wire's ``int8_step_bound``) adds one
-    quantization step of g to a first moment's atol."""
+# check_first_step's tolerances: a step's loss and recv_frac (rtol,
+# atol); the first moments (rtol, atol as a share of the leaf's largest
+# entry, atol); the parameters' atol beyond the explained update.  The
+# card's own, and tests/test_torch_train.py's for one whole step.
+CARD_STEP_TOL = dict(loss=(2e-4, 2e-4), recv_frac=(2e-4, 2e-4),
+                     mu=(1e-4, 1e-4, 0.0), params=2e-4)
+TEST_STEP_TOL = dict(loss=(1e-5, 0.0), recv_frac=(0.0, 1e-7),
+                     mu=(0.0, 0.0, 1e-8), params=1e-7)
+
+
+def check_first_step(name, new_dev, new_cpu, opt, steps=None,
+                     tol=CARD_STEP_TOL):
+    """One AdamW step's state, card against CPU; returns the first
+    moments' largest difference.  The first moment is (1 - b1) times the
+    synced, clipped gradient g, so it holds whatever the sync (masking,
+    the FWHT encode and decode) made of the gradient: ``tol["mu"]``.  The
+    first update is lr * g / (|g| + eps), i.e. lr per entry, whose slope
+    near g = 0 is lr / eps: each parameter is held to ``tol["params"]``
+    plus the update difference that the two sides' own g explain, so a
+    sign that rounds the other way at |g| ~ eps is not taken for a fault.
+    ``steps`` (leaf index -> float, the int8 wire's ``int8_step_bound``)
+    adds one quantization step of g to a first moment's atol."""
+    rtol, share, atol = tol["mu"]
+    worst = 0.0
     for i, (mu_d, mu_c, p_d, p_c) in enumerate(zip(
             new_dev["opt"]["mu"], new_cpu["opt"]["mu"], new_dev["params"],
             new_cpu["params"])):
         mu_d = mu_d.cpu()
         step = (1 - opt.b1) * (steps or {}).get(i, 0.0)
-        check(f"{name} leaf {i} first moment card vs cpu", mu_d, mu_c, 1e-4,
-              1e-4 * mu_c.abs().max().item() + step)
+        worst = max(worst, check(
+            f"{name} leaf {i} first moment card vs cpu", mu_d, mu_c, rtol,
+            share * mu_c.abs().max().item() + atol + step))
         g_d, g_c = (mu.double() / (1 - opt.b1) for mu in (mu_d, mu_c))
         explained = opt.lr * ((g_d / (g_d.abs() + opt.eps))
                               - (g_c / (g_c.abs() + opt.eps))).abs()
         diff = (p_d.cpu().double() - p_c.double()).abs()
-        bad = diff > 2e-4 + explained
+        bad = diff > tol["params"] + explained
         assert not bad.any(), (
             f"{name} leaf {i} params card vs cpu: {int(bad.sum())} entries "
-            f"beyond 2e-4 + explained, max diff {diff.max().item():.3g}")
+            f"beyond {tol['params']} + explained, max diff "
+            f"{diff.max().item():.3g}")
+    return worst
+
+
+def small_steps_card_vs_cpu(dev, ts, cfg, opt, batch, drop, modes, tol,
+                            name):
+    """One step a mode of ``cfg`` on the card (kernels) against the port's
+    CPU step (plain versions): one CPU state from seed 0, the same batch,
+    and the same masks and signs (generator 3, a row kept at 1 - ``drop``),
+    held to ``tol`` (``check_first_step``'s).  Returns the state and, a
+    mode, the card's loss and recv_frac and the first moments' largest
+    difference."""
+    cpu = torch.device("cpu")
+    state = ts.init_state(torch.Generator(cpu).manual_seed(0), cfg)
+    celeris = dict(min_coded_size=1024)
+    g = torch.Generator(cpu).manual_seed(3)
+    masks, signs = {}, {}
+    for i, leaf in enumerate(state["params"]):
+        if leaf.numel() >= celeris["min_coded_size"]:
+            masks[i] = torch.rand(4096, generator=g) >= drop
+            signs[i] = torch.randint(0, 2, (4096,),
+                                     generator=g).float() * 2 - 1
+    out = {}
+    for mode in modes:
+        step = ts.make_train_step(cfg, None, opt,
+                                  ts.CelerisConfig(mode=mode, **celeris))
+        (new_cpu, m_cpu), (new_dev, m_dev) = [
+            step(to_device(state, d), to_device(batch, d), None, drop,
+                 masks=masks, signs=signs) for d in (cpu, dev)]
+        for k in ("loss", "recv_frac"):
+            check(f"{name} {mode} {k} card vs cpu", m_dev[k].cpu(),
+                  m_cpu[k], *tol[k])
+        out[mode] = {"loss": m_dev["loss"].item(),
+                     "recv_frac": m_dev["recv_frac"].item(),
+                     "first_moment_max_abs_err": check_first_step(
+                         f"{name} {mode}", new_dev, new_cpu, opt, tol=tol)}
+    return state, out
 
 
 def over_data(state, dg):
@@ -1375,35 +1456,16 @@ def phase_small_train(dev, C, ts, OptConfig, DataConfig, make_source):
     check)."""
     from repro_torch import generator
     cfg = dataclasses.replace(C.get_smoke("qwen2-0.5b"), dtype="float32")
-    cpu = torch.device("cpu")
-    state = ts.init_state(torch.Generator(cpu).manual_seed(0), cfg)
     src = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
                                  global_batch=8, seed=1))
     batch = {k: torch.as_tensor(v, dtype=torch.long)
              for k, v in src.global_batch(0).items()}
-    opt = OptConfig(lr=1e-3, warmup_steps=1)
-    celeris = dict(min_coded_size=1024)
-    g = torch.Generator(cpu).manual_seed(3)
-    masks, signs = {}, {}
-    for i, leaf in enumerate(state["params"]):
-        if leaf.numel() >= celeris["min_coded_size"]:
-            masks[i] = torch.rand(4096, generator=g) >= 0.05
-            signs[i] = torch.randint(0, 2, (4096,),
-                                     generator=g).float() * 2 - 1
-
-    for mode in MODES:
-        step = ts.make_train_step(cfg, None, opt,
-                                  ts.CelerisConfig(mode=mode, **celeris))
-        (new_cpu, m_cpu), (new_dev, m_dev) = [
-            step(to_device(state, d), to_device(batch, d), None, 0.05, masks=masks,
-                 signs=signs) for d in (cpu, dev)]
-        for k in ("loss", "recv_frac"):
-            check(f"smoke train {mode} {k} card vs cpu", m_dev[k].cpu(),
-                  m_cpu[k], 2e-4, 2e-4)
-        check_first_step(f"smoke train {mode}", new_dev, new_cpu, opt)
+    state, _ = small_steps_card_vs_cpu(
+        dev, ts, cfg, OptConfig(lr=1e-3, warmup_steps=1), batch, 0.05, MODES,
+        CARD_STEP_TOL, "smoke train")
 
     step = ts.make_train_step(cfg, None, OptConfig(lr=1e-3), ts.CelerisConfig(
-        mode="lossy_hadamard", **celeris))
+        mode="lossy_hadamard", min_coded_size=1024))
     st, losses, fracs = to_device(state, dev), [], []
     for i in range(SMOKE_STEPS):
         b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
@@ -1573,7 +1635,8 @@ def dp_smoke_draws(cfg, mesh, celeris, drop):
     g = torch.Generator().manual_seed(3)
     masks, signs, noise = {}, {}, {}
     for i, plan in enumerate(ts.plan_leaves(convert.leaf_shapes(cfg), mesh,
-                                            celeris)):
+                                            celeris,
+                                            convert.leaf_names(cfg))):
         if plan is None:
             continue
         masks[i] = (torch.rand((rates.shape[0], plan.n_rot), generator=g)
@@ -1601,8 +1664,8 @@ def mesh_rank(kind, rank, port, out_dir, device="cuda"):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=DP_WORLD)
     try:
-        if kind == "ep":
-            rec = ep_rank(rank, dev)
+        if kind in ("ep", "families"):
+            rec = (ep_rank if kind == "ep" else family_rank)(rank, dev)
             with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
                 json.dump(rec, f)
             return
@@ -1847,7 +1910,8 @@ def check_zero1_layout(cfg, mesh, state, name):
     shapes = convert.leaf_shapes(cfg)
     sizes = shd.axis_sizes(mesh)
     want = [local_shape(sh, sp, sizes)
-            for sh, sp in zip(shapes, rules.zero1_specs(shapes, mesh))]
+            for sh, sp in zip(shapes, rules.zero1_specs(
+                shapes, mesh, convert.leaf_names(cfg)))]
     for part in ("master", "mu", "nu"):
         got = [tuple(x.shape) for x in state["opt"][part]]
         assert got == want, (name, part, got, want)
@@ -1879,10 +1943,10 @@ def tp_check_elastic_restart(rank, dev, meshes, out_dir):
     if rank == 0:
         ckpt_space(directory, 1)
     dist.barrier()
-    shapes = convert.leaf_shapes(cfg)
+    shapes, names = convert.leaf_shapes(cfg), convert.leaf_names(cfg)
     targets = {mk: meshes[mk] for mk in ("dm41", "dm14")}
-    specs = {mk: [s for _, s in ts.state_leaves(ts.state_specs(shapes, m))]
-             for mk, m in targets.items()}
+    specs = {mk: [s for _, s in ts.state_leaves(ts.state_specs(
+        shapes, m, names), names)] for mk, m in targets.items()}
     want = {mk: [] for mk in targets}
     gather = convert.gather_state
 
@@ -1913,7 +1977,7 @@ def tp_check_elastic_restart(rank, dev, meshes, out_dir):
                            seed=0, ckpt_dir=directory, device=str(dev))
             assert back.start_step == 1, (mk, back.start_step)
             for (path, x), (shape, dtype, fp) in zip(
-                    ts.state_leaves(back.state), want[mk]):
+                    ts.state_leaves(back.state, names), want[mk]):
                 assert (tuple(x.shape), x.dtype) == (shape, dtype) and \
                     torch.equal(leaf_fingerprint(x), fp), (
                         f"{mk} rank {rank}: restored {path} is not its "
@@ -1964,10 +2028,12 @@ def dp_check_one_device(rank, dev, mesh):
                  device=str(dev))
     new, m = tr.step_fn(tr.state, tr.put_batch(0), None, 0.0)
     del tr
-    shapes = convert.leaf_shapes(cfg)
-    new = {"params": convert.gather_leaves(new["params"], mesh, shapes),
+    shapes, names = convert.leaf_shapes(cfg), convert.leaf_names(cfg)
+    new = {"params": convert.gather_leaves(new["params"], mesh, shapes,
+                                           names),
            "opt": {"mu": list(convert.gather_state(
-               new["opt"]["mu"], rules.zero1_specs(shapes, mesh), mesh))}}
+               new["opt"]["mu"], rules.zero1_specs(shapes, mesh, names),
+               mesh))}}
     out = {"loss": m["loss"].item()}
     if rank == 0:
         step = ts.make_train_step(cfg, None, opt)
@@ -2008,10 +2074,12 @@ def tp_check_microbatches(dev, mesh):
         device=str(dev))
     batch = tr.put_batch(0)
     dg = tr.step_fn.data_group
-    whole, m1 = tr.step_fn(tr.state, batch, None, 0.0)
-    whole = to_device(over_data(whole, dg), "cpu")
+    # the accumulating step first: the trainer's own step updates the
+    # optimizer state it is given in place (donated)
     acc, m2 = ts.make_train_step(cfg, mesh, opt, microbatches=2)(
         tr.state, batch, None, 0.0)
+    whole, m1 = tr.step_fn(tr.state, batch, None, 0.0)
+    whole = to_device(over_data(whole, dg), "cpu")
     del tr
     check("tp microbatches=2 loss vs whole rows", m2["loss"].cpu(),
           m1["loss"].cpu(), 1e-5, 0.0)
@@ -2067,7 +2135,8 @@ def dp_check_coded_syncs(dev, meshes, cfg=None, min_coded_size=65536,
         *_, grads = ts.loss_and_grads(cfg, leaves, batch, tp)
         celeris = ts.CelerisConfig(mode=mode, quantize_wire=q,
                                    min_coded_size=min_coded_size)
-        plans = ts.plan_leaves(convert.leaf_shapes(cfg), mesh, celeris)
+        plans = ts.plan_leaves(convert.leaf_shapes(cfg), mesh, celeris,
+                               convert.leaf_names(cfg))
         assert any(p is not None for p in plans), name
         exact = ts._sync_dp(ts._DpSync.make(mesh, ts.CollectiveMode.EXACT,
                                             celeris, tp),
@@ -2140,7 +2209,8 @@ def dp_check_card_vs_cpu(dev, meshes, cells):
             lossy = sync.pod if mode == "hierarchical" else sync.dp
             steps = int8_step_bound(
                 cfg, state["params"], batch,
-                ts.plan_leaves(convert.leaf_shapes(cfg), mesh, celeris),
+                ts.plan_leaves(convert.leaf_shapes(cfg), mesh, celeris,
+                               convert.leaf_names(cfg)),
                 masks, signs, lossy, sync.data, step.model_group)
         dg = step.data_group
         check_first_step(f"{mk} smoke {name}", over_data(new_dev, dg),
@@ -2587,6 +2657,365 @@ def phase_ep_train(dev, C, kfwht, ref):
           f"{out['fwht_sync_shapes']} worst err {worst:.3g}; "
           f"{seconds:.1f} s [{smi}]")
     return out, records
+
+
+# phase 6e: the dense families and granite-moe trained at full width on
+# one device, the depth cut because the AdamW state (16 B a parameter:
+# bf16 parameter and gradient, f32 master, mu, nu) does not fit the card
+# at full depth; nemotron's two 1.57 B-value embedding leaves leave it one
+# layer.  (arch, layers)
+FAMILY_TRAIN = (("chatglm3-6b", 2), ("gemma2-9b", 2),
+                ("granite-moe-3b-a800m", 2), ("nemotron-4-15b", 1))
+FAMILY_MODES = ("exact", "lossy_hadamard")
+FAMILY_LOSS_BAND = 1.5     # |step-0 loss - ln V| at random weights
+FAMILY_SMOKE_SEQ = 96      # over gemma2's 64-token smoke window
+# phase 6f: four ranks on the one card over gloo, MESH_LAYERS deep, 2
+# steps a cell: (arch, mesh, mode, drop)
+FAMILY_MESH_CELLS = (("gemma2-9b", "dm22", "lossy_hadamard", 0.05),
+                     ("chatglm3-6b", "dm14", "exact", 0.0))
+FAMILY_MESHES = {"dm22": ((2, 2), ("data", "model")),
+                 "dm14": ((1, 4), ("data", "model"))}
+
+
+def family_config(C, arch, layers):
+    return dataclasses.replace(C.get(arch), n_layers=layers)
+
+
+def family_fwht_shapes(C):
+    """The FWHT's (rows, n_rot) on phases 6e and 6f's paths, in leaf
+    order: each family's coded leaves on one device (its tiles of 4096),
+    then each coded mesh cell's per rank (``tp_fwht_shapes``)."""
+    from repro_torch.models import convert
+    from repro_torch.train import train_step as ts
+    one = {}
+    for arch, layers in FAMILY_TRAIN:
+        cfg = family_config(C, arch, layers)
+        one[arch] = [(p.tiles, p.n_rot) for p in ts.plan_leaves(
+            convert.leaf_shapes(cfg), None, ts.CelerisConfig(),
+            convert.leaf_names(cfg)) if p is not None]
+    mesh = {arch: tp_fwht_shapes(family_config(C, arch, MESH_LAYERS),
+                                 mesh_shape(*FAMILY_MESHES[mk]))
+            for arch, mk, mode, _ in FAMILY_MESH_CELLS if mode != "exact"}
+    return one, mesh
+
+
+def phase_train_families(dev, C, ts, Trainer, DataConfig, OptConfig, counts):
+    """Phase 6e: each family at full width through ``Trainer``, 8 x 128
+    tokens, ``TRAIN_STEPS`` steps in ``exact`` and in ``lossy_hadamard``:
+    losses finite, the first near ln V, the FWHT launched twice a coded
+    leaf each coded step and never in ``exact``, recv_frac in [0.4, 1];
+    the step ms and the peak beside the reckoned state."""
+    from repro_torch.models import convert
+    out, total = {}, {}
+    opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
+    for arch, layers in FAMILY_TRAIN:
+        cfg = family_config(C, arch, layers)
+        data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=1)
+        n_coded = sum(p is not None for p in ts.plan_leaves(
+            convert.leaf_shapes(cfg), None, ts.CelerisConfig(),
+            convert.leaf_names(cfg)))
+        rec = {"layers": layers, "leaves": len(convert.leaf_names(cfg)),
+               "coded_leaves": n_coded,
+               "reckoned_state_gb": cfg.param_count() * 16 / 1e9}
+        for mode in FAMILY_MODES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tr = Trainer(cfg, data_cfg=data_cfg, opt_cfg=opt,
+                         celeris=ts.CelerisConfig(mode=mode), seed=0,
+                         device=str(dev))
+            steps = []
+
+            def on_metrics(step, m):
+                steps.append(dict(m, launches=counts.read()))
+                counts.reset()
+
+            _sync()
+            counts.reset()
+            hist = tr.run(TRAIN_STEPS, on_metrics=on_metrics)
+            peak = torch.cuda.max_memory_allocated()
+            del tr
+            for s in steps:
+                for k, v in s["launches"].items():
+                    total[k] = total.get(k, 0) + v
+            assert np.isfinite(hist["loss"]).all(), (arch, mode, hist)
+            assert abs(hist["loss"][0] - math.log(cfg.vocab_size)) < (
+                FAMILY_LOSS_BAND), (arch, mode, hist["loss"])
+            fwht = [s["launches"]["fwht"] for s in steps]
+            coded = mode == "lossy_hadamard"
+            assert fwht == [2 * n_coded if coded else 0] * TRAIN_STEPS, (
+                arch, mode, fwht)
+            if coded:
+                assert all(0.4 <= f <= 1.0 for f in hist["recv_frac"]), (
+                    arch, hist["recv_frac"])
+            step_ms = [s["wall_s"] * 1e3 for s in steps]
+            rec[mode] = {"loss": hist["loss"], "recv_frac": hist["recv_frac"],
+                         "step_ms": step_ms,
+                         "median_step_ms_after_first":
+                             statistics.median(step_ms[1:]),
+                         "fwht_launches_per_step": fwht,
+                         "peak_gib": peak / 2 ** 30, "peak_gb": peak / 1e9}
+            median = rec[mode]["median_step_ms_after_first"]
+            print(f"train {arch} {mode} (full width, {layers} layers, "
+                  f"{TRAIN_BATCH} x {TRAIN_SEQ}): loss {hist['loss']}, "
+                  f"recv_frac {hist['recv_frac']}, step ms {step_ms} (median "
+                  f"after the first {median:.1f}), FWHT launches/step "
+                  f"{fwht} ({n_coded} coded "
+                  f"leaves), peak {peak / 1e9:.2f} GB against the reckoned "
+                  f"state {rec['reckoned_state_gb']:.2f} GB")
+        out[arch] = rec
+    torch.cuda.empty_cache()
+    out["launches"] = total
+    return out
+
+
+def family_smoke_card_vs_cpu(dev, C, ts, OptConfig, DataConfig, make_source):
+    """Each family's smoke config in float32 through
+    ``small_steps_card_vs_cpu``: one ``lossy_hadamard`` step, a batch of
+    4 x 96 tokens (gemma2's 64-token window binds), drop 0.1,
+    ``TEST_STEP_TOL``; granite-moe's routing ids on the card equal the
+    CPU's, call by call, before any tolerance is applied."""
+    from repro_torch.models import moe as MOE
+    opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
+    route, out = MOE._route, {}
+    for arch, _ in FAMILY_TRAIN:
+        cfg = dataclasses.replace(C.get_smoke(arch), dtype="float32")
+        src = make_source(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=FAMILY_SMOKE_SEQ, global_batch=4,
+                                     seed=1))
+        batch = {k: torch.as_tensor(v, dtype=torch.long)
+                 for k, v in src.global_batch(0).items()}
+        routes = {"cpu": [], "cuda": []}
+
+        def recorded(*a, **k):
+            res = route(*a, **k)
+            ids = routes[res[1].device.type]
+            ids.append(res[1].cpu())
+            if res[1].device.type == "cuda":
+                assert torch.equal(ids[-1], routes["cpu"][len(ids) - 1]), (
+                    f"{arch}: routing call {len(ids) - 1} differs")
+            return res
+
+        MOE._route = recorded
+        try:
+            _, rec = small_steps_card_vs_cpu(
+                dev, ts, cfg, opt, batch, 0.1, ("lossy_hadamard",),
+                TEST_STEP_TOL, f"train families smoke {arch}")
+        finally:
+            MOE._route = route
+        assert len(routes["cpu"]) == len(routes["cuda"]), arch
+        out[arch] = dict(rec["lossy_hadamard"],
+                         routing_calls_compared=len(routes["cuda"]))
+    print(f"train families smoke f32, card vs CPU (one lossy_hadamard step, "
+          f"{FAMILY_SMOKE_SEQ} tokens): {out}")
+    return out
+
+
+def check_family_fwht(dev, C, kfwht, ref):
+    """The FWHT held to its plain version, bit for bit, at every shape of
+    phases 6e and 6f's coded syncs; timed at each family's largest
+    one-device leaf and at the mesh cell's largest."""
+    one, mesh = family_fwht_shapes(C)
+    shapes = sorted({s for v in list(one.values()) + list(mesh.values())
+                     for s in v})
+    timed = {max(v) for v in list(one.values()) + list(mesh.values())}
+    g = torch.Generator(dev).manual_seed(11)
+    worst, records = 0.0, []
+    for rows, n in shapes:
+        x = torch.randn(rows, n, generator=g, device=dev)
+        signs = (torch.randint(0, 2, (n,), generator=g, device=dev).float()
+                 * 2 - 1)
+        err = check_equal(f"fwht family sync {rows}x{n}",
+                          (kfwht.fwht_cuda(x, signs, n ** -0.5),),
+                          (ref.fwht(x, signs=signs, scale=n ** -0.5),))
+        worst = max(worst, err)
+        if (rows, n) in timed:
+            records.append(fwht_record(kfwht, ref, x, signs, n ** -0.5, err))
+        del x
+        torch.cuda.empty_cache()
+    print(f"train families: fwht at the coded syncs' shapes {shapes} worst "
+          f"err {worst:.3g}; timed at {sorted(timed)}")
+    return {"one_device": {a: [list(s) for s in v] for a, v in one.items()},
+            "mesh": {a: [list(s) for s in v] for a, v in mesh.items()},
+            "max_abs_err": worst}, records
+
+
+def family_rank(rank, dev):
+    """One rank of phase 6f: ``FAMILY_MESH_CELLS`` through
+    ``Trainer(mesh=...)``, ``DP_STEPS`` steps each, at full width and
+    ``MESH_LAYERS`` deep.  Every step: losses finite, the ranks that share
+    a model index bit-identical, a coded step's FWHT launched twice a
+    coded leaf at ``tp_fwht_shapes``, recv_frac within 0.04 of the drop
+    rate's complement; each rank holds its ZeRO-1 slices on a data axis.
+    Records each rank's peak, the dp sync's ms and bytes and the
+    model-group collectives' ms and bytes a rank-step."""
+    import torch.distributed as dist
+    import repro_torch.configs as C
+    from repro_torch import sharding as shd
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import dcqcn as kdcqcn
+    from repro_torch.kernels import fwht as kfwht
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as kquant
+    from repro_torch.kernels import unbias as kunbias
+    from repro_torch.models import convert
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.launch import mesh as mesh_mod
+    counts = Launches(kfwht, kunbias, kquant, kdcqcn)
+    meshes = {mk: mesh_mod.make_host_mesh(shape, device_type=dev.type)
+              for mk, (shape, _) in FAMILY_MESHES.items()}
+    stats = {}
+
+    def reset():
+        stats.update(sync_s=0.0, bytes=0, model_s=0.0, model_bytes=0,
+                     fwht_shapes=[])
+
+    def timed(fn, key=None, bytes_key=None):
+        # the seconds under ``key`` (the dp all-reduces run inside the
+        # timed sync: bytes only), the first argument's bytes under
+        # ``bytes_key``
+        def call(*a, **k):
+            if bytes_key:
+                stats[bytes_key] += a[0].numel() * a[0].element_size()
+            _sync()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            _sync()
+            if key:
+                stats[key] += time.perf_counter() - t0
+            return res
+        return call
+
+    def shaped_fwht(x, *a, **k):
+        stats["fwht_shapes"].append(list(x.shape))
+        return plain_fwht(x, *a, **k)
+
+    saved = (ts._sync_dp, ts._all_reduce, shd.model_all_reduce,
+             shd.model_all_gather, shd.model_reduce_scatter, ops.fwht)
+    sync_dp, all_reduce, *model_ops, plain_fwht = saved
+    ts._sync_dp = timed(sync_dp, "sync_s")
+    ts._all_reduce = timed(all_reduce, bytes_key="bytes")
+    (shd.model_all_reduce, shd.model_all_gather,
+     shd.model_reduce_scatter) = (timed(f, "model_s", "model_bytes")
+                                  for f in model_ops)
+    ops.fwht = shaped_fwht
+    opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
+    rec = {"cells": {}}
+    try:
+        for arch, mk, mode, drop in FAMILY_MESH_CELLS:
+            torch.cuda.empty_cache()
+            cfg = family_config(C, arch, MESH_LAYERS)
+            mesh = meshes[mk]
+            celeris = ts.CelerisConfig(mode=mode)
+            n_coded = sum(p is not None for p in ts.plan_leaves(
+                convert.leaf_shapes(cfg), mesh, celeris,
+                convert.leaf_names(cfg)))
+            torch.cuda.reset_peak_memory_stats()
+            tr = Trainer(cfg, data_cfg=DataConfig(
+                vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                global_batch=TRAIN_BATCH, seed=1), opt_cfg=opt,
+                celeris=celeris, mesh=mesh, seed=0,
+                straggler=FixedDrop(drop), device=str(dev))
+            group = tr.step_fn.dp_group
+            steps = []
+
+            def on_metrics(step, m):
+                steps.append({"wall_ms": m["wall_s"] * 1e3,
+                              "sync_ms": stats["sync_s"] * 1e3,
+                              "allreduce_bytes": stats["bytes"],
+                              "model_ms": stats["model_s"] * 1e3,
+                              "model_bytes": stats["model_bytes"],
+                              "launches": counts.read(),
+                              "fwht_shapes": sorted(stats["fwht_shapes"])})
+                fp = fingerprint(tr.state["params"], {
+                    k: v for k, v in m.items() if k not in ("wall_s",
+                                                            "drop_rate")})
+                every = [torch.empty_like(fp)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(every, fp, group=group)
+                assert all(torch.equal(e, fp) for e in every), (
+                    f"{arch} {mk} step {step}: the ranks that share a model "
+                    "index differ")
+                counts.reset()
+                reset()
+
+            _sync()
+            counts.reset()
+            reset()
+            hist = tr.run(DP_STEPS, on_metrics=on_metrics)
+            peak = torch.cuda.max_memory_allocated()
+            check_zero1_layout(cfg, mesh, tr.state, arch)
+            assert (tr.step_fn.data_group is not None) == (
+                FAMILY_MESHES[mk][0][0] > 1), (arch, mk)
+            del tr
+            assert np.isfinite(hist["loss"]).all(), (arch, hist["loss"])
+            coded = mode == "lossy_hadamard"
+            want = {"fwht": 2 * n_coded if coded else 0, "fwht_quantize": 0,
+                    "masked_unbias": 0, "quantize_int8": 0, "dcqcn_scan": 0}
+            assert all(s["launches"] == want for s in steps), (arch, steps)
+            if coded:
+                shapes = sorted(2 * [list(x) for x in
+                                     tp_fwht_shapes(cfg, mesh)])
+                assert all(s["fwht_shapes"] == shapes for s in steps), (
+                    arch, shapes)
+                assert all(abs(f - (1 - drop)) < 0.04
+                           for f in hist["recv_frac"]), hist["recv_frac"]
+            else:
+                assert hist["recv_frac"] == [1.0] * DP_STEPS, hist
+            rec["cells"][f"{arch} {mk}"] = {
+                "arch": arch, "mesh": mk, "mode": mode, "drop": drop,
+                "coded_leaves": n_coded, "loss": hist["loss"],
+                "recv_frac": hist["recv_frac"], "steps": steps,
+                "peak_gib": peak / 2 ** 30, "peak_gb": peak / 1e9}
+    finally:
+        (ts._sync_dp, ts._all_reduce, shd.model_all_reduce,
+         shd.model_all_gather, shd.model_reduce_scatter, ops.fwht) = saved
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_mesh_train_families():
+    """Phase 6f: ``FAMILY_MESH_CELLS`` on four rank processes sharing the
+    one card over gloo (``family_rank``), in one launch."""
+    ranks, seconds = run_mesh_ranks("families")
+    smi = card_name_and_power()
+    out, launches = {"cells": {}}, 0
+    for name, cell in ranks[0]["cells"].items():
+        steps = cell["steps"]
+        rec = {k: cell[k] for k in ("arch", "mesh", "mode", "drop",
+                                    "coded_leaves", "loss", "recv_frac")}
+        rec.update(
+            step_ms=[s["wall_ms"] for s in steps],
+            sync_ms_per_rank=[[s["sync_ms"] for s in rk["cells"][name][
+                "steps"]] for rk in ranks],
+            allreduce_bytes_per_rank_step=steps[-1]["allreduce_bytes"],
+            model_collective_ms=[s["model_ms"] for s in steps],
+            model_collective_bytes_per_rank_step=steps[-1]["model_bytes"],
+            fwht_launches_per_rank_step=[s["launches"]["fwht"]
+                                         for s in steps],
+            peak_gb_per_rank=[rk["cells"][name]["peak_gb"] for rk in ranks])
+        launches += sum(s["launches"]["fwht"] for rk in ranks
+                        for s in rk["cells"][name]["steps"])
+        out["cells"][name] = rec
+        print(f"train families mesh {name} ({rec['mode']} at {rec['drop']}, "
+              f"full width, {MESH_LAYERS} layers, {DP_WORLD} ranks on one "
+              f"card, gloo): loss {rec['loss']}, recv_frac "
+              f"{rec['recv_frac']}, step ms {rec['step_ms']}, dp sync ms by "
+              f"rank {rec['sync_ms_per_rank']}, dp all-reduce bytes/"
+              f"rank-step {rec['allreduce_bytes_per_rank_step']}, "
+              f"model-group collectives ms {rec['model_collective_ms']} and "
+              f"bytes/rank-step "
+              f"{rec['model_collective_bytes_per_rank_step']}, FWHT "
+              f"launches/rank-step {rec['fwht_launches_per_rank_step']}, "
+              f"peak GB/rank {[round(g, 2) for g in rec['peak_gb_per_rank']]}"
+              f" [{smi}]")
+    out.update(seconds=seconds,
+               launches={"fwht": launches, "fwht_quantize": 0,
+                         "masked_unbias": 0, "quantize_int8": 0,
+                         "dcqcn_scan": 0})
+    return out
 
 
 def phase_main_path(dev, C, M, serve_step, coupling, counts,
@@ -5329,6 +5758,16 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     ep_train, ep_records = phase_ep_train(dev, C, kfwht, ref)
     records += ep_records
     lap("6d_ep_train")
+    train_families = phase_train_families(dev, C, ts, Trainer, DataConfig,
+                                          OptConfig, counts)
+    train_families["smoke_card_vs_cpu"] = family_smoke_card_vs_cpu(
+        dev, C, ts, OptConfig, DataConfig, make_source)
+    train_families["fwht"], family_records = check_family_fwht(dev, C, kfwht,
+                                                               ref)
+    records += family_records
+    lap("6e_train_families")
+    train_families_mesh = phase_mesh_train_families()
+    lap("6f_train_families_mesh")
     small_train = phase_small_train(dev, C, ts, OptConfig, DataConfig,
                                     make_source)
     lap("7_small_train")
@@ -5434,6 +5873,8 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "serve_chatglm3": serve_dense["chatglm3-6b"]["launches"],
                "serve_nemotron": serve_dense["nemotron-4-15b"]["launches"],
                "ep_train": ep_train["launches"],
+               "train_families": train_families["launches"],
+               "train_families_mesh": train_families_mesh["launches"],
                "serve_qwen2_moe": serve_moe["qwen2-moe-a2.7b"]["launches"],
                "serve_granite_moe":
                    serve_moe["granite-moe-3b-a800m"]["launches"],
@@ -5464,6 +5905,8 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "checkpoint": checkpoint,
                       "dp_train": dp_train, "tp_train": tp_train,
                       "ep_train": ep_train, "small_train": small_train,
+                      "train_families": train_families,
+                      "train_families_mesh": train_families_mesh,
                       "engine_card_vs_cpu": engine_check, "fig1": fig1,
                       "fig2": fig2, "fig3": fig3,
                       "hier_card_vs_cpu": hier_check, "fig4": fig4,
@@ -5503,7 +5946,7 @@ if __name__ == "__main__":
                     "without a workspace), in turns, on the engine's real "
                     "blocks")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
-    ap.add_argument("--mesh-kind", choices=("dp", "tp", "ep"),
+    ap.add_argument("--mesh-kind", choices=("dp", "tp", "ep", "families"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", help=argparse.SUPPRESS)

@@ -92,10 +92,12 @@ def save(directory: str, step: int, tree: Tree,
 
 def save_async(directory: str, step: int, tree: Tree,
                extra: Optional[Dict[str, Any]] = None) -> cf.Future:
-    """Copy the leaves to host memory now; write on the background
-    thread."""
-    host = [(path, leaf.detach().cpu() if isinstance(leaf, torch.Tensor)
-             else np.asarray(leaf)) for path, leaf in tree]
+    """Copy the leaves to host memory now (a copy of a CPU tensor too:
+    the trainer updates its optimizer state in place while the write
+    runs); write on the background thread."""
+    host = [(path, leaf.detach().to("cpu", copy=True)
+             if isinstance(leaf, torch.Tensor) else np.array(leaf))
+            for path, leaf in tree]
     return _EXEC.submit(save, directory, step, host, extra)
 
 

@@ -306,10 +306,11 @@ def decode_nd(tiles_sum: torch.Tensor, counts: torch.Tensor,
     unbias, transform, scale, signs."""
     c = counts.to(torch.float32)[None, :, None]
     safe = torch.clamp(c, min=1.0)
-    est = torch.where(c > 0, tiles_sum * torch.div(float(total_peers), safe),
-                      0.0)
+    # in place on this function's own buffers (the same operations): a
+    # leaf-sized float32 temporary less at each step
+    est = (tiles_sum * torch.div(float(total_peers), safe)).masked_fill_(
+        c <= 0, 0.0)
     k = (counts > 0).sum()
-    est = est * torch.where(k > 0, torch.div(plan.n_rot, k.clamp(min=1)),
-                            0.0)
-    est = _rotate_nd(est, plan) * signs[None, :, None]
-    return from_tiles_nd(est, plan)
+    est.mul_(torch.where(k > 0, torch.div(plan.n_rot, k.clamp(min=1)), 0.0))
+    est = _rotate_nd(est, plan)
+    return from_tiles_nd(est.mul_(signs[None, :, None]), plan)

@@ -37,6 +37,16 @@ dispatch at the step's drop rate:
         -m repro_torch.launch.train --arch qwen2-moe-a2.7b --smoke \
         --device cpu --mesh host --celeris --lossy-moe --steps 3
 
+The other dense families and granite-moe train the same way, on one
+device or a mesh (``--arch gemma2-9b``, ``chatglm3-6b``,
+``nemotron-4-15b``, ``granite-moe-3b-a800m``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \
+        --smoke --device cpu --celeris --steps 3
+
+The recurrent families and the modality stubs serve only: training them
+raises ``NotImplementedError``.
+
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 missing.  Weights are random, from seed 0.
 """

@@ -8,21 +8,24 @@ the ``tail`` layers, and an enc-dec model's ``encoder`` stack likewise
 into ``encoder.layers.{i}.*``; padded ``wq``/``wo`` and the leaves'
 dtypes (bfloat16, float32) are kept as they are.
 
-The **JAX leaf view** (:func:`jax_leaves`, :func:`params_from_leaves`;
-qwen2's layout, with an MLP or qwen2-moe's MoE block, the one the train
-step is ported for) is the list of the JAX parameter tree's leaves in
+The **JAX leaf view** (:func:`jax_leaves`, :func:`params_from_leaves`)
+is the list of the JAX parameter tree's leaves in
 ``jax.tree_util.tree_flatten`` order (dict keys sorted at every level),
-per-layer entries stacked over layers as the scanned
-``decoder.groups[0]`` holds them: 14 leaves for qwen2 (the module
-constants :data:`LAYER_LEAVES`, :data:`LEAF_NAMES`, :data:`SHORT_NAMES`,
-the defaults where a function takes names), 18 for qwen2-moe
-(``attn.{bk,bq,bv,wk,wo,wq,wv}``, ``ln1``, ``ln2``, ``moe.router``,
-``moe.shared.{wg,wi,wo}``, ``moe.{wg,wi,wo}``, then ``embed.table``,
-``final_norm.scale``).  :func:`layer_leaves`, :func:`leaf_names`,
-:func:`short_names` and :func:`leaf_shapes` give the view of a config.
-The trainer keeps its parameters in this view: the JAX train step
-plans, codes and draws one mask and one set of signs per leaf index, so
-the port codes the same stacked leaves in the same order.
+built from the config for the dense and MoE families: per position j of
+the block pattern the leaves of ``decoder.groups[j]``, stacked over the
+``n_layers // plen`` groups (group j's g-th slice is layer ``g * plen +
+j``), then one layer a ``decoder.tail[t]``, then ``embed.table``,
+``embed.unembed`` when untied, and ``final_norm.scale``.  A layer's
+leaves follow its config: QKV biases only with ``qkv_bias``, the
+post-norms ``pn1``/``pn2`` with ``post_norm``, no ``mlp.wg`` for squared
+ReLU, the MoE leaves (``moe.shared.*`` only with shared experts).  So
+qwen2 has 14 leaves, qwen2-moe 18, gemma2 2 x 11 + 2, chatglm3 15,
+nemotron 11, granite-moe 12.  :func:`leaf_names`, :func:`short_names` and
+:func:`leaf_shapes` give the view of a config; the functions that take
+``names`` take :func:`leaf_names`, the two above the config itself.  The trainer keeps its parameters in
+this view: the JAX train step plans, codes and draws one mask and one
+set of signs per leaf index, so the port codes the same stacked leaves
+in the same order.
 
 On a mesh with a ``model`` axis each rank holds its slice of every leaf
 that the partition specs split over ``model`` (:func:`shard_leaves`;
@@ -35,7 +38,8 @@ a checkpoint, which stays in host layout and so restores on any mesh.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -43,7 +47,8 @@ import torch
 from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as MOE
-from repro_torch.models.model import Params
+from repro_torch.models.model import ATTN_KINDS, Params
+from repro_torch.train import sharding_rules as rules
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -127,18 +132,31 @@ def _tree_order(names) -> Tuple[str, ...]:
     return tuple(sorted(names, key=lambda n: n.split(".")))
 
 
-def _layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    """One layer's leaves and shapes in the JAX leaf view (qwen2's
-    attention; an MLP, or an MoE block for ``block_pattern ==
-    ("moe",)``)."""
+def _layer_shapes(cfg: ModelConfig, kind: str
+                  ) -> Dict[str, Tuple[int, ...]]:
+    """One layer's leaves and shapes in the JAX leaf view, for a block of
+    ``kind`` (JAX ``init_block``): the attention's ``w{q,k,v,o}``, with
+    ``b{q,k,v}`` only under ``qkv_bias``; ``ln1``/``ln2``, with
+    ``pn1``/``pn2`` under ``post_norm``; then the MLP (``wg``, ``wi``,
+    ``wo``; no ``wg`` for squared ReLU), or for ``"moe"`` the MoE leaves
+    (``moe.shared.*`` only with shared experts)."""
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(
+            f"{cfg.name}: no JAX leaf view for {kind} blocks yet: training "
+            "the recurrent families comes with ROADMAP Queue 1, item 2")
     d, f = cfg.d_model, cfg.d_ff
     q = cfg.n_heads_padded * cfg.resolved_head_dim
     kv = cfg.n_kv_heads * cfg.resolved_head_dim
-    layer = {"attn.bk": (kv,), "attn.bq": (q,), "attn.bv": (kv,),
-             "attn.wk": (d, kv), "attn.wo": (q, d), "attn.wq": (d, q),
+    layer = {"attn.wk": (d, kv), "attn.wo": (q, d), "attn.wq": (d, q),
              "attn.wv": (d, kv), "ln1.scale": (d,), "ln2.scale": (d,)}
-    if cfg.block_pattern != ("moe",):
-        layer.update({"mlp.wg": (d, f), "mlp.wi": (d, f), "mlp.wo": (f, d)})
+    if cfg.qkv_bias:
+        layer.update({"attn.bk": (kv,), "attn.bq": (q,), "attn.bv": (kv,)})
+    if cfg.post_norm:
+        layer.update({"pn1.scale": (d,), "pn2.scale": (d,)})
+    if kind != "moe":
+        layer.update({"mlp.wi": (d, f), "mlp.wo": (f, d)})
+        if cfg.mlp_type != "sqrelu":
+            layer["mlp.wg"] = (d, f)
         return layer
     e, fe = MOE.padded_experts(cfg), cfg.moe.d_expert
     layer.update({"moe.router": (d, e), "moe.wg": (e, d, fe),
@@ -150,74 +168,101 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return layer
 
 
-def layer_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
-    """One layer's leaf names of ``cfg``'s view, in leaf order."""
-    return _tree_order(_layer_shapes(cfg))
+class _Leaf(NamedTuple):
+    """One leaf of the view: JAX's path (``decoder.groups[0].attn.wq``),
+    its name in a layer's params (``attn.wq``), its global shape, the
+    layers it holds (a group leaf's, stacked in dim 0; a tail leaf's
+    one; None for a top-level leaf) and whether they are stacked."""
+    path: str
+    short: str
+    shape: Tuple[int, ...]
+    layers: Optional[Tuple[int, ...]]
+    stacked: bool
+
+
+def _view(cfg: ModelConfig) -> List[_Leaf]:
+    """The JAX leaf view of ``cfg``, in ``tree_flatten`` order:
+    ``decoder.groups[j].*`` for each position j of the pattern (stacked
+    over the n_layers // plen groups: slice g is layer g * plen + j),
+    ``decoder.tail[t].*`` (layer n_groups * plen + t), ``embed.table``,
+    ``embed.unembed`` when untied, ``final_norm.scale``."""
+    n_groups, tail = cfg.pattern_layout()
+    plen = len(cfg.block_pattern)
+    groups = cfg.block_pattern if n_groups else ()
+    out = []
+    for j, kind in enumerate(groups):
+        layer = _layer_shapes(cfg, kind)
+        out += [_Leaf(f"decoder.groups[{j}].{n}", n, (n_groups,) + layer[n],
+                      tuple(g * plen + j for g in range(n_groups)), True)
+                for n in _tree_order(layer)]
+    for t, kind in enumerate(tail):
+        layer = _layer_shapes(cfg, kind)
+        out += [_Leaf(f"decoder.tail[{t}].{n}", n, layer[n],
+                      (n_groups * plen + t,), False)
+                for n in _tree_order(layer)]
+    d, v = cfg.d_model, cfg.vocab_size
+    top = [("embed.table", (v, d))]
+    if not cfg.tie_embeddings:
+        top.append(("embed.unembed", (d, v)))
+    top.append(("final_norm.scale", (d,)))
+    return out + [_Leaf(n, n, shape, None, False) for n, shape in top]
 
 
 def leaf_names(cfg: ModelConfig) -> Tuple[str, ...]:
     """The JAX tree's leaf paths of ``cfg``'s view, in leaf order."""
-    return tuple(f"decoder.groups[0].{n}" for n in layer_leaves(cfg)) + (
-        "embed.table", "final_norm.scale")
+    return tuple(leaf.path for leaf in _view(cfg))
 
 
 def short_names(cfg: ModelConfig) -> Tuple[str, ...]:
     """The same leaves by their names in a layer's (or the model's)
-    params."""
-    return layer_leaves(cfg) + ("embed.table", "final_norm.scale")
-
-
-# qwen2's view, the default of the functions that take names
-LAYER_LEAVES = ("attn.bk", "attn.bq", "attn.bv", "attn.wk", "attn.wo",
-                "attn.wq", "attn.wv", "ln1.scale", "ln2.scale", "mlp.wg",
-                "mlp.wi", "mlp.wo")
-LEAF_NAMES = tuple(f"decoder.groups[0].{n}" for n in LAYER_LEAVES) + (
-    "embed.table", "final_norm.scale")
-SHORT_NAMES = LAYER_LEAVES + ("embed.table", "final_norm.scale")
-
-
-def jax_leaves(params: Params) -> List[torch.Tensor]:
-    """Per-layer state dict -> the JAX leaves (new stacked tensors), the
-    layer leaves in tree order."""
-    n_layers = 1 + max(int(k.split(".")[1]) for k in params
-                       if k.startswith("layers."))
-    names = _tree_order(k[len("layers.0."):] for k in params
-                        if k.startswith("layers.0."))
-    out = [torch.stack([params[f"layers.{i}.{n}"] for i in range(n_layers)])
-           for n in names]
-    return out + [params["embed.table"], params["final_norm.scale"]]
-
-
-def params_from_leaves(leaves: Sequence[torch.Tensor],
-                       names: Sequence[str] = LAYER_LEAVES) -> Params:
-    """The JAX leaves, whose layer leaves are ``names`` (e.g.
-    :func:`layer_leaves`) -> per-layer state dict of views into them
-    (``unbind``: autograd gathers the layers' gradients back into one
-    stacked gradient per leaf)."""
-    if len(leaves) != len(names) + 2:
-        raise ValueError(f"expected {len(names) + 2} leaves, "
-                         f"got {len(leaves)}")
-    out: Params = {"embed.table": leaves[-2],
-                   "final_norm.scale": leaves[-1]}
-    for name, stacked in zip(names, leaves):
-        for i, layer in enumerate(stacked.unbind(0)):
-            out[f"layers.{i}.{name}"] = layer
-    return out
+    params: ``attn.wq`` for every group's and tail layer's ``wq``, so a
+    name may repeat (gemma2's two groups)."""
+    return tuple(leaf.short for leaf in _view(cfg))
 
 
 def leaf_shapes(cfg: ModelConfig) -> List[Tuple[int, ...]]:
     """The JAX leaves' global shapes for ``cfg``, in leaf order."""
-    layer = _layer_shapes(cfg)
-    return [(cfg.n_layers,) + layer[name] for name in layer_leaves(cfg)] + [
-        (cfg.vocab_size, cfg.d_model), (cfg.d_model,)]
+    return [leaf.shape for leaf in _view(cfg)]
+
+
+def jax_leaves(params: Params, cfg: ModelConfig) -> List[torch.Tensor]:
+    """Per-layer state dict -> ``cfg``'s JAX leaves (new stacked
+    tensors): group j's leaf stacks layers j, j + plen, ..., a tail leaf
+    is its layer's, as ``params_from_jax`` unstacks them."""
+    out = []
+    for leaf in _view(cfg):
+        if leaf.layers is None:
+            out.append(params[leaf.path])
+            continue
+        layers = [params[f"layers.{i}.{leaf.short}"] for i in leaf.layers]
+        out.append(torch.stack(layers) if leaf.stacked else layers[0])
+    return out
+
+
+def params_from_leaves(leaves: Sequence[torch.Tensor], cfg: ModelConfig
+                       ) -> Params:
+    """``cfg``'s JAX leaves -> per-layer state dict of views into them
+    (``unbind``: autograd gathers the layers' gradients back into one
+    stacked gradient per leaf)."""
+    view = _view(cfg)
+    if len(leaves) != len(view):
+        raise ValueError(f"{len(leaves)} leaves for {len(view)} names")
+    out: Params = {}
+    for leaf, x in zip(view, leaves):
+        if leaf.layers is None:
+            out[leaf.path] = x
+            continue
+        layers = x.unbind(0) if leaf.stacked else (x,)
+        for i, layer in zip(leaf.layers, layers, strict=True):
+            out[f"layers.{i}.{leaf.short}"] = layer
+    return out
 
 
 def split_dims(shapes: Sequence[Sequence[int]], mesh,
-               names: Sequence[str] = LEAF_NAMES) -> List[Optional[int]]:
+               names: Sequence[str]) -> List[Optional[int]]:
     """Each leaf's dim on the ``model`` axis of this mesh (split when the
-    axis is larger than 1), or None, from the leaves' global shapes."""
-    # sharding_rules imports this module (LEAF_NAMES), so not at the top
-    from repro_torch.train import sharding_rules as rules
+    axis is larger than 1), or None, from the leaves' global shapes and
+    paths (:func:`leaf_names`)."""
     return [rules.sharded_dim(spec)
             for spec in rules.param_specs(shapes, mesh, names)]
 
@@ -231,8 +276,12 @@ def model_group(cfg: ModelConfig, mesh) -> Optional[shd.ModelGroup]:
     if tp is None:
         return None
     dims = split_dims(leaf_shapes(cfg), mesh, leaf_names(cfg))
-    return dataclasses.replace(tp, split=frozenset(
-        n for n, d in zip(short_names(cfg), dims) if d is not None))
+    split = {n for n, d in zip(short_names(cfg), dims) if d is not None}
+    kept = {n for n, d in zip(short_names(cfg), dims) if d is None}
+    if split & kept:   # a layer reads one short name for every group's leaf
+        raise ValueError(f"{cfg.name}: {sorted(split & kept)} split in one "
+                         "group and whole in another")
+    return dataclasses.replace(tp, split=frozenset(split))
 
 
 def data_group(cfg: ModelConfig, mesh) -> Optional[shd.DataGroup]:
@@ -243,7 +292,6 @@ def data_group(cfg: ModelConfig, mesh) -> Optional[shd.DataGroup]:
     dg = shd.data_group(mesh)
     if dg is None:
         return None
-    from repro_torch.train import sharding_rules as rules
     specs = rules.zero1_specs(leaf_shapes(cfg), mesh, leaf_names(cfg))
     return dataclasses.replace(dg, dims=tuple(
         s.index(shd.DATA_AXIS) if shd.DATA_AXIS in s else None
@@ -269,13 +317,11 @@ def gather_state(leaves: Sequence[torch.Tensor], specs, mesh
 
 
 def shard_leaves(leaves: Sequence[Any], mesh,
-                 names: Sequence[str] = LEAF_NAMES) -> List[torch.Tensor]:
+                 names: Sequence[str]) -> List[torch.Tensor]:
     """The full JAX leaves (numpy arrays or tensors) named ``names``
-    (e.g. :func:`leaf_names`) -> this rank's leaves: its slice of each
-    leaf that the partition specs split over ``model``, copies of the
-    rest.  A leaf that the divisibility guard keeps whole stays
-    whole."""
-    from repro_torch.train import sharding_rules as rules
+    (:func:`leaf_names`) -> this rank's leaves: its slice of each leaf
+    that the partition specs split over ``model``, copies of the rest.
+    A leaf that the divisibility guard keeps whole stays whole."""
     leaves = [x if isinstance(x, torch.Tensor) else _tensor(x)
               for x in leaves]
     if shd.model_group(mesh) is None:
@@ -287,12 +333,11 @@ def shard_leaves(leaves: Sequence[Any], mesh,
 
 def gather_leaves(shards: Sequence[torch.Tensor], mesh,
                   shapes: Sequence[Sequence[int]],
-                  names: Sequence[str] = LEAF_NAMES) -> List[torch.Tensor]:
+                  names: Sequence[str]) -> List[torch.Tensor]:
     """Inverse of :func:`shard_leaves`, given the leaves' global
     ``shapes`` (e.g. :func:`leaf_shapes`; a shard alone cannot tell a
     split leaf from one the guard kept whole): every model rank calls it
     together and gets the full leaves back, each split leaf all-gathered
     over the ``model`` group."""
-    from repro_torch.train import sharding_rules as rules
     return list(gather_state(shards, rules.param_specs(shapes, mesh, names),
                              mesh))

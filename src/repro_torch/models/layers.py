@@ -63,9 +63,9 @@ def trunc_normal(generator: torch.Generator, shape, dtype,
 
 def split_over_model(name: str, tp: Optional[shd.ModelGroup]
                      ) -> Optional[shd.ModelGroup]:
-    """``tp`` when the specs split leaf ``name`` (``convert.SHORT_NAMES``)
-    over ``model``, else None (a leaf the divisibility guard keeps
-    whole)."""
+    """``tp`` when the specs split leaf ``name`` (a short name,
+    ``convert.short_names``) over ``model``, else None (a leaf the
+    divisibility guard keeps whole)."""
     return tp if tp is not None and name in tp.split else None
 
 

@@ -81,32 +81,34 @@ class LossyCtx:
     coins: Optional[Sequence[torch.Tensor]] = None
 
 
-def qwen2_layout(cfg: ModelConfig) -> bool:
-    """True for qwen2's layer layout (global attention with QKV bias and
-    full rotary, SwiGLU, tied embeddings, no softcaps or post-norms; the
-    feed-forward an MLP, or qwen2-moe's MoE block): the one the train
-    step and the tensor-parallel layers are ported for."""
-    return (cfg.block_pattern in (("global",), ("moe",))
-            and cfg.mlp_type == "swiglu"
-            and cfg.tie_embeddings and cfg.qkv_bias
-            and cfg.rope_fraction == 1.0 and cfg.attn_softcap is None
-            and cfg.logit_softcap is None and not cfg.post_norm)
-
-
 def check_supported(cfg: ModelConfig,
                     tp: Optional[shd.ModelGroup] = None) -> None:
     """Refuse a block kind no model has (``ValueError``, as JAX's
     ``init_block`` raises on any other kind, an ``"xattn"`` block kind
     included: cross-attention is part of an enc-dec decoder block), and
-    tensor parallelism on any layout but qwen2's, with an MLP or an MoE
-    block (serving on a TP mesh is not ported)."""
+    tensor parallelism for the recurrent blocks and the modality stubs.
+    The dense and MoE families run tensor parallel in every attention
+    and MLP variant: with or without QKV bias, partial rotary, softcaps,
+    post-norms (replicated), local windows, SwiGLU, GeGLU or squared
+    ReLU, tied or untied embeddings."""
     kinds = sorted(set(cfg.block_pattern) - set(ATTN_KINDS + RECURRENT_KINDS))
     if kinds:
         raise ValueError(f"{cfg.name}: no block of kind {kinds}")
-    if tp is not None and not qwen2_layout(cfg):
+    if tp is None:
+        return
+    recurrent = sorted(set(cfg.block_pattern) & set(RECURRENT_KINDS))
+    if recurrent or cfg.frontend or cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism is ported for qwen2's layout "
-            "only")
+            f"{cfg.name}: tensor parallelism is not ported for "
+            f"{recurrent or 'the modality stubs'} yet (ROADMAP Queue 1, "
+            "item 2)")
+
+
+def logits_leaf(cfg: ModelConfig) -> str:
+    """The leaf whose product gives the logits: ``embed.table`` when the
+    embeddings are tied, ``embed.unembed`` when not.  Its split over
+    ``model`` is the logits' split over the vocabulary."""
+    return "embed.table" if cfg.tie_embeddings else "embed.unembed"
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
@@ -350,10 +352,11 @@ def head(params: Params, cfg: ModelConfig, x: torch.Tensor,
          tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
     """Final norm and unembedding of residual-stream rows (B, S, D) ->
     logits (B, S, V) in the compute dtype (V this rank's share of the
-    vocabulary when ``tp`` splits the table)."""
+    vocabulary when ``tp`` splits the leaf that gives them,
+    :func:`logits_leaf`)."""
     x = L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps)
     return L.unembed(sub_params(params, "embed."), cfg, x,
-                     L.split_over_model("embed.table", tp))
+                     L.split_over_model(logits_leaf(cfg), tp))
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -399,10 +402,10 @@ def lm_loss(params: Params, cfg: ModelConfig,
     product: the same value, since a sum with zeros is exact.  No remat:
     the port keeps the activations.
 
-    With the logits split over the vocabulary (``tp``, a split table)
-    every reduction over it is the local one, then one over ``model``, as
-    the JAX package writes its CE so that GSPMD can (``model.py:327-
-    335``): the row max a MAX all-reduce with no gradient (JAX's
+    With the logits split over the vocabulary (``tp``, a split
+    :func:`logits_leaf`) every reduction over it is the local one, then
+    one over ``model``, as the JAX package writes its CE so that GSPMD
+    can (``model.py:327-335``): the row max a MAX all-reduce with no gradient (JAX's
     ``stop_gradient``), the sum of ``exp`` and the label logit (0 on the
     ranks that do not hold the label) ``reduce_from_model``.  No rank
     builds logits over the whole vocabulary.
@@ -414,7 +417,7 @@ def lm_loss(params: Params, cfg: ModelConfig,
     n_txt = labels.shape[1]
     logits = logits[:, -n_txt:][:, :-1]
     tgt = labels[:, 1:].long()
-    vocab_tp = L.split_over_model("embed.table", tp)
+    vocab_tp = L.split_over_model(logits_leaf(cfg), tp)
     mx = torch.amax(logits.detach(), dim=-1, keepdim=True).to(torch.float32)
     if vocab_tp is not None:
         shd.model_all_reduce(mx, vocab_tp, dist.ReduceOp.MAX)

@@ -116,10 +116,18 @@ def global_norm(leaves: Leaves, tp: Optional[shd.ModelGroup] = None,
 def apply_updates(params: Leaves, grads: Leaves, state: Dict[str, Any],
                   cfg: OptConfig, tp: Optional[shd.ModelGroup] = None,
                   split: Sequence[bool] = (),
-                  zero: Optional[shd.DataGroup] = None):
+                  zero: Optional[shd.DataGroup] = None,
+                  donate: bool = False):
     """Returns (new params in their dtypes, new state, metrics).  ``tp``
     and ``split``: :func:`global_norm`'s; ``zero``: the state holds this
-    rank's ZeRO-1 slices (:func:`init_opt_state`)."""
+    rank's ZeRO-1 slices (:func:`init_opt_state`).
+
+    ``donate``: ``master``, ``mu`` and ``nu`` are updated in place (the
+    new state holds the same tensors), as the JAX step's donated state
+    lets XLA reuse its buffers, with two leaf-sized temporaries instead
+    of a second copy of the state.  The caller must hold no other use
+    for the state it passes, and never steps it again.  Without it the
+    same update runs on copies, so both modes give the same bits."""
     count = state["count"] + 1
     gnorm = global_norm(grads, tp, split)
     scale = torch.clamp(
@@ -139,11 +147,9 @@ def apply_updates(params: Leaves, grads: Leaves, state: Dict[str, Any],
     for i, (g, m, v, w, p) in enumerate(zip(grads, state["mu"], state["nu"],
                                             state["master"], params)):
         g = zero_slice(g, zero, i).to(torch.float32) * scale
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * torch.square(g)
-        step = torch.div(torch.div(m, bc1),
-                         torch.sqrt(torch.div(v, bc2)) + cfg.eps)
-        w = w - lr * (step + cfg.weight_decay * w)
+        if not donate:
+            m, v, w = m.clone(), v.clone(), w.clone()
+        _update_in_place(g, m, v, w, lr, bc1, bc2, cfg)
         mu.append(m)
         nu.append(v)
         master.append(w)
@@ -154,3 +160,15 @@ def apply_updates(params: Leaves, grads: Leaves, state: Dict[str, Any],
             new_params.append(w.to(p.dtype))
     new_state = {"master": master, "mu": mu, "nu": nu, "count": count}
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _update_in_place(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, lr, bc1, bc2, cfg: OptConfig) -> None:
+    """One leaf's AdamW update written into ``m``, ``v`` and ``w``, in
+    JAX's order of float32 operations, with ``g``'s buffer reused once
+    it is spent."""
+    m.mul_(cfg.b1).add_(torch.mul(g, 1 - cfg.b1))
+    v.mul_(cfg.b2).add_(g.square_().mul_(1 - cfg.b2))
+    denom = torch.div(v, bc2, out=g).sqrt_().add_(cfg.eps)
+    step = torch.div(m, bc1).div_(denom)
+    w.sub_(step.add_(torch.mul(w, cfg.weight_decay, out=g)).mul_(lr))

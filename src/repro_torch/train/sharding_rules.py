@@ -27,7 +27,7 @@ ZeRO-1: optimizer-state leaves additionally split their largest
 dp-divisible dimension over ``data``.
 
 The rules match the JAX package's path strings: a port leaf name
-(``convert.LEAF_NAMES``, e.g. ``decoder.groups[0].attn.wq``) is written
+(``convert.leaf_names``, e.g. ``decoder.groups[1].attn.wq``) is written
 as JAX's ``keystr`` (``['decoder']['groups'][0]['attn']['wq']``) before
 matching, so the regexes are the JAX package's own.  Stacked layer
 groups (a leading layer dim) get a None prepended.
@@ -38,7 +38,6 @@ import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch import sharding as shd
-from repro_torch.models import convert
 
 Spec = Tuple[Optional[str], ...]
 
@@ -108,9 +107,9 @@ def _spec_for(path: str, shape: Sequence[int], sizes: Dict[str, int]
 
 
 def param_specs(shapes: Sequence[Sequence[int]], mesh,
-                names: Sequence[str] = convert.LEAF_NAMES) -> List[Spec]:
-    """One spec a leaf, for leaves of these shapes and names (the JAX
-    leaf view by default)."""
+                names: Sequence[str]) -> List[Spec]:
+    """One spec a leaf, for leaves of these shapes and paths (the JAX
+    leaf view's, ``convert.leaf_names``)."""
     if len(shapes) != len(names):
         raise ValueError(f"{len(shapes)} shapes for {len(names)} names")
     sizes = shd.axis_sizes(mesh)
@@ -128,7 +127,7 @@ def sharded_dim(spec: Spec) -> Optional[int]:
 
 
 def zero1_specs(shapes: Sequence[Sequence[int]], mesh,
-                names: Sequence[str] = convert.LEAF_NAMES) -> List[Spec]:
+                names: Sequence[str]) -> List[Spec]:
     """Optimizer-state specs: the param spec + 'data' on the largest
     free, divisible dim (ZeRO-1)."""
     sizes = shd.axis_sizes(mesh)
@@ -150,8 +149,7 @@ def zero1_specs(shapes: Sequence[Sequence[int]], mesh,
 
 
 def opt_state_specs(shapes: Sequence[Sequence[int]], mesh,
-                    names: Sequence[str] = convert.LEAF_NAMES
-                    ) -> Dict[str, object]:
+                    names: Sequence[str]) -> Dict[str, object]:
     """The AdamW state's specs (JAX's ``opt_state_shardings``): ZeRO-1
     for ``master``, ``mu`` and ``nu``, none for ``count``."""
     z = zero1_specs(shapes, mesh, names)

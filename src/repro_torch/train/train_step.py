@@ -107,8 +107,8 @@ JAX package's ``fold_in`` draws are.  ``masks``/``signs``/``noise``
 (leaf index -> tensor: this rank's mask, the signs, the noise at the
 global shape) replace the draws; the tests hand in the JAX step's own.
 
-**MoE** (qwen2-moe): the loss adds the layers' aux loss, and on a
-``model`` axis larger than 1 the MoE layers run expert parallel
+**MoE** (qwen2-moe, granite-moe): the loss adds the layers' aux loss,
+and on a ``model`` axis larger than 1 the MoE layers run expert parallel
 (:mod:`repro_torch.models.moe`).  ``lossy_moe`` turns on the lossy
 expert dispatch at the last component of ``drop_rate`` (the JAX step's
 ``LossyCtx``; inert on a dense model and off the EP path, as in JAX);
@@ -122,8 +122,16 @@ expert's capacity from all dp shards' tokens together: there each rank
 gathers the dp ranks' rows into its MoE layers (``sharding.RowGroup``)
 and keeps its own rows of their output.  Not ported, and refused:
 ``microbatches`` there (JAX's microbatch is a block of the global
-batch's rows, not of each shard's), and training granite-moe, whose
-attention is not qwen2's.
+batch's rows, not of each shard's).
+
+**The families.**  Every dense and MoE model trains (qwen2, gemma2,
+chatglm3, nemotron, qwen2-moe, granite-moe): the leaf view follows the
+config (``convert.leaf_names``: gemma2's two pattern groups,
+``embed.unembed`` when untied, the post-norms, no ``mlp.wg`` for
+squared ReLU, no QKV biases where the config has none), and every draw
+is per JAX leaf index, so gemma2's group-1 leaves and ``embed.unembed``
+take JAX's indices.  The recurrent families and the modality stubs are
+refused (:func:`check_trainable`).
 """
 from __future__ import annotations
 
@@ -179,7 +187,7 @@ def loss_and_grads(cfg: ModelConfig, leaves, batch: Dict[str, torch.Tensor],
     dispatch; ``rows``: the dp ranks whose rows they route together."""
     params = [leaf.detach().requires_grad_() for leaf in leaves]
     loss, (nll, aux) = M.lm_loss(
-        convert.params_from_leaves(params, convert.layer_leaves(cfg)), cfg,
+        convert.params_from_leaves(params, cfg), cfg,
         batch, tp, lossy, rows)
     grads = torch.autograd.grad(loss, params)
     return loss.detach(), nll.detach(), aux.detach(), list(grads)
@@ -236,17 +244,21 @@ def _mask_grads_plain(grads, plans, masks):
 
 def _code_grads(grads, plans, masks, signs):
     """Single-peer coded emulation: per coded leaf, rotate, drop the
-    masked wire rows, and decode unbiased."""
+    masked wire rows, and decode unbiased.  Each leaf's decoded gradient
+    is written back into its own buffer (the gradients are the step's),
+    and its tiles are masked in place, so a leaf's float32 buffers are
+    freed before the next leaf's."""
     out, fracs = [], []
     for i, (g, plan) in enumerate(zip(grads, plans)):
         if plan is None:
             out.append(g)
             continue
         mask = masks[i].to(torch.float32)
-        tiles = coding.encode_nd(g, signs[i], plan)
-        est = coding.decode_nd(tiles * mask[None, :, None], mask, signs[i],
-                               plan, total_peers=1)
-        out.append(est.to(g.dtype))
+        est = coding.decode_nd(
+            coding.encode_nd(g, signs[i], plan).mul_(mask[None, :, None]),
+            mask, signs[i], plan, total_peers=1)
+        out.append(g.copy_(est))
+        del est
         fracs.append(mask.mean())
     return out, _mean_frac(fracs, grads[0])
 
@@ -431,8 +443,7 @@ def _pod_rates(drop_rate, n_pods: int) -> torch.Tensor:
     return cross
 
 
-def plan_leaves(shapes, mesh, celeris: CelerisConfig,
-                names=convert.LEAF_NAMES):
+def plan_leaves(shapes, mesh, celeris: CelerisConfig, names):
     """Each leaf's coding plan from its global shape, None for a leaf
     that syncs exactly: tiles of ``n_rot`` around the leaf's ``model``
     dimension when the mesh has that axis (the JAX train step's
@@ -522,38 +533,27 @@ def _sync_dp(sync: _DpSync, grads, plans, generator, drop_rate, masks,
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Training is ported for qwen2's layout only, with an MLP or an MoE
-    block (the JAX leaf view, ``convert.layer_leaves``); the other dense
-    families, granite-moe, the recurrent families and the modality stubs
-    serve."""
+    """Training is ported for the dense and MoE families (the JAX leaf
+    view, ``convert.leaf_names``); the recurrent families and the
+    modality stubs serve."""
     if cfg.frontend or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: training the modality stubs is not ported yet "
-            "(ROADMAP Queue 1, item 2): its leaf view is not qwen2's "
-            "(phi-3-vision has untied embeddings and a frontend projection; "
-            "seamless has no QKV bias, an encoder stack and cross-attention)")
+            "(ROADMAP Queue 1, item 2): phi-3-vision's frontend projection "
+            "and seamless's encoder stack and cross-attention have no leaf "
+            "view")
     recurrent = sorted(set(cfg.block_pattern) & set(M.RECURRENT_KINDS))
     if recurrent:
         raise NotImplementedError(
-            f"{cfg.name}: the train step is ported for qwen2's layout "
-            f"only; training the recurrent families ({recurrent} blocks) "
-            "comes with training the other families (ROADMAP Queue 1, "
-            "item 2)")
-    if cfg.family == "moe" and not M.qwen2_layout(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: training this MoE model is not ported yet: its "
-            "attention (no QKV bias, grouped kv heads) is not qwen2's, and "
-            "goes with training the dense families")
-    if not M.qwen2_layout(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the train step is ported for qwen2's layout "
-            "only; training this family is not ported yet")
+            f"{cfg.name}: training the recurrent families ({recurrent} "
+            "blocks) is not ported yet: their backward comes with ROADMAP "
+            "Queue 1, item 2")
 
 
 def make_train_step(cfg: ModelConfig, mesh=None,
                     opt_cfg: Optional[adamw.OptConfig] = None,
                     celeris: Optional[CelerisConfig] = None,
-                    microbatches: int = 1):
+                    microbatches: int = 1, donate: bool = False):
     """Returns ``step(state, batch, generator, drop_rate, *, masks=None,
     signs=None, noise=None, coins=None) -> (state, metrics)``.
 
@@ -571,6 +571,13 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     ``hierarchical`` mode the axis vector whose last component is the
     cross-pod rate.  The metrics are 0-dim tensors: ``loss``, ``nll``,
     ``aux``, ``recv_frac``, ``grad_norm``, ``lr``.
+
+    ``donate``: the step updates the optimizer state it is given in place
+    (``adamw.apply_updates(donate=True)``; the JAX step donates its
+    state, ``donate=True`` by default there), so one copy of the float32
+    state is resident, not two; the caller must not use or step that state
+    again.  Off by default: a step then leaves its input state as it
+    was.
     """
     check_trainable(cfg)
     opt_cfg = opt_cfg or adamw.OptConfig()
@@ -648,7 +655,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         else:
             frac = _mean_frac([], loss)
         new_params, new_opt, om = adamw.apply_updates(
-            leaves, grads, state["opt"], opt_cfg, tp, split, zero)
+            leaves, grads, state["opt"], opt_cfg, tp, split, zero, donate)
         metrics = {"loss": loss, "nll": nll, "aux": aux,
                    "recv_frac": frac, **om}
         return {"params": new_params, "opt": new_opt,
@@ -666,9 +673,10 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, mesh=None):
     whole parameters are drawn and this rank keeps its shards
     (``convert.shard_leaves``)."""
     check_trainable(cfg)
-    leaves = convert.jax_leaves(M.init_params(cfg, generator))
+    names = convert.leaf_names(cfg)
+    leaves = convert.jax_leaves(M.init_params(cfg, generator), cfg)
     if shd.model_group(mesh) is not None:
-        leaves = convert.shard_leaves(leaves, mesh, convert.leaf_names(cfg))
+        leaves = convert.shard_leaves(leaves, mesh, names)
     return state_from_params(leaves, cfg, mesh)
 
 
@@ -683,7 +691,7 @@ def state_from_params(leaves, cfg: ModelConfig, mesh=None):
                                 device=leaves[0].device)}
 
 
-def state_specs(shapes, mesh, names=convert.LEAF_NAMES):
+def state_specs(shapes, mesh, names):
     """The partition spec of every state leaf on ``mesh``, shaped as the
     state (JAX's ``state_shardings``), from the leaves' global
     ``shapes`` and ``names``: the parameter specs, ZeRO-1 for the
@@ -695,7 +703,7 @@ def state_specs(shapes, mesh, names=convert.LEAF_NAMES):
 _OPT_LISTS = ("master", "mu", "nu")
 
 
-def state_leaves(state, names=convert.LEAF_NAMES) -> list:
+def state_leaves(state, names) -> list:
     """The state's leaves (or those of :func:`state_specs`) as
     ``(path, leaf)`` in JAX's flatten order, the path JAX's ``keystr`` of
     the same leaf of its state tree: ``['opt']['count']``, then

@@ -106,8 +106,10 @@ class Trainer:
         self.mesh = mesh
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
+        # the trainer owns its state: each step updates the optimizer
+        # state in place (donated, as the JAX trainer's step is)
         self.step_fn = ts.make_train_step(cfg, mesh, self.opt_cfg,
-                                          self.celeris)
+                                          self.celeris, donate=True)
         self.names = convert.leaf_names(cfg)
         self.state = ts.init_state(generator(self.device, seed), cfg, mesh)
         dp = shd.dp_axes(mesh)

@@ -54,6 +54,8 @@ from repro_torch.train import trainer as ttrainer
 OPT = dict(lr=1e-3, warmup_steps=10, total_steps=500)
 # (c): lossy with no leaf coded (the smoke model's largest holds 65,536)
 NO_CODING = 10 ** 9
+SMOKE = TC.get_smoke("qwen2-0.5b")
+NAMES = convert.leaf_names(SMOKE)   # the 14 leaves
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -67,7 +69,7 @@ def _one_torch_thread():
 def _port_leaves(tree):
     """A JAX parameter-shaped tree of arrays -> the port's 14 leaves."""
     return convert.jax_leaves(convert.params_from_jax(
-        jax.tree.map(np.asarray, tree)))
+        jax.tree.map(np.asarray, tree)), SMOKE)
 
 
 def _port_state(jstate):
@@ -109,7 +111,7 @@ def test_round_trip_and_atomicity_match_jax(tmp_path):
     for pkg, save, latest in (("jax", lambda d, s: jckpt.save(d, s, jstate),
                                jckpt.latest_step),
                               ("port", lambda d, s: tckpt.save(
-                                  d, s, tts.state_leaves(state)),
+                                  d, s, tts.state_leaves(state, NAMES)),
                                tckpt.latest_step)):
         d = str(tmp_path / pkg)
         assert latest(d) is None
@@ -118,15 +120,15 @@ def test_round_trip_and_atomicity_match_jax(tmp_path):
         os.makedirs(os.path.join(d, "step_2.tmp"))
         assert latest(d) == 1
     got, step, extra = tckpt.restore(str(tmp_path / "port"),
-                                     tts.state_leaves(state))
+                                     tts.state_leaves(state, NAMES))
     assert step == 1 and extra == {}
-    for (_, want), x in zip(tts.state_leaves(state), got):
+    for (_, want), x in zip(tts.state_leaves(state, NAMES), got):
         assert x.dtype == want.dtype
         np.testing.assert_array_equal(_bits(x), _bits(want))
     _, jstep, _ = jckpt.restore(str(tmp_path / "jax"), jstate)
     assert jstep == step == 1
     with pytest.raises(FileNotFoundError):
-        tckpt.restore(str(tmp_path / "none"), tts.state_leaves(state))
+        tckpt.restore(str(tmp_path / "none"), tts.state_leaves(state, NAMES))
 
 
 def test_format_is_jaxs_byte_for_byte(tmp_path):
@@ -135,7 +137,7 @@ def test_format_is_jaxs_byte_for_byte(tmp_path):
     extra = {"timeout": 1.75, "arch": "qwen2-0.5b-smoke"}
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
     jckpt.save(jdir, 3, jstate, extra=extra)
-    tckpt.save(tdir, 3, tts.state_leaves(state), extra=extra)
+    tckpt.save(tdir, 3, tts.state_leaves(state, NAMES), extra=extra)
     a, b = os.path.join(jdir, "step_3"), os.path.join(tdir, "step_3")
     names = sorted(os.listdir(a))
     assert names == sorted(os.listdir(b)) and len(names) == 4 * 14 + 3
@@ -156,21 +158,22 @@ def test_format_is_jaxs_byte_for_byte(tmp_path):
         assert x.dtype == y.dtype
         np.testing.assert_array_equal(np.asarray(x).reshape(-1).view(np.uint8),
                                       np.asarray(y).reshape(-1).view(np.uint8))
-    got, step, textra = tckpt.restore(jdir, tts.state_leaves(state))
+    got, step, textra = tckpt.restore(jdir, tts.state_leaves(state, NAMES))
     assert step == 3 and textra == extra
     restored = tts.state_from_leaves(got)
     assert restored["params"][-2].dtype == torch.bfloat16
-    for (_, want), x in zip(tts.state_leaves(state),
-                            [x for _, x in tts.state_leaves(restored)]):
+    for (_, want), x in zip(tts.state_leaves(state, NAMES),
+                            [x for _, x in tts.state_leaves(restored, NAMES)]):
         assert x.dtype == want.dtype and x.shape == want.shape
         np.testing.assert_array_equal(_bits(x), _bits(want))
 
 
 def test_save_async_writes_what_save_writes(tmp_path):
     state = _port_state(_jax_state())
-    tckpt.save(str(tmp_path / "sync"), 3, tts.state_leaves(state),
+    tckpt.save(str(tmp_path / "sync"), 3, tts.state_leaves(state, NAMES),
                {"timeout": 2.0})
-    tckpt.save_async(str(tmp_path / "async"), 3, tts.state_leaves(state),
+    tckpt.save_async(str(tmp_path / "async"), 3,
+                     tts.state_leaves(state, NAMES),
                      {"timeout": 2.0}).result()
     cmp = filecmp.dircmp(tmp_path / "sync" / "step_3",
                          tmp_path / "async" / "step_3")
@@ -183,8 +186,8 @@ def test_save_async_writes_what_save_writes(tmp_path):
 
 def test_restore_refuses_another_tree(tmp_path):
     state = _port_state(_jax_state())
-    tckpt.save(str(tmp_path), 1, tts.state_leaves(state))
-    leaves = tts.state_leaves(state)
+    tckpt.save(str(tmp_path), 1, tts.state_leaves(state, NAMES))
+    leaves = tts.state_leaves(state, NAMES)
     with pytest.raises(ValueError, match="leaves to restore"):
         tckpt.restore(str(tmp_path), leaves[:-1])
     swapped = [leaves[1], leaves[0]] + leaves[2:]
@@ -261,8 +264,8 @@ def test_exact_resume_is_bit_identical(tmp_path):
     t2 = _port_trainer(str(tmp_path), tcfg, "exact")
     assert t2.start_step == 5
     t2.run(3)
-    for (path, want), (_, got) in zip(tts.state_leaves(ref.state),
-                                      tts.state_leaves(t2.state)):
+    for (path, want), (_, got) in zip(tts.state_leaves(ref.state, NAMES),
+                                      tts.state_leaves(t2.state, NAMES)):
         np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=path)
 
 

@@ -301,7 +301,7 @@ def test_hierarchical_step_matches_jax():
     tcfg = dataclasses.replace(TC.get_smoke("qwen2-0.5b"), dtype="float32")
     jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
     leaves = convert.jax_leaves(convert.params_from_jax(
-        jax.tree.map(np.asarray, jp)))
+        jax.tree.map(np.asarray, jp)), tcfg)
     batch = jpipe.make_source(jpipe.DataConfig(
         vocab_size=jcfg.vocab_size, seq_len=32, global_batch=4,
         seed=1)).global_batch(0)

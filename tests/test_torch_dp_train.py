@@ -247,7 +247,8 @@ from repro_torch.train import sharding_rules as rules
 
 def save_zero(name, new, cfg, mesh):
     # each rank's slices of master, mu, nu and the whole leaves
-    specs = rules.opt_state_specs(convert.leaf_shapes(cfg), mesh)
+    specs = rules.opt_state_specs(convert.leaf_shapes(cfg), mesh,
+                                  convert.leaf_names(cfg))
     for part in ("master", "mu", "nu"):
         whole = convert.gather_state(new["opt"][part], specs[part], mesh)
         for i, (x, w) in enumerate(zip(new["opt"][part], whole)):
@@ -259,7 +260,8 @@ def zero_vs_replicated(name, cfg, mesh, leaves):
     # same bfloat16 leaves, state and gradients (the same on every rank)
     step = ts.make_train_step(cfg, mesh, opt)
     tp, zero = step.model_group, step.data_group
-    split = [tp is not None and n in tp.split for n in convert.SHORT_NAMES]
+    split = [tp is not None and n in tp.split
+             for n in convert.short_names(cfg)]
     g = torch.Generator().manual_seed(9)
     leaves = [x.to(torch.bfloat16) for x in leaves]
     grads = [torch.randn(x.shape, generator=g).to(x.dtype) for x in leaves]
@@ -381,7 +383,8 @@ for name, (mk, mode, q, drop) in meta["step_cases"].items():
     if name in meta["zero_cases"]:
         save_zero(name, new, cfg, mesh)
     if q:
-        plans = ts.plan_leaves([l.shape for l in leaves], mesh, cel)
+        plans = ts.plan_leaves([l.shape for l in leaves], mesh, cel,
+                               convert.leaf_names(cfg))
         if mode == "hierarchical":
             lossy, exact = axes(mesh, ("pod",)), axes(mesh, ("data",))
         else:
@@ -410,8 +413,11 @@ if rank == 0:
     specs = {}
     for tier, shapes in meta["spec_shapes"].items():
         for mk, mesh in meshes.items():
-            specs[f"{tier}_{mk}_param"] = rules.param_specs(shapes, mesh)
-            specs[f"{tier}_{mk}_zero1"] = rules.zero1_specs(shapes, mesh)
+            names = convert.leaf_names(cfg)
+            specs[f"{tier}_{mk}_param"] = rules.param_specs(shapes, mesh,
+                                                            names)
+            specs[f"{tier}_{mk}_zero1"] = rules.zero1_specs(shapes, mesh,
+                                                            names)
             specs[f"{tier}_{mk}_batch"] = rules.batch_specs(
                 mesh, {"tokens": np.zeros((8, 32)), "labels": np.zeros((8, 32))})
     json.dump(specs, open(d + "/torch_specs.json", "w"))
@@ -888,8 +894,8 @@ def test_chip_smoke_fwht_shapes_are_the_train_paths(mk):
                 "pods": lambda: tmesh.make_pod_mesh(2, 2, 1,
                                                     device_type="cpu")}[mk]()
         plans = [p for p in tts.plan_leaves(
-            shapes, mesh, tts.CelerisConfig(mode="lossy_hadamard"))
-            if p is not None]
+            shapes, mesh, tts.CelerisConfig(mode="lossy_hadamard"),
+            tconvert.leaf_names(TC.get("qwen2-0.5b"))) if p is not None]
     got = sorted({(p.tiles * (p.shape[p.sharded_dim]
                               if p.sharded_dim is not None else 1), p.n_rot)
                   for p in plans})
@@ -897,7 +903,6 @@ def test_chip_smoke_fwht_shapes_are_the_train_paths(mk):
     if mk == "none":
         want = [(r, 4096) for r in chip_smoke.TRAIN_FWHT_ROWS]
     else:
-        import repro_torch.configs as TC
         want = chip_smoke.tp_fwht_shapes(
             dataclasses.replace(TC.get("qwen2-0.5b"),
                                 n_layers=chip_smoke.MESH_LAYERS),

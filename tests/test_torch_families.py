@@ -348,25 +348,57 @@ def test_serve_launcher_gemma2_smoke_on_cpu(capsys):
 
 @pytest.mark.parametrize("arch", FAMILIES + RECURRENT)
 def test_training_refuses_the_families(arch):
+    """The dense families train (their leaf view and backward are held
+    to JAX's in ``tests/test_torch_train_families.py``): the step, the
+    state and the Trainer build, and one CPU step runs.  The recurrent
+    families are still refused, naming the roadmap item."""
     cfg = TC.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="qwen2's layout"):
-        TTS.make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="qwen2's layout"):
-        TTS.init_state(torch.Generator(), cfg)
-    with pytest.raises(NotImplementedError, match="qwen2's layout"):
-        Trainer(cfg, data_cfg=DataConfig(vocab_size=cfg.vocab_size,
-                                         seq_len=16, global_batch=2),
-                device="cpu")
+    builds = (lambda: TTS.make_train_step(cfg),
+              lambda: TTS.init_state(torch.Generator(), cfg),
+              lambda: Trainer(cfg, data_cfg=DataConfig(
+                  vocab_size=cfg.vocab_size, seq_len=16, global_batch=2),
+                  device="cpu"))
+    if arch in RECURRENT:
+        for build in builds:
+            with pytest.raises(NotImplementedError,
+                               match="recurrent.*Queue 1, item 2"):
+                build()
+        return
+    step, state, tr = (build() for build in builds)
+    assert len(state["params"]) == len(convert.leaf_names(cfg))
+    hist = tr.run(1)
+    assert np.isfinite(hist["loss"]).all() and int(tr.state["step"]) == 1
 
 
 @pytest.mark.parametrize("arch", FAMILIES + RECURRENT)
 def test_tensor_parallel_refused_off_qwen2_layout(arch):
+    """Tensor parallelism runs for the dense families (held to JAX's
+    steps in ``tests/test_torch_train_families_mesh.py``): on a (1, 2)
+    mesh of a fake process group the step builds, each rank holds its
+    shards, and the forward gives its half of the vocabulary.  The
+    recurrent families are still refused."""
     from repro_torch import sharding as shd
+    from repro_torch.launch import mesh as tmesh
+    from test_torch_dp_train import fake_world
     cfg = TC.get_smoke(arch)
-    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
-    tp = shd.ModelGroup(group=None, size=2, index=0)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        TM.forward(params, cfg, torch.zeros(1, 4, dtype=torch.long), tp=tp)
+    tokens = torch.zeros(1, 4, dtype=torch.long)
+    if arch in RECURRENT:
+        params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+        tp = shd.ModelGroup(group=None, size=2, index=0)
+        with pytest.raises(NotImplementedError,
+                           match="tensor parallelism.*Queue 1, item 2"):
+            TM.forward(params, cfg, tokens, tp=tp)
+        return
+    with fake_world(2):
+        mesh = tmesh.make_host_mesh((1, 2), device_type="cpu")
+        tp = TTS.make_train_step(cfg, mesh).model_group
+        shards = TTS.init_state(torch.Generator().manual_seed(0), cfg,
+                                mesh)["params"]
+        assert tp.size == 2 and TM.logits_leaf(cfg) in tp.split
+        assert [tuple(x.shape) for x in shards] != convert.leaf_shapes(cfg)
+        logits = TM.forward(convert.params_from_leaves(shards, cfg), cfg,
+                            tokens, tp=tp)
+    assert logits.shape == (1, 4, cfg.vocab_size // 2)
 
 
 def test_ring_decode_matches_teacher_forced_forward():

@@ -263,16 +263,21 @@ def test_leaf_view_is_tree_flatten_order():
         tuple(x.shape) for x in jax.tree_util.tree_leaves(jax.eval_shape(
             lambda k: JM.init_params(k, JC.get(ARCHS[0])),
             jax.random.PRNGKey(0)))]
-    leaves = convert.jax_leaves(tp)
+    leaves = convert.jax_leaves(tp, tcfg)
     for got, (_, want) in zip(leaves, flat):
         np.testing.assert_array_equal(got.numpy(), _np(want))
-    back = convert.params_from_leaves(leaves, convert.layer_leaves(tcfg))
+    back = convert.params_from_leaves(leaves, tcfg)
     assert back.keys() == tp.keys()
     assert all(torch.equal(back[k], tp[k]) for k in tp)
-    # the qwen2 constants are qwen2's view
+    # qwen2's view: one group's 12 leaves, then the table and final norm
     q = TC.get_smoke("qwen2-0.5b")
-    assert convert.leaf_names(q) == convert.LEAF_NAMES
-    assert convert.short_names(q) == convert.SHORT_NAMES
+    layer = ("attn.bk", "attn.bq", "attn.bv", "attn.wk", "attn.wo",
+             "attn.wq", "attn.wv", "ln1.scale", "ln2.scale", "mlp.wg",
+             "mlp.wi", "mlp.wo")
+    top = ("embed.table", "final_norm.scale")
+    assert convert.leaf_names(q) == tuple(
+        f"decoder.groups[0].{n}" for n in layer) + top
+    assert convert.short_names(q) == layer + top
 
 
 @pytest.mark.parametrize("mesh", [(2, 2), (1, 4), (4, 1)])
@@ -428,8 +433,9 @@ def _jax_step(mode):
 def test_lm_loss_and_grads_match_jax():
     _, tcfg, _, tp = _pair(ARCHS[0], "float32")
     *_, (jloss, jnll, jaux, jgrads) = _jax_step("exact")
-    loss, nll, aux, grads = tts.loss_and_grads(tcfg, convert.jax_leaves(tp),
-                                               _tbatch(_batch()))
+    loss, nll, aux, grads = tts.loss_and_grads(
+        tcfg, convert.jax_leaves(tp, tcfg),
+        _tbatch(_batch()))
     np.testing.assert_allclose(float(loss), jloss, rtol=1e-5)
     np.testing.assert_allclose(float(nll), jnll, rtol=1e-5)
     np.testing.assert_allclose(float(aux), jaux, rtol=1e-5)
@@ -467,7 +473,7 @@ def test_train_step_matches_jax(mode):
     leaves are coded at their JAX leaf indices with JAX's draws."""
     _, tcfg, _, tp = _pair(ARCHS[0], "float32")
     jnew, jm, masks, signs, _ = _jax_step(mode)
-    leaves = convert.jax_leaves(tp)
+    leaves = convert.jax_leaves(tp, tcfg)
     step = tts.make_train_step(
         tcfg, None, tadamw.OptConfig(**OPT),
         tts.CelerisConfig(mode=mode, min_coded_size=MIN_CODED,
@@ -484,17 +490,20 @@ def test_train_step_matches_jax(mode):
 
 
 def test_refusals():
-    """Training granite-moe is refused with its own message, and so are
-    microbatches in an MoE step on dp ranks outside the lossy island
-    (where JAX routes the global batch); that step itself builds."""
+    """granite-moe trains (no shared experts, no QKV bias: held to JAX's
+    steps in ``tests/test_torch_train_families.py``): its step, state and
+    Trainer build and one CPU step runs.  Microbatches in an MoE step on
+    dp ranks outside the lossy island (where JAX routes the global
+    batch) are refused; that step itself builds."""
     cfg = TC.get_smoke(ARCHS[1])
-    for build in (lambda: tts.make_train_step(cfg),
-                  lambda: tts.init_state(torch.Generator(), cfg),
-                  lambda: Trainer(cfg, data_cfg=DataConfig(
-                      vocab_size=cfg.vocab_size, seq_len=16, global_batch=2),
-                      device="cpu")):
-        with pytest.raises(NotImplementedError, match="MoE model"):
-            build()
+    tts.make_train_step(cfg)
+    state = tts.init_state(torch.Generator(), cfg)
+    assert len(state["params"]) == len(convert.leaf_names(cfg)) == 12
+    tr = Trainer(cfg, data_cfg=DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=16, global_batch=2),
+                 device="cpu")
+    hist = tr.run(1)
+    assert np.isfinite(hist["loss"]).all() and int(tr.state["step"]) == 1
     from repro_torch.launch import mesh as tmesh
     q = TC.get_smoke(ARCHS[0])
     with fake_world(4):
@@ -517,7 +526,7 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
     jstate = jts.init_state(jax.random.PRNGKey(4), jcfg)
     names = convert.leaf_names(tcfg)
     tstate = tts.state_from_params(convert.jax_leaves(convert.params_from_jax(
-        jax.tree.map(np.asarray, jstate["params"]))), tcfg)
+        jax.tree.map(np.asarray, jstate["params"])), tcfg), tcfg)
     tckpt.save(str(tmp_path / "port"), 3, tts.state_leaves(tstate, names),
                {"arch": tcfg.name})
     got, step, _ = jckpt.restore(str(tmp_path / "port"), jstate)

@@ -206,8 +206,9 @@ def axes(mesh, names):
 for mk in ("dm22", "dm14"):
     mesh, cfg = meshes[mk], cfgs["smoke"]
     tp = convert.model_group(cfg, mesh)
+    names = convert.leaf_names(cfg)
     params = convert.params_from_leaves(convert.shard_leaves(
-        leaves["smoke"], mesh))
+        leaves["smoke"], mesh, names), cfg)
     b = batch_of(1)
     out[f"fwd_{mk}_logits"] = shd.model_all_gather(
         M.forward(params, cfg, b["tokens"], tp=tp), tp).numpy()
@@ -219,7 +220,8 @@ for name, (mk, ck, mode, q, drop, mb) in meta["step_cases"].items():
     dp = shd.dp_axes(mesh)
     peer = shd.peer_index(mesh, dp) if dp else 0
     batch = batch_of(meta["n_dp"][name], peer)
-    mine = convert.shard_leaves(leaves[ck], mesh) if mesh else leaves[ck]
+    mine = (convert.shard_leaves(leaves[ck], mesh, convert.leaf_names(cfg))
+            if mesh else leaves[ck])
     cel = ts.CelerisConfig(mode=mode, min_coded_size=meta["min_coded"],
                            quantize_wire=q)
     step = ts.make_train_step(cfg, mesh, opt, cel, microbatches=mb)
@@ -236,7 +238,8 @@ for name, (mk, ck, mode, q, drop, mb) in meta["step_cases"].items():
     if name in meta["zero_cases"]:
         save_zero(name, new, cfg, mesh)
     if q:
-        plans = ts.plan_leaves(convert.leaf_shapes(cfg), mesh, cel)
+        plans = ts.plan_leaves(convert.leaf_shapes(cfg), mesh, cel,
+                               convert.leaf_names(cfg))
         if mode == "hierarchical":
             lossy, exact = axes(mesh, ("pod",)), axes(mesh, ("data",))
         else:
@@ -266,7 +269,8 @@ data_cfg = DataConfig(vocab_size=cfgs["smoke"].vocab_size, seq_len=meta["seq"],
 tr = Trainer(cfgs["smoke"], data_cfg=data_cfg, opt_cfg=opt,
              mesh=meshes["dm22"], ckpt_dir=d + "/ckpt", ckpt_every=1,
              device="cpu")
-mine = convert.shard_leaves(leaves["smoke"], meshes["dm22"])
+names = convert.leaf_names(cfgs["smoke"])
+mine = convert.shard_leaves(leaves["smoke"], meshes["dm22"], names)
 tr.state = ts.state_from_params(mine, cfgs["smoke"], meshes["dm22"])
 hist = tr.run(1)
 save("trainer_dm22", tr.state, {"loss": torch.tensor(hist["loss"][0])},
@@ -276,8 +280,10 @@ save("trainer_dm22", tr.state, {"loss": torch.tensor(hist["loss"][0])},
 # rank's leaves its blocks of the saved state (gathered here)
 shapes = convert.leaf_shapes(cfgs["smoke"])
 def flat_specs(mesh):
-    return [s for _, s in ts.state_leaves(ts.state_specs(shapes, mesh))]
-saved = list(convert.gather_state([x for _, x in ts.state_leaves(tr.state)],
+    return [s for _, s in ts.state_leaves(ts.state_specs(shapes, mesh, names),
+                                          names)]
+saved = list(convert.gather_state([x for _, x in ts.state_leaves(tr.state,
+                                                                 names)],
                                   flat_specs(meshes["dm22"]), meshes["dm22"]))
 if rank == 0:
     for i, x in enumerate(saved):
@@ -285,7 +291,7 @@ if rank == 0:
 for mk in ("dm41", "dm14"):
     back = Trainer(cfgs["smoke"], data_cfg=data_cfg, opt_cfg=opt,
                    mesh=meshes[mk], ckpt_dir=d + "/ckpt", device="cpu")
-    got = [x for _, x in ts.state_leaves(back.state)]
+    got = [x for _, x in ts.state_leaves(back.state, names)]
     want = [shd.local_slice(x, s, meshes[mk])
             for x, s in zip(saved, flat_specs(meshes[mk]))]
     out[f"elastic_{mk}"] = np.bool_(back.start_step == 1 and all(
@@ -295,14 +301,15 @@ for mk in ("dm41", "dm14"):
 # ZeRO-1 against the replicated update on the meshes with data > 1
 for mk in ("dm22", "dm41"):
     zero_vs_replicated(mk, cfgs["smoke"], meshes[mk],
-                       convert.shard_leaves(leaves["smoke"], meshes[mk]))
+                       convert.shard_leaves(leaves["smoke"], meshes[mk],
+                                            names))
 
 # (e) shard, gather, and the global norm
 mesh = meshes["dm22"]
 shapes = convert.leaf_shapes(cfgs["smoke"])
 full = [t(inp[f"norm_leaf{i}"]) for i in range(14)]
-shards = convert.shard_leaves(full, mesh)
-back = convert.gather_leaves(shards, mesh, shapes)
+shards = convert.shard_leaves(full, mesh, names)
+back = convert.gather_leaves(shards, mesh, shapes, names)
 out["gather_equal"] = np.bool_(all(torch.equal(a, b)
                                    for a, b in zip(back, full)))
 step = ts.make_train_step(cfgs["smoke"], mesh, opt)
@@ -635,7 +642,8 @@ def test_chip_smoke_fwht_shapes_are_the_tp_path():
         for shape in ((2, 2), (1, 4), (4, 1)):
             mesh = tmesh.make_host_mesh(shape, device_type="cpu")
             plans = tts.plan_leaves(tconvert.leaf_shapes(cfg), mesh,
-                                    tts.CelerisConfig(mode="lossy_hadamard"))
+                                    tts.CelerisConfig(mode="lossy_hadamard"),
+                                    tconvert.leaf_names(cfg))
             want = [(p.tiles * p.shape[p.sharded_dim] // shape[1], p.n_rot)
                     for p in plans if p is not None]
             got[shape] = chip_smoke.tp_fwht_shapes(cfg, mesh)

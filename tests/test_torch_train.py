@@ -85,7 +85,7 @@ def _setup():
     jcfg, tcfg = _cfgs()
     jparams = JM.init_params(jax.random.PRNGKey(0), jcfg)
     host = jax.tree.map(np.asarray, jparams)
-    leaves = convert.jax_leaves(convert.params_from_jax(host))
+    leaves = convert.jax_leaves(convert.params_from_jax(host), tcfg)
     src = jpipe.make_source(jpipe.DataConfig(
         vocab_size=jcfg.vocab_size, seq_len=32, global_batch=4, seed=1))
     batch = src.global_batch(0)
@@ -103,14 +103,14 @@ def test_leaf_view_order_and_shapes_match_jax(n_layers):
     flat = jax.tree_util.tree_flatten_with_path(jp)[0]
     names = ["".join(f".{e.key}" if hasattr(e, "key") else f"[{e.idx}]"
                      for e in path)[1:] for path, _ in flat]
-    assert names == list(convert.LEAF_NAMES)
+    assert names == list(convert.leaf_names(tcfg))
     params = convert.params_from_jax(jax.tree.map(np.asarray, jp))
-    leaves = convert.jax_leaves(params)
+    leaves = convert.jax_leaves(params, tcfg)
     assert len(leaves) == len(flat) == 14
     for got, (_, want) in zip(leaves, flat):
         assert tuple(got.shape) == want.shape
         np.testing.assert_array_equal(got.float().numpy(), _np(want))
-    back = convert.params_from_leaves(leaves)
+    back = convert.params_from_leaves(leaves, tcfg)
     assert set(back) == set(params)
     for k, v in params.items():
         assert torch.equal(back[k], v)

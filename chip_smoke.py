@@ -130,9 +130,10 @@ caught and carried on):
     granite-moe-3b-a800m at 2 layers, nemotron-4-15b at 1 (the AdamW
     state, 16 B a parameter, fits no deeper); losses finite, step 0's
     within 1.5 of ln V, the FWHT launched twice a coded leaf a coded
-    step and never in ``exact``, recv_frac in [0.4, 1]; the step ms and
-    the peak beside the reckoned state.  Then each family's smoke config
-    in float32, one ``lossy_hadamard`` step on the card against the CPU
+    step and never in ``exact``, recv_frac in [0.4, 1]; the step ms,
+    the peak beside the reckoned state and a profiled fourth coded
+    step.  Then each family's smoke config in float32, one
+    ``lossy_hadamard`` step on the card against the CPU
     (96 tokens: gemma2's window binds) within ``tests/test_torch_train
     .py``'s tolerances, granite-moe's routing ids equal first; and the
     FWHT held to its plain version at every shape of 6e's and 6f's
@@ -146,6 +147,25 @@ caught and carried on):
     heads kept whole): the ranks that share a model index bit-identical,
     the FWHT twice a coded leaf at ``tp_fwht_shapes``; each rank's peak,
     sync ms and bytes a rank-step printed;
+6g. the recurrent families and the modality stubs trained at full width
+    on one device through ``Trainer`` on text alone (as JAX's Trainer
+    runs the stubs), 8 x 128 tokens, 3 steps in ``exact`` and 3 in
+    ``lossy_hadamard`` each: recurrentgemma-9b at 5 layers (one (rglru,
+    rglru, local) group and the two-rglru tail), xlstm-350m whole (24
+    layers), phi-3-vision-4.2b at 2 layers, seamless-m4t-medium whole
+    (12 + 12); 6e's checks, a profiled fourth coded step, and each stub's
+    ``make_train_step`` step with its extras given by hand (image embeds
+    (8, 144, 1024), frames (8, 128, 1024): the frontend, encoder and
+    cross-attention backward on the card, every leaf they reach given a
+    non-zero first moment); the sLSTM's and RG-LRU's launches a step.
+    Then each smoke config's ``lossy_hadamard`` step (a stub's with its
+    extras) on the card against the CPU as in 6e, and the FWHT held to
+    its plain version at every new shape of 6g's and 6h's coded syncs,
+    timed at each config's largest leaf;
+6h. the same four rank processes, the (4, 1) data x model mesh with
+    ZeRO-1, 2 steps a cell: xlstm-350m at 4 layers ``lossy_hadamard`` at
+    drop 0.05 and seamless-m4t-medium at 2 + 2 layers ``exact`` with its
+    frames split by rows with the tokens; 6f's checks;
 7. smoke-size training on the card against the CPU (float32, the same
    masks, signs and batch: loss, the first moments, i.e. the synced
    gradient, and the updated parameters), and 14 coded steps that must
@@ -327,7 +347,7 @@ The protocols of phases 14-16, 18 and 21-22 (and Fig. 2's step window)
 are ``repro_torch.benchmarks.figs``'s functions, which the CPU tests also
 run (smoke tiers and cut grids).
 
-Each path (3-6f with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19l and
+Each path (3-6h with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19l and
 21-22, Fig. 2's step window its own) runs with the kernels' launch counts set
 to 0 just before it and read just after.  The last
 line is ``{"ok": true, "device": {...}}``; the lines before it carry each
@@ -1339,15 +1359,19 @@ def small_steps_card_vs_cpu(dev, ts, cfg, opt, batch, drop, modes, tol,
     held to ``tol`` (``check_first_step``'s).  Returns the state and, a
     mode, the card's loss and recv_frac and the first moments' largest
     difference."""
+    from repro_torch.models import convert
     cpu = torch.device("cpu")
     state = ts.init_state(torch.Generator(cpu).manual_seed(0), cfg)
     celeris = dict(min_coded_size=1024)
     g = torch.Generator(cpu).manual_seed(3)
     masks, signs = {}, {}
-    for i, leaf in enumerate(state["params"]):
-        if leaf.numel() >= celeris["min_coded_size"]:
-            masks[i] = torch.rand(4096, generator=g) >= drop
-            signs[i] = torch.randint(0, 2, (4096,),
+    plans = ts.plan_leaves(convert.leaf_shapes(cfg), None,
+                           ts.CelerisConfig(**celeris),
+                           convert.leaf_names(cfg))
+    for i, plan in enumerate(plans):
+        if plan is not None:
+            masks[i] = torch.rand(plan.n_rot, generator=g) >= drop
+            signs[i] = torch.randint(0, 2, (plan.n_rot,),
                                      generator=g).float() * 2 - 1
     out = {}
     for mode in modes:
@@ -1664,8 +1688,10 @@ def mesh_rank(kind, rank, port, out_dir, device="cuda"):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=DP_WORLD)
     try:
-        if kind in ("ep", "families"):
-            rec = (ep_rank if kind == "ep" else family_rank)(rank, dev)
+        if kind in ("ep", "families", "recurrent_stubs"):
+            rec = (ep_rank(rank, dev) if kind == "ep" else
+                   family_rank(rank, dev) if kind == "families" else
+                   family_rank(rank, dev, RS_MESH_CELLS, rs_mesh_config))
             with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
                 json.dump(rec, f)
             return
@@ -2674,50 +2700,71 @@ FAMILY_SMOKE_SEQ = 96      # over gemma2's 64-token smoke window
 FAMILY_MESH_CELLS = (("gemma2-9b", "dm22", "lossy_hadamard", 0.05),
                      ("chatglm3-6b", "dm14", "exact", 0.0))
 FAMILY_MESHES = {"dm22": ((2, 2), ("data", "model")),
-                 "dm14": ((1, 4), ("data", "model"))}
+                 "dm14": ((1, 4), ("data", "model")),
+                 "dm41": ((4, 1), ("data", "model"))}
 
 
-def family_config(C, arch, layers):
-    return dataclasses.replace(C.get(arch), n_layers=layers)
+def family_config(C, arch, layers=None):
+    """``arch`` at full width, ``layers`` deep (an enc-dec config's
+    encoder as deep), or whole with ``layers`` None."""
+    cfg = C.get(arch)
+    if layers is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, n_layers=layers, encoder_layers=layers if cfg.is_encdec else 0)
 
 
-def family_fwht_shapes(C):
-    """The FWHT's (rows, n_rot) on phases 6e and 6f's paths, in leaf
-    order: each family's coded leaves on one device (its tiles of 4096),
-    then each coded mesh cell's per rank (``tp_fwht_shapes``)."""
+def family_mesh_config(C, arch):
+    """Phase 6f's model: ``arch`` at full width, ``MESH_LAYERS`` deep."""
+    return family_config(C, arch, MESH_LAYERS)
+
+
+def family_fwht_shapes(C, train=FAMILY_TRAIN, cells=FAMILY_MESH_CELLS,
+                       mesh_config=family_mesh_config):
+    """The FWHT's (rows, n_rot) on phases 6e and 6f's paths (or 6g and
+    6h's: ``train``, ``cells`` and their ``mesh_config``), in leaf order:
+    each model's coded leaves on one device (its tiles of 4096), then
+    each coded mesh cell's per rank (``tp_fwht_shapes``)."""
     from repro_torch.models import convert
     from repro_torch.train import train_step as ts
     one = {}
-    for arch, layers in FAMILY_TRAIN:
+    for arch, layers in train:
         cfg = family_config(C, arch, layers)
         one[arch] = [(p.tiles, p.n_rot) for p in ts.plan_leaves(
             convert.leaf_shapes(cfg), None, ts.CelerisConfig(),
             convert.leaf_names(cfg)) if p is not None]
-    mesh = {arch: tp_fwht_shapes(family_config(C, arch, MESH_LAYERS),
+    mesh = {arch: tp_fwht_shapes(mesh_config(C, arch),
                                  mesh_shape(*FAMILY_MESHES[mk]))
-            for arch, mk, mode, _ in FAMILY_MESH_CELLS if mode != "exact"}
+            for arch, mk, mode, _ in cells if mode != "exact"}
     return one, mesh
 
 
-def phase_train_families(dev, C, ts, Trainer, DataConfig, OptConfig, counts):
-    """Phase 6e: each family at full width through ``Trainer``, 8 x 128
-    tokens, ``TRAIN_STEPS`` steps in ``exact`` and in ``lossy_hadamard``:
-    losses finite, the first near ln V, the FWHT launched twice a coded
-    leaf each coded step and never in ``exact``, recv_frac in [0.4, 1];
-    the step ms and the peak beside the reckoned state."""
+def phase_train_families(dev, C, ts, Trainer, DataConfig, OptConfig, counts,
+                         train=FAMILY_TRAIN):
+    """Phase 6e (or 6g's models, ``train``): each model at full width
+    through ``Trainer``, 8 x 128 tokens (text alone), ``TRAIN_STEPS``
+    steps in ``exact`` and in ``lossy_hadamard``: losses finite, the
+    first within ``FAMILY_LOSS_BAND`` of ln V, the FWHT launched twice a
+    coded leaf each coded step and never in ``exact``, recv_frac in
+    [0.4, 1]; the step ms, the peak beside the reckoned state and a
+    profiled fourth coded step (its launches uncounted)."""
     from repro_torch.models import convert
     out, total = {}, {}
     opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
-    for arch, layers in FAMILY_TRAIN:
+    smi = card_name_and_power()
+    for arch, layers in train:
         cfg = family_config(C, arch, layers)
+        names = convert.leaf_names(cfg)
         data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                               global_batch=TRAIN_BATCH, seed=1)
         n_coded = sum(p is not None for p in ts.plan_leaves(
-            convert.leaf_shapes(cfg), None, ts.CelerisConfig(),
-            convert.leaf_names(cfg)))
-        rec = {"layers": layers, "leaves": len(convert.leaf_names(cfg)),
-               "coded_leaves": n_coded,
-               "reckoned_state_gb": cfg.param_count() * 16 / 1e9}
+            convert.leaf_shapes(cfg), None, ts.CelerisConfig(), names))
+        n_params = sum(math.prod(s) for s in convert.leaf_shapes(cfg))
+        rec = {"layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+               "leaves": len(names), "coded_leaves": n_coded,
+               "params": n_params,
+               "reckoned_state_gb": cfg.param_count() * 16 / 1e9,
+               "view_state_gb": n_params * 16 / 1e9}
         for mode in FAMILY_MODES:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2734,35 +2781,43 @@ def phase_train_families(dev, C, ts, Trainer, DataConfig, OptConfig, counts):
             counts.reset()
             hist = tr.run(TRAIN_STEPS, on_metrics=on_metrics)
             peak = torch.cuda.max_memory_allocated()
-            del tr
-            for s in steps:
-                for k, v in s["launches"].items():
+            for st in steps:
+                for k, v in st["launches"].items():
                     total[k] = total.get(k, 0) + v
             assert np.isfinite(hist["loss"]).all(), (arch, mode, hist)
             assert abs(hist["loss"][0] - math.log(cfg.vocab_size)) < (
                 FAMILY_LOSS_BAND), (arch, mode, hist["loss"])
-            fwht = [s["launches"]["fwht"] for s in steps]
+            fwht = [st["launches"]["fwht"] for st in steps]
             coded = mode == "lossy_hadamard"
             assert fwht == [2 * n_coded if coded else 0] * TRAIN_STEPS, (
                 arch, mode, fwht)
             if coded:
                 assert all(0.4 <= f <= 1.0 for f in hist["recv_frac"]), (
                     arch, hist["recv_frac"])
-            step_ms = [s["wall_s"] * 1e3 for s in steps]
+            step_ms = [st["wall_s"] * 1e3 for st in steps]
             rec[mode] = {"loss": hist["loss"], "recv_frac": hist["recv_frac"],
                          "step_ms": step_ms,
                          "median_step_ms_after_first":
                              statistics.median(step_ms[1:]),
                          "fwht_launches_per_step": fwht,
                          "peak_gib": peak / 2 ** 30, "peak_gb": peak / 1e9}
+            if coded:
+                rec[mode]["profile_step"] = profile_window(lambda: tr.run(1))
+                counts.reset()
+            del tr
             median = rec[mode]["median_step_ms_after_first"]
-            print(f"train {arch} {mode} (full width, {layers} layers, "
-                  f"{TRAIN_BATCH} x {TRAIN_SEQ}): loss {hist['loss']}, "
-                  f"recv_frac {hist['recv_frac']}, step ms {step_ms} (median "
-                  f"after the first {median:.1f}), FWHT launches/step "
-                  f"{fwht} ({n_coded} coded "
-                  f"leaves), peak {peak / 1e9:.2f} GB against the reckoned "
-                  f"state {rec['reckoned_state_gb']:.2f} GB")
+            enc = (f" + {cfg.encoder_layers} encoder" if cfg.is_encdec
+                   else "")
+            print(f"train {arch} {mode} (full width, {cfg.n_layers} layers"
+                  f"{enc}, {TRAIN_BATCH} x {TRAIN_SEQ} text tokens): loss "
+                  f"{hist['loss']}, recv_frac {hist['recv_frac']}, step ms "
+                  f"{step_ms} (median after the first {median:.1f}), FWHT "
+                  f"launches/step {fwht} ({n_coded} coded leaves), peak "
+                  f"{peak / 1e9:.2f} GB against the reckoned state "
+                  f"{rec['reckoned_state_gb']:.2f} GB (the view's "
+                  f"{rec['view_state_gb']:.2f} GB)"
+                  + (f"; profiled step {rec[mode]['profile_step']}"
+                     if coded else "") + f" [{smi}]")
         out[arch] = rec
     torch.cuda.empty_cache()
     out["launches"] = total
@@ -2811,21 +2866,23 @@ def family_smoke_card_vs_cpu(dev, C, ts, OptConfig, DataConfig, make_source):
     return out
 
 
-def check_family_fwht(dev, C, kfwht, ref):
+def check_family_fwht(dev, C, kfwht, ref, shapes=None, seen=(),
+                      what="families"):
     """The FWHT held to its plain version, bit for bit, at every shape of
-    phases 6e and 6f's coded syncs; timed at each family's largest
-    one-device leaf and at the mesh cell's largest."""
-    one, mesh = family_fwht_shapes(C)
-    shapes = sorted({s for v in list(one.values()) + list(mesh.values())
-                     for s in v})
-    timed = {max(v) for v in list(one.values()) + list(mesh.values())}
+    phases 6e and 6f's coded syncs (or ``shapes``, ``family_fwht_shapes``'
+    pair, less the ``seen`` ones); timed at each model's largest
+    one-device leaf and at each mesh cell's largest."""
+    one, mesh = shapes or family_fwht_shapes(C)
+    groups = list(one.values()) + list(mesh.values())
+    checked = sorted({s for v in groups for s in v} - set(seen))
+    timed = {max(v) for v in groups}
     g = torch.Generator(dev).manual_seed(11)
     worst, records = 0.0, []
-    for rows, n in shapes:
+    for rows, n in sorted(set(checked) | timed):
         x = torch.randn(rows, n, generator=g, device=dev)
         signs = (torch.randint(0, 2, (n,), generator=g, device=dev).float()
                  * 2 - 1)
-        err = check_equal(f"fwht family sync {rows}x{n}",
+        err = check_equal(f"fwht {what} sync {rows}x{n}",
                           (kfwht.fwht_cuda(x, signs, n ** -0.5),),
                           (ref.fwht(x, signs=signs, scale=n ** -0.5),))
         worst = max(worst, err)
@@ -2833,16 +2890,19 @@ def check_family_fwht(dev, C, kfwht, ref):
             records.append(fwht_record(kfwht, ref, x, signs, n ** -0.5, err))
         del x
         torch.cuda.empty_cache()
-    print(f"train families: fwht at the coded syncs' shapes {shapes} worst "
+    print(f"train {what}: fwht at the coded syncs' shapes {checked} worst "
           f"err {worst:.3g}; timed at {sorted(timed)}")
     return {"one_device": {a: [list(s) for s in v] for a, v in one.items()},
             "mesh": {a: [list(s) for s in v] for a, v in mesh.items()},
+            "shapes": [list(s) for s in checked],
             "max_abs_err": worst}, records
 
 
-def family_rank(rank, dev):
-    """One rank of phase 6f: ``FAMILY_MESH_CELLS`` through
-    ``Trainer(mesh=...)``, ``DP_STEPS`` steps each, at full width and
+def family_rank(rank, dev, cells=FAMILY_MESH_CELLS, config=None):
+    """One rank of phase 6f (or 6h: ``cells`` and ``config(C, arch)``,
+    the cells' model; a stub's cell then feeds its trainer the rank's
+    rows of ``stub_extras``): ``cells`` through ``Trainer(mesh=...)``,
+    ``DP_STEPS`` steps each, at full width and by default
     ``MESH_LAYERS`` deep.  Every step: losses finite, the ranks that share
     a model index bit-identical, a coded step's FWHT launched twice a
     coded leaf at ``tp_fwht_shapes``, recv_frac within 0.04 of the drop
@@ -2864,8 +2924,10 @@ def family_rank(rank, dev):
     from repro_torch.train.trainer import Trainer
     from repro_torch.launch import mesh as mesh_mod
     counts = Launches(kfwht, kunbias, kquant, kdcqcn)
-    meshes = {mk: mesh_mod.make_host_mesh(shape, device_type=dev.type)
-              for mk, (shape, _) in FAMILY_MESHES.items()}
+    config = config or family_mesh_config
+    meshes = {mk: mesh_mod.make_host_mesh(FAMILY_MESHES[mk][0],
+                                          device_type=dev.type)
+              for mk in sorted({cell[1] for cell in cells})}
     stats = {}
 
     def reset():
@@ -2904,9 +2966,9 @@ def family_rank(rank, dev):
     opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
     rec = {"cells": {}}
     try:
-        for arch, mk, mode, drop in FAMILY_MESH_CELLS:
+        for arch, mk, mode, drop in cells:
             torch.cuda.empty_cache()
-            cfg = family_config(C, arch, MESH_LAYERS)
+            cfg = config(C, arch)
             mesh = meshes[mk]
             celeris = ts.CelerisConfig(mode=mode)
             n_coded = sum(p is not None for p in ts.plan_leaves(
@@ -2919,6 +2981,9 @@ def family_rank(rank, dev):
                 celeris=celeris, mesh=mesh, seed=0,
                 straggler=FixedDrop(drop), device=str(dev))
             group = tr.step_fn.dp_group
+            if cfg.frontend:
+                tr.put_batch = with_extras(tr.put_batch, cfg, dev,
+                                           *tr.shard)
             steps = []
 
             def on_metrics(step, m):
@@ -2966,6 +3031,8 @@ def family_rank(rank, dev):
                 assert hist["recv_frac"] == [1.0] * DP_STEPS, hist
             rec["cells"][f"{arch} {mk}"] = {
                 "arch": arch, "mesh": mk, "mode": mode, "drop": drop,
+                "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+                "extras": EXTRAS_KEY.get(cfg.frontend),
                 "coded_leaves": n_coded, "loss": hist["loss"],
                 "recv_frac": hist["recv_frac"], "steps": steps,
                 "peak_gib": peak / 2 ** 30, "peak_gb": peak / 1e9}
@@ -2976,15 +3043,17 @@ def family_rank(rank, dev):
     return rec
 
 
-def phase_mesh_train_families():
+def phase_mesh_train_families(kind="families"):
     """Phase 6f: ``FAMILY_MESH_CELLS`` on four rank processes sharing the
-    one card over gloo (``family_rank``), in one launch."""
-    ranks, seconds = run_mesh_ranks("families")
+    one card over gloo (``family_rank``), in one launch; ``kind``
+    "recurrent_stubs" is phase 6h, ``RS_MESH_CELLS``."""
+    ranks, seconds = run_mesh_ranks(kind)
     smi = card_name_and_power()
     out, launches = {"cells": {}}, 0
     for name, cell in ranks[0]["cells"].items():
         steps = cell["steps"]
-        rec = {k: cell[k] for k in ("arch", "mesh", "mode", "drop",
+        rec = {k: cell[k] for k in ("arch", "mesh", "mode", "drop", "layers",
+                                    "encoder_layers", "extras",
                                     "coded_leaves", "loss", "recv_frac")}
         rec.update(
             step_ms=[s["wall_ms"] for s in steps],
@@ -2999,8 +3068,11 @@ def phase_mesh_train_families():
         launches += sum(s["launches"]["fwht"] for rk in ranks
                         for s in rk["cells"][name]["steps"])
         out["cells"][name] = rec
-        print(f"train families mesh {name} ({rec['mode']} at {rec['drop']}, "
-              f"full width, {MESH_LAYERS} layers, {DP_WORLD} ranks on one "
+        enc = (f" + {rec['encoder_layers']} encoder"
+               if rec["encoder_layers"] else "")
+        print(f"train {kind} mesh {name} ({rec['mode']} at {rec['drop']}, "
+              f"full width, {rec['layers']} layers{enc}, extras "
+              f"{rec['extras']}, {DP_WORLD} ranks on one "
               f"card, gloo): loss {rec['loss']}, recv_frac "
               f"{rec['recv_frac']}, step ms {rec['step_ms']}, dp sync ms by "
               f"rank {rec['sync_ms_per_rank']}, dp all-reduce bytes/"
@@ -3015,6 +3087,220 @@ def phase_mesh_train_families():
                launches={"fwht": launches, "fwht_quantize": 0,
                          "masked_unbias": 0, "quantize_int8": 0,
                          "dcqcn_scan": 0})
+    return out
+
+
+# phase 6g: the recurrent families and the modality stubs trained at full
+# width on one device, 8 x 128 text tokens.  AdamW keeps 16 B a parameter
+# (bf16 parameter and gradient, f32 master, mu, nu): recurrentgemma-9b's
+# 38 layers would hold 136 GB and phi-3-vision-4.2b's 32 layers 61 GB, so
+# recurrentgemma runs 5 layers (one (rglru, rglru, local) group and the
+# full config's two-rglru tail) and phi-3-vision 2; xlstm-350m (24 layers)
+# and seamless-m4t-medium (12 + 12) run whole.  (arch, layers or None)
+RS_TRAIN = (("recurrentgemma-9b", 5), ("xlstm-350m", None),
+            ("phi-3-vision-4.2b", 2), ("seamless-m4t-medium", None))
+# phase 6h: four ranks on the one card over gloo, the (4, 1) data x model
+# mesh (ZeRO-1 over data), DP_STEPS steps a cell: (arch, mesh, mode,
+# drop); xlstm at 4 layers (one mlstm x 3 + slstm group), seamless at
+# 2 + 2 with its frames split by rows with the tokens
+RS_MESH_CELLS = (("xlstm-350m", "dm41", "lossy_hadamard", 0.05),
+                 ("seamless-m4t-medium", "dm41", "exact", 0.0))
+RS_MESH_LAYERS = {"xlstm-350m": 4, "seamless-m4t-medium": 2}
+EXTRAS_SEED = 21
+
+
+def rs_mesh_config(C, arch):
+    """Phase 6h's model: ``arch`` at full width, ``RS_MESH_LAYERS`` deep."""
+    return family_config(C, arch, RS_MESH_LAYERS[arch])
+
+
+# the batch key of each frontend's inputs
+EXTRAS_KEY = {"vision_stub": "image_embeds", "audio_stub": "frame_embeds"}
+
+
+def stub_extras(cfg, batch, seq, step=0, rows=None):
+    """A stub's extras for a ``batch``-row global batch, float32 from a
+    numpy seed (and ``step``): a vision stub's image embeds (batch,
+    n_frontend_tokens, frontend_dim), an enc-dec config's frames (batch,
+    seq, frontend_dim); ``rows`` (a slice) keeps those rows.  Empty
+    without a frontend."""
+    if cfg.frontend is None:
+        return {}
+    tokens = (cfg.n_frontend_tokens if cfg.frontend == "vision_stub"
+              else seq)
+    x = np.random.default_rng([EXTRAS_SEED, step]).standard_normal(
+        (batch, tokens, cfg.frontend_dim), dtype=np.float32)
+    return {EXTRAS_KEY[cfg.frontend]:
+            torch.from_numpy(x if rows is None else x[rows])}
+
+
+def with_extras(put_batch, cfg, dev, peer, n_shards):
+    """A trainer's ``put_batch`` that adds its dp rank's rows of the
+    step's ``stub_extras`` (of the TRAIN_BATCH-row global batch, the
+    rows the rank's tokens are of it) in bfloat16 on ``dev``, the dtype
+    of JAX's ``train_input_specs``."""
+    rows = TRAIN_BATCH // n_shards
+
+    def put(step):
+        batch = put_batch(step)
+        extras = stub_extras(cfg, TRAIN_BATCH, TRAIN_SEQ, step,
+                             slice(peer * rows, (peer + 1) * rows))
+        batch.update({k: v.to(dev, torch.bfloat16)
+                      for k, v in extras.items()})
+        return batch
+    return put
+
+
+def stub_leaves(names):
+    """The leaves that a stub's text alone does not reach: the frontend
+    projection, the encoder stack and its norm, the cross-attention."""
+    return [n for n in names if n == "frontend_proj"
+            or n.startswith(("encoder.", "enc_norm."))
+            or ".xattn." in n or ".lnx." in n]
+
+
+def rs_extras_step(dev, cfg, ts, opt, DataConfig, make_source, counts):
+    """A stub's one ``make_train_step`` step at full width
+    (``lossy_hadamard`` at drop 0.05, from seed 0, the state donated)
+    with its extras given by hand (``stub_extras``: image embeds (8,
+    144, 1024) or frames (8, 128, 1024), bfloat16): the loss finite and
+    within the band of ln V, the FWHT twice a coded leaf, recv_frac in
+    [0.4, 1], and the first moment of every leaf that the text alone
+    does not reach non-zero: its backward ran on the card."""
+    from repro_torch import generator
+    from repro_torch.models import convert
+    names = convert.leaf_names(cfg)
+    n_coded = sum(p is not None for p in ts.plan_leaves(
+        convert.leaf_shapes(cfg), None, ts.CelerisConfig(), names))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.init_state(generator(dev, 0), cfg)
+    step = ts.make_train_step(cfg, None, opt,
+                              ts.CelerisConfig(mode="lossy_hadamard"),
+                              donate=True)
+    src = make_source(DataConfig(vocab_size=cfg.vocab_size,
+                                 seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                 seed=1))
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in src.global_batch(0).items()}
+    extras = stub_extras(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    batch.update({k: v.to(dev, torch.bfloat16) for k, v in extras.items()})
+    _sync()
+    counts.reset()
+    t0 = time.perf_counter()
+    state, m = step(state, batch, generator(dev, 0, 1), 0.05)
+    _sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts.read()
+    counts.reset()
+    peak = torch.cuda.max_memory_allocated()
+    loss, frac = m["loss"].item(), m["recv_frac"].item()
+    reached = stub_leaves(names)
+    idle = [n for n in reached
+            if not state["opt"]["mu"][names.index(n)].any()]
+    del state, step
+    torch.cuda.empty_cache()
+    assert math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < (
+        FAMILY_LOSS_BAND), (cfg.name, loss)
+    assert launches["fwht"] == 2 * n_coded, (cfg.name, launches)
+    assert 0.4 <= frac <= 1.0, (cfg.name, frac)
+    assert reached and not idle, (cfg.name, "no gradient reached", idle)
+    return {"extras": {k: list(v.shape) for k, v in extras.items()},
+            "loss": loss, "recv_frac": frac, "step_ms": wall_ms,
+            "coded_leaves": n_coded, "leaves_reached_by_extras": len(reached),
+            "peak_gb": peak / 1e9, "launches": launches}
+
+
+def recurrent_block_launches(dev, C):
+    """The kernel launches and device time of one sLSTM and one RG-LRU
+    block's forward and backward at phase 6g's shapes (8 x 128 tokens,
+    full width, random weights): the port's sLSTM time loop and RG-LRU
+    doubling scan are torch ops, not kernels of their own, so their
+    launches grow with the sequence.  A step's launches are a block's
+    times the step's blocks of that kind (6g's depths)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import xlstm as XL
+    out = {}
+    for arch, layers, kind, init, block in (
+            ("xlstm-350m", None, "slstm", XL.init_slstm, XL.slstm_block),
+            ("recurrentgemma-9b", 5, "rglru", RG.init_rglru,
+             RG.rglru_block)):
+        cfg = family_config(C, arch, layers)
+        g = torch.Generator(dev).manual_seed(0)
+        p = {k: v.requires_grad_() for k, v in init(g, cfg).items()}
+        x = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, generator=g,
+                         device=dev) * 0.5).to(L.dtype_of(cfg))
+        x.requires_grad_()
+
+        def fwd_bwd():
+            y, _ = block(p, cfg, x)
+            torch.autograd.grad(y.float().sum(), list(p.values()) + [x])
+
+        fwd_bwd()
+        prof = profile_window(fwd_bwd)
+        plen = len(cfg.block_pattern)
+        n = sum(cfg.block_pattern[i % plen] == kind
+                for i in range(cfg.n_layers))
+        per = prof.get("n_kernel_launches")
+        out[kind] = {"arch": arch, "blocks_per_step": n,
+                     "per_block_fwd_bwd": prof,
+                     "launches_per_step": (per * n if per is not None
+                                           else "not measured")}
+        del p, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_recurrent_stubs(dev, C, ts, Trainer, DataConfig, OptConfig,
+                                make_source, counts):
+    """Phase 6g: ``RS_TRAIN`` through ``phase_train_families``' checks
+    (text alone, as JAX's Trainer runs the stubs); each stub's step with
+    its extras (``rs_extras_step``); the sLSTM's and RG-LRU's launches a
+    step (``recurrent_block_launches``)."""
+    out = phase_train_families(dev, C, ts, Trainer, DataConfig, OptConfig,
+                               counts, RS_TRAIN)
+    smi = card_name_and_power()
+    opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
+    for arch, layers in RS_TRAIN:
+        cfg = family_config(C, arch, layers)
+        if not cfg.frontend:
+            continue
+        rec = rs_extras_step(dev, cfg, ts, opt, DataConfig, make_source,
+                             counts)
+        out[arch]["extras_step"] = rec
+        for k, v in rec["launches"].items():
+            out["launches"][k] += v
+        print(f"train {arch} with extras, one lossy_hadamard step: {rec} "
+              f"[{smi}]")
+    out["block_launches"] = recurrent_block_launches(dev, C)
+    print(f"train recurrent blocks, launches of one block's forward + "
+          f"backward at {TRAIN_BATCH} x {TRAIN_SEQ}, full width: "
+          f"{out['block_launches']} [{smi}]")
+    return out
+
+
+def rs_smoke_card_vs_cpu(dev, C, ts, OptConfig, DataConfig, make_source):
+    """Each of the four's smoke config in float32 through
+    ``small_steps_card_vs_cpu``: one ``lossy_hadamard`` step on 4 x 96
+    tokens (a stub's with its ``stub_extras``), drop 0.1,
+    ``TEST_STEP_TOL``."""
+    opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
+    out = {}
+    for arch, _ in RS_TRAIN:
+        cfg = dataclasses.replace(C.get_smoke(arch), dtype="float32")
+        src = make_source(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=FAMILY_SMOKE_SEQ, global_batch=4,
+                                     seed=1))
+        batch = {k: torch.as_tensor(v, dtype=torch.long)
+                 for k, v in src.global_batch(0).items()}
+        batch.update(stub_extras(cfg, 4, FAMILY_SMOKE_SEQ))
+        _, rec = small_steps_card_vs_cpu(
+            dev, ts, cfg, opt, batch, 0.1, ("lossy_hadamard",),
+            TEST_STEP_TOL, f"train recurrent/stubs smoke {arch}")
+        out[arch] = dict(rec["lossy_hadamard"], batch=sorted(batch))
+    print(f"train recurrent/stubs smoke f32, card vs CPU (one "
+          f"lossy_hadamard step, {FAMILY_SMOKE_SEQ} tokens): {out}")
     return out
 
 
@@ -5768,6 +6054,18 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     lap("6e_train_families")
     train_families_mesh = phase_mesh_train_families()
     lap("6f_train_families_mesh")
+    train_rs = phase_train_recurrent_stubs(dev, C, ts, Trainer, DataConfig,
+                                           OptConfig, make_source, counts)
+    train_rs["smoke_card_vs_cpu"] = rs_smoke_card_vs_cpu(
+        dev, C, ts, OptConfig, DataConfig, make_source)
+    train_rs["fwht"], rs_records = check_family_fwht(
+        dev, C, kfwht, ref, family_fwht_shapes(C, RS_TRAIN, RS_MESH_CELLS,
+                                               rs_mesh_config),
+        map(tuple, train_families["fwht"]["shapes"]), "recurrent/stubs")
+    records += rs_records
+    lap("6g_train_recurrent_stubs")
+    train_rs_mesh = phase_mesh_train_families("recurrent_stubs")
+    lap("6h_train_recurrent_stubs_mesh")
     small_train = phase_small_train(dev, C, ts, OptConfig, DataConfig,
                                     make_source)
     lap("7_small_train")
@@ -5875,6 +6173,8 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "ep_train": ep_train["launches"],
                "train_families": train_families["launches"],
                "train_families_mesh": train_families_mesh["launches"],
+               "train_recurrent_stubs": train_rs["launches"],
+               "train_recurrent_stubs_mesh": train_rs_mesh["launches"],
                "serve_qwen2_moe": serve_moe["qwen2-moe-a2.7b"]["launches"],
                "serve_granite_moe":
                    serve_moe["granite-moe-3b-a800m"]["launches"],
@@ -5907,6 +6207,8 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "ep_train": ep_train, "small_train": small_train,
                       "train_families": train_families,
                       "train_families_mesh": train_families_mesh,
+                      "train_recurrent_stubs": train_rs,
+                      "train_recurrent_stubs_mesh": train_rs_mesh,
                       "engine_card_vs_cpu": engine_check, "fig1": fig1,
                       "fig2": fig2, "fig3": fig3,
                       "hier_card_vs_cpu": hier_check, "fig4": fig4,
@@ -5946,7 +6248,8 @@ if __name__ == "__main__":
                     "without a workspace), in turns, on the engine's real "
                     "blocks")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
-    ap.add_argument("--mesh-kind", choices=("dp", "tp", "ep", "families"),
+    ap.add_argument("--mesh-kind", choices=("dp", "tp", "ep", "families",
+                                             "recurrent_stubs"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", help=argparse.SUPPRESS)

@@ -11,21 +11,27 @@ dtypes (bfloat16, float32) are kept as they are.
 The **JAX leaf view** (:func:`jax_leaves`, :func:`params_from_leaves`)
 is the list of the JAX parameter tree's leaves in
 ``jax.tree_util.tree_flatten`` order (dict keys sorted at every level),
-built from the config for the dense and MoE families: per position j of
-the block pattern the leaves of ``decoder.groups[j]``, stacked over the
-``n_layers // plen`` groups (group j's g-th slice is layer ``g * plen +
-j``), then one layer a ``decoder.tail[t]``, then ``embed.table``,
-``embed.unembed`` when untied, and ``final_norm.scale``.  A layer's
-leaves follow its config: QKV biases only with ``qkv_bias``, the
-post-norms ``pn1``/``pn2`` with ``post_norm``, no ``mlp.wg`` for squared
-ReLU, the MoE leaves (``moe.shared.*`` only with shared experts).  So
-qwen2 has 14 leaves, qwen2-moe 18, gemma2 2 x 11 + 2, chatglm3 15,
-nemotron 11, granite-moe 12.  :func:`leaf_names`, :func:`short_names` and
+built from the config for every family: the ``decoder`` stack (per
+position j of the block pattern the leaves of ``decoder.groups[j]``,
+stacked over the ``n_layers // plen`` groups, group j's g-th slice layer
+``g * plen + j``, then one layer a ``decoder.tail[t]``), then
+``embed.table``, ``embed.unembed`` when untied, an enc-dec model's
+``enc_norm.scale`` and its ``encoder`` stack (the same layout, its layers
+``encoder.layers.{i}.*``), ``final_norm.scale`` and a frontend's
+``frontend_proj``.  A layer's leaves follow its config: QKV biases only
+with ``qkv_bias``, the post-norms ``pn1``/``pn2`` with ``post_norm``, no
+``mlp.wg`` for squared ReLU, the MoE leaves (``moe.shared.*`` only with
+shared experts), an enc-dec decoder layer's ``xattn.*`` and ``lnx``, the
+recurrent blocks' ``rglru.*`` (with ``ln2`` and the MLP), ``mlstm.*`` and
+``slstm.*`` (``ln1`` only, no MLP).  So qwen2 has 14 leaves, qwen2-moe 18,
+gemma2 2 x 11 + 2, chatglm3 15, nemotron 11, granite-moe 12,
+recurrentgemma 71 at 5 layers or more, xlstm 36, phi-3-vision 13,
+seamless 27.  :func:`leaf_names`, :func:`short_names` and
 :func:`leaf_shapes` give the view of a config; the functions that take
-``names`` take :func:`leaf_names`, the two above the config itself.  The trainer keeps its parameters in
-this view: the JAX train step plans, codes and draws one mask and one
-set of signs per leaf index, so the port codes the same stacked leaves
-in the same order.
+``names`` take :func:`leaf_names`, the two above the config itself.  The
+trainer keeps its parameters in this view: the JAX train step plans,
+codes and draws one mask and one set of signs per leaf index, so the
+port codes the same stacked leaves in the same order.
 
 On a mesh with a ``model`` axis each rank holds its slice of every leaf
 that the partition specs split over ``model`` (:func:`shard_leaves`;
@@ -132,32 +138,54 @@ def _tree_order(names) -> Tuple[str, ...]:
     return tuple(sorted(names, key=lambda n: n.split(".")))
 
 
-def _layer_shapes(cfg: ModelConfig, kind: str
+def _layer_shapes(cfg: ModelConfig, kind: str, cross: bool = False
                   ) -> Dict[str, Tuple[int, ...]]:
     """One layer's leaves and shapes in the JAX leaf view, for a block of
-    ``kind`` (JAX ``init_block``): the attention's ``w{q,k,v,o}``, with
-    ``b{q,k,v}`` only under ``qkv_bias``; ``ln1``/``ln2``, with
-    ``pn1``/``pn2`` under ``post_norm``; then the MLP (``wg``, ``wi``,
-    ``wo``; no ``wg`` for squared ReLU), or for ``"moe"`` the MoE leaves
-    (``moe.shared.*`` only with shared experts)."""
+    ``kind`` (JAX ``init_block``).  An attention block: the attention's
+    ``w{q,k,v,o}``, with ``b{q,k,v}`` only under ``qkv_bias``;
+    ``ln1``/``ln2``, with ``pn1``/``pn2`` under ``post_norm``; then the
+    MLP (``wg``, ``wi``, ``wo``; no ``wg`` for squared ReLU), or for
+    ``"moe"`` the MoE leaves (``moe.shared.*`` only with shared
+    experts); ``cross`` (an enc-dec decoder layer) adds the
+    cross-attention ``xattn.w{q,k,v,o}`` and its norm ``lnx``.  An
+    rglru block: ``ln1``, ``ln2``, the MLP and the ten ``rglru.*``
+    leaves; an mlstm or slstm block: ``ln1`` and its block's leaves,
+    no MLP.  The shapes are the blocks' ``init_*`` ones (the gates,
+    ``lam``, ``w_if``, ``b_if``, ``b`` and ``r_h`` are float32 there)."""
+    d = cfg.d_model
+    if kind == "rglru":
+        w, kw = cfg.lru_width or d, cfg.rglru_conv_width
+        layer = {f"rglru.{n}": (w,) for n in (
+            "conv_b", "gate_a_b", "gate_a_w", "gate_x_b", "gate_x_w", "lam")}
+        layer.update({"rglru.conv_w": (kw, w), "rglru.w_gate": (d, w),
+                      "rglru.w_in": (d, w), "rglru.w_out": (w, d),
+                      "ln1.scale": (d,), "ln2.scale": (d,)})
+        return dict(layer, **_mlp_shapes(cfg))
+    if kind == "mlstm":
+        di, hh = 2 * d, cfg.n_heads
+        return {"ln1.scale": (d,), "mlstm.b_if": (2 * hh,),
+                "mlstm.w_down": (di, d), "mlstm.w_gate": (d, di),
+                "mlstm.w_if": (di, 2 * hh), "mlstm.w_up": (d, di),
+                "mlstm.wk": (di, di), "mlstm.wq": (di, di),
+                "mlstm.wv": (di, di)}
+    if kind == "slstm":
+        hh = cfg.n_heads
+        dh = d // hh
+        return {"ln1.scale": (d,), "slstm.b": (4 * d,),
+                "slstm.r_h": (hh, dh, 4 * dh), "slstm.w_down": (2 * d, d),
+                "slstm.w_up1": (d, 2 * d), "slstm.w_up2": (d, 2 * d),
+                "slstm.w_x": (d, 4 * d)}
     if kind not in ATTN_KINDS:
-        raise NotImplementedError(
-            f"{cfg.name}: no JAX leaf view for {kind} blocks yet: training "
-            "the recurrent families comes with ROADMAP Queue 1, item 2")
-    d, f = cfg.d_model, cfg.d_ff
-    q = cfg.n_heads_padded * cfg.resolved_head_dim
-    kv = cfg.n_kv_heads * cfg.resolved_head_dim
-    layer = {"attn.wk": (d, kv), "attn.wo": (q, d), "attn.wq": (d, q),
-             "attn.wv": (d, kv), "ln1.scale": (d,), "ln2.scale": (d,)}
-    if cfg.qkv_bias:
-        layer.update({"attn.bk": (kv,), "attn.bq": (q,), "attn.bv": (kv,)})
+        raise ValueError(f"{cfg.name}: no block of kind {kind!r}")
+    layer = {"ln1.scale": (d,), "ln2.scale": (d,)}
+    layer.update(_attn_shapes(cfg, "attn."))
     if cfg.post_norm:
         layer.update({"pn1.scale": (d,), "pn2.scale": (d,)})
+    if cross:
+        layer.update(_attn_shapes(cfg, "xattn."))
+        layer["lnx.scale"] = (d,)
     if kind != "moe":
-        layer.update({"mlp.wi": (d, f), "mlp.wo": (f, d)})
-        if cfg.mlp_type != "sqrelu":
-            layer["mlp.wg"] = (d, f)
-        return layer
+        return dict(layer, **_mlp_shapes(cfg))
     e, fe = MOE.padded_experts(cfg), cfg.moe.d_expert
     layer.update({"moe.router": (d, e), "moe.wg": (e, d, fe),
                   "moe.wi": (e, d, fe), "moe.wo": (e, fe, d)})
@@ -168,44 +196,89 @@ def _layer_shapes(cfg: ModelConfig, kind: str
     return layer
 
 
+def _attn_shapes(cfg: ModelConfig, pre: str) -> Dict[str, Tuple[int, ...]]:
+    """An attention's leaves under ``pre`` (``attn.`` or ``xattn.``)."""
+    d = cfg.d_model
+    q = cfg.n_heads_padded * cfg.resolved_head_dim
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim
+    out = {"wk": (d, kv), "wo": (q, d), "wq": (d, q), "wv": (d, kv)}
+    if cfg.qkv_bias:
+        out.update({"bk": (kv,), "bq": (q,), "bv": (kv,)})
+    return {pre + n: shape for n, shape in out.items()}
+
+
+def _mlp_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    d, f = cfg.d_model, cfg.d_ff
+    out = {"mlp.wi": (d, f), "mlp.wo": (f, d)}
+    if cfg.mlp_type != "sqrelu":
+        out["mlp.wg"] = (d, f)
+    return out
+
+
 class _Leaf(NamedTuple):
     """One leaf of the view: JAX's path (``decoder.groups[0].attn.wq``),
     its name in a layer's params (``attn.wq``), its global shape, the
-    layers it holds (a group leaf's, stacked in dim 0; a tail leaf's
-    one; None for a top-level leaf) and whether they are stacked."""
+    layers it holds as their params' prefixes (``layers.3.``,
+    ``encoder.layers.0.``; a group leaf's, stacked in dim 0; a tail
+    leaf's one; None for a top-level leaf) and whether they are
+    stacked."""
     path: str
     short: str
     shape: Tuple[int, ...]
-    layers: Optional[Tuple[int, ...]]
+    layers: Optional[Tuple[str, ...]]
     stacked: bool
 
 
-def _view(cfg: ModelConfig) -> List[_Leaf]:
-    """The JAX leaf view of ``cfg``, in ``tree_flatten`` order:
-    ``decoder.groups[j].*`` for each position j of the pattern (stacked
-    over the n_layers // plen groups: slice g is layer g * plen + j),
-    ``decoder.tail[t].*`` (layer n_groups * plen + t), ``embed.table``,
-    ``embed.unembed`` when untied, ``final_norm.scale``."""
-    n_groups, tail = cfg.pattern_layout()
+def _stack_view(cfg: ModelConfig, stack: str, prefix: str, n_layers: int,
+                cross: bool = False) -> List[_Leaf]:
+    """The leaves of one scanned stack (JAX ``_init_stack``), ``stack``
+    its JAX key (``decoder``, ``encoder``) and ``prefix`` its layers'
+    in the params: ``{stack}.groups[j].*`` for each position j of the
+    pattern (stacked over the n_layers // plen groups: slice g is layer
+    g * plen + j), then ``{stack}.tail[t].*`` (layer n_groups * plen +
+    t)."""
     plen = len(cfg.block_pattern)
+    n_groups, tail = n_layers // plen, cfg.block_pattern[:n_layers % plen]
     groups = cfg.block_pattern if n_groups else ()
     out = []
     for j, kind in enumerate(groups):
-        layer = _layer_shapes(cfg, kind)
-        out += [_Leaf(f"decoder.groups[{j}].{n}", n, (n_groups,) + layer[n],
-                      tuple(g * plen + j for g in range(n_groups)), True)
+        layer = _layer_shapes(cfg, kind, cross)
+        out += [_Leaf(f"{stack}.groups[{j}].{n}", n, (n_groups,) + layer[n],
+                      tuple(f"{prefix}{g * plen + j}."
+                            for g in range(n_groups)), True)
                 for n in _tree_order(layer)]
     for t, kind in enumerate(tail):
-        layer = _layer_shapes(cfg, kind)
-        out += [_Leaf(f"decoder.tail[{t}].{n}", n, layer[n],
-                      (n_groups * plen + t,), False)
+        layer = _layer_shapes(cfg, kind, cross)
+        out += [_Leaf(f"{stack}.tail[{t}].{n}", n, layer[n],
+                      (f"{prefix}{n_groups * plen + t}.",), False)
                 for n in _tree_order(layer)]
+    return out
+
+
+def _view(cfg: ModelConfig) -> List[_Leaf]:
+    """The JAX leaf view of ``cfg``, in ``tree_flatten`` order (keys
+    sorted at the top too): the ``decoder`` stack (:func:`_stack_view`;
+    an enc-dec model's layers with their cross-attention),
+    ``embed.table``, ``embed.unembed`` when untied, an enc-dec model's
+    ``enc_norm.scale`` and ``encoder`` stack, ``final_norm.scale``, and a
+    frontend's ``frontend_proj``."""
     d, v = cfg.d_model, cfg.vocab_size
-    top = [("embed.table", (v, d))]
+    top = {"embed.table": (v, d), "final_norm.scale": (d,)}
     if not cfg.tie_embeddings:
-        top.append(("embed.unembed", (d, v)))
-    top.append(("final_norm.scale", (d,)))
-    return out + [_Leaf(n, n, shape, None, False) for n, shape in top]
+        top["embed.unembed"] = (d, v)
+    if cfg.is_encdec:
+        top["enc_norm.scale"] = (d,)
+    if cfg.frontend:
+        top["frontend_proj"] = (cfg.frontend_dim, d)
+    out = _stack_view(cfg, "decoder", "layers.", cfg.n_layers,
+                      cross=cfg.is_encdec)
+    out += [_Leaf(n, n, top[n], None, False)
+            for n in _tree_order(top) if n < "encoder"]
+    if cfg.is_encdec:
+        out += _stack_view(cfg, "encoder", "encoder.layers.",
+                           cfg.encoder_layers)
+    return out + [_Leaf(n, n, top[n], None, False)
+                  for n in _tree_order(top) if n > "encoder"]
 
 
 def leaf_names(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -234,7 +307,7 @@ def jax_leaves(params: Params, cfg: ModelConfig) -> List[torch.Tensor]:
         if leaf.layers is None:
             out.append(params[leaf.path])
             continue
-        layers = [params[f"layers.{i}.{leaf.short}"] for i in leaf.layers]
+        layers = [params[pre + leaf.short] for pre in leaf.layers]
         out.append(torch.stack(layers) if leaf.stacked else layers[0])
     return out
 
@@ -253,8 +326,8 @@ def params_from_leaves(leaves: Sequence[torch.Tensor], cfg: ModelConfig
             out[leaf.path] = x
             continue
         layers = x.unbind(0) if leaf.stacked else (x,)
-        for i, layer in zip(leaf.layers, layers, strict=True):
-            out[f"layers.{i}.{leaf.short}"] = layer
+        for pre, layer in zip(leaf.layers, layers, strict=True):
+            out[pre + leaf.short] = layer
     return out
 
 

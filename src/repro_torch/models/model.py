@@ -86,7 +86,9 @@ def check_supported(cfg: ModelConfig,
     """Refuse a block kind no model has (``ValueError``, as JAX's
     ``init_block`` raises on any other kind, an ``"xattn"`` block kind
     included: cross-attention is part of an enc-dec decoder block), and
-    tensor parallelism for the recurrent blocks and the modality stubs.
+    tensor parallelism for the recurrent blocks and the modality stubs
+    (the forward with a ``tp`` group, and ``train_step.make_train_step``
+    / ``init_state`` on a mesh whose ``model`` axis is larger than 1).
     The dense and MoE families run tensor parallel in every attention
     and MLP variant: with or without QKV bias, partial rotary, softcaps,
     post-norms (replicated), local windows, SwiGLU, GeGLU or squared
@@ -101,7 +103,7 @@ def check_supported(cfg: ModelConfig,
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism is not ported for "
             f"{recurrent or 'the modality stubs'} yet (ROADMAP Queue 1, "
-            "item 2)")
+            "item 2(d))")
 
 
 def logits_leaf(cfg: ModelConfig) -> str:
@@ -397,6 +399,14 @@ def lm_loss(params: Params, cfg: ModelConfig,
     ``lossy``: the lossy expert dispatch (:class:`LossyCtx`); ``rows``:
     the dp ranks whose rows the MoE layers route together.
 
+    ``batch`` holds ``tokens`` and ``labels`` (B, S_text), and, as JAX's
+    ``forward`` takes them, a vision stub's ``image_embeds`` or an
+    enc-dec config's ``frame_embeds`` (:func:`hidden_aux`); the loss is
+    taken on the last S_text positions only, past the image positions.
+    Without them a stub runs on its text alone, as the JAX trainer runs
+    it: the frontend, the encoder and the cross-attention then take no
+    part in the loss.
+
     The cross-entropy is taken in float32 with the row max shifted out,
     as in JAX.  The label logit is gathered where JAX sums a one-hot
     product: the same value, since a sum with zeros is exact.  No remat:
@@ -411,7 +421,8 @@ def lm_loss(params: Params, cfg: ModelConfig,
     builds logits over the whole vocabulary.
     """
     x, aux = hidden_aux(params, cfg, batch["tokens"], tp=tp, lossy=lossy,
-                        rows=rows)
+                        rows=rows, image_embeds=batch.get("image_embeds"),
+                        frame_embeds=batch.get("frame_embeds"))
     logits = head(params, cfg, x, tp)
     labels = batch["labels"]
     n_txt = labels.shape[1]

@@ -19,6 +19,11 @@ boundary state carried between them when ``s % 512 == 0 and s > 512``,
 else one scan.  The association order differs from XLA's, so the two
 agree to float32 rounding, not bit for bit.  Decode is the exact
 single-step update with the carried (conv window, h) state.
+
+Training takes autograd through these ops.  The square root's argument
+is bounded with ``torch.clamp`` where JAX writes ``jnp.clip``: they
+split the gradient alike off the bounds, and the backward matches
+``jax.grad`` to float32 rounding, so the form stays.
 """
 from __future__ import annotations
 

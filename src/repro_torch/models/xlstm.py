@@ -15,7 +15,16 @@ sequential step.
 time.  Exponential gating stabilized with m_t.
 
 Both carry their own up/down projections (d_ff = 0).  Neither loop is a
-Pallas kernel in the JAX package (``lax.scan``): both are torch ops.
+Pallas kernel in the JAX package (``lax.scan``): both are torch ops, and
+autograd through them is the blocks' backward in training.
+
+The lower bounds are ``torch.clamp`` where JAX writes ``jnp.maximum``
+(the mLSTM's denominator, the sLSTM's normalizer).  At an exact tie
+``clamp`` passes the whole gradient and ``maximum`` half of it; ties
+happen (the sLSTM's ``n_new`` is exactly 1 at t = 0 wherever the input
+gate wins), but there the gradient that reaches the bound cancels, so
+the backward matches ``jax.grad`` to float32 rounding either way, and
+the forms stay as they are.
 """
 from __future__ import annotations
 

@@ -124,14 +124,20 @@ and keeps its own rows of their output.  Not ported, and refused:
 ``microbatches`` there (JAX's microbatch is a block of the global
 batch's rows, not of each shard's).
 
-**The families.**  Every dense and MoE model trains (qwen2, gemma2,
-chatglm3, nemotron, qwen2-moe, granite-moe): the leaf view follows the
-config (``convert.leaf_names``: gemma2's two pattern groups,
-``embed.unembed`` when untied, the post-norms, no ``mlp.wg`` for
-squared ReLU, no QKV biases where the config has none), and every draw
-is per JAX leaf index, so gemma2's group-1 leaves and ``embed.unembed``
-take JAX's indices.  The recurrent families and the modality stubs are
-refused (:func:`check_trainable`).
+**The families.**  Every model of the JAX package trains: the dense
+and MoE families, the recurrent ones (recurrentgemma's RG-LRU, xLSTM's
+mLSTM and sLSTM: autograd through the port's scans) and the modality
+stubs.  The leaf view follows the config (``convert.leaf_names``:
+gemma2's two pattern groups, ``embed.unembed`` when untied, the
+post-norms, no ``mlp.wg`` for squared ReLU, no QKV biases where the
+config has none, the recurrent blocks' leaves, seamless's encoder
+stack and cross-attention, ``frontend_proj``), and every draw is per
+JAX leaf index.  A stub's batch may carry ``image_embeds`` or
+``frame_embeds`` (rows with the tokens' rows; on a mesh this rank's);
+without them the leaves the text does not reach get zero gradients,
+as under ``jax.grad``, and AdamW still decays them.  Tensor
+parallelism for the recurrent families and the stubs is refused when
+the step is built (``model.check_supported``).
 """
 from __future__ import annotations
 
@@ -183,13 +189,17 @@ def loss_and_grads(cfg: ModelConfig, leaves, batch: Dict[str, torch.Tensor],
                    rows: Optional[shd.RowGroup] = None):
     """(loss, nll, aux, grads) of ``M.lm_loss`` at the JAX-leaf-view
     parameters (this rank's shards with ``tp``); the gradients come back
-    as one tensor per leaf.  ``lossy``: the MoE layers' lossy
-    dispatch; ``rows``: the dp ranks whose rows they route together."""
+    as one tensor per leaf, zeros for a leaf the loss does not reach.
+    ``lossy``: the MoE layers' lossy dispatch; ``rows``: the dp ranks
+    whose rows they route together."""
     params = [leaf.detach().requires_grad_() for leaf in leaves]
     loss, (nll, aux) = M.lm_loss(
         convert.params_from_leaves(params, cfg), cfg,
         batch, tp, lossy, rows)
-    grads = torch.autograd.grad(loss, params)
+    # a leaf the batch does not reach (a stub's frontend, encoder and
+    # cross-attention on text alone) gets zeros, as jax.grad gives it
+    grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                materialize_grads=True)
     return loss.detach(), nll.detach(), aux.detach(), list(grads)
 
 
@@ -532,24 +542,6 @@ def _sync_dp(sync: _DpSync, grads, plans, generator, drop_rate, masks,
                                sync.dp, sync.dp, model=sync.model)
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Training is ported for the dense and MoE families (the JAX leaf
-    view, ``convert.leaf_names``); the recurrent families and the
-    modality stubs serve."""
-    if cfg.frontend or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: training the modality stubs is not ported yet "
-            "(ROADMAP Queue 1, item 2): phi-3-vision's frontend projection "
-            "and seamless's encoder stack and cross-attention have no leaf "
-            "view")
-    recurrent = sorted(set(cfg.block_pattern) & set(M.RECURRENT_KINDS))
-    if recurrent:
-        raise NotImplementedError(
-            f"{cfg.name}: training the recurrent families ({recurrent} "
-            "blocks) is not ported yet: their backward comes with ROADMAP "
-            "Queue 1, item 2")
-
-
 def make_train_step(cfg: ModelConfig, mesh=None,
                     opt_cfg: Optional[adamw.OptConfig] = None,
                     celeris: Optional[CelerisConfig] = None,
@@ -565,7 +557,9 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     parallelism); the state's parameters are then this rank's shards
     (``convert.shard_leaves``).
     ``batch`` = {"tokens", "labels"} (B, S) int64 on the parameters'
-    device: this rank's rows on a mesh (the same on every model rank);
+    device, with a stub's ``image_embeds`` or ``frame_embeds`` (B, ...)
+    where given: this rank's rows on a mesh (the same on every model
+    rank);
     on a mesh B divisible by ``microbatches``, which one device ignores
     (as the JAX step does).  ``drop_rate`` a float, or in
     ``hierarchical`` mode the axis vector whose last component is the
@@ -579,7 +573,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     again.  Off by default: a step then leaves its input state as it
     was.
     """
-    check_trainable(cfg)
+    M.check_supported(cfg, shd.model_group(mesh))   # at build time
     opt_cfg = opt_cfg or adamw.OptConfig()
     celeris = celeris or CelerisConfig()
     mode = celeris.collective_mode()
@@ -672,7 +666,7 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, mesh=None):
     with their optimizer state.  On a mesh with a ``model`` axis the
     whole parameters are drawn and this rank keeps its shards
     (``convert.shard_leaves``)."""
-    check_trainable(cfg)
+    M.check_supported(cfg, shd.model_group(mesh))
     names = convert.leaf_names(cfg)
     leaves = convert.jax_leaves(M.init_params(cfg, generator), cfg)
     if shd.model_group(mesh) is not None:

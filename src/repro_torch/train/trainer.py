@@ -17,7 +17,8 @@
   pipeline.  A ``straggler_model`` maps the current timeout to a drop
   probability via the transport latency distribution.
 - **data restart safety**: batches are pure functions of (seed, step,
-  shard).
+  shard).  A batch holds the pipeline's tokens and labels alone, so a
+  modality stub trains on text, as under the JAX trainer.
 
 The host draws (straggler bursts, emulated latencies, coordination
 noise) come from the same numpy generator as in JAX, in the same order.

@@ -37,6 +37,7 @@ from repro_torch.train.trainer import Trainer
 
 FAMILIES = ["gemma2-9b", "chatglm3-6b", "nemotron-4-15b"]
 RECURRENT = ["recurrentgemma-9b", "xlstm-350m"]
+STUBS = ["phi-3-vision-4.2b", "seamless-m4t-medium"]
 TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
        "bfloat16": dict(rtol=2 ** -6, atol=6.25e-2)}
 B, PLEN, S_MAX = 2, 16, 24
@@ -348,41 +349,48 @@ def test_serve_launcher_gemma2_smoke_on_cpu(capsys):
 
 @pytest.mark.parametrize("arch", FAMILIES + RECURRENT)
 def test_training_refuses_the_families(arch):
-    """The dense families train (their leaf view and backward are held
-    to JAX's in ``tests/test_torch_train_families.py``): the step, the
-    state and the Trainer build, and one CPU step runs.  The recurrent
-    families are still refused, naming the roadmap item."""
+    """The dense and recurrent families train (their leaf views and
+    backward are held to JAX's in ``tests/test_torch_train_families.py``
+    and ``tests/test_torch_train_recurrent.py``): the step, the state
+    and the Trainer build, the state holds the view's leaves, and one
+    CPU step runs."""
     cfg = TC.get_smoke(arch)
-    builds = (lambda: TTS.make_train_step(cfg),
-              lambda: TTS.init_state(torch.Generator(), cfg),
-              lambda: Trainer(cfg, data_cfg=DataConfig(
-                  vocab_size=cfg.vocab_size, seq_len=16, global_batch=2),
-                  device="cpu"))
-    if arch in RECURRENT:
-        for build in builds:
-            with pytest.raises(NotImplementedError,
-                               match="recurrent.*Queue 1, item 2"):
-                build()
-        return
-    step, state, tr = (build() for build in builds)
-    assert len(state["params"]) == len(convert.leaf_names(cfg))
+    step = TTS.make_train_step(cfg)
+    state = TTS.init_state(torch.Generator(), cfg)
+    tr = Trainer(cfg, data_cfg=DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=16, global_batch=2),
+                 device="cpu")
+    assert callable(step)
+    assert [tuple(x.shape) for x in state["params"]] == \
+        convert.leaf_shapes(cfg)
     hist = tr.run(1)
     assert np.isfinite(hist["loss"]).all() and int(tr.state["step"]) == 1
 
 
-@pytest.mark.parametrize("arch", FAMILIES + RECURRENT)
+@pytest.mark.parametrize("arch", FAMILIES + RECURRENT + STUBS)
 def test_tensor_parallel_refused_off_qwen2_layout(arch):
     """Tensor parallelism runs for the dense families (held to JAX's
     steps in ``tests/test_torch_train_families_mesh.py``): on a (1, 2)
     mesh of a fake process group the step builds, each rank holds its
     shards, and the forward gives its half of the vocabulary.  The
-    recurrent families are still refused."""
+    recurrent families and the modality stubs are refused there when
+    the step is built, and by the forward, naming ROADMAP Queue 1, item
+    2(d)."""
     from repro_torch import sharding as shd
     from repro_torch.launch import mesh as tmesh
     from test_torch_dp_train import fake_world
     cfg = TC.get_smoke(arch)
     tokens = torch.zeros(1, 4, dtype=torch.long)
-    if arch in RECURRENT:
+    if arch in RECURRENT + STUBS:
+        with fake_world(2):
+            mesh = tmesh.make_host_mesh((1, 2), device_type="cpu")
+            for build in (lambda: TTS.make_train_step(cfg, mesh),
+                          lambda: TTS.init_state(torch.Generator(), cfg,
+                                                 mesh)):
+                with pytest.raises(NotImplementedError,
+                                   match=r"tensor parallelism.*Queue 1, "
+                                   r"item 2\(d\)"):
+                    build()
         params = TM.init_params(cfg, torch.Generator().manual_seed(0))
         tp = shd.ModelGroup(group=None, size=2, index=0)
         with pytest.raises(NotImplementedError,

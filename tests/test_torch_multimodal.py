@@ -501,12 +501,22 @@ def test_serve_launcher_smoke_on_cpu(arch, capsys):
 
 @pytest.mark.parametrize("arch", STUBS)
 def test_training_refuses_the_stubs(arch):
+    """The stubs train (their leaf view, backward and steps are held to
+    JAX's in ``tests/test_torch_train_stubs.py``): the step, the state
+    and the Trainer build, the state holds the view's leaves
+    (``frontend_proj``; seamless's encoder stack and cross-attention),
+    and one CPU Trainer step on text alone runs."""
     cfg = TC.get_smoke(arch)
-    for call in (lambda: TTS.make_train_step(cfg),
-                 lambda: TTS.init_state(torch.Generator(), cfg),
-                 lambda: Trainer(cfg, data_cfg=DataConfig(
-                     vocab_size=cfg.vocab_size, seq_len=16, global_batch=2),
-                     device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="modality stubs.*Queue 1, item 2"):
-            call()
+    step = TTS.make_train_step(cfg)
+    state = TTS.init_state(torch.Generator(), cfg)
+    tr = Trainer(cfg, data_cfg=DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=16, global_batch=2),
+                 device="cpu")
+    names = convert.leaf_names(cfg)
+    assert callable(step) and len(state["params"]) == len(names)
+    assert [tuple(x.shape) for x in state["params"]] == \
+        convert.leaf_shapes(cfg)
+    assert "frontend_proj" in names
+    assert ("encoder.groups[0].attn.wq" in names) == (arch == AUDIO)
+    hist = tr.run(1)
+    assert np.isfinite(hist["loss"]).all() and int(tr.state["step"]) == 1

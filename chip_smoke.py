@@ -1688,10 +1688,14 @@ def mesh_rank(kind, rank, port, out_dir, device="cuda"):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=DP_WORLD)
     try:
-        if kind in ("ep", "families", "recurrent_stubs"):
+        if kind in ("ep", "families", "recurrent_stubs",
+                    "tp_recurrent_stubs"):
             rec = (ep_rank(rank, dev) if kind == "ep" else
                    family_rank(rank, dev) if kind == "families" else
-                   family_rank(rank, dev, RS_MESH_CELLS, rs_mesh_config))
+                   family_rank(rank, dev, RS_MESH_CELLS, rs_mesh_config)
+                   if kind == "recurrent_stubs" else
+                   family_rank(rank, dev, TP_RS_CELLS, tp_rs_config,
+                               tp_checks=True))
             with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
                 json.dump(rec, f)
             return
@@ -2867,15 +2871,16 @@ def family_smoke_card_vs_cpu(dev, C, ts, OptConfig, DataConfig, make_source):
 
 
 def check_family_fwht(dev, C, kfwht, ref, shapes=None, seen=(),
-                      what="families"):
+                      what="families", time_all=False):
     """The FWHT held to its plain version, bit for bit, at every shape of
     phases 6e and 6f's coded syncs (or ``shapes``, ``family_fwht_shapes``'
     pair, less the ``seen`` ones); timed at each model's largest
-    one-device leaf and at each mesh cell's largest."""
+    one-device leaf and at each mesh cell's largest, or with
+    ``time_all`` at every shape checked."""
     one, mesh = shapes or family_fwht_shapes(C)
     groups = list(one.values()) + list(mesh.values())
     checked = sorted({s for v in groups for s in v} - set(seen))
-    timed = {max(v) for v in groups}
+    timed = set(checked) if time_all else {max(v) for v in groups}
     g = torch.Generator(dev).manual_seed(11)
     worst, records = 0.0, []
     for rows, n in sorted(set(checked) | timed):
@@ -2898,15 +2903,21 @@ def check_family_fwht(dev, C, kfwht, ref, shapes=None, seen=(),
             "max_abs_err": worst}, records
 
 
-def family_rank(rank, dev, cells=FAMILY_MESH_CELLS, config=None):
-    """One rank of phase 6f (or 6h: ``cells`` and ``config(C, arch)``,
-    the cells' model; a stub's cell then feeds its trainer the rank's
-    rows of ``stub_extras``): ``cells`` through ``Trainer(mesh=...)``,
-    ``DP_STEPS`` steps each, at full width and by default
-    ``MESH_LAYERS`` deep.  Every step: losses finite, the ranks that share
-    a model index bit-identical, a coded step's FWHT launched twice a
-    coded leaf at ``tp_fwht_shapes``, recv_frac within 0.04 of the drop
-    rate's complement; each rank holds its ZeRO-1 slices on a data axis.
+def family_rank(rank, dev, cells=FAMILY_MESH_CELLS, config=None,
+                tp_checks=False):
+    """One rank of phase 6f (or 6h and 6i: ``cells`` and ``config(C,
+    arch)``, the cells' model; a stub's cell then feeds its trainer the
+    rank's rows of ``stub_extras``): ``cells`` through
+    ``Trainer(mesh=...)``, ``DP_STEPS`` steps each, at full width and by
+    default ``MESH_LAYERS`` deep.  Every step: losses finite, the ranks
+    that share a model index bit-identical, a coded step's FWHT launched
+    twice a coded leaf at ``tp_fwht_shapes``, recv_frac within 0.04 of
+    the drop rate's complement; each rank holds its ZeRO-1 slices on a
+    data axis.  ``tp_checks`` (6i) adds: step 0's loss within
+    ``FAMILY_LOSS_BAND`` of ln V and within ``TP_LOSS_RTOL`` of rank 0's
+    one-device loss of the same weights and batch
+    (``one_device_loss``), and every step the ranks of a model group
+    bit-identical in the loss and every leaf the specs keep whole.
     Records each rank's peak, the dp sync's ms and bytes and the
     model-group collectives' ms and bytes a rank-step."""
     import torch.distributed as dist
@@ -2984,6 +2995,11 @@ def family_rank(rank, dev, cells=FAMILY_MESH_CELLS, config=None):
             if cfg.frontend:
                 tr.put_batch = with_extras(tr.put_batch, cfg, dev,
                                            *tr.shard)
+            one_loss = None
+            if tp_checks:
+                reset()
+                one_loss = one_device_loss(tr, cfg, mesh, dev)
+                torch.cuda.reset_peak_memory_stats()
             steps = []
 
             def on_metrics(step, m):
@@ -3003,6 +3019,8 @@ def family_rank(rank, dev, cells=FAMILY_MESH_CELLS, config=None):
                 assert all(torch.equal(e, fp) for e in every), (
                     f"{arch} {mk} step {step}: the ranks that share a model "
                     "index differ")
+                if tp_checks:
+                    check_model_group(tr, cfg, m, f"{arch} {mk} step {step}")
                 counts.reset()
                 reset()
 
@@ -3029,13 +3047,21 @@ def family_rank(rank, dev, cells=FAMILY_MESH_CELLS, config=None):
                            for f in hist["recv_frac"]), hist["recv_frac"]
             else:
                 assert hist["recv_frac"] == [1.0] * DP_STEPS, hist
+            if tp_checks:
+                assert abs(hist["loss"][0] - math.log(cfg.vocab_size)) < (
+                    FAMILY_LOSS_BAND), (arch, hist["loss"])
+                assert one_loss is None or abs(hist["loss"][0] - one_loss) <= (
+                    TP_LOSS_RTOL * abs(one_loss)), (
+                    f"{arch} {mk}: step 0's loss {hist['loss'][0]} vs one "
+                    f"device {one_loss}")
             rec["cells"][f"{arch} {mk}"] = {
                 "arch": arch, "mesh": mk, "mode": mode, "drop": drop,
                 "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
                 "extras": EXTRAS_KEY.get(cfg.frontend),
                 "coded_leaves": n_coded, "loss": hist["loss"],
                 "recv_frac": hist["recv_frac"], "steps": steps,
-                "peak_gib": peak / 2 ** 30, "peak_gb": peak / 1e9}
+                "peak_gib": peak / 2 ** 30, "peak_gb": peak / 1e9,
+                "one_device_loss": one_loss}
     finally:
         (ts._sync_dp, ts._all_reduce, shd.model_all_reduce,
          shd.model_all_gather, shd.model_reduce_scatter, ops.fwht) = saved
@@ -3043,10 +3069,56 @@ def family_rank(rank, dev, cells=FAMILY_MESH_CELLS, config=None):
     return rec
 
 
+def one_device_loss(tr, cfg, mesh, dev):
+    """Rank 0's loss (float) of the trainer's whole weights, gathered
+    over ``model`` from every rank's shards, on its first step's global
+    batch (the dp ranks' rows together; a stub's with its
+    ``stub_extras``, bfloat16) on one device, with
+    no tensor parallelism; None on the other ranks.  Every rank of the
+    mesh calls it together."""
+    import torch.distributed as dist
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    names = convert.leaf_names(cfg)
+    full = convert.gather_leaves(tr.state["params"], mesh,
+                                 convert.leaf_shapes(cfg), names)
+    loss = None
+    if dist.get_rank() == 0:
+        batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                 for k, v in tr.source.global_batch(0, tr.shard[1]).items()}
+        batch.update({k: v.to(dev, torch.bfloat16) for k, v in
+                      stub_extras(cfg, TRAIN_BATCH, TRAIN_SEQ).items()})
+        with torch.no_grad():
+            loss = M.lm_loss(convert.params_from_leaves(full, cfg), cfg,
+                             batch)[0].item()
+        del batch
+    del full
+    torch.cuda.empty_cache()
+    return loss
+
+
+def check_model_group(tr, cfg, metrics, what):
+    """The ranks of this rank's model group hold the same loss and the
+    same bits in every parameter that the specs keep whole (norms,
+    gates, ``r_h``, ``w_if``, an embedding the guard keeps whole)."""
+    import torch.distributed as dist
+    from repro_torch.models import convert
+    tp = tr.step_fn.model_group
+    whole = [p for p, n in zip(tr.state["params"], convert.short_names(cfg))
+             if n not in tp.split]
+    fp = fingerprint(whole, {"loss": metrics["loss"]})
+    every = [torch.empty_like(fp) for _ in range(tp.size)]
+    dist.all_gather(every, fp, group=tp.group)
+    assert whole and all(torch.equal(e, fp) for e in every), (
+        f"{what}: the ranks of a model group differ in the loss or a "
+        "whole leaf")
+
+
 def phase_mesh_train_families(kind="families"):
     """Phase 6f: ``FAMILY_MESH_CELLS`` on four rank processes sharing the
     one card over gloo (``family_rank``), in one launch; ``kind``
-    "recurrent_stubs" is phase 6h, ``RS_MESH_CELLS``."""
+    "recurrent_stubs" is phase 6h, ``RS_MESH_CELLS``, and
+    "tp_recurrent_stubs" phase 6i, ``TP_RS_CELLS`` tensor parallel."""
     ranks, seconds = run_mesh_ranks(kind)
     smi = card_name_and_power()
     out, launches = {"cells": {}}, 0
@@ -3054,7 +3126,8 @@ def phase_mesh_train_families(kind="families"):
         steps = cell["steps"]
         rec = {k: cell[k] for k in ("arch", "mesh", "mode", "drop", "layers",
                                     "encoder_layers", "extras",
-                                    "coded_leaves", "loss", "recv_frac")}
+                                    "coded_leaves", "loss", "recv_frac",
+                                    "one_device_loss")}
         rec.update(
             step_ms=[s["wall_ms"] for s in steps],
             sync_ms_per_rank=[[s["sync_ms"] for s in rk["cells"][name][
@@ -3082,7 +3155,9 @@ def phase_mesh_train_families(kind="families"):
               f"{rec['model_collective_bytes_per_rank_step']}, FWHT "
               f"launches/rank-step {rec['fwht_launches_per_rank_step']}, "
               f"peak GB/rank {[round(g, 2) for g in rec['peak_gb_per_rank']]}"
-              f" [{smi}]")
+              + (f", step 0's loss vs one device {rec['one_device_loss']}"
+                 if rec["one_device_loss"] is not None else "")
+              + f" [{smi}]")
     out.update(seconds=seconds,
                launches={"fwht": launches, "fwht_quantize": 0,
                          "masked_unbias": 0, "quantize_int8": 0,
@@ -3112,6 +3187,45 @@ EXTRAS_SEED = 21
 def rs_mesh_config(C, arch):
     """Phase 6h's model: ``arch`` at full width, ``RS_MESH_LAYERS`` deep."""
     return family_config(C, arch, RS_MESH_LAYERS[arch])
+
+
+# phase 6i: the recurrent families and the stubs tensor parallel, four
+# ranks on the one card over gloo, DP_STEPS steps a cell: (arch, mesh,
+# mode, drop); recurrentgemma at 3 layers (one (rglru, rglru, local)
+# group: the RG-LRU by channel, MQA local attention), xlstm at 4 (mlstm x
+# 3 + slstm: 2 heads a rank, the sLSTM's gate gather, the FWHT at the TP
+# leaves, ZeRO-1 over data), seamless at 2 + 2 with its frames (the
+# encoder, the cross-attention and frontend_proj split, its 256,206-row
+# vocabulary whole at tp 4)
+TP_RS_CELLS = (("recurrentgemma-9b", "dm14", "exact", 0.0),
+               ("xlstm-350m", "dm22", "lossy_hadamard", 0.05),
+               ("seamless-m4t-medium", "dm14", "exact", 0.0))
+TP_RS_LAYERS = {"recurrentgemma-9b": 3, "xlstm-350m": 4,
+                "seamless-m4t-medium": 2}
+# step 0's loss on the mesh against one device, bfloat16 at full width:
+# bfloat16's unit roundoff.  On the CPU at smoke widths in bfloat16 the
+# four families' TP loss on (2, 2) and (1, 4) came within 1.4e-4 of the
+# one-device loss, relative (2^-12.8)
+TP_LOSS_RTOL = 2 ** -9
+# the FWHT's TP leaf shapes held to its plain version: each 6i cell's
+# coded leaves on its mesh, and phi-3-vision's (frontend_proj) on (1, 4)
+TP_RS_FWHT = TP_RS_CELLS + (("phi-3-vision-4.2b", "dm14", "lossy_hadamard",
+                             0.05),)
+
+
+def tp_rs_config(C, arch):
+    """Phase 6i's model: ``arch`` at full width, ``TP_RS_LAYERS`` deep
+    (phi-3-vision at phase 6g's 2)."""
+    return family_config(C, arch, TP_RS_LAYERS.get(arch, 2))
+
+
+def tp_rs_fwht_shapes(C):
+    """The FWHT's (rows, n_rot) of every coded leaf of ``TP_RS_FWHT``'s
+    models on their meshes, whatever the cell's mode, as
+    ``family_fwht_shapes`` gives them (no one-device shapes)."""
+    return {}, {f"{arch} {mk}": tp_fwht_shapes(
+        tp_rs_config(C, arch), mesh_shape(*FAMILY_MESHES[mk]))
+        for arch, mk, _, _ in TP_RS_FWHT}
 
 
 # the batch key of each frontend's inputs
@@ -3526,6 +3640,13 @@ F64_OPS = 34e12
 # step on one thread, with libdevice's pow (~288 cycles) and a division
 # (~80) on each marked step: --ab-dcqcn times it beside this one.
 SCAN_GAP_CYCLES, SCAN_RUN_CYCLES = 104, 72
+# the real blocks whose plain-version check covers only their first
+# PLAIN_PREFIX_STEPS steps (the kernel still runs and is timed on the
+# whole block): the legacy Fig.-2 pass's 76,200 steps, the step window's
+# 32,766 and Fig. 4's 8-pod 25,400 took ~101 s of the plain loop on an
+# H100 80GB HBM3 (700 W) whole
+PLAIN_PREFIX_BLOCKS = ("fig2 legacy", "fig2 step", "fig4 p8 o8")
+PLAIN_PREFIX_STEPS = 8192
 ENGINE_CHECK_ROUNDS, FIG2_ROUNDS = 40, 300          # 128 nodes
 FIG3_NODES, FIG3_SEEDS, FIG3_ROUNDS, FIG3_MB = 1024, (0, 1, 2, 3), 120, 25.0
 FIG1_NODES, FIG1_ROUNDS, FIG1_STEPS = 128, 60, 60
@@ -3672,9 +3793,28 @@ def scan_bounds(cnp, any_t):
                        "chain_bound_ms": t_chain, "sm_clock_mhz": clock / 1e6}
 
 
-def scan_record(kdcqcn, dq, cnp, plain_ms, shape_note, any_t=None):
+def scan_prefix(kdcqcn, ref, dq, cnp, any_t, steps=PLAIN_PREFIX_STEPS):
+    """The plain version on a long block's first ``steps`` steps only: the
+    kernel on that prefix equals it bit for bit (rates and the four state
+    arrays), and, the scan being causal, the kernel's rates over the
+    whole block begin with the prefix's, bit for bit.  Returns the plain
+    version's ms over the prefix."""
+    state = scan_state(cnp.shape[0], cnp.shape[2], cnp.device)
+    whole = kdcqcn.dcqcn_scan_cuda(cnp, any_t, *state, dq)
+    (rates, _), plain_ms = scan_pair(
+        kdcqcn, ref, dq, cnp[:, :steps].contiguous(),
+        scan_state(cnp.shape[0], cnp.shape[2], cnp.device),
+        any_t=any_t[:, :steps].contiguous())
+    check_equal(f"dcqcn_scan {tuple(cnp.shape)}'s first {steps} steps vs "
+                "the prefix's", (whole[0][:, :steps],), (rates,))
+    return plain_ms
+
+
+def scan_record(kdcqcn, dq, cnp, plain_ms, shape_note, any_t=None,
+                plain_steps=None):
     """The scan's timing record on a block's marks (``any_t`` defaults to
-    each seed's own mask)."""
+    each seed's own mask); ``plain_steps``: the steps ``plain_ms``
+    covers, the whole block by default."""
     S, tb, n = cnp.shape
     if any_t is None:
         any_t = cnp.any(-1)
@@ -3690,6 +3830,7 @@ def scan_record(kdcqcn, dq, cnp, plain_ms, shape_note, any_t=None):
         "active_step_share": float(any_t.float().mean()), "max_abs_err": 0.0,
         "max_active_steps": int(any_t.sum(1).max()),
         "ms": ms, "ns_per_step": ms * 1e6 / tb, "plain_ms": plain_ms,
+        "plain_steps": plain_steps or tb,
         "bound_ms": bound, "bound_by": by, "bound_share": bound / ms, **parts,
         "library_ms": None, "library": "none: no PyTorch call computes a scan"}
 
@@ -3698,7 +3839,9 @@ def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology):
     """The DCQCN scan kernel against its plain version on the card, bit
     for bit (rates and the four state arrays): at SCAN_SHAPES with the
     four densities as seeds, on the marks each engine path's first block
-    draws (:func:`real_scan_blocks`), and over two consecutive blocks,
+    draws (:func:`real_scan_blocks`; the three longest, in
+    PLAIN_PREFIX_BLOCKS, over their first PLAIN_PREFIX_STEPS steps,
+    :func:`scan_prefix`), and over two consecutive blocks,
     whose carried state must equal the plain version's and, split where
     every seed has a mark, one long block's.  Timed on every real block,
     beside its bound."""
@@ -3718,14 +3861,20 @@ def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology):
             scan_pair(kdcqcn, ref, dq, synth, scan_state(len(dens), n, dev))
             checks += 1
     for name, (cnp, any_t) in real.items():
-        # the plain version is a host-bound loop of ~65 launches a step:
-        # ~50 s over the legacy pass's 76,200 steps
-        _, plain_ms = scan_pair(kdcqcn, ref, dq, cnp,
-                                scan_state(*cnp.shape[::2], dev),
-                                any_t=any_t)
+        # the plain version is a host-bound loop of ~65 launches a step
+        # (~50 s over the legacy pass's 76,200 steps): the longest blocks
+        # hold it to their first PLAIN_PREFIX_STEPS steps
+        prefix = name in PLAIN_PREFIX_BLOCKS
+        if prefix:
+            plain_ms = scan_prefix(kdcqcn, ref, dq, cnp, any_t)
+        else:
+            _, plain_ms = scan_pair(kdcqcn, ref, dq, cnp,
+                                    scan_state(*cnp.shape[::2], dev),
+                                    any_t=any_t)
         checks += 1
-        records.append(scan_record(kdcqcn, dq, cnp, plain_ms,
-                                   f"a real {name} block's", any_t=any_t))
+        records.append(scan_record(
+            kdcqcn, dq, cnp, plain_ms, f"a real {name} block's", any_t=any_t,
+            plain_steps=PLAIN_PREFIX_STEPS if prefix else None))
     # two consecutive blocks against the plain version, and against one
     # long block where the split step has a mark in every seed (there
     # both materialize the same anchor; elsewhere a calm gap cut in two
@@ -3757,7 +3906,8 @@ def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology):
     for rec in records:
         print(f"kernel dcqcn_scan {rec['shape']} ({rec['marks']} marks): "
               f"{rec['ms']:.4f} ms = {rec['ns_per_step']:.1f} ns a step "
-              f"(plain {rec['plain_ms']:.1f} ms; bound "
+              f"(plain {rec['plain_ms']:.1f} ms over its first "
+              f"{rec['plain_steps']} steps; bound "
               f"{rec['bound_ms']:.5f} by {rec['bound_by']} = "
               f"{rec['bound_share']:.3f} of the kernel: "
               f"bytes {rec['bytes_bound_ms']:.5f}, chain "
@@ -6066,6 +6216,14 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     lap("6g_train_recurrent_stubs")
     train_rs_mesh = phase_mesh_train_families("recurrent_stubs")
     lap("6h_train_recurrent_stubs_mesh")
+    train_tp_rs = phase_mesh_train_families("tp_recurrent_stubs")
+    train_tp_rs["fwht"], tp_rs_records = check_family_fwht(
+        dev, C, kfwht, ref, tp_rs_fwht_shapes(C),
+        map(tuple, train_families["fwht"]["shapes"]
+            + train_rs["fwht"]["shapes"]), "tp recurrent/stubs",
+        time_all=True)
+    records += tp_rs_records
+    lap("6i_tp_recurrent_stubs")
     small_train = phase_small_train(dev, C, ts, OptConfig, DataConfig,
                                     make_source)
     lap("7_small_train")
@@ -6175,6 +6333,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "train_families_mesh": train_families_mesh["launches"],
                "train_recurrent_stubs": train_rs["launches"],
                "train_recurrent_stubs_mesh": train_rs_mesh["launches"],
+               "train_tp_recurrent_stubs": train_tp_rs["launches"],
                "serve_qwen2_moe": serve_moe["qwen2-moe-a2.7b"]["launches"],
                "serve_granite_moe":
                    serve_moe["granite-moe-3b-a800m"]["launches"],
@@ -6209,6 +6368,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "train_families_mesh": train_families_mesh,
                       "train_recurrent_stubs": train_rs,
                       "train_recurrent_stubs_mesh": train_rs_mesh,
+                      "train_tp_recurrent_stubs": train_tp_rs,
                       "engine_card_vs_cpu": engine_check, "fig1": fig1,
                       "fig2": fig2, "fig3": fig3,
                       "hier_card_vs_cpu": hier_check, "fig4": fig4,
@@ -6249,7 +6409,8 @@ if __name__ == "__main__":
                     "blocks")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-kind", choices=("dp", "tp", "ep", "families",
-                                             "recurrent_stubs"),
+                                             "recurrent_stubs",
+                                             "tp_recurrent_stubs"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", help=argparse.SUPPRESS)

@@ -46,14 +46,16 @@ device or a mesh (``--arch gemma2-9b``, ``chatglm3-6b``,
 
 The recurrent families (``recurrentgemma-9b``, ``xlstm-350m``) and the
 modality stubs (``phi-3-vision-4.2b``, ``seamless-m4t-medium``) train on
-one device or a data-parallel mesh; the launcher feeds them text alone,
-as the JAX launcher does, so a stub's frontend, encoder and
-cross-attention take zero gradients and AdamW's decay.  A mesh with a
-``model`` axis (``--mesh host`` on more than one rank) is refused for
-them when the step is built:
+one device or any mesh, tensor parallel on a ``model`` axis too; the
+launcher feeds them text alone, as the JAX launcher does, so a stub's
+frontend, encoder and cross-attention take zero gradients and AdamW's
+decay:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
         --smoke --device cpu --celeris --steps 3
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch xlstm-350m --smoke \
+        --device cpu --mesh host --celeris --steps 3
 
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 missing.  Weights are random, from seed 0.

@@ -23,8 +23,9 @@ as the JAX package chooses.
 Tensor parallelism (Megatron, as the JAX package's partition specs and
 ``_head_shard``/``_proj_shard`` constraints have GSPMD lay it out):
 given a :class:`repro_torch.sharding.ModelGroup`, :func:`attention`
-and :func:`mlp` run column-parallel in-projections on their input
-through ``copy_to_model`` and a row-parallel ``wo`` into
+(self- and cross-attention, causal or not) and :func:`mlp` run
+column-parallel in-projections on their input (and on the encoder's
+``memory``) through ``copy_to_model`` and a row-parallel ``wo`` into
 ``reduce_from_model``; :func:`embed` and :func:`unembed` split the
 vocabulary.  Each takes its leaves' local shards.  Without one they run
 as on one device; the model passes one only to a block whose leaves the
@@ -154,11 +155,12 @@ class AttnCache(StateCache):
 
 
 def _kv_weights(p: Params, cfg: ModelConfig,
-                tp: Optional[shd.ModelGroup]):
-    """wk, wv (and bk, bv) as this rank's k/v projection uses them, and
-    whether it holds its own kv heads.  The JAX package's ``_proj_shard``
-    splits the kv heads over ``model`` only when ``tp`` divides their
-    count; else GQA's few kv heads stay whole on every rank:
+                tp: Optional[shd.ModelGroup], leaf: str = "attn.wk"):
+    """wk, wv (and bk, bv) as this rank's k/v projection uses them (``leaf``
+    names the wk whose split decides: ``attn.wk``, or ``xattn.wk`` for the
+    cross-attention).  The JAX package's ``_proj_shard`` splits the kv
+    heads over ``model`` only when ``tp`` divides their count; else GQA's
+    few kv heads stay whole on every rank:
 
     - (a) ``n_kv % tp == 0``: the local shards are this rank's kv heads;
     - (b) the spec splits wk/wv in storage but not by heads: all-gather
@@ -169,11 +171,29 @@ def _kv_weights(p: Params, cfg: ModelConfig,
     """
     names = ("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv")
     w = [p[n] for n in names]
-    if tp is None or cfg.n_kv_heads % tp.size == 0:
-        return w, True
-    if split_over_model("attn.wk", tp) is not None:
-        return [shd.gather_from_model(t, tp) for t in w], False
-    return [shd.copy_to_model(t, tp) for t in w], False
+    if _own_kv(cfg, tp):
+        return w
+    if split_over_model(leaf, tp) is not None:
+        return [shd.gather_from_model(t, tp) for t in w]
+    return [shd.copy_to_model(t, tp) for t in w]
+
+
+def _own_kv(cfg: ModelConfig, tp: Optional[shd.ModelGroup]) -> bool:
+    """Whether each rank holds its own kv heads (or there is no ``tp``)."""
+    return tp is None or cfg.n_kv_heads % tp.size == 0
+
+
+def _kv_of_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                 tp: Optional[shd.ModelGroup], h_local: int):
+    """Where the kv heads stay whole on every rank, the kv head of each
+    of this rank's ``h_local`` q heads (head j uses kv head j // (H /
+    n_kv), as unsharded GQA does), so the grouping is one q head a kv
+    head; else k and v as they are."""
+    if _own_kv(cfg, tp):
+        return k, v
+    heads = (tp.index * h_local + torch.arange(h_local, device=k.device)
+             ) // (cfg.n_heads_padded // cfg.n_kv_heads)
+    return k[:, :, heads], v[:, :, heads]
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -185,6 +205,18 @@ def _heads(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     return y.reshape(*x.shape[:2], -1, hd)
 
 
+def _q_input(cfg: ModelConfig, x: torch.Tensor,
+             tp: Optional[shd.ModelGroup]) -> torch.Tensor:
+    """``x`` as a column-parallel q projection takes it: through
+    ``copy_to_model`` with ``tp``, whose size must divide the heads."""
+    if tp is None:
+        return x
+    if cfg.n_heads_padded % tp.size:
+        raise ValueError(f"{cfg.n_heads_padded} heads do not split over "
+                         f"{tp.size} model ranks")
+    return shd.copy_to_model(x, tp)
+
+
 def project(p: Params, cfg: ModelConfig, x: torch.Tensor,
             tp: Optional[shd.ModelGroup] = None):
     """The self-attention projections with optional bias, split into
@@ -193,36 +225,33 @@ def project(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
     With ``tp`` (wq/bq split by heads) H is this rank's H / tp heads;
     KV is its own kv heads, or, where the kv heads stay whole, the kv
-    head of each of its q heads (head j uses kv head j // (H / n_kv),
-    as unsharded GQA does), so the grouping is one q head a kv head."""
-    h, kv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.resolved_head_dim
-    if tp is not None:
-        if h % tp.size:
-            raise ValueError(f"{h} heads do not split over {tp.size} "
-                             "model ranks")
-        x = shd.copy_to_model(x, tp)
-    (wk, wv, *bkv), own = _kv_weights(p, cfg, tp)
+    head of each of its q heads (:func:`_kv_of_heads`)."""
+    hd = cfg.resolved_head_dim
+    x = _q_input(cfg, x, tp)
+    wk, wv, *bkv = _kv_weights(p, cfg, tp)
     bias = cfg.qkv_bias
     q = _heads(x, p["wq"], p["bq"] if bias else None, hd)
     k = _heads(x, wk, bkv[0] if bias else None, hd)
     v = _heads(x, wv, bkv[1] if bias else None, hd)
-    if not own:
-        h_local = q.shape[2]
-        heads = (tp.index * h_local + torch.arange(h_local, device=x.device)
-                 ) // (h // kv)
-        k, v = k[:, :, heads], v[:, :, heads]
-    return q, k, v
+    return (q,) + _kv_of_heads(k, v, cfg, tp, q.shape[2])
 
 
-def cross_kv(p: Params, cfg: ModelConfig, memory: torch.Tensor):
+def cross_kv(p: Params, cfg: ModelConfig, memory: torch.Tensor,
+             tp: Optional[shd.ModelGroup] = None):
     """Cross-attention's k and v (B, S_enc, KV, Dh) from the encoder's
     output ``memory`` (B, S_enc, D): projected with optional bias, no
     rotary.  The JAX model keeps no cross cache, so a decode step
-    computes them anew, as here."""
+    computes them anew, as here.  With ``tp`` (``xattn.wq`` split):
+    ``memory`` through ``copy_to_model``, KV this rank's kv heads, or all
+    of them where they stay whole (:func:`_kv_weights` on
+    ``xattn.wk``)."""
     hd = cfg.resolved_head_dim
     bias = cfg.qkv_bias
-    return (_heads(memory, p["wk"], p["bk"] if bias else None, hd),
-            _heads(memory, p["wv"], p["bv"] if bias else None, hd))
+    if tp is not None:
+        memory = shd.copy_to_model(memory, tp)
+    wk, wv, *b = _kv_weights(p, cfg, tp, "xattn.wk")
+    return (_heads(memory, wk, b[0] if bias else None, hd),
+            _heads(memory, wv, b[1] if bias else None, hd))
 
 
 def qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -368,15 +397,19 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
       (:func:`cross_kv`); q is not rotated, no key is masked, and it
       tiles above the threshold as self-attention does (JAX
       ``layers.py:355-363``).  No cache: JAX keeps no cross cache.
-    - ``tp``: this rank's heads (:func:`project`), its rows of ``wo``,
-      and the partial outputs summed over ``model``; no cache.
+    - ``tp``: this rank's heads (:func:`project`; in a
+      cross-attention its q heads and :func:`cross_kv`'s k and v), its
+      rows of ``wo``, and the partial outputs summed over ``model``; no
+      cache.
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     window = cfg.window_size if kind == "local" else None
     if memory is not None:
-        q = _heads(x, p["wq"], p["bq"] if cfg.qkv_bias else None, hd)
-        k, v = cross_kv(p, cfg, memory)
+        q = _heads(_q_input(cfg, x, tp), p["wq"],
+                   p["bq"] if cfg.qkv_bias else None, hd)
+        k, v = _kv_of_heads(*cross_kv(p, cfg, memory, tp), cfg, tp,
+                            q.shape[2])
         causal = False
     else:
         q, k, v = qkv(p, cfg, x, positions, tp)

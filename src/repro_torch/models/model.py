@@ -35,9 +35,12 @@ hold the decoder's self-attention only: the cross K/V are computed from
 On a mesh with a ``model`` axis the parameters are this rank's shards
 (``convert.shard_leaves``) and ``tp`` its
 :class:`~repro_torch.sharding.ModelGroup` (``convert.model_group``,
-which names the split leaves): the layers run tensor
-parallel (the MoE layers expert parallel), the logits come out split
-over the vocabulary, and :func:`lm_loss` is the JAX package's
+which names the split leaves): the layers run tensor parallel (the MoE
+layers expert parallel; the recurrent blocks by channel or head, the
+sLSTM's time loop on every rank; a stub's projected frontend gathered
+over ``model``, its encoder stack and cross-attention on the attention's
+TP layers), the logits come out split over the vocabulary where the
+divisibility guard splits it, and :func:`lm_loss` is the JAX package's
 vocab-parallel cross-entropy.
 
 The JAX model never passes its ``base_key`` to ``_apply_stack``
@@ -81,29 +84,21 @@ class LossyCtx:
     coins: Optional[Sequence[torch.Tensor]] = None
 
 
-def check_supported(cfg: ModelConfig,
-                    tp: Optional[shd.ModelGroup] = None) -> None:
+def check_supported(cfg: ModelConfig) -> None:
     """Refuse a block kind no model has (``ValueError``, as JAX's
     ``init_block`` raises on any other kind, an ``"xattn"`` block kind
-    included: cross-attention is part of an enc-dec decoder block), and
-    tensor parallelism for the recurrent blocks and the modality stubs
-    (the forward with a ``tp`` group, and ``train_step.make_train_step``
-    / ``init_state`` on a mesh whose ``model`` axis is larger than 1).
-    The dense and MoE families run tensor parallel in every attention
-    and MLP variant: with or without QKV bias, partial rotary, softcaps,
-    post-norms (replicated), local windows, SwiGLU, GeGLU or squared
-    ReLU, tied or untied embeddings."""
+    included: cross-attention is part of an enc-dec decoder block).
+    Every family runs tensor parallel: the dense and MoE ones in every
+    attention and MLP variant (with or without QKV bias, partial rotary,
+    softcaps, post-norms (replicated), local windows, SwiGLU, GeGLU or
+    squared ReLU, tied or untied embeddings), the recurrent blocks
+    (:func:`repro_torch.models.rglru.rglru_block`,
+    :func:`repro_torch.models.xlstm.mlstm_block` and ``slstm_block``),
+    and the modality stubs' frontend projection, encoder stack and
+    cross-attention."""
     kinds = sorted(set(cfg.block_pattern) - set(ATTN_KINDS + RECURRENT_KINDS))
     if kinds:
         raise ValueError(f"{cfg.name}: no block of kind {kinds}")
-    if tp is None:
-        return
-    recurrent = sorted(set(cfg.block_pattern) & set(RECURRENT_KINDS))
-    if recurrent or cfg.frontend or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism is not ported for "
-            f"{recurrent or 'the modality stubs'} yet (ROADMAP Queue 1, "
-            "item 2(d))")
 
 
 def logits_leaf(cfg: ModelConfig) -> str:
@@ -262,14 +257,14 @@ def hidden_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``frame_embeds`` (B, S_enc, frontend_dim) of an enc-dec config,
     encoded (:func:`encode`) into ``memory`` unless ``memory`` is
     given.  ``positions`` default to 0 .. S - 1."""
-    check_supported(cfg, tp)
+    check_supported(cfg)
     vocab_tp = L.split_over_model("embed.table", tp)
     x = L.embed(params["embed.table"], cfg, tokens, vocab_tp)
     if cfg.frontend == "vision_stub" and image_embeds is not None:
-        img = image_embeds.to(x.dtype) @ params["frontend_proj"]
-        x = torch.cat([img, x], dim=1)
+        x = torch.cat([_frontend(params, image_embeds, x.dtype, tp), x],
+                      dim=1)
     if cfg.is_encdec and memory is None and frame_embeds is not None:
-        memory = encode(params, cfg, frame_embeds)
+        memory = encode(params, cfg, frame_embeds, tp)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     return _stack(params, cfg, "layers.", cfg.n_layers, x,
@@ -278,16 +273,29 @@ def hidden_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                   lossy=lossy, rows=rows)
 
 
-def encode(params: Params, cfg: ModelConfig,
-           frame_embeds: torch.Tensor) -> torch.Tensor:
+def _frontend(params: Params, embeds: torch.Tensor, dtype: torch.dtype,
+              tp: Optional[shd.ModelGroup]) -> torch.Tensor:
+    """Frontend embeddings cast to ``dtype`` @ ``frontend_proj``; with
+    ``tp`` splitting it, the rank's columns of d gathered over ``model``
+    (every rank then uses the whole rows alike, so the gather's backward
+    keeps the rank's slice)."""
+    x = embeds.to(dtype) @ params["frontend_proj"]
+    tp = L.split_over_model("frontend_proj", tp)
+    return x if tp is None else shd.gather_replicated(x, tp, -1)
+
+
+def encode(params: Params, cfg: ModelConfig, frame_embeds: torch.Tensor,
+           tp: Optional[shd.ModelGroup] = None) -> torch.Tensor:
     """The enc-dec encoder (JAX ``_encode``): frame embeddings (B,
     S_enc, frontend_dim) cast to the compute dtype @ ``frontend_proj``
     (no sqrt(d) scale), the encoder stack at positions 0 .. S_enc - 1
-    with ``causal=False``, then ``enc_norm``: ``memory`` (B, S_enc, D)."""
-    x = frame_embeds.to(L.dtype_of(cfg)) @ params["frontend_proj"]
+    with ``causal=False``, then ``enc_norm``: ``memory`` (B, S_enc, D).
+    With ``tp`` the projection and the stack run tensor parallel
+    (:func:`_frontend`, :func:`_stack`); ``memory`` is whole."""
+    x = _frontend(params, frame_embeds, L.dtype_of(cfg), tp)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _ = _stack(params, cfg, "encoder.layers.", cfg.encoder_layers, x,
-                  positions=pos, causal=False)
+                  positions=pos, causal=False, tp=tp)
     return L.rmsnorm(params["enc_norm.scale"], x, cfg.norm_eps)
 
 
@@ -313,13 +321,15 @@ def _stack(params: Params, cfg: ModelConfig, prefix: str, n_layers: int,
             block = {"rglru": RG.rglru_block, "mlstm": XL.mlstm_block,
                      "slstm": XL.slstm_block}[kind]
             cache = None if caches is None else caches.layer(i)
-            h, new = block(sub_params(p, kind + "."), cfg, h, cache=cache)
+            h, new = block(sub_params(p, kind + "."), cfg, h, cache=cache,
+                           tp=tp)
             if cache is not None:
                 cache.store(new)
             x = x + h
             if kind == "rglru":
                 h = L.rmsnorm(p["ln2.scale"], x, eps)
-                x = x + L.mlp(sub_params(p, "mlp."), cfg, h)
+                x = x + L.mlp(sub_params(p, "mlp."), cfg, h,
+                              L.split_over_model("mlp.wi", tp))
             continue
         h = L.attention(sub_params(p, "attn."), cfg, h,
                         kind="local" if kind == "local" else "global",
@@ -333,7 +343,8 @@ def _stack(params: Params, cfg: ModelConfig, prefix: str, n_layers: int,
         if memory is not None and "lnx.scale" in p:
             h = L.rmsnorm(p["lnx.scale"], x, eps)
             x = x + L.attention(sub_params(p, "xattn."), cfg, h,
-                                positions=positions, memory=memory)
+                                positions=positions, memory=memory,
+                                tp=L.split_over_model("xattn.wq", tp))
         h = L.rmsnorm(p["ln2.scale"], x, eps)
         if kind == "moe":
             h, a = MOE.moe_block(

@@ -23,7 +23,8 @@ single-step update with the carried (conv window, h) state.
 Training takes autograd through these ops.  The square root's argument
 is bounded with ``torch.clamp`` where JAX writes ``jnp.clip``: they
 split the gradient alike off the bounds, and the backward matches
-``jax.grad`` to float32 rounding, so the form stays.
+``jax.grad`` to float32 rounding, so the form stays.  On a ``model``
+axis the block runs on the rank's channels (``rglru_block``'s ``tp``).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
@@ -127,12 +129,24 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
-                cache: Optional[RglruCache] = None
+                cache: Optional[RglruCache] = None,
+                tp: Optional[shd.ModelGroup] = None
                 ) -> tuple[torch.Tensor, Optional[RglruCache]]:
     """x: (B, S, D) -> (out (B, S, D), new cache; None without one).
 
     S > 1 (or no cache): the chunked scan from the cache's h (zeros
-    without one).  S == 1 with a cache: the exact recurrent step."""
+    without one).  S == 1 with a cache: the exact recurrent step.
+
+    With ``tp`` (the specs split ``rglru.w_in``) the block runs on this
+    rank's channels of the LRU width: ``x`` through ``copy_to_model``
+    into the column shards of ``w_gate`` and ``w_in``; the conv, the
+    gates and ``lam`` are the rank's slices, and the conv, the cell and
+    the scan act per channel, so they need no collective (JAX pins the
+    width to ``model`` there, ``rglru.py:112-119``); ``w_out`` is
+    row-parallel into ``reduce_from_model``."""
+    tp = L.split_over_model("rglru.w_in", tp)
+    if tp is not None:
+        x = shd.copy_to_model(x, tp)
     b, s, _ = x.shape
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
     u = x @ p["w_in"]
@@ -161,6 +175,8 @@ def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         hs = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     new_cache = RglruCache(conv=new_conv, h=h) if cache is not None else None
     out = (hs.to(gate.dtype) * gate) @ p["w_out"]
+    if tp is not None:
+        out = shd.reduce_from_model(out, tp)
     return out, new_cache
 
 

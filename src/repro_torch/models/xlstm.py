@@ -25,6 +25,9 @@ happen (the sLSTM's ``n_new`` is exactly 1 at t = 0 wherever the input
 gate wins), but there the gradient that reaches the bound cancels, so
 the backward matches ``jax.grad`` to float32 rounding either way, and
 the forms stay as they are.
+
+On a ``model`` axis (``tp``) both blocks run tensor parallel as the JAX
+package's specs split their leaves (``mlstm_block``, ``slstm_block``).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
@@ -144,32 +148,62 @@ def mlstm_parallel(q, k, v, logi, logf, c0, n0, m0):
 
 
 def mlstm_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
-                cache: Optional[MlstmCache] = None
+                cache: Optional[MlstmCache] = None,
+                tp: Optional[shd.ModelGroup] = None
                 ) -> tuple[torch.Tensor, Optional[MlstmCache]]:
     """x: (B, S, D) -> (out, new cache; None without one).  S == 1: the
     sequential step; else the chunkwise form, the sequence padded to a
-    multiple of 64 with pad tokens that never write (``logi`` -1e30)."""
+    multiple of 64 with pad tokens that never write (``logi`` -1e30).
+
+    With ``tp`` (the specs split ``mlstm.w_up``): ``x`` through
+    ``copy_to_model`` into the column shards of ``w_up`` and ``w_gate``,
+    so ``u`` and ``gate`` hold this rank's slice of the 2 d inner width;
+    ``wq``, ``wk`` and ``wv`` are column shards that read the whole of
+    ``u``, so ``u`` is gathered over ``model`` first, and the gates come
+    from it and the whole ``w_if``/``b_if`` (through ``copy_to_model``:
+    each rank's gradient of them is its heads' share).  When the heads
+    split (``n_heads % tp == 0``) the rank's columns of q, k and v are its
+    heads, which line up with ``gate``'s slice: it runs them alone.  Else
+    (a column block that cuts a head) q, k and v are gathered to whole
+    heads, every head runs on every rank, and the rank keeps its columns
+    of the output.  Either way ``w_down`` is row-parallel into
+    ``reduce_from_model``."""
+    tp = L.split_over_model("mlstm.w_up", tp)
     b, s, _ = x.shape
     hh = cfg.n_heads
+    w_if, b_if = p["w_if"], p["b_if"]
+    if tp is not None:
+        x = shd.copy_to_model(x, tp)
+        w_if, b_if = shd.copy_to_model(w_if, tp), shd.copy_to_model(b_if, tp)
     gate = F.silu(x @ p["w_gate"])
     u = x @ p["w_up"]
+    if tp is not None:
+        u = shd.gather_from_model(u, tp)
     di = u.shape[-1]
     dh = di // hh
+    q, k, v = u @ p["wq"], u @ p["wk"], u @ p["wv"]
+    lo, hi = 0, hh                     # the heads this rank runs
+    whole = tp is not None and hh % tp.size != 0
+    if whole:
+        q, k, v = (shd.gather_from_model(t, tp) for t in (q, k, v))
+    elif tp is not None:
+        lo, hi = tp.index * hh // tp.size, (tp.index + 1) * hh // tp.size
+    hl = hi - lo
     # the scale rounded to the compute dtype, as JAX's weak scalar
     scale = torch.tensor(dh ** -0.5, dtype=x.dtype, device=x.device)
-    q = (u @ p["wq"]).reshape(b, s, hh, dh) * scale
-    k = (u @ p["wk"]).reshape(b, s, hh, dh) * scale
-    v = (u @ p["wv"]).reshape(b, s, hh, dh)
-    gates = u.to(_F32) @ p["w_if"] + p["b_if"]
-    logi, logf = gates[..., :hh], F.logsigmoid(gates[..., hh:])
+    q = q.reshape(b, s, hl, dh) * scale
+    k = k.reshape(b, s, hl, dh) * scale
+    v = v.reshape(b, s, hl, dh)
+    gates = u.to(_F32) @ w_if + b_if
+    logi, logf = gates[..., lo:hi], F.logsigmoid(gates[..., hh + lo:hh + hi])
 
     if cache is not None:
         c0, n0, m0 = cache.c, cache.n, cache.m
     else:
         f32 = dict(dtype=_F32, device=x.device)
-        c0 = torch.zeros(b, hh, dh, dh, **f32)
-        n0 = torch.zeros(b, hh, dh, **f32)
-        m0 = torch.zeros(b, hh, **f32)
+        c0 = torch.zeros(b, hl, dh, dh, **f32)
+        n0 = torch.zeros(b, hl, dh, **f32)
+        m0 = torch.zeros(b, hl, **f32)
 
     if s == 1:
         hs, (c, n, m) = _mlstm_seq(q, k, v, logi, logf, c0, n0, m0)
@@ -185,7 +219,13 @@ def mlstm_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         hs, (c, n, m) = mlstm_parallel(q, k, v, logi, logf, c0, n0, m0)
         hs = hs[:, :s]
     new_cache = MlstmCache(c=c, n=n, m=m) if cache is not None else None
-    out = (hs.reshape(b, s, di).to(gate.dtype) * gate) @ p["w_down"]
+    hs = hs.reshape(b, s, hl * dh)
+    if whole:                          # every head ran: the rank's columns
+        w = gate.shape[-1]
+        hs = hs[..., tp.index * w:(tp.index + 1) * w]
+    out = (hs.to(gate.dtype) * gate) @ p["w_down"]
+    if tp is not None:
+        out = shd.reduce_from_model(out, tp)
     return out, new_cache
 
 
@@ -264,10 +304,27 @@ def slstm_scan(p: Params, cfg: ModelConfig, xg: torch.Tensor, state):
 
 
 def slstm_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
-                cache: Optional[SlstmCache] = None
+                cache: Optional[SlstmCache] = None,
+                tp: Optional[shd.ModelGroup] = None
                 ) -> tuple[torch.Tensor, Optional[SlstmCache]]:
+    """x: (B, S, D) -> (out, new cache; None without one).
+
+    With ``tp``: a column shard of ``w_x`` holds whole z/i/f/o quarters
+    of the gates, not heads, and the recurrent part adds ``r_h``'s
+    head-major output to them, so ``x @ w_x`` is gathered over ``model``
+    once a block (the gather's backward keeps the rank's slice) and the
+    time loop runs on every rank with ``r_h`` and ``b`` whole.  ``hs`` is
+    then whole: through ``copy_to_model`` into the column shards of
+    ``w_up1``/``w_up2`` and the row-parallel ``w_down`` into
+    ``reduce_from_model``.  Each split follows its leaf's spec."""
+    tp_x = L.split_over_model("slstm.w_x", tp)
+    tp_up = L.split_over_model("slstm.w_up1", tp)
     b, s, d = x.shape
+    if tp_x is not None:
+        x = shd.copy_to_model(x, tp_x)
     xg = x @ p["w_x"]                              # (B, S, 4D)
+    if tp_x is not None:
+        xg = shd.gather_replicated(xg, tp_x, -1)
     if cache is not None:
         st = (cache.h, cache.c, cache.n, cache.m)
     else:
@@ -276,7 +333,11 @@ def slstm_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     hs, st = slstm_scan(p, cfg, xg, st)
     hs = hs.to(x.dtype)                            # (B, S, D)
     new_cache = SlstmCache(*st) if cache is not None else None
+    if tp_up is not None:
+        hs = shd.copy_to_model(hs, tp_up)
     out = (F.silu(hs @ p["w_up1"]) * (hs @ p["w_up2"])) @ p["w_down"]
+    if tp_up is not None:
+        out = shd.reduce_from_model(out, tp_up)
     return out, new_cache
 
 

@@ -135,9 +135,10 @@ stack and cross-attention, ``frontend_proj``), and every draw is per
 JAX leaf index.  A stub's batch may carry ``image_embeds`` or
 ``frame_embeds`` (rows with the tokens' rows; on a mesh this rank's);
 without them the leaves the text does not reach get zero gradients,
-as under ``jax.grad``, and AdamW still decays them.  Tensor
-parallelism for the recurrent families and the stubs is refused when
-the step is built (``model.check_supported``).
+as under ``jax.grad``, and AdamW still decays them.  Every family
+runs on every mesh: on a ``model`` axis the recurrent blocks and the
+stubs' frontend, encoder and cross-attention run tensor parallel as the
+attention and MLP do (``models/model.py``).
 """
 from __future__ import annotations
 
@@ -573,7 +574,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     again.  Off by default: a step then leaves its input state as it
     was.
     """
-    M.check_supported(cfg, shd.model_group(mesh))   # at build time
+    M.check_supported(cfg)   # at build time
     opt_cfg = opt_cfg or adamw.OptConfig()
     celeris = celeris or CelerisConfig()
     mode = celeris.collective_mode()
@@ -666,7 +667,6 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, mesh=None):
     with their optimizer state.  On a mesh with a ``model`` axis the
     whole parameters are drawn and this rank keeps its shards
     (``convert.shard_leaves``)."""
-    M.check_supported(cfg, shd.model_group(mesh))
     names = convert.leaf_names(cfg)
     leaves = convert.jax_leaves(M.init_params(cfg, generator), cfg)
     if shd.model_group(mesh) is not None:

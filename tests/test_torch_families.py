@@ -368,35 +368,23 @@ def test_training_refuses_the_families(arch):
 
 
 @pytest.mark.parametrize("arch", FAMILIES + RECURRENT + STUBS)
-def test_tensor_parallel_refused_off_qwen2_layout(arch):
-    """Tensor parallelism runs for the dense families (held to JAX's
-    steps in ``tests/test_torch_train_families_mesh.py``): on a (1, 2)
-    mesh of a fake process group the step builds, each rank holds its
-    shards, and the forward gives its half of the vocabulary.  The
-    recurrent families and the modality stubs are refused there when
-    the step is built, and by the forward, naming ROADMAP Queue 1, item
-    2(d)."""
-    from repro_torch import sharding as shd
+def test_tensor_parallel_runs_every_family(arch):
+    """Tensor parallelism runs for every family (held to JAX's steps in
+    ``tests/test_torch_train_families_mesh.py`` and
+    ``tests/test_torch_tp_recurrent_stubs.py``): on a (1, 2) mesh of a
+    fake process group the step builds, each rank holds its shards, and
+    the forward (a stub's with its frontend inputs) gives its half of the
+    vocabulary."""
     from repro_torch.launch import mesh as tmesh
     from test_torch_dp_train import fake_world
     cfg = TC.get_smoke(arch)
     tokens = torch.zeros(1, 4, dtype=torch.long)
-    if arch in RECURRENT + STUBS:
-        with fake_world(2):
-            mesh = tmesh.make_host_mesh((1, 2), device_type="cpu")
-            for build in (lambda: TTS.make_train_step(cfg, mesh),
-                          lambda: TTS.init_state(torch.Generator(), cfg,
-                                                 mesh)):
-                with pytest.raises(NotImplementedError,
-                                   match=r"tensor parallelism.*Queue 1, "
-                                   r"item 2\(d\)"):
-                    build()
-        params = TM.init_params(cfg, torch.Generator().manual_seed(0))
-        tp = shd.ModelGroup(group=None, size=2, index=0)
-        with pytest.raises(NotImplementedError,
-                           match="tensor parallelism.*Queue 1, item 2"):
-            TM.forward(params, cfg, tokens, tp=tp)
-        return
+    extras, n_img = {}, 0
+    if cfg.frontend == "vision_stub":
+        n_img = cfg.n_frontend_tokens
+        extras["image_embeds"] = torch.zeros(1, n_img, cfg.frontend_dim)
+    if cfg.is_encdec:
+        extras["frame_embeds"] = torch.zeros(1, 4, cfg.frontend_dim)
     with fake_world(2):
         mesh = tmesh.make_host_mesh((1, 2), device_type="cpu")
         tp = TTS.make_train_step(cfg, mesh).model_group
@@ -405,8 +393,8 @@ def test_tensor_parallel_refused_off_qwen2_layout(arch):
         assert tp.size == 2 and TM.logits_leaf(cfg) in tp.split
         assert [tuple(x.shape) for x in shards] != convert.leaf_shapes(cfg)
         logits = TM.forward(convert.params_from_leaves(shards, cfg), cfg,
-                            tokens, tp=tp)
-    assert logits.shape == (1, 4, cfg.vocab_size // 2)
+                            tokens, tp=tp, **extras)
+    assert logits.shape == (1, n_img + 4, cfg.vocab_size // 2)
 
 
 def test_ring_decode_matches_teacher_forced_forward():

@@ -69,10 +69,13 @@ d = sys.argv[1]
 inp = np.load(d + "/inputs.npz")
 meta = json.load(open(d + "/meta.json"))
 out = {}
-for name, (arch, mk, mode, q, drop) in meta["cases"].items():
+for name, (arch, mk, mode, q, drop, *kw) in meta["cases"].items():
+    if name in meta["torch_only"]:
+        continue
     mesh = shd.make_mesh(*map(tuple, meta["meshes"][mk]))
     shd.set_global_mesh(mesh)
-    cfg = dataclasses.replace(C.get_smoke(arch), dtype="float32")
+    cfg = dataclasses.replace(C.get_smoke(arch), dtype="float32",
+                              **(kw[0] if kw else {}))
     p = M.init_params(jax.random.PRNGKey(0), cfg)
     cel = ts.CelerisConfig(mode=mode, min_coded_size=meta["min_coded"],
                            quantize_wire=q)
@@ -114,11 +117,13 @@ meta = json.load(open(d + "/meta.json"))
 t = lambda a: torch.as_tensor(np.array(a))
 opt = adamw.OptConfig(**meta["opt"])
 out = {}
-for name, (arch, mk, mode, q, drop) in meta["cases"].items():
+for name, (arch, mk, mode, q, drop, *kw) in meta["cases"].items():
     mesh = shd.make_mesh(*map(tuple, meta["meshes"][mk]), "cpu")
-    cfg = dataclasses.replace(C.get_smoke(arch), dtype="float32")
+    cfg = dataclasses.replace(C.get_smoke(arch), dtype="float32",
+                              **(kw[0] if kw else {}))
     names = convert.leaf_names(cfg)
-    leaves = [t(inp[f"{name}_leaf{i}"]) for i in range(len(names))]
+    leaves = convert.shard_leaves(
+        [t(inp[f"{name}_leaf{i}"]) for i in range(len(names))], mesh, names)
     dp = shd.dp_axes(mesh)
     n, peer = shd.axis_size(mesh, dp), shd.peer_index(mesh, dp)
     batch = {}
@@ -144,6 +149,9 @@ for name, (arch, mk, mode, q, drop) in meta["cases"].items():
     for key, v in m.items():
         out[f"{name}_m_{key}"] = v.numpy()
     save_zero(name, new, cfg, mesh)
+"""
+
+TORCH_END = """
 np.savez(d + "/rank%d.npz" % rank, **out)
 dist.destroy_process_group()
 """
@@ -157,17 +165,21 @@ def _split_dims(mk, jparams):
             for spec in specs]
 
 
-def mesh_runs(d, cases, extras=()):
-    """Run ``cases`` (name -> (arch, mesh, mode, quantize_wire, drop)) on
-    four gloo ranks and on JAX's four host devices, from JAX's weights
-    (PRNGKey 0, float32 smoke), the JAX pipeline's global batch of
-    ``BATCH`` rows (with a stub's extras for the names in
-    ``extras``, :func:`make_batch`) split by rows over the dp ranks, and
-    JAX's draws.  Returns (inputs, JAX's outputs, each rank's)."""
+def mesh_runs(d, cases, extras=(), torch_tail="", torch_only=()):
+    """Run ``cases`` (name -> (arch, mesh, mode, quantize_wire, drop[,
+    config overrides])) on four gloo ranks and on JAX's four host
+    devices, from JAX's weights (PRNGKey 0, float32 smoke; each rank its
+    ``convert.shard_leaves``), the JAX pipeline's global batch of
+    ``BATCH`` rows (with a stub's extras for the names in ``extras``,
+    :func:`make_batch`) split by rows over the dp ranks, and JAX's draws
+    (per leaf at JAX's split dim on the mesh).  ``torch_tail``: code each
+    rank runs after the cases, before it saves ``out``; the cases named
+    in ``torch_only`` run on the ranks alone.  Returns (inputs, JAX's
+    outputs, each rank's)."""
     inp, mask_peer = {}, {}
     key = jax.random.PRNGKey(STEP_KEY)
-    for name, (arch, mk, mode, _, drop) in cases.items():
-        jcfg = _cfgs(arch)[0]
+    for name, (arch, mk, mode, _, drop, *kw) in cases.items():
+        jcfg = _cfgs(arch, **(kw[0] if kw else {}))[0]
         jparams = JM.init_params(jax.random.PRNGKey(0), jcfg)
         flat = jax.tree_util.tree_leaves(jparams)
         for i, leaf in enumerate(flat):
@@ -187,7 +199,8 @@ def mesh_runs(d, cases, extras=()):
                                   False).items():
                 inp[f"{name}_{kind}{i}"] = v
     meta = {"meshes": MESHES, "cases": cases, "step_key": STEP_KEY,
-            "min_coded": MIN_CODED, "opt": OPT, "mask_peer": mask_peer}
+            "min_coded": MIN_CODED, "opt": OPT, "mask_peer": mask_peer,
+            "torch_only": list(torch_only)}
     np.savez(os.path.join(d, "inputs.npz"), **inp)
     with open(os.path.join(d, "meta.json"), "w") as f:
         json.dump(meta, f)
@@ -199,7 +212,8 @@ def mesh_runs(d, cases, extras=()):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
     port = str(_free_port())
     procs += [subprocess.Popen(
-        [sys.executable, "-c", _torch_side(TORCH_SIDE), str(r), port, d],
+        [sys.executable, "-c", _torch_side(TORCH_SIDE + textwrap.dedent(
+            torch_tail) + TORCH_END), str(r), port, d],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(WORLD)]
     failed = []

@@ -68,9 +68,10 @@ caught and carried on):
     over gloo, qwen2-0.5b at full width, depth cut to 2 of 24 layers
     (``MESH_LAYERS``), through ``Trainer(mesh=...)``,
     global batch 8 x 128 (2 rows a rank), 2 steps in each cell: on
-    ``make_host_mesh((4, 1))`` ``exact``, ``lossy`` and
-    ``lossy_hadamard`` at drop 0.05, and the int8 wire at drop 0 and
-    0.05; on ``make_pod_mesh(2, 2, 1)`` ``hierarchical`` on the int8
+    ``make_host_mesh((4, 1))`` ``exact``, ``lossy_hadamard`` at drop
+    0.05, and the int8 wire at drop 0 (the plain ``lossy`` and the int8
+    at 0.05 cells cut for phase 19m);
+    on ``make_pod_mesh(2, 2, 1)`` ``hierarchical`` on the int8
     wire at the per-pod vector [0.02, 0.0, 0.05].  ZeRO-1: each rank holds
     its ``zero1_specs`` slice of ``master``, ``mu`` and ``nu`` and the new
     parameters are all-gathered over ``data`` (its ms and bytes a
@@ -87,8 +88,9 @@ caught and carried on):
 6c. the tensor-parallel train step: the same four rank processes, each
     holding its shards of the leaves split over ``model``, 2 of 24
     layers as 6b, 2 steps a cell: on ``make_host_mesh((2, 2))`` (data x model) ``exact``,
-    ``lossy`` and ``lossy_hadamard`` at drop 0.05, the int8 wire at 0
-    and 0.05, and ``lossy_hadamard`` with ``microbatches=2``; on
+    ``lossy_hadamard`` at drop 0.05 and the int8 wire at 0 (the plain
+    ``lossy``, int8-at-0.05 and ``microbatches=2`` cells cut for phase
+    19m; microbatches=2 is still held to the whole rows); on
     ``make_pod_mesh(2, 1, 2)`` ``hierarchical`` int8 at [0.02, 0.0,
     0.05]; on ``make_host_mesh((1, 4))`` ``exact`` (wk/wv split over 4,
     the 2 kv heads not).  The ranks that share a model index must end
@@ -322,6 +324,29 @@ caught and carried on):
      dense formula within 2^-6 of the largest output (tiled, dense and
      SDPA timed); 16 decode steps against a teacher-forced forward
      padded with filler to 5,120 tokens;
+19m. serving on a (data, model) mesh: four rank processes on the one
+     card over gloo, in one launch (``--mesh-kind serve_mesh``), every
+     cell at full width, an 8 x 512 global prompt (each dp rank its
+     rows), the KV coded at delivered fraction 0.9 (64 wire rows, each
+     rank its own K/V slices), 16 decode steps: qwen2-0.5b on (2, 2)
+     (kv heads split, vocab split) and (1, 4) (kv heads whole, padded q
+     heads), gemma2-9b (2 layers: the ring, the softcaps, the 256,000-row
+     tied vocab split) and granite-moe-3b-a800m (1 layer: EP prefill
+     with the dp rows gathered, decode over the gathered experts) on
+     (2, 2), recurrentgemma-9b (3 layers: the RG-LRU state by channel,
+     the MQA ring whole) on (1, 4), xlstm-350m (4 layers: the mLSTM state
+     by head, the sLSTM's whole, nothing shipped) on (2, 2), seamless
+     (2 + 2, frames: TP encode, the memory on every rank, the 256,206-row
+     vocab whole) on (1, 4).  Every rank's degraded K/V bit for bit the
+     slice of the one-device degrade of the gathered clean leaves; the
+     FWHT and unbias kernels equal to their plain versions at the rank
+     leaf shapes (timed at each cell's first); the prefill within 0.05 of
+     one device; each decode step within 0.05 of a teacher-forced mesh
+     forward (granite's first 4 in float32 with its capacity lifted;
+     xlstm's against one device's steps); the tokens' agreement with one
+     device reported; prefill
+     ms, decode tok/s, the KV transfer's ms and bytes a rank, the
+     model-group and row-gather collectives' ms and bytes, peak GB a rank;
 20. the priority cut, the per-step window and the flight recorder, card
     against CPU at 40 rounds: the 32-node 2-pod hier cell with
     layer-depth priority classes under both cut orders and both budget
@@ -347,7 +372,7 @@ The protocols of phases 14-16, 18 and 21-22 (and Fig. 2's step window)
 are ``repro_torch.benchmarks.figs``'s functions, which the CPU tests also
 run (smoke tiers and cut grids).
 
-Each path (3-6h with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19l and
+Each path (3-6h with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19m and
 21-22, Fig. 2's step window its own) runs with the kernels' launch counts set
 to 0 just before it and read just after.  The last
 line is ``{"ok": true, "device": {...}}``; the lines before it carry each
@@ -1530,19 +1555,19 @@ DP_WORLD, DP_STEPS, DP_TIMEOUT = 4, 2, 900
 # of its 24 layers (as 6d's EP_LAYERS): most of a 24-layer step was the
 # gloo sync of all 494 M parameters
 MESH_LAYERS = 2
+# cut to make room for phase 19m: the plain "lossy" cells (its sync at
+# drop 0 still held to the exact pmean, ``DP_ZERO_CELLS``/
+# ``TP_ZERO_CELLS``), the int8 wire at 0.05 (the hierarchical cells run
+# it at their per-pod drops) and 6c's microbatches=2 cell
+# (``tp_check_microbatches`` still holds microbatches=2 to the whole rows)
 DP_CELLS = (("exact", "host", "exact", False, 0.0, 1),
-            ("lossy", "host", "lossy", False, 0.05, 1),
             ("lossy_hadamard", "host", "lossy_hadamard", False, 0.05, 1),
             ("int8_drop0", "host", "lossy_hadamard", True, 0.0, 1),
-            ("int8_drop0.05", "host", "lossy_hadamard", True, 0.05, 1),
             ("hierarchical_int8", "pods", "hierarchical", True,
              (0.02, 0.0, 0.05), 1))
 TP_CELLS = (("exact", "dm22", "exact", False, 0.0, 1),
-            ("lossy", "dm22", "lossy", False, 0.05, 1),
             ("lossy_hadamard", "dm22", "lossy_hadamard", False, 0.05, 1),
             ("int8_drop0", "dm22", "lossy_hadamard", True, 0.0, 1),
-            ("int8_drop0.05", "dm22", "lossy_hadamard", True, 0.05, 1),
-            ("lossy_hadamard_mb2", "dm22", "lossy_hadamard", False, 0.05, 2),
             ("hierarchical_int8", "pdm212", "hierarchical", True,
              (0.02, 0.0, 0.05), 1),
             ("exact_tp4", "dm14", "exact", False, 0.0, 1))
@@ -1689,8 +1714,9 @@ def mesh_rank(kind, rank, port, out_dir, device="cuda"):
                             rank=rank, world_size=DP_WORLD)
     try:
         if kind in ("ep", "families", "recurrent_stubs",
-                    "tp_recurrent_stubs"):
+                    "tp_recurrent_stubs", "serve_mesh"):
             rec = (ep_rank(rank, dev) if kind == "ep" else
+                   serve_mesh_rank(rank, dev) if kind == "serve_mesh" else
                    family_rank(rank, dev) if kind == "families" else
                    family_rank(rank, dev, RS_MESH_CELLS, rs_mesh_config)
                    if kind == "recurrent_stubs" else
@@ -6104,6 +6130,629 @@ def phase_serve_seamless_long(dev, C, params, M, L, serve_step, coupling,
     return rec, records
 
 
+# phase 19m: serving on a (data, model) mesh, four ranks on the one card
+# over gloo in one launch, every cell at full width: an 8 x 512 global
+# prompt, the KV coded at delivered fraction 0.9, 16 decode steps.  Depth
+# cut only to keep the phase in budget (qwen2-0.5b whole on (2, 2) and 4
+# of 24 layers on (1, 4), where its kv heads stay whole and every layer of
+# a decode step gathers wk/wv over four ranks); gemma2-9b's one
+# (local, global) group, granite-moe 1 of 32 (a decode step gathers its
+# experts, ~226 MB a layer, over gloo), recurrentgemma one (rglru,
+# rglru, local) group, xlstm one (mlstm x 3, slstm) group, seamless 2 + 2
+# of 12 + 12): (cell, arch, mesh, layers or None)
+SERVE_MESH_CELLS = (
+    ("qwen2-0.5b dm22", "qwen2-0.5b", "dm22", None),
+    ("qwen2-0.5b dm14", "qwen2-0.5b", "dm14", 4),
+    ("gemma2-9b dm22", "gemma2-9b", "dm22", 2),
+    ("granite-moe-3b-a800m dm22", "granite-moe-3b-a800m", "dm22", 1),
+    ("recurrentgemma-9b dm14", "recurrentgemma-9b", "dm14", 3),
+    ("xlstm-350m dm22", "xlstm-350m", "dm22", 4),
+    ("seamless-m4t-medium dm14", "seamless-m4t-medium", "dm14", 2))
+SERVE_MESH_GEN = 16
+SERVE_MESH_MOE_CHECK_STEPS = 4   # the MoE cell's float32 decode check
+# the mesh prefill's last-position logits against one device's, both
+# bf16: the model group sums its partial products in bf16 where one
+# device's matmul accumulates in float32 and rounds once
+SERVE_MESH_PREFILL_BAR = 0.05
+
+
+def aligned_blocks(local_shape, spec, n_rot):
+    """Whether a rank's block is made of whole ``n_rot``-element blocks of
+    the global leaf: its contiguous runs (the local size of the last
+    split dim times the whole dims after it; the whole leaf when nothing
+    is split) multiples of ``n_rot``.  The runs start at multiples of
+    their length, so the coded round trip then acts on the same blocks
+    as the one-device degrade of the whole leaf."""
+    split = [d for d, a in enumerate(spec) if a is not None]
+    last = split[-1] if split else 0
+    return math.prod(local_shape[last:]) % n_rot == 0
+
+
+def gather_blocks(x, dist):
+    """Every rank's tensor ``x`` (each the same shape), in rank order."""
+    flat = x.contiguous().reshape(-1)
+    out = flat.new_empty(dist.get_world_size() * flat.numel())
+    dist.all_gather_into_tensor(out, flat)
+    return [b.reshape(x.shape) for b in out.chunk(dist.get_world_size())]
+
+
+def gather_caches(caches, specs, mesh, dist, what):
+    """The whole caches from every rank's ``caches``, placed by ``specs``
+    (``sharding_rules.cache_specs`` with the ``model`` dims), on every
+    rank; ranks that hold the same block must hold the same bits."""
+    from repro_torch import sharding as shd
+    sizes = shd.axis_sizes(mesh)
+    coords = [shd.coordinate(mesh, r) for r in range(dist.get_world_size())]
+
+    def whole(t, spec):
+        spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+        shape = [n if ax is None else n * math.prod(
+            sizes[a] for a in ((ax,) if isinstance(ax, str) else ax))
+            for n, ax in zip(t.shape, spec)]
+        out = t.new_empty(shape)
+        seen = {}
+        for r, blk in enumerate(gather_blocks(t, dist)):
+            idx = shd.block_slices(shape, spec, sizes, coords[r])
+            first = seen.setdefault(repr(idx), blk)
+            assert torch.equal(blk, first), (
+                f"{what}: ranks holding one cache block differ")
+            out[idx] = blk
+        return out
+
+    def node(c, sc):
+        return type(c)(*(whole(t, sp) for t, sp in zip(c.tensors(),
+                                                       sc.tensors())))
+
+    return type(caches)(
+        groups=[node(c, sc) for c, sc in zip(caches.groups, specs.groups)],
+        tail=[node(c, sc) for c, sc in zip(caches.tail, specs.tail)])
+
+
+def serve_mesh_rank(rank, dev, cells=SERVE_MESH_CELLS):
+    """One rank of phase 19m: every cell of ``cells`` served on its mesh
+    through ``serve_step.mesh_groups``: the rank's ``convert.shard_leaves``
+    of the whole seed-0 weights and its rows of the seed-1 prompt and
+    seed-3 frontend inputs; prefill, the coded KV transfer of its own
+    K/V slices (``degrade_caches``), ``SERVE_MESH_GEN`` greedy steps,
+    the kernels' launches counted around them.  Checks (any failure
+    raises): the launches (2 FWHT and 1 unbias a K/V leaf); every rank's
+    degraded K/V bit for bit the matching slice of rank 0's one-device
+    ``degrade_caches`` of the gathered clean leaves (each rank's blocks
+    whole blocks of the global leaf); the FWHT and unbias kernels equal
+    to their plain versions on the rank's leaves (``check_kv_wire``;
+    rank 0 times them at each cell's first leaf); rank 0's one-device
+    prefill of the whole weights within ``SERVE_MESH_PREFILL_BAR`` (an
+    MoE cell's in its check's config, below); each decode step on the
+    mesh within ``RING_DECODE_BAR`` of a teacher-forced mesh forward (an
+    MoE cell's with its expert capacity lifted and in float32, over
+    ``SERVE_MESH_MOE_CHECK_STEPS`` steps, since the forward routes all
+    528 positions where a step routes one and bf16 flips near-tied
+    picks, then its served bf16 prefill and steps at its capacity on the
+    rows routed alike, ``moe_served_check``; the xLSTM's against one
+    device's steps fed the same tokens);
+    the mesh's greedy tokens beside rank 0's
+    one-device serve (agreement and the first step where they part,
+    reported).  Records the prefill ms, decode tok/s, the KV transfer's
+    ms and the bytes the rank ships, the model-group and row-gather
+    collectives' ms and bytes in an instrumented prefill and decode
+    step, and the rank's peak."""
+    import torch.distributed as dist
+    import repro_torch.configs as C
+    from repro_torch import sharding as shd
+    from repro_torch.core import coding
+    from repro_torch.core.transport import coupling
+    from repro_torch.kernels import dcqcn as kdcqcn
+    from repro_torch.kernels import fwht as kfwht
+    from repro_torch.kernels import quantize as kquant
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import unbias as kunbias
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import convert
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serve import serve_step as S
+    from repro_torch.train import sharding_rules as rules
+    counts = Launches(kfwht, kunbias, kquant, kdcqcn)
+    meshes = {mk: mesh_mod.make_host_mesh(FAMILY_MESHES[mk][0],
+                                          device_type=dev.type)
+              for mk in sorted({cell[2] for cell in cells})}
+    stats = {"on": False}
+
+    def reset():
+        stats.update(model_s=0.0, model_bytes=0, rows_s=0.0, rows_bytes=0)
+
+    def timed(fn, key):
+        def call(*a, **k):
+            if not stats["on"]:
+                return fn(*a, **k)
+            stats[key + "_bytes"] += a[0].numel() * a[0].element_size()
+            _sync()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            _sync()
+            stats[key + "_s"] += time.perf_counter() - t0
+            return res
+        return call
+
+    saved = (shd.model_all_reduce, shd.model_all_gather,
+             shd.model_reduce_scatter, shd.model_all_to_all, shd.gather_rows)
+    (shd.model_all_reduce, shd.model_all_gather, shd.model_reduce_scatter,
+     shd.model_all_to_all) = (timed(f, "model") for f in saved[:4])
+    shd.gather_rows = timed(saved[4], "rows")
+    mask = torch.as_tensor(coupling.kv_hole_masks(
+        np.array([KV_FRAC]), N_ROT, seed=0)[0], device=dev)
+
+    def signs_gen():
+        return torch.Generator(dev).manual_seed(2)
+
+    rec = {"cells": {}, "records": []}
+    try:
+        for name, arch, mk, layers in cells:
+            torch.cuda.empty_cache()
+            rec["cells"][name] = serve_mesh_cell(
+                rank, dev, name, family_config(C, arch, layers), meshes[mk],
+                mask, signs_gen, counts, stats, reset, rec["records"], dist,
+                coding, ref, kfwht, kunbias, convert, L, M, S, rules)
+    finally:
+        (shd.model_all_reduce, shd.model_all_gather,
+         shd.model_reduce_scatter, shd.model_all_to_all,
+         shd.gather_rows) = saved
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_mesh_cell(rank, dev, name, cfg, mesh, mask, signs_gen, counts,
+                    stats, reset, records, dist, coding, ref, kfwht,
+                    kunbias, convert, L, M, S, rules):
+    """One cell of ``serve_mesh_rank``; returns the rank's record."""
+    tp, rows = S.mesh_groups(cfg, mesh)
+    names = convert.leaf_names(cfg)
+    whole = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    params = convert.params_from_leaves(convert.shard_leaves(
+        convert.jax_leaves(whole, cfg), mesh, names), cfg)
+    if rank:
+        del whole
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                           generator=torch.Generator(dev).manual_seed(1),
+                           device=dev)
+    inputs = S.frontend_inputs(cfg, BATCH, PROMPT,
+                               torch.Generator(dev).manual_seed(3))
+    mine = S.local_batch(mesh, dict(inputs, tokens=prompt))
+    tokens = mine.pop("tokens")
+    gen, n_ctx = SERVE_MESH_GEN, cfg.n_front + PROMPT
+    prefill = S.make_prefill(cfg, n_ctx + gen, tp, rows)
+
+    def encode():
+        return {"memory": M.encode(params, cfg, mine["frame_embeds"], tp)}
+
+    extra = encode() if cfg.is_encdec else mine
+    memory = extra.get("memory")
+    _, warm = prefill(params, tokens, **extra)           # warm-up
+    S.greedy_decode(cfg, params, S.degrade_caches(warm, mask, signs_gen()),
+                    tokens[:, -1:], n_ctx, 3, memory, tp, rows)
+    del warm
+    _sync()
+    dist.barrier()
+
+    # --- the main path, with the launch counts read around it ---
+    counts.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if cfg.is_encdec:
+        extra = encode()
+        memory = extra["memory"]
+    _sync()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    logits, clean = prefill(params, tokens, **extra)
+    _sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    first = torch.argmax(logits, -1)[:, None]
+    t0 = time.perf_counter()
+    coded = S.degrade_caches(clean, mask, signs_gen())
+    _sync()
+    kv_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    toks = S.greedy_decode(cfg, params, coded.clone(), first, n_ctx, gen,
+                           memory, tp, rows)
+    _sync()
+    decode_s = time.perf_counter() - t0
+    launches = counts.read()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_leaves = len(clean.leaves())
+    assert logits.shape == (tokens.shape[0], cfg.vocab_size), logits.shape
+    assert torch.isfinite(logits.float()).all(), name
+    assert launches == {"fwht": 2 * n_leaves, "fwht_quantize": 0,
+                        "masked_unbias": n_leaves, "quantize_int8": 0,
+                        "dcqcn_scan": 0}, (name, launches)
+
+    # --- the collectives of one prefill and one decode step ---
+    stats["on"] = True
+    reset()
+    prefill(params, tokens, **extra)
+    coll = {"prefill": {k: stats[k] for k in ("model_s", "model_bytes",
+                                              "rows_s", "rows_bytes")}}
+    reset()
+    S.make_decode(cfg, tp, rows)(params, clean.clone(), first, n_ctx, memory)
+    coll["decode_step"] = {k: stats[k] for k in ("model_s", "model_bytes",
+                                                 "rows_s", "rows_bytes")}
+    stats["on"] = False
+
+    # --- every rank's degraded caches against its cut
+    # (``model.local_caches``) of the one-device degrade of the gathered
+    # clean caches: bit for bit, each rank's K/V blocks being whole
+    # blocks of the global leaves ---
+    dims = M.cache_split_dims(cfg, tp)
+    specs = rules.cache_specs(mesh, clean,
+                              [dims[k] for k in M.cache_kinds(cfg)])
+    whole_clean = gather_caches(clean, specs, mesh, dist, name)
+    mine = M.local_caches(S.degrade_caches(whole_clean, mask, signs_gen()),
+                          cfg, mesh, tp)
+    del whole_clean
+    aligned = [aligned_blocks(t.shape, sp, N_ROT)
+               for c, sc in zip(clean.nodes(), specs.nodes())
+               if isinstance(c, L.AttnCache)
+               for t, sp in ((c.k, sc.k), (c.v, sc.v))]
+    assert all(aligned), (name, aligned)
+    for got, want in zip(
+            [t for c in coded.nodes() for t in c.tensors()],
+            [t for c in mine.nodes() for t in c.tensors()]):
+        assert got.dtype == want.dtype and torch.equal(got, want), (
+            f"{name}: rank {rank}'s degraded caches are not its cut of the "
+            "one-device degrade")
+    del mine
+
+    # --- the kernels on the rank's own leaves ---
+    wire = None
+    if n_leaves:
+        code = coding.plan(clean.leaves()[0].numel(), n_rot=N_ROT)
+        signs = coding.rademacher(signs_gen(), code)
+        wire = check_kv_wire(f"serve mesh {name} rank {rank}", clean, mask,
+                             signs, kfwht, kunbias, ref, coding)
+        dist.barrier()
+        if rank == 0:            # the others wait: the card is its own
+            node = next(c for c in clean.nodes() if isinstance(c,
+                                                               L.AttnCache))
+            records.extend(check_kv_wire(
+                f"serve mesh {name} timed", M.Caches(groups=[node], tail=[]),
+                mask, signs, kfwht, kunbias, ref, coding,
+                timed=True)["records"])
+        dist.barrier()
+
+    # --- each decode step against a teacher-forced mesh forward; the
+    # xLSTM's against one device's steps fed the same tokens: its
+    # teacher-forced forward runs the chunkwise mLSTM and a step the
+    # sequential one, which part where the normalizer's floor binds (in
+    # JAX too, ROADMAP Queue 3), on one device as on the mesh.  An MoE
+    # cell's check runs with its capacity lifted (the forward routes all
+    # 528 positions where a step routes one) and in float32: in bf16 a
+    # step's and the forward's few-ulp differences flip near-tied top-k
+    # picks, a discrete change that is no fault of the cache; its own
+    # prefill and SERVE_MESH_MOE_CHECK_STEPS steps (each gathers the
+    # experts, in float32); then the served path itself, in bf16 at its
+    # capacity, on the rows that route alike (moe_served_check).  The
+    # others decode the main path's clean caches ---
+    check_cfg, check_params, check_whole = cfg, params, None
+    start, steps = (logits, clean.clone()), gen
+    if cfg.moe is not None:
+        from repro_torch.models import moe as MOE
+        check_cfg = dataclasses.replace(
+            cfg, dtype="float32", moe=dataclasses.replace(
+                cfg.moe, capacity_factor=MOE.padded_experts(cfg)
+                / cfg.moe.top_k))
+        check_params = {k: v.float() for k, v in params.items()}
+        if rank == 0:
+            check_whole = {k: v.float() for k, v in whole.items()}
+        start, steps = None, SERVE_MESH_MOE_CHECK_STEPS
+    forward = "mlstm" not in cfg.block_pattern
+    errs, got, fed, check_logits = mesh_forced_decode(
+        check_cfg, check_params, tp, rows, tokens, extra, steps, M, S,
+        forward, start)
+    del check_params, start
+    served_check = None
+    if cfg.moe is not None:     # and the served path, in bf16 at capacity
+        served_check = moe_served_check(
+            cfg, params, whole if rank == 0 else None, tp, rows, mesh, tokens,
+            prompt, extra, dict(inputs), gen, dist, M, S, MOE)
+
+    # --- the prefill against one device (an MoE cell's with its capacity
+    # lifted on both: a mesh routes each sender's tokens against a
+    # capacity of its own, one device all of them against one, so the
+    # two drop different picks once capacity binds, as JAX's mesh and
+    # one device do), and the token agreement ---
+    got_all = [gather_blocks(g, dist) for g in got]
+    fed_all = gather_blocks(fed, dist)
+    lg_all = gather_blocks(logits, dist)
+    check_all = gather_blocks(check_logits, dist)
+    tok_all = gather_blocks(toks, dist)
+    prefill_err = served_err = agree = part = None
+    if rank == 0:
+        def rows_of(blocks):
+            return dp_rows(blocks, mesh, dist.get_world_size())
+
+        def rel_err(a, b):
+            b = b.float()
+            return ((a.float() - b).abs().max().item()
+                    / max(1.0, b.abs().max().item()))
+
+        mesh_toks = rows_of(tok_all)
+        extra1 = dict(inputs)
+        if cfg.is_encdec:
+            extra1 = {"memory": M.encode(whole, cfg,
+                                         extra1.pop("frame_embeds"))}
+        logits1, clean1 = S.make_prefill(cfg, n_ctx + gen)(whole, prompt,
+                                                           **extra1)
+        served_err = rel_err(rows_of(lg_all), logits1)
+        prefill_err = served_err if check_cfg is cfg else rel_err(
+            rows_of(check_all), S.make_prefill(check_cfg, n_ctx + gen)(
+                check_whole, prompt, **extra1)[0])
+        del check_whole
+        toks1 = S.greedy_decode(
+            cfg, whole, S.degrade_caches(clean1, mask, signs_gen()),
+            torch.argmax(logits1, -1)[:, None], n_ctx, gen,
+            extra1.get("memory"))
+        same = mesh_toks == toks1
+        agree = same.float().mean().item()
+        parted = (~same).any(0).nonzero()
+        part = int(parted[0]) if parted.numel() else None
+        if not forward:
+            fed1 = rows_of(fed_all)
+            _, caches1 = S.make_prefill(cfg, n_ctx + gen)(whole, prompt,
+                                                          **extra1)
+            decode1 = S.make_decode(cfg)
+            errs = []
+            for i in range(len(got_all)):
+                w, caches1 = decode1(whole, caches1, fed1[:, i:i + 1],
+                                     n_ctx + i, extra1.get("memory"))
+                w = w.float()
+                g = rows_of(got_all[i])
+                errs.append((g - w).abs().max().item()
+                            / max(1.0, w.abs().max().item()))
+            del caches1
+            assert max(errs) < RING_DECODE_BAR, (name, errs)
+        del whole, clean1, logits1
+        assert prefill_err <= SERVE_MESH_PREFILL_BAR, (name, prefill_err)
+    del lg_all, tok_all, got_all, fed_all, got, check_all
+    kv_bytes = S.kv_wire_bytes(clean, N_ROT)
+    del clean, coded
+    return {"arch": cfg.name, "mesh": list(mesh.mesh.shape),
+            "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+            "rows": tokens.shape[0], "prefill_ms": prefill_ms,
+            "encode_ms": encode_ms, "kv_ms": kv_ms,
+            "kv_bytes": kv_bytes,
+            "decode_s": decode_s,
+            "decode_tok_per_s": BATCH * (gen - 1) / decode_s,
+            "launches": launches, "peak_gb": peak_gb, "collectives": coll,
+            "kv_leaves": n_leaves, "aligned": aligned, "wire": wire,
+            "prefill_err": prefill_err, "served_prefill_err": served_err,
+            "forced_errs": errs, "served_check": served_check,
+            "forced_against": ("teacher-forced mesh forward" if forward
+                               else "one-device decode, same tokens"),
+            "token_agree": agree, "first_part_step": part,
+            "vocab_split": L.split_over_model(M.logits_leaf(cfg), tp)
+            is not None,
+            "kv_split": bool(dims["global"])}
+
+
+def dp_rows(blocks, mesh, world):
+    """The global rows from every rank's block of them (``gather_blocks``),
+    in dp order: the blocks of the ranks at ``model`` index 0."""
+    from repro_torch import sharding as shd
+    coords = [shd.coordinate(mesh, r) for r in range(world)]
+    order = sorted((c.get("data", 0), r) for r, c in enumerate(coords)
+                   if c.get("model", 0) == 0)
+    return torch.cat([blocks[r] for _, r in order])
+
+
+def moe_served_check(cfg, params, whole, tp, rows, mesh, tokens, prompt,
+                     extra, extra1, gen, dist, M, S, MOE):
+    """The MoE cell's served path on the mesh (its dtype, its expert
+    capacity) held to a teacher-forced forward on one device (rank 0, the
+    whole weights ``whole``, the global ``prompt`` and frontend inputs
+    ``extra1``) with the capacity lifted: a clean prefill and ``gen``
+    greedy steps on the mesh, each logit row of the prefill's last
+    position and of every step within ``RING_DECODE_BAR`` of the step's
+    largest logit wherever the two routed alike, the row's picks there
+    the forward's and none dropped.  With one MoE layer that is the same
+    function: its K/V are written before the MoE, so a position's logits
+    read its own picks only.  The rest are near-tied picks that the
+    served dtype's rounding flips, a discrete change and no fault of the
+    path; at least half the rows must be held.  A step routes the global
+    rows against a capacity of at least 8 and so drops nothing
+    (asserted).  Returns (the largest held error, rows held, rows) on
+    rank 0, None on the others."""
+    from repro_torch import sharding as shd
+    assert cfg.n_layers == 1, cfg.n_layers
+    lifted = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE.padded_experts(cfg) / cfg.moe.top_k))
+    inner, log = MOE._dispatch_indices, []
+
+    def record(top_i, e_pad, cap):
+        flat, slot, keep = inner(top_i, e_pad, cap)
+        log.append(torch.where(keep.reshape(top_i.shape), top_i, -1))
+        return flat, slot, keep
+
+    n_ctx = cfg.n_front + tokens.shape[1]
+    MOE._dispatch_indices = record
+    try:
+        logits, caches = S.make_prefill(cfg, n_ctx + gen, tp, rows)(
+            params, tokens, **extra)
+        decode = S.make_decode(cfg, tp, rows)
+        tok, fed, got = torch.argmax(logits, -1)[:, None], [], [logits]
+        for i in range(gen):
+            fed.append(tok)
+            lg, caches = decode(params, caches, tok, n_ctx + i,
+                                extra.get("memory"))
+            got.append(lg)
+            tok = torch.argmax(lg, -1)[:, None]
+        del caches
+        served = list(log)
+        assert all((p >= 0).all() for p in served[1:]), "a step dropped"
+        # the prefill's picks at its last position, from the rank whose
+        # block of the sequence holds it (the EP path splits the sequence
+        # over ``model``; every rank holds the rows gathered over dp)
+        world = dist.get_world_size()
+        holder = {}
+        for r in range(world):
+            holder.setdefault(shd.coordinate(mesh, r).get("model", 0), r)
+        b_all = served[1].shape[0]
+        blocks = gather_blocks(served[0], dist)
+        blk = served[0].shape[0] // b_all
+        j, i = divmod(n_ctx - 1, blk)
+        picks = [blocks[holder[j]].reshape(b_all, blk, -1)[:, i]] + served[1:]
+        got = [dp_rows(gather_blocks(g, dist), mesh, world) for g in got]
+        fed = dp_rows(gather_blocks(torch.cat(fed, dim=1), dist), mesh, world)
+        if dist.get_rank():
+            return None
+        log[:] = []
+        seq = torch.cat([prompt, fed], dim=1)
+        want = M.head(whole, lifted, M.hidden(whole, lifted, seq, **extra1)[
+            :, n_ctx - 1:n_ctx + gen])
+        (forward,) = log
+    finally:
+        MOE._dispatch_indices = inner
+    forward = forward.reshape(seq.shape[0], seq.shape[1], -1)
+    alike = torch.stack([
+        (torch.sort(p, -1)[0]
+         == torch.sort(forward[:, n_ctx - 1 + i], -1)[0]).all(-1)
+        for i, p in enumerate(picks)], dim=1)              # (rows, gen + 1)
+    worst = 0.0
+    for i, g in enumerate(got):
+        w = want[:, i].float()
+        err = ((g.float() - w).abs().amax(-1)
+               / max(1.0, w.abs().max().item()))
+        assert torch.isfinite(g).all(), (cfg.name, i)
+        held = err[alike[:, i]]
+        if held.numel():
+            worst = max(worst, held.max().item())
+    n_held, n_rows = int(alike.sum()), alike.numel()
+    assert worst < RING_DECODE_BAR and 2 * n_held >= n_rows, (
+        cfg.name, worst, n_held, n_rows)
+    return worst, n_held, n_rows
+
+
+def mesh_forced_decode(cfg, params, tp, rows, tokens, extra, gen, M, S,
+                       forward=True, start=None):
+    """A clean prefill on the mesh (or ``start``, the (logits, caches) of
+    one, which the steps consume) and ``gen`` greedy steps.  With
+    ``forward`` each step's logits (whole vocabulary) are held to a
+    teacher-forced mesh forward over the prompt and the tokens fed, with
+    the same frontend inputs, at that position, within
+    ``RING_DECODE_BAR`` of the largest logit (``forced_decode_check``'s
+    bar).  Returns (the errors of the rank's rows, or None without
+    ``forward``; each step's logits, float32; the tokens fed (rows,
+    ``gen``); the prefill's logits)."""
+    memory = extra.get("memory")
+    n_ctx = cfg.n_front + tokens.shape[1]
+    logits, caches = start or S.make_prefill(cfg, n_ctx + gen, tp, rows)(
+        params, tokens, **extra)
+    decode = S.make_decode(cfg, tp, rows)
+    tok, fed, got = torch.argmax(logits, -1)[:, None], [], []
+    for i in range(gen):
+        fed.append(tok)
+        lg, caches = decode(params, caches, tok, n_ctx + i, memory)
+        got.append(lg.float())
+        tok = torch.argmax(lg, -1)[:, None]
+    del caches
+    fed = torch.cat(fed, dim=1)
+    if not forward:
+        return None, got, fed, logits
+    seq = torch.cat([tokens, fed], dim=1)
+    want = S.whole_logits(M.head(params, cfg, M.hidden(
+        params, cfg, seq, tp=tp, rows=rows, **extra)[:, n_ctx:n_ctx + gen],
+        tp), cfg, tp)
+    errs = []
+    for i, g in enumerate(got):
+        w = want[:, i].float()
+        errs.append((g - w).abs().max().item()
+                    / max(1.0, w.abs().max().item()))
+        assert torch.isfinite(g).all() and errs[-1] < RING_DECODE_BAR, (
+            cfg.name, i, errs)
+    return errs, got, fed, logits
+
+
+def phase_serve_mesh():
+    """Phase 19m: ``SERVE_MESH_CELLS`` on four rank processes sharing the
+    one card over gloo (``serve_mesh_rank``), in one launch.  Any rank
+    that fails fails the phase.  Returns the record, the kernel timing
+    records at the ranks' K/V shapes and the seconds."""
+    ranks, seconds = run_mesh_ranks("serve_mesh")
+    smi = card_name_and_power()
+    out, launches = {"cells": {}}, {}
+    for name, *_ in SERVE_MESH_CELLS:
+        cells = [rk["cells"][name] for rk in ranks]
+        cell = cells[0]
+        for c in cells:
+            for k, v in c["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        rec = {k: cell[k] for k in (
+            "arch", "mesh", "layers", "encoder_layers", "rows",
+            "kv_leaves", "kv_split", "vocab_split", "prefill_err",
+            "served_prefill_err",
+            "token_agree", "first_part_step", "collectives")}
+        rec.update(
+            prefill_ms=[c["prefill_ms"] for c in cells],
+            encode_ms=[c["encode_ms"] for c in cells],
+            decode_tok_per_s=[c["decode_tok_per_s"] for c in cells],
+            kv_ms=[c["kv_ms"] for c in cells],
+            kv_bytes_per_rank=[c["kv_bytes"] for c in cells],
+            peak_gb_per_rank=[c["peak_gb"] for c in cells],
+            forced_err_max=max(max(c["forced_errs"]) for c in cells
+                               if c["forced_errs"] is not None),
+            forced_against=cell["forced_against"],
+            kernel_shapes=sorted({s for c in cells if c["wire"]
+                                  for s in c["wire"]["shapes"]}),
+            kernel_err=max((max(c["wire"]["max_abs_err"].values())
+                            for c in cells if c["wire"]), default=0.0))
+        if cell["served_check"] is not None:       # rank 0's, global rows
+            rec["served_check"] = dict(zip(("err_max", "rows_held", "rows"),
+                                           cell["served_check"]))
+        out["cells"][name] = rec
+        co = rec["collectives"]
+        served = rec.get("served_check")
+        enc = (f", encode {rec['encode_ms'][0]:.1f} ms"
+               if rec["encoder_layers"] else "")
+        print(f"serve mesh {name} ({rec['layers']} layers"
+              + (f" + {rec['encoder_layers']} encoder" if
+                 rec["encoder_layers"] else "")
+              + f", {BATCH}x{PROMPT} global, {rec['rows']} rows a rank, kv "
+              f"{'split' if rec['kv_split'] else 'whole'}, vocab "
+              f"{'split' if rec['vocab_split'] else 'whole'}): prefill ms "
+              f"{[round(x, 1) for x in rec['prefill_ms']]}{enc}; decode "
+              f"tok/s {[round(x, 1) for x in rec['decode_tok_per_s']]}; KV "
+              f"transfer ms {[round(x, 2) for x in rec['kv_ms']]}, "
+              f"{rec['kv_bytes_per_rank'][0]:,} B a rank; model group "
+              f"prefill {co['prefill']['model_s'] * 1e3:.1f} ms "
+              f"{co['prefill']['model_bytes']:,} B, decode step "
+              f"{co['decode_step']['model_s'] * 1e3:.1f} ms "
+              f"{co['decode_step']['model_bytes']:,} B; row gather prefill "
+              f"{co['prefill']['rows_s'] * 1e3:.1f} ms "
+              f"{co['prefill']['rows_bytes']:,} B, decode step "
+              f"{co['decode_step']['rows_s'] * 1e3:.1f} ms "
+              f"{co['decode_step']['rows_bytes']:,} B; peak GB/rank "
+              f"{[round(g, 2) for g in rec['peak_gb_per_rank']]}; prefill vs "
+              f"one device {rec['prefill_err']:.3g} (bar "
+              f"{SERVE_MESH_PREFILL_BAR}"
+              + (f"; capacity lifted: at the served capacity "
+                 f"{rec['served_prefill_err']:.3g}"
+                 if rec["served_prefill_err"] != rec["prefill_err"] else "")
+              + f"); decode vs {rec['forced_against']} "
+              f"{rec['forced_err_max']:.3g} (bar {RING_DECODE_BAR}"
+              + (f"; served bf16 prefill and {SERVE_MESH_GEN} steps vs the "
+                 f"one-device forward with capacity lifted "
+                 f"{served['err_max']:.3g} over the {served['rows_held']} of "
+                 f"{served['rows']} row-steps routed alike" if served else "")
+              + f"); tokens "
+              f"vs one device {rec['token_agree']:.4f}, first parting step "
+              f"{rec['first_part_step']}; every rank's degraded caches its cut "
+              f"of the one-device degrade, bit for bit; kernels vs plain "
+              f"{rec['kernel_err']:.3g} at {rec['kernel_shapes']} [{smi}]")
+    out.update(seconds=seconds, launches=launches)
+    print(f"serve mesh: {len(out['cells'])} cells on four ranks, launches "
+          f"{launches}, {seconds:.1f} s [{smi}]")
+    return out, ranks[0]["records"]
+
+
 def card_name_and_power():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6305,6 +6954,9 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     del seamless_params
     torch.cuda.empty_cache()
     lap("19l_serve_seamless_long")
+    serve_mesh, serve_mesh_records = phase_serve_mesh()
+    records += serve_mesh_records
+    lap("19m_serve_mesh")
     feature_check = phase_features_card_vs_cpu(dev, E, topology, figs)
     fig10 = phase_fig10(dev, figs, counts)
     fig9 = phase_fig9(dev, figs, trace_export, counts)
@@ -6342,7 +6994,8 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "serve_xlstm": serve_xlstm["launches"],
                "serve_phi3_vision": serve_phi3["launches"],
                "serve_seamless": serve_seamless["launches"],
-               "serve_seamless_long": serve_seamless_long["launches"]}
+               "serve_seamless_long": serve_seamless_long["launches"],
+               "serve_mesh": serve_mesh["launches"]}
     wires = [fig8["wire_check"], serve_long["wire_check"],
              serve_gemma2["wire_check"], serve_gemma2_long["wire_check"],
              *(r["wire_check"] for r in serve_dense.values()),
@@ -6386,6 +7039,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "serve_phi3_vision": serve_phi3,
                       "serve_seamless": serve_seamless,
                       "serve_seamless_long": serve_seamless_long,
+                      "serve_mesh": serve_mesh,
                       "seconds": time.perf_counter() - t_start}))
     lap("report")
     print(json.dumps({"phase_seconds": seconds}))
@@ -6410,7 +7064,8 @@ if __name__ == "__main__":
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-kind", choices=("dp", "tp", "ep", "families",
                                              "recurrent_stubs",
-                                             "tp_recurrent_stubs"),
+                                             "tp_recurrent_stubs",
+                                             "serve_mesh"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", help=argparse.SUPPRESS)

@@ -8,13 +8,20 @@ leading "pod" axis; "pod" composes with "data" for the gradient
 reduction (DP = pod x data) and is the axis Celeris's lossy sync cares
 about most (cross-pod DCI links are the slow, lossy hops).
 
-Functions, so importing this module touches no process group.  The JAX
-module's hardware table is a TPU's and has no counterpart here.
+Functions, so importing this module touches no process group;
+:func:`init_ranks` joins the one ``torch.distributed.run`` describes,
+for the train and serve launchers alike.  The JAX module's hardware
+table is a TPU's and has no counterpart here.
 """
 from __future__ import annotations
 
+import os
+
+import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch import resolve_device
 from repro_torch import sharding as shd
 
 
@@ -56,3 +63,22 @@ def make_pod_mesh(n_pods: int, data: int = 16, model: int = 16,
                          "pods (use make_production_mesh for one pod)")
     return shd.make_mesh((n_pods, data, model), ("pod", "data", "model"),
                          device_type)
+
+
+def init_ranks(device: str) -> tuple[str, str]:
+    """Join the process group that ``torch.distributed.run`` describes
+    (``env://``).  Returns (backend, this rank's device)."""
+    dev = resolve_device(device)
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+    if dev.type == "cuda" and torch.cuda.device_count() >= local_world:
+        backend, rank_dev = "nccl", f"cuda:{local}"
+    elif dev.type == "cuda":
+        backend = "gloo"
+        rank_dev = f"cuda:{local % torch.cuda.device_count()}"
+    else:
+        backend, rank_dev = "gloo", "cpu"
+    if dev.type == "cuda":
+        torch.cuda.set_device(torch.device(rank_dev))
+    dist.init_process_group(backend, init_method="env://")
+    return backend, rank_dev

@@ -63,37 +63,16 @@ missing.  Weights are random, from seed 0.
 from __future__ import annotations
 
 import argparse
-import os
 
 import torch
 import torch.distributed as dist
 
 import repro_torch.configs as C
-from repro_torch import resolve_device
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.train_step import CelerisConfig
 from repro_torch.train.trainer import Trainer
-
-
-def init_ranks(device: str) -> tuple[str, str]:
-    """Join the process group that ``torch.distributed.run`` describes
-    (``env://``).  Returns (backend, this rank's device)."""
-    dev = resolve_device(device)
-    local = int(os.environ.get("LOCAL_RANK", 0))
-    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
-    if dev.type == "cuda" and torch.cuda.device_count() >= local_world:
-        backend, rank_dev = "nccl", f"cuda:{local}"
-    elif dev.type == "cuda":
-        backend = "gloo"
-        rank_dev = f"cuda:{local % torch.cuda.device_count()}"
-    else:
-        backend, rank_dev = "gloo", "cpu"
-    if dev.type == "cuda":
-        torch.cuda.set_device(torch.device(rank_dev))
-    dist.init_process_group(backend, init_method="env://")
-    return backend, rank_dev
 
 
 def main(argv=None):
@@ -121,7 +100,7 @@ def main(argv=None):
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     mesh, device, rank = None, args.device, 0
     if args.mesh != "none":
-        backend, device = init_ranks(args.device)
+        backend, device = mesh_mod.init_ranks(args.device)
         rank = dist.get_rank()
         kind = torch.device(device).type
         if rank == 0:

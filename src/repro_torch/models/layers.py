@@ -223,9 +223,10 @@ def project(p: Params, cfg: ModelConfig, x: torch.Tensor,
     heads and not rotated: q (B, S, H, Dh), k and v (B, S, KV, Dh), in
     the compute dtype.
 
-    With ``tp`` (wq/bq split by heads) H is this rank's H / tp heads;
-    KV is its own kv heads, or, where the kv heads stay whole, the kv
-    head of each of its q heads (:func:`_kv_of_heads`)."""
+    With ``tp`` (wq/bq split by heads) H is this rank's H / tp heads and
+    KV its own kv heads, or all of them where the kv heads stay whole:
+    the layout a rank's KV cache stores.  :func:`_kv_of_heads` maps them
+    to the rank's q heads after the cache."""
     hd = cfg.resolved_head_dim
     x = _q_input(cfg, x, tp)
     wk, wv, *bkv = _kv_weights(p, cfg, tp)
@@ -233,7 +234,7 @@ def project(p: Params, cfg: ModelConfig, x: torch.Tensor,
     q = _heads(x, p["wq"], p["bq"] if bias else None, hd)
     k = _heads(x, wk, bkv[0] if bias else None, hd)
     v = _heads(x, wv, bkv[1] if bias else None, hd)
-    return (q,) + _kv_of_heads(k, v, cfg, tp, q.shape[2])
+    return q, k, v
 
 
 def cross_kv(p: Params, cfg: ModelConfig, memory: torch.Tensor,
@@ -399,8 +400,10 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
       ``layers.py:355-363``).  No cache: JAX keeps no cross cache.
     - ``tp``: this rank's heads (:func:`project`; in a
       cross-attention its q heads and :func:`cross_kv`'s k and v), its
-      rows of ``wo``, and the partial outputs summed over ``model``; no
-      cache.
+      rows of ``wo``, and the partial outputs summed over ``model``.  The
+      cache holds what :func:`project` gives, the rank's kv heads or all
+      of them (``model.init_caches(tp=)``); each q head's kv head is
+      picked after the cache is written and read (:func:`_kv_of_heads`).
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -413,20 +416,21 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         causal = False
     else:
         q, k, v = qkv(p, cfg, x, positions, tp)
-    h, kv = q.shape[2], k.shape[2]
+    h = q.shape[2]
 
     decode = cache is not None and s == 1 and cache_index is not None
     if decode:
         cache_decode(cache, k, v, cache_index)
-        kq, vq = cache.k, cache.v
-    else:
-        if cache is not None:
-            if window is None and s > cache.k.shape[1]:
-                raise ValueError(f"prompt of {s} tokens does not fit a "
-                                 f"{cache.k.shape[1]}-slot cache")
-            cache_prefill(cache, k, v)
-        kq, vq = k, v
-    s_kv = kq.shape[1]
+        k, v = cache.k, cache.v
+    elif cache is not None:
+        if window is None and s > cache.k.shape[1]:
+            raise ValueError(f"prompt of {s} tokens does not fit a "
+                             f"{cache.k.shape[1]}-slot cache")
+        cache_prefill(cache, k, v)
+    if memory is None:
+        k, v = _kv_of_heads(k, v, cfg, tp, h)
+    kq, vq = k, v
+    kv, s_kv = kq.shape[2], kq.shape[1]
 
     if not decode and s * s_kv > FLASH_THRESHOLD:
         # the tiled path takes kv repeated to the q heads, as JAX does

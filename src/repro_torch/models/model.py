@@ -64,6 +64,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import xlstm as XL
+from repro_torch.train import sharding_rules as rules
 
 Params = L.Params
 
@@ -216,6 +217,7 @@ def hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
            cache_index: Optional[int] = None,
            positions: Optional[torch.Tensor] = None,
            tp: Optional[shd.ModelGroup] = None,
+           rows: Optional[shd.RowGroup] = None,
            image_embeds: Optional[torch.Tensor] = None,
            frame_embeds: Optional[torch.Tensor] = None,
            memory: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -223,7 +225,7 @@ def hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     final norm: :func:`hidden_aux` without the aux loss."""
     return hidden_aux(params, cfg, tokens, caches=caches,
                       cache_index=cache_index, positions=positions,
-                      tp=tp, image_embeds=image_embeds,
+                      tp=tp, rows=rows, image_embeds=image_embeds,
                       frame_embeds=frame_embeds, memory=memory)[0]
 
 
@@ -378,6 +380,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             last_only: bool = False,
             tp: Optional[shd.ModelGroup] = None,
+            rows: Optional[shd.RowGroup] = None,
             image_embeds: Optional[torch.Tensor] = None,
             frame_embeds: Optional[torch.Tensor] = None,
             memory: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -388,13 +391,15 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     (prefill, or one decode token at ``cache_index``).  With ``tp``
     (``convert.model_group``) each block whose leaves the specs split
     runs tensor parallel, and V is this rank's share of the vocabulary
-    when the table is split.  ``image_embeds``, ``frame_embeds`` and
+    when the table is split; ``rows``: the dp ranks whose rows the MoE
+    layers route together.  ``image_embeds``, ``frame_embeds`` and
     ``memory``: the frontend inputs (:func:`hidden_aux`); with
     ``image_embeds`` S counts the image positions first.
     """
     x = hidden(params, cfg, tokens, caches=caches, cache_index=cache_index,
-               positions=positions, tp=tp, image_embeds=image_embeds,
-               frame_embeds=frame_embeds, memory=memory)
+               positions=positions, tp=tp, rows=rows,
+               image_embeds=image_embeds, frame_embeds=frame_embeds,
+               memory=memory)
     if last_only:   # prefill: only the last position's logits are used
         x = x[:, -1:]
     return head(params, cfg, x, tp)
@@ -502,28 +507,106 @@ class Caches:
                       tail=[c.clone() for c in self.tail])
 
 
+def cache_split_dims(cfg: ModelConfig, tp: Optional[shd.ModelGroup]
+                     ) -> Dict[str, Dict[str, int]]:
+    """The port's ``model``-axis layout of the cache nodes: for each
+    layer kind, {field: dim} of the fields a rank holds its slice of
+    (the dim counted from the end, so the same in a stacked group node
+    and a tail node); a field not named is whole on every rank.  Read
+    from ``tp.split`` (:func:`~repro_torch.models.layers.
+    split_over_model`), never from a local width:
+
+    - an attention node (``global``, ``local``, ``moe``): ``k``/``v`` by
+      kv heads where the layer's ``attn.wq`` splits and ``tp`` divides
+      ``n_kv_heads``; else whole, as ``_proj_shard`` keeps GQA's few kv
+      heads on every rank.  ``pos`` is whole;
+    - ``rglru``: ``conv``/``h`` by channel of the LRU width where
+      ``rglru.w_in`` splits;
+    - ``mlstm``: ``c``/``n``/``m`` by head where ``mlstm.w_up`` splits
+      and ``tp`` divides the heads; else whole (a column block that cuts
+      a head runs every head on every rank);
+    - ``slstm``: whole (the time loop runs on every rank).
+
+    No ``tp``: every node whole."""
+    out: Dict[str, Dict[str, int]] = {k: {} for k in ATTN_KINDS
+                                      + RECURRENT_KINDS}
+    if tp is None:
+        return out
+    if (L.split_over_model("attn.wq", tp) is not None
+            and cfg.n_kv_heads % tp.size == 0):
+        for kind in ATTN_KINDS:
+            out[kind] = {"k": -2, "v": -2}
+    if L.split_over_model("rglru.w_in", tp) is not None:
+        out["rglru"] = {"conv": -1, "h": -1}
+    if (L.split_over_model("mlstm.w_up", tp) is not None
+            and cfg.n_heads % tp.size == 0):
+        out["mlstm"] = {"c": -3, "n": -2, "m": -1}
+    return out
+
+
+def cache_kinds(cfg: ModelConfig) -> List[str]:
+    """The layer kind of each node of ``cfg``'s caches, in
+    :meth:`Caches.nodes` order: the pattern (when the model has a whole
+    group), then the tail."""
+    n_groups, tail = cfg.pattern_layout()
+    return (list(cfg.block_pattern) if n_groups else []) + list(tail)
+
+
 def init_caches(cfg: ModelConfig, batch: int, s_max: int,
-                device=None) -> Caches:
+                device=None, tp: Optional[shd.ModelGroup] = None) -> Caches:
     """Empty caches for ``batch`` sequences of up to ``s_max`` tokens: a
     local layer's ring holds ``min(window_size, s_max)`` slots, a global
-    or MoE layer's ``s_max``; a recurrent layer's state is zeros."""
+    or MoE layer's ``s_max``; a recurrent layer's state is zeros.  With
+    ``tp``, a rank's caches: ``batch`` its rows, each node's split fields
+    its slice (:func:`cache_split_dims`)."""
     dt = L.dtype_of(cfg)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    n_groups, tail = cfg.pattern_layout()
+    n_groups, _ = cfg.pattern_layout()
+    dims = cache_split_dims(cfg, tp)
     recurrent = {"rglru": RG.init_cache, "mlstm": XL.init_mlstm_cache,
                  "slstm": XL.init_slstm_cache}
 
     def empty(kind: str, lead: tuple) -> L.StateCache:
-        if kind in recurrent:
-            return recurrent[kind](cfg, batch, lead, device)
-        sc = min(cfg.window_size, s_max) if kind == "local" else s_max
-        shape = lead + (batch, sc, kv, hd)
-        return L.AttnCache(
-            k=torch.zeros(shape, dtype=dt, device=device),
-            v=torch.zeros(shape, dtype=dt, device=device),
-            pos=torch.full(lead + (sc,), -1, dtype=torch.int32,
-                           device=device))
+        if kind in recurrent:        # the whole node's shapes and dtypes
+            whole = recurrent[kind](cfg, batch, lead, "meta")
+        else:
+            sc = min(cfg.window_size, s_max) if kind == "local" else s_max
+            shape = lead + (batch, sc, kv, hd)
+            whole = L.AttnCache(
+                k=torch.empty(shape, dtype=dt, device="meta"),
+                v=torch.empty(shape, dtype=dt, device="meta"),
+                pos=torch.empty(lead + (sc,), dtype=torch.int32,
+                                device="meta"))
+        out = []
+        for f, t in zip(dataclasses.fields(whole), whole.tensors()):
+            shape = list(t.shape)
+            if f.name in dims[kind]:
+                shape[dims[kind][f.name]] //= tp.size
+            out.append(torch.full(shape, -1 if f.name == "pos" else 0,
+                                  dtype=t.dtype, device=device))
+        return type(whole)(*out)
 
-    groups = ([empty(kind, (n_groups,)) for kind in cfg.block_pattern]
-              if n_groups else [])
-    return Caches(groups=groups, tail=[empty(kind, ()) for kind in tail])
+    kinds = cache_kinds(cfg)
+    plen = len(cfg.block_pattern) if n_groups else 0
+    return Caches(groups=[empty(k, (n_groups,)) for k in kinds[:plen]],
+                  tail=[empty(k, ()) for k in kinds[plen:]])
+
+
+def local_caches(caches: Caches, cfg: ModelConfig, mesh,
+                 tp: Optional[shd.ModelGroup] = None) -> Caches:
+    """A one-device (whole) ``caches`` cut to this rank's, as
+    :func:`init_caches` with ``tp`` lays them out: its dp block of the
+    batch rows (``sharding_rules.cache_specs``) and its slice of each
+    split field (:func:`cache_split_dims`); contiguous copies.  ``tp``:
+    the rank's model group with its split leaves
+    (``convert.model_group``)."""
+    dims = cache_split_dims(cfg, tp)
+    specs = rules.cache_specs(mesh, caches,
+                              [dims[k] for k in cache_kinds(cfg)])
+
+    def cut(c: L.StateCache, s: L.StateCache) -> L.StateCache:
+        return type(c)(*(shd.local_slice(t, sp, mesh).clone()
+                         for t, sp in zip(c.tensors(), s.tensors())))
+
+    return Caches(groups=[cut(*p) for p in zip(caches.groups, specs.groups)],
+                  tail=[cut(*p) for p in zip(caches.tail, specs.tail)])

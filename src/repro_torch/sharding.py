@@ -98,33 +98,57 @@ def dp_axes(mesh: Optional[DeviceMesh] = None) -> Tuple[str, ...]:
     return tuple(a for a in mesh.mesh_dim_names if a in (POD_AXIS, DATA_AXIS))
 
 
+def coordinate(mesh: DeviceMesh, rank: Optional[int] = None
+               ) -> Dict[str, int]:
+    """{axis name: index} of ``rank`` on ``mesh`` (this rank's when
+    None)."""
+    if rank is None:
+        return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    at = (mesh.mesh == rank).nonzero()[0]
+    return dict(zip(mesh.mesh_dim_names, (int(c) for c in at)))
+
+
 def peer_index(mesh: DeviceMesh, axes: Sequence[str]) -> int:
     """This rank's row-major index along ``axes``, in mesh order: the
     JAX island's ``peer`` (a P(dp)-sharded arange)."""
-    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-    sizes = axis_sizes(mesh)
+    return _row_major(axis_sizes(mesh), coordinate(mesh), axes)
+
+
+def _row_major(sizes: Dict[str, int], coords: Dict[str, int],
+               axes: Sequence[str]) -> int:
     idx = 0
-    for a in (a for a in mesh.mesh_dim_names if a in axes):
-        idx = idx * sizes[a] + coord[a]
+    for a in (a for a in sizes if a in axes):
+        idx = idx * sizes[a] + coords[a]
     return idx
+
+
+def block_slices(shape: Sequence[int], spec: Sequence, sizes: Dict[str, int],
+                 coords: Dict[str, int]) -> Tuple[slice, ...]:
+    """The slices of the block that the rank at ``coords`` ({axis:
+    index}, :func:`coordinate`) holds of a whole array of ``shape`` on a
+    mesh of ``sizes`` (:func:`axis_sizes`, mesh order) under the
+    partition ``spec``: each dimension named by a mesh axis (or a tuple
+    of axes, taken together row-major in mesh order, :func:`peer_index`)
+    is cut into that many blocks and the one at the rank's index kept;
+    dimensions past ``spec`` stay whole."""
+    index = []
+    for axis, n in zip(spec, shape):
+        if axis is None:
+            index.append(slice(None))
+            continue
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        block = n // math.prod(sizes[a] for a in axes)
+        i = _row_major(sizes, coords, axes)
+        index.append(slice(i * block, (i + 1) * block))
+    return tuple(index)
 
 
 def local_slice(x, spec: Sequence[Optional[str]], mesh: DeviceMesh):
     """This rank's block of the whole array ``x`` (a numpy array, a
-    memory map or a tensor; a view of it) under the partition ``spec``:
-    each dimension named by a mesh axis is cut into that axis' size and
-    the block at this rank's coordinate along it kept."""
-    sizes = axis_sizes(mesh)
-    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-    index = []
-    for axis, n in zip(spec, x.shape):
-        if axis is None:
-            index.append(slice(None))
-        else:
-            block = n // sizes[axis]
-            index.append(slice(coord[axis] * block,
-                               (coord[axis] + 1) * block))
-    return x[tuple(index)]
+    memory map or a tensor; a view of it) under the partition ``spec``
+    (:func:`block_slices`)."""
+    return x[block_slices(x.shape, spec, axis_sizes(mesh),
+                          coordinate(mesh))]
 
 
 def group(mesh: DeviceMesh, axes: Sequence[str]):

@@ -12,9 +12,12 @@ model reads which leaves are split (``convert.model_group``).
 :func:`zero1_specs` places the optimizer state (:func:`opt_state_specs`):
 each rank keeps its ``data`` slice of ``master``, ``mu`` and ``nu``
 (``convert.data_group``), from init and from a restored checkpoint, as
-the JAX package states its layout.  :func:`batch_specs` has no reader:
-the trainer takes its rows as ``shard_batch`` of its row-major dp
-index, which is what the batch specs give.
+the JAX package states its layout.  :func:`batch_specs` places a served
+batch's rows (``serve_step.local_batch``); the trainer takes its rows as
+``shard_batch`` of its row-major dp index, which is what the batch specs
+give.  :func:`cache_specs` places the serving caches: JAX's rule over
+the dp axes, and the port's ``model`` layout of each node where it is
+given (``model.cache_split_dims``, ``model.local_caches``).
 
 TP policy (megatron-style over ``model``), as in the JAX package:
 - attention/MLP in-projections: column-parallel  (..., None, "model")
@@ -163,3 +166,40 @@ def batch_specs(mesh, batch: Dict[str, object]) -> Dict[str, tuple]:
     rows = dp[0] if len(dp) == 1 else dp
     return {k: (rows,) + (None,) * (len(v.shape) - 1)
             for k, v in batch.items()}
+
+
+def cache_specs(mesh, caches, model_dims=None):
+    """The serving caches' specs (JAX's ``cache_specs``): the batch dim
+    over the dp axes, dim 1 of a stacked group node's tensors (a leading
+    layer dim) and dim 0 of a tail node's; the ``pos`` arrays ((n_groups,
+    S) or (S,)) replicated.  Returns ``caches``' structure (a
+    ``model.Caches`` of nodes) with a spec in place of each tensor.
+
+    ``model_dims``: one {field: dim from the end} a node, in
+    ``caches.nodes()`` order, naming the fields a rank holds its slice of
+    over ``model`` (``model.cache_split_dims``).  The JAX package pins no
+    cache dim to ``model`` (``serve_step.py:10-14``), so its specs are
+    the ones without them; the port's caches are laid out as the layers
+    compute them under tensor parallelism."""
+    dp = shd.dp_axes(mesh)
+    rows = (dp[0] if len(dp) == 1 else dp) if dp else None
+    nodes = list(caches.groups) + list(caches.tail)
+    model_dims = model_dims or [{}] * len(nodes)
+    n_groups = len(caches.groups)
+
+    def node_specs(j, node):
+        out = []
+        for field, t in zip(
+                (f for f in type(node).__dataclass_fields__), node.tensors()):
+            lead = 1 if j < n_groups else 0
+            spec = [None] * t.dim()
+            if t.dim() > lead + 1:           # not a pos array
+                spec[lead] = rows
+            dim = model_dims[j].get(field)
+            if dim is not None:
+                spec[t.dim() + dim] = shd.MODEL_AXIS
+            out.append(tuple(spec) if any(spec) else ())
+        return type(node)(*out)
+
+    specs = [node_specs(j, n) for j, n in enumerate(nodes)]
+    return type(caches)(groups=specs[:n_groups], tail=specs[n_groups:])

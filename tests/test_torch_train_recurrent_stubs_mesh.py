@@ -201,6 +201,17 @@ def mesh_runs(d, cases, extras=(), torch_tail="", torch_only=()):
     meta = {"meshes": MESHES, "cases": cases, "step_key": STEP_KEY,
             "min_coded": MIN_CODED, "opt": OPT, "mask_peer": mask_peer,
             "torch_only": list(torch_only)}
+    return (inp,) + run_sides(
+        d, inp, meta, JAX_SIDE, _torch_side(TORCH_SIDE + textwrap.dedent(
+            torch_tail) + TORCH_END))
+
+
+def run_sides(d, inp, meta, jax_side, torch_side):
+    """Save ``inp`` (``inputs.npz``) and ``meta`` (``meta.json``) in
+    ``d``, then start ``jax_side`` (argv: ``d``) in one process with four
+    forced host devices and ``torch_side`` (argv: rank, port, ``d``) in
+    four, each under its own timeout.  Returns (``jax.npz``, each rank's
+    ``rank<r>.npz``) as dicts."""
     np.savez(os.path.join(d, "inputs.npz"), **inp)
     with open(os.path.join(d, "meta.json"), "w") as f:
         json.dump(meta, f)
@@ -208,12 +219,11 @@ def mesh_runs(d, cases, extras=(), torch_tail="", torch_only=()):
         [os.path.join(REPO, "src"), REPO]), OMP_NUM_THREADS="1",
         XLA_FLAGS="--xla_force_host_platform_device_count=4")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(JAX_SIDE), d], env=env,
+        [sys.executable, "-c", textwrap.dedent(jax_side), d], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
     port = str(_free_port())
     procs += [subprocess.Popen(
-        [sys.executable, "-c", _torch_side(TORCH_SIDE + textwrap.dedent(
-            torch_tail) + TORCH_END), str(r), port, d],
+        [sys.executable, "-c", textwrap.dedent(torch_side), str(r), port, d],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(WORLD)]
     failed = []
@@ -229,7 +239,7 @@ def mesh_runs(d, cases, extras=(), torch_tail="", torch_only=()):
                 p.communicate()
     assert not failed, "\n".join(failed)
     load = functools.partial(np.load, allow_pickle=False)
-    return (inp, dict(load(os.path.join(d, "jax.npz"))),
+    return (dict(load(os.path.join(d, "jax.npz"))),
             [dict(load(os.path.join(d, f"rank{r}.npz")))
              for r in range(WORLD)])
 

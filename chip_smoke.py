@@ -47,7 +47,9 @@ caught and carried on):
 5. train qwen2-0.5b at full width through ``Trainer``: batch 8 x 128
    Markov tokens, AdamW (lr 1e-3, warmup 10), three steps in each of
    ``exact``, ``lossy`` and ``lossy_hadamard``, with 16 FWHT launches a
-   coded step (8 coded leaves, encode + decode);
+   coded step (8 coded leaves, encode + decode); then remat's cost on the
+   same cell: the loss and its gradients with remat and without, in
+   turns (``remat_cost``);
 5b. checkpoint and restart at full width, the depth cut to
     ``MESH_LAYERS`` of 24 layers as 6b/6c's (run after 6, which takes
     phase 5's trainer): an ``exact`` ``Trainer(ckpt_dir=...,
@@ -65,7 +67,8 @@ caught and carried on):
    (one fused rotate+quantize launch a call) at drop 0 and 0.05 and on
    the float32 wire at 0.05;
 6b. the data-parallel train step: four rank processes on the one card
-    over gloo, qwen2-0.5b at full width, depth cut to 2 of 24 layers
+    over gloo (one launch runs 6b, 6c, 6d, 6f, 6h, 6i and 19m in turn,
+    ``MESH_KINDS``), qwen2-0.5b at full width, depth cut to 2 of 24 layers
     (``MESH_LAYERS``), through ``Trainer(mesh=...)``,
     global batch 8 x 128 (2 rows a rank), 2 steps in each cell: on
     ``make_host_mesh((4, 1))`` ``exact``, ``lossy_hadamard`` at drop
@@ -106,7 +109,12 @@ caught and carried on):
     restart: one exact step on (2, 2) checkpointed at full width (every
     rank gathers, rank 0 writes), restored by ``Trainer`` on (4, 1) and
     on (1, 4), every rank's leaves its blocks of the saved state bit for
-    bit;
+    bit.  Every cell trains with remat and, its 128 tokens divisible by
+    the model axis, with the residual stream split over ``model`` between
+    units (sequence parallelism); on a rank's state ``lm_loss`` with it
+    equals ``remat=False`` bit for bit in the loss and every gradient, on
+    (2, 2) and (1, 4), each printing the sequence all-gathers SP adds
+    (count and bytes) and the rank's peak with and without;
 6d. the expert-parallel train step: the same four rank processes,
     qwen2-moe-a2.7b at full width (d 2048, 64 padded experts of 1,408,
     4 shared experts, top-4, vocab 151,936), depth cut to 1 of 24
@@ -168,6 +176,16 @@ caught and carried on):
     ZeRO-1, 2 steps a cell: xlstm-350m at 4 layers ``lossy_hadamard`` at
     drop 0.05 and seamless-m4t-medium at 2 + 2 layers ``exact`` with its
     frames split by rows with the tokens; 6f's checks;
+6j. remat at train_4k's length: qwen2-0.5b at full width and depth (24
+    layers) on rows of 4,096 tokens (the tiled attention), 4 rows if the
+    dry run's reckoned peak of that one-device step, times
+    ``RECKON_UNDERCOUNT``, fits the card's memory, else 2,
+    3 ``lossy_hadamard`` steps at drop 0.05 through ``Trainer``: step ms,
+    peak GB beside the reckoned one, the FWHT 16 times a step; a fourth
+    step holds the FWHT kernel to its plain version on the step's own
+    inputs, bit for bit.  Then the same config at 2 layers: ``lm_loss``
+    with remat and without, the loss and every gradient bit for bit, and
+    both peaks;
 7. smoke-size training on the card against the CPU (float32, the same
    masks, signs and batch: loss, the first moments, i.e. the synced
    gradient, and the updated parameters), and 14 coded steps that must
@@ -325,7 +343,7 @@ caught and carried on):
      SDPA timed); 16 decode steps against a teacher-forced forward
      padded with filler to 5,120 tokens;
 19m. serving on a (data, model) mesh: four rank processes on the one
-     card over gloo, in one launch (``--mesh-kind serve_mesh``), every
+     card over gloo (the mesh launch's ``serve_mesh`` kind), every
      cell at full width, an 8 x 512 global prompt (each dp rank its
      rows), the KV coded at delivered fraction 0.9 (64 wire rows, each
      rank its own K/V slices), 16 decode steps: qwen2-0.5b on (2, 2)
@@ -366,13 +384,23 @@ caught and carried on):
     ``audit_round`` passing on every recorded pass, the stall cell's
     Perfetto trace written to ``results/fig9_trace.json`` and validated,
     and both passes' stats with the recorder off equal to the recorded
-    ones bit for bit.
+    ones bit for bit;
+23. the production-scale dry run (``python -m repro_torch.launch.dryrun``
+    in background processes that use no device, started after the build
+    and waited for at the end of phase 2, whose times are all device
+    times behind the spin kernel, so that no host-clock number of phase 3
+    or after shares the host with them): ``--scale-check`` (the
+    lossy_hadamard step at 512 and 1,024 ranks, rank 0 and the last), the
+    same ``--mode hierarchical`` and the serve check (prefill_32k and
+    decode_32k on 16 x 16 and 2 x 16 x 16, one process a mesh), every
+    record ``ok`` (plain collectives only) and printed; the one-device
+    reckoning 6j reads comes from the same processes.
 
 The protocols of phases 14-16, 18 and 21-22 (and Fig. 2's step window)
 are ``repro_torch.benchmarks.figs``'s functions, which the CPU tests also
 run (smoke tiers and cut grids).
 
-Each path (3-6h with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19m and
+Each path (3-6j with 5b, and the engine's in 8-9, 11-13, 15-16, 18-19m and
 21-22, Fig. 2's step window its own) runs with the kernels' launch counts set
 to 0 just before it and read just after.  The last
 line is ``{"ok": true, "device": {...}}``; the lines before it carry each
@@ -1103,7 +1131,39 @@ def phase_train(dev, C, ts, Trainer, DataConfig, OptConfig, counts):
     print(f"profile lossy_hadamard step: "
           f"{out['profile_lossy_hadamard_step']}")
     out["launches"] = total
+    out["remat_cost"] = remat_cost(cfg, tr)
     return out, tr
+
+
+def remat_cost(cfg, tr):
+    """Phase 5's cost of remat: the loss and its gradients (``lm_loss``
+    and ``autograd.grad``, what remat changes in the step) on the
+    trainer's weights and a phase-5 batch, with remat and without in
+    turns, REMAT_COST_REPEATS times each after one warm-up of each; host
+    wall ms to a synchronised end.  No kernel of the port runs here."""
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    params = convert.params_from_leaves(tr.state["params"], cfg)
+    batch = tr.put_batch(0)
+    ms = {True: [], False: []}
+    for i in range(REMAT_COST_REPEATS + 1):
+        for remat in (True, False):
+            p = {k: v.detach().requires_grad_() for k, v in params.items()}
+            _sync()
+            t0 = time.perf_counter()
+            loss, _ = M.lm_loss(p, cfg, batch, remat=remat)
+            torch.autograd.grad(loss, list(p.values()), allow_unused=True)
+            _sync()
+            if i:
+                ms[remat].append((time.perf_counter() - t0) * 1e3)
+    out = {"remat_ms": ms[True], "no_remat_ms": ms[False],
+           "ratio_of_medians": statistics.median(ms[True])
+           / statistics.median(ms[False])}
+    print(f"train remat cost (phase 5's cell, loss + gradients, warm, "
+          f"in turns): remat ms {out['remat_ms']}, no remat ms "
+          f"{out['no_remat_ms']}, ratio of medians "
+          f"{out['ratio_of_medians']:.3f} [{card_name_and_power()}]")
+    return out
 
 
 def phase_allreduce(dev, ts, tr, coding, lc, counts):
@@ -1698,10 +1758,19 @@ def dp_smoke_draws(cfg, mesh, celeris, drop):
     return masks, signs, noise, sync
 
 
-def mesh_rank(kind, rank, port, out_dir, device="cuda"):
-    """One rank of ``phase_mesh_train(kind)``: joins the gloo group, runs
-    every cell and check, and writes ``rank<r>.json`` into ``out_dir``.
-    Any failed check raises, and the rank exits non-zero."""
+# every four-rank phase runs in one launch of the rank processes, in this
+# order (6b, 6c, 6d, 6f, 6h, 6i, 19m): one start-up and warm-up, not seven
+MESH_KINDS = ("dp", "tp", "ep", "families", "recurrent_stubs",
+              "tp_recurrent_stubs", "serve_mesh")
+
+
+def mesh_rank(kinds, rank, port, out_dir, device="cuda"):
+    """One rank of ``run_mesh_ranks(kinds)`` (``kinds`` comma-separated):
+    joins the gloo group, runs each kind's cells and checks in turn
+    (:func:`mesh_kind`), and writes ``rank<r>.json``, {kind: its record
+    with its ``kind_seconds``}, into ``out_dir``.  Any failed check
+    raises, and the rank exits non-zero."""
+    import gc
     sys.path.insert(0, SRC)
     import torch.distributed as dist
     from repro_torch import resolve_device
@@ -1713,33 +1782,49 @@ def mesh_rank(kind, rank, port, out_dir, device="cuda"):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=DP_WORLD)
     try:
-        if kind in ("ep", "families", "recurrent_stubs",
-                    "tp_recurrent_stubs", "serve_mesh"):
-            rec = (ep_rank(rank, dev) if kind == "ep" else
-                   serve_mesh_rank(rank, dev) if kind == "serve_mesh" else
-                   family_rank(rank, dev) if kind == "families" else
-                   family_rank(rank, dev, RS_MESH_CELLS, rs_mesh_config)
-                   if kind == "recurrent_stubs" else
-                   family_rank(rank, dev, TP_RS_CELLS, tp_rs_config,
-                               tp_checks=True))
-            with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-                json.dump(rec, f)
-            return
-        meshes, cells, zero_cells, one = mesh_of(kind, dev.type)
-        rec = dp_cells(rank, dev, meshes, cells)
-        rec["one_device"] = {mk: dp_check_one_device(rank, dev, meshes[mk])
-                             for mk in one}
-        rec["coded_vs_exact"] = dp_check_coded_syncs(dev, meshes,
-                                                     cells=zero_cells)
-        rec["card_vs_cpu"] = dp_check_card_vs_cpu(dev, meshes, cells)
-        if kind == "tp":
-            rec["microbatches"] = tp_check_microbatches(dev, meshes["dm22"])
-            rec["elastic"] = tp_check_elastic_restart(rank, dev, meshes,
-                                                      out_dir)
+        recs = {}
+        for kind in kinds.split(","):
+            t0 = time.perf_counter()
+            recs[kind] = mesh_kind(kind, rank, dev, out_dir)
+            recs[kind]["kind_seconds"] = time.perf_counter() - t0
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            dist.barrier()
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(rec, f)
+            json.dump(recs, f)
     finally:
         dist.destroy_process_group()
+
+
+def mesh_kind(kind, rank, dev, out_dir):
+    """This rank's record of one four-rank phase: ``dp`` (6b), ``tp``
+    (6c), ``ep`` (6d), ``families`` (6f), ``recurrent_stubs`` (6h),
+    ``tp_recurrent_stubs`` (6i) or ``serve_mesh`` (19m)."""
+    if kind == "ep":
+        return ep_rank(rank, dev)
+    if kind == "serve_mesh":
+        return serve_mesh_rank(rank, dev)
+    if kind == "families":
+        return family_rank(rank, dev)
+    if kind == "recurrent_stubs":
+        return family_rank(rank, dev, RS_MESH_CELLS, rs_mesh_config)
+    if kind == "tp_recurrent_stubs":
+        return family_rank(rank, dev, TP_RS_CELLS, tp_rs_config,
+                           tp_checks=True)
+    meshes, cells, zero_cells, one = mesh_of(kind, dev.type)
+    rec = dp_cells(rank, dev, meshes, cells)
+    rec["one_device"] = {mk: dp_check_one_device(rank, dev, meshes[mk])
+                         for mk in one}
+    rec["coded_vs_exact"] = dp_check_coded_syncs(dev, meshes,
+                                                 cells=zero_cells)
+    rec["card_vs_cpu"] = dp_check_card_vs_cpu(dev, meshes, cells)
+    if kind == "tp":
+        rec["seq_parallel"] = tp_check_seq_parallel(dev, meshes)
+        rec["microbatches"] = tp_check_microbatches(dev, meshes["dm22"])
+        rec["elastic"] = tp_check_elastic_restart(rank, dev, meshes,
+                                                  out_dir)
+    return rec
 
 
 def dp_cells(rank, dev, meshes, cells):
@@ -2276,13 +2361,14 @@ def dp_check_card_vs_cpu(dev, meshes, cells):
     return out
 
 
-def run_mesh_ranks(kind):
+def run_mesh_ranks(kinds=MESH_KINDS):
     """Four rank processes on the one card over gloo (``mesh_rank``),
-    under one deadline.  Any rank that fails fails the phase.  Returns
-    each rank's record and the seconds."""
+    running ``kinds`` in turn under one deadline.  Any rank that fails
+    fails the launch.  Returns each rank's {kind: record}; a phase reads
+    its kind's with :func:`kind_ranks`."""
     import shutil
     import socket
-    out_dir = MESH_OUT.format(kind)
+    out_dir = MESH_OUT.format(kinds[0] if len(kinds) == 1 else "mesh")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     with socket.socket() as sock:
@@ -2298,8 +2384,9 @@ def run_mesh_ranks(kind):
             for r in range(DP_WORLD)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
-         "--mesh-kind", kind, "--mesh-port", str(port), "--mesh-out",
-         out_dir], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+         "--mesh-kind", ",".join(kinds), "--mesh-port", str(port),
+         "--mesh-out", out_dir], env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT)
         for r in range(DP_WORLD)]
     try:
         deadline = time.monotonic() + DP_TIMEOUT
@@ -2312,7 +2399,6 @@ def run_mesh_ranks(kind):
                 p.wait()
         for f in logs:
             f.close()
-    seconds = time.perf_counter() - t0
     failed = [r for r, p in enumerate(procs) if p.returncode != 0]
     if failed:
         tails = []
@@ -2320,21 +2406,31 @@ def run_mesh_ranks(kind):
             with open(os.path.join(out_dir, f"rank{r}.log")) as f:
                 tails.append(f"rank {r} (exit {procs[r].returncode}):\n"
                              + "".join(f.readlines()[-40:]))
-        raise RuntimeError(f"{kind} train: ranks failed\n" + "\n".join(tails))
+        raise RuntimeError(f"{','.join(kinds)}: ranks failed\n"
+                           + "\n".join(tails))
     ranks = []
     for r in range(DP_WORLD):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    return ranks, seconds
+    print(f"mesh ranks: {', '.join(kinds)} in one launch of {DP_WORLD} "
+          f"ranks, {time.perf_counter() - t0:.1f} s")
+    return ranks
 
 
-def phase_mesh_train(kind):
+def kind_ranks(ranks, kind):
+    """(each rank's record of ``kind``, the slowest rank's seconds on
+    it) from :func:`run_mesh_ranks`."""
+    recs = [rk[kind] for rk in ranks]
+    return recs, max(r["kind_seconds"] for r in recs)
+
+
+def phase_mesh_train(kind, mesh_ranks):
     """The train step on a mesh at full width: four rank processes on the
     one card over gloo (``run_mesh_ranks``), each cell 2 steps through
     ``Trainer(mesh=...)``; ``kind`` "dp" is phase 6b (data parallel),
     "tp" phase 6c (tensor parallel over ``model``, and gradient
     accumulation).  Any rank that fails fails the phase."""
-    ranks, seconds = run_mesh_ranks(kind)
+    ranks, seconds = kind_ranks(mesh_ranks, kind)
     smi = card_name_and_power()
     out, launches = {"cells": {}}, 0
     for name, *_ in DP_CELLS if kind == "dp" else TP_CELLS:
@@ -2383,6 +2479,8 @@ def phase_mesh_train(kind):
                coded_vs_exact=[rk["coded_vs_exact"] for rk in ranks],
                card_vs_cpu=ranks[0]["card_vs_cpu"],
                microbatches=ranks[0].get("microbatches"),
+               seq_parallel=[rk.get("seq_parallel") for rk in ranks]
+               if kind == "tp" else None,
                elastic=[rk.get("elastic") for rk in ranks]
                if kind == "tp" else None,
                launches={"fwht": launches, "fwht_quantize": 0,
@@ -2401,7 +2499,9 @@ def phase_mesh_train(kind):
           f"{zero_worst}; microbatches=2 vs whole rows {out['microbatches']};"
           f" card = CPU at smoke size in {len(out['cells'])} cells; "
           + (f"elastic restart (2, 2) -> (4, 1), (1, 4) bit for bit, rank "
-             f"0's seconds {out['elastic'][0]}; " if kind == "tp" else "")
+             f"0's seconds {out['elastic'][0]}; sequence parallel = "
+             f"remat=False bit for bit on every rank, rank 0's "
+             f"{out['seq_parallel'][0]}; " if kind == "tp" else "")
           + f"{seconds:.1f} s [{smi}]")
     return out
 
@@ -2630,13 +2730,13 @@ def ep_fwht_shapes(C):
                                                    ("data", "model")))
 
 
-def phase_ep_train(dev, C, kfwht, ref):
+def phase_ep_train(dev, C, kfwht, ref, mesh_ranks):
     """Phase 6d: expert-parallel training of qwen2-moe-a2.7b at full
     width (``EP_LAYERS`` layers), four rank processes on the one card
     over gloo (``ep_rank``); then the FWHT held to its plain version at
     every shape of the coded cell's sync, timed at the two largest.
     Returns the phase's record and the timing records."""
-    ranks, seconds = run_mesh_ranks("ep")
+    ranks, seconds = kind_ranks(mesh_ranks, "ep")
     smi = card_name_and_power()
     out, launches = {"cells": {}}, 0
     for name, *_ in EP_CELLS:
@@ -3140,12 +3240,12 @@ def check_model_group(tr, cfg, metrics, what):
         "whole leaf")
 
 
-def phase_mesh_train_families(kind="families"):
+def phase_mesh_train_families(mesh_ranks, kind="families"):
     """Phase 6f: ``FAMILY_MESH_CELLS`` on four rank processes sharing the
     one card over gloo (``family_rank``), in one launch; ``kind``
     "recurrent_stubs" is phase 6h, ``RS_MESH_CELLS``, and
     "tp_recurrent_stubs" phase 6i, ``TP_RS_CELLS`` tensor parallel."""
-    ranks, seconds = run_mesh_ranks(kind)
+    ranks, seconds = kind_ranks(mesh_ranks, kind)
     smi = card_name_and_power()
     out, launches = {"cells": {}}, 0
     for name, cell in ranks[0]["cells"].items():
@@ -3441,6 +3541,304 @@ def rs_smoke_card_vs_cpu(dev, C, ts, OptConfig, DataConfig, make_source):
         out[arch] = dict(rec["lossy_hadamard"], batch=sorted(batch))
     print(f"train recurrent/stubs smoke f32, card vs CPU (one "
           f"lossy_hadamard step, {FAMILY_SMOKE_SEQ} tokens): {out}")
+    return out
+
+
+# phase 6j: qwen2-0.5b at full depth on train_4k's 4,096-token rows with
+# remat; REMAT_ROWS rows if the dry run's reckoned peak, times
+# RECKON_UNDERCOUNT, fits the card's memory (``costs.HW``), else 2.  The
+# reckoning counts the tensors the step allocates, not the allocator's
+# caching and fragmentation: on this cell it was 26.77 GB where the card
+# measured a peak of 32.84 GB, 1.23 times as much (H100 80GB HBM3, 700 W)
+REMAT_SEQ, REMAT_ROWS, REMAT_STEPS, REMAT_DROP = 4096, 4, 3, 0.05
+RECKON_UNDERCOUNT = 1.25
+REMAT_EQ_LAYERS = 2
+# phase 5's remat cost: the loss and its gradients with remat and
+# without, in turns, REMAT_COST_REPEATS times each
+REMAT_COST_REPEATS = 5
+DRYRUN_OUT = os.path.join(SRC, "repro_torch", "kernels", "build", "dryrun")
+DRYRUN = ["-m", "repro_torch.launch.dryrun"]
+# the serve check's two meshes, one process each (its prefill_32k traces
+# take ~2 minutes a mesh)
+SERVE_CHECK = ("from repro_torch.launch import dryrun; "
+               "dryrun.serve_check(multi_pods=({},))")
+DRYRUN_JOBS = {"reckon": DRYRUN + ["--one-device", str(REMAT_ROWS),
+                                   "--seq", str(REMAT_SEQ)],
+               "scale": DRYRUN + ["--scale-check"],
+               "scale_hierarchical": DRYRUN + ["--scale-check", "--mode",
+                                               "hierarchical"],
+               "serve_16x16": ["-c", SERVE_CHECK.format(False)],
+               "serve_2x16x16": ["-c", SERVE_CHECK.format(True)]}
+DRYRUN_TIMEOUT = 600
+_DRYRUN_PROCS = []
+
+
+def start_dryruns():
+    """Start every ``DRYRUN_JOBS`` entry (``python -m
+    repro_torch.launch.dryrun`` or its ``serve_check``: meta tensors on a
+    fake process group, no device, one host core each) in a background
+    process of its own, its output in ``DRYRUN_OUT/<name>.log``.  Returns
+    {name: (process, log path)}; :func:`wait_dryrun` reads one,
+    :func:`stop_dryruns` ends any left."""
+    os.makedirs(DRYRUN_OUT, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    jobs = {}
+    for name, argv in DRYRUN_JOBS.items():
+        path = os.path.join(DRYRUN_OUT, name + ".log")
+        with open(path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, *argv], cwd=os.path.dirname(SRC), env=env,
+                stdout=log, stderr=subprocess.STDOUT)
+        _DRYRUN_PROCS.append(proc)
+        jobs[name] = (proc, path)
+    return jobs
+
+
+def stop_dryruns():
+    for proc in _DRYRUN_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def wait_dryrun(jobs, name):
+    """Wait for one dry-run job (under ``DRYRUN_TIMEOUT`` from now) and
+    return its records: the last line's JSON for ``--one-device``, else
+    the records the check saved (its ``saved -> PATH`` line).  A job that
+    fails fails the phase."""
+    proc, path = jobs[name]
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(path) as f:
+        lines = [ln for ln in f.read().splitlines()
+                 if "Warning" not in ln and "return func(" not in ln]
+    assert proc.returncode == 0, (f"dry run {name} exited "
+                                  f"{proc.returncode}:\n"
+                                  + "\n".join(lines[-40:]))
+    if name == "reckon":
+        return json.loads(lines[-1])
+    saved = [ln.split("saved -> ", 1)[1] for ln in lines if "saved -> " in ln]
+    with open(saved[-1]) as f:
+        return json.load(f)
+
+
+def phase_dryrun(jobs):
+    """Phase 23: wait for every dry-run job (started with the kernel
+    checks of phase 2), assert every check's record ``ok`` and print
+    them.  Returns the records, the one-device reckoning 6j reads under
+    ``reckon``."""
+    smi = card_name_and_power()
+    out = {"reckon": wait_dryrun(jobs, "reckon")}
+    for name in ("scale", "scale_hierarchical", "serve_16x16",
+                 "serve_2x16x16"):
+        recs = wait_dryrun(jobs, name)
+        assert recs and all(r["ok"] for r in recs), (name, recs)
+        out[name] = recs
+        for r in recs:
+            print(f"dry run {name}: {r['arch']} {r['shape']} "
+                  f"{r.get('mode', r.get('kind'))} mesh {r['mesh']} rank "
+                  f"{r['rank']}: ok, collectives {r['collective_ops']}, "
+                  f"reckoned peak {r['peak_bytes'] / 1e9:.2f} GB a rank, "
+                  f"traced in {r['trace_s']} s on the host (the fake group "
+                  f"moves no bytes) [{smi}]")
+    return out
+
+
+def phase_train_remat(dev, C, ts, Trainer, DataConfig, OptConfig, counts,
+                      reckoned):
+    """Phase 6j (see the module's docstring); ``reckoned``: the dry run's
+    one-device record of the cell at ``REMAT_ROWS`` rows."""
+    from repro_torch import generator
+    from repro_torch.data.pipeline import make_source
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    from repro_torch.launch.costs import HW
+    smi = card_name_and_power()
+    fits = reckoned["peak_bytes"] * RECKON_UNDERCOUNT <= HW["hbm_bytes"]
+    rows = REMAT_ROWS if fits else 2
+    cfg = C.get("qwen2-0.5b")
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=REMAT_SEQ,
+                          global_batch=rows, seed=1)
+    opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=500)
+    torch.cuda.empty_cache()
+    tr = Trainer(cfg, data_cfg=data_cfg, opt_cfg=opt,
+                 celeris=ts.CelerisConfig(mode="lossy_hadamard"), seed=0,
+                 straggler=FixedDrop(REMAT_DROP), device=str(dev))
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+
+    def on_metrics(step, m):
+        steps.append({"wall_ms": m["wall_s"] * 1e3,
+                      "launches": counts.read()})
+        counts.reset()
+
+    _sync()
+    counts.reset()
+    hist = tr.run(REMAT_STEPS, on_metrics=on_metrics)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: sum(st["launches"][k] for st in steps)
+                for k in steps[0]["launches"]}
+    fwht = [st["launches"]["fwht"] for st in steps]
+    assert fwht == [2 * CODED_LEAVES] * REMAT_STEPS, fwht
+    assert np.isfinite(hist["loss"]).all(), hist["loss"]
+    assert all(abs(f - (1 - REMAT_DROP)) < 0.04 for f in hist["recv_frac"]
+               ), hist["recv_frac"]
+    assert peak * 1e9 < HW["hbm_bytes"]
+    # the FWHT kernel against its plain version on one more step's own
+    # inputs (these launches compare, so they count on no path)
+    errs, plain_fwht = {}, ops.fwht
+
+    def checked(x, *, signs=None, scale=1.0):
+        out = plain_fwht(x, signs=signs, scale=scale)
+        if tuple(x.shape) not in errs:
+            errs[tuple(x.shape)] = check_equal(
+                f"6j FWHT {tuple(x.shape)}", (out,),
+                (ref.fwht(x, signs=signs, scale=scale),))
+        return out
+
+    ops.fwht = checked
+    try:
+        tr.state, _ = tr.step_fn(tr.state, tr.put_batch(REMAT_STEPS),
+                                 tr.step_generator(REMAT_STEPS), REMAT_DROP)
+        _sync()
+    finally:
+        ops.fwht = plain_fwht
+    counts.reset()
+    del tr
+    torch.cuda.empty_cache()
+    # remat against no remat at REMAT_EQ_LAYERS: loss and every gradient
+    cfg2 = dataclasses.replace(cfg, n_layers=REMAT_EQ_LAYERS)
+    leaves = convert.jax_leaves(M.init_params(cfg2, generator(dev, 0)), cfg2)
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in make_source(data_cfg).global_batch(0).items()}
+    res = {}
+    for remat in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p = [x.detach().requires_grad_() for x in leaves]
+        loss, _ = M.lm_loss(convert.params_from_leaves(p, cfg2), cfg2, batch,
+                            remat=remat)
+        grads = torch.autograd.grad(loss, p, allow_unused=True,
+                                    materialize_grads=True)
+        _sync()
+        res[remat] = (loss.detach(), grads,
+                      torch.cuda.max_memory_allocated() / 1e9)
+    (l1, g1, pk1), (l0, g0, pk0) = res[True], res[False]
+    unequal = [n for n, a, b in zip(convert.leaf_names(cfg2), g1, g0)
+               if not torch.equal(a, b)]
+    assert torch.equal(l1, l0) and not unequal, (
+        f"6j: remat differs from no remat: loss {l1.item()} vs {l0.item()}, "
+        f"gradients {unequal}")
+    del res, g1, g0, leaves
+    torch.cuda.empty_cache()
+    out = {"rows": rows, "seq": REMAT_SEQ, "layers": cfg.n_layers,
+           "rows_why": (f"reckoned {reckoned['peak_bytes'] / 1e9:.2f} GB at "
+                        f"{REMAT_ROWS} rows, times {RECKON_UNDERCOUNT}, "
+                        + ("fits" if fits else "does not fit")
+                        + f" the card's {HW['hbm_bytes'] / 1e9:.0f} GB"),
+           "loss": hist["loss"], "recv_frac": hist["recv_frac"],
+           "step_ms": [st["wall_ms"] for st in steps],
+           "median_step_ms_after_first": statistics.median(
+               st["wall_ms"] for st in steps[1:]),
+           "fwht_launches_per_step": fwht, "peak_gb": peak,
+           "reckoned_peak_gb": (reckoned["peak_bytes"] / 1e9 if fits
+                                else None),
+           "fwht_check_max_abs_err": max(errs.values()),
+           "fwht_check_shapes": sorted(map(list, errs)),
+           "equal_layers": REMAT_EQ_LAYERS, "remat_equal_bit_for_bit": True,
+           "peak_gb_remat": pk1, "peak_gb_no_remat": pk0,
+           "launches": launches}
+    print(f"train remat (6j): qwen2-0.5b {cfg.n_layers} layers, {rows} x "
+          f"{REMAT_SEQ} "
+          f"tokens ({out['rows_why']}), lossy_hadamard at {REMAT_DROP}: loss "
+          f"{hist['loss']}, step ms {out['step_ms']} (median after the first "
+          f"{out['median_step_ms_after_first']:.1f}), peak {peak:.2f} GB "
+          f"(reckoned {out['reckoned_peak_gb']}), FWHT launches/step {fwht}, "
+          f"FWHT = plain at {out['fwht_check_shapes']}; {REMAT_EQ_LAYERS} "
+          f"layers remat = no remat bit for bit, peak {pk1:.2f} GB with, "
+          f"{pk0:.2f} GB without [{smi}]")
+    return out
+
+
+def tp_check_seq_parallel(dev, meshes):
+    """6c's sequence-parallel check on a rank's state: qwen2-0.5b at full
+    width, ``MESH_LAYERS`` deep, this rank's rows of the phase's batch;
+    ``lm_loss`` with remat (the stream split over ``model`` between units)
+    against ``remat=False``: the loss and every gradient of the rank's
+    shards bit for bit, on (2, 2) and (1, 4).  Counts the all-gathers the
+    pin adds (a unit's gather forward, each split's backward) and their
+    bytes, and the rank's peak with and without."""
+    import repro_torch.configs as C
+    from repro_torch import generator
+    from repro_torch import sharding as shd
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    from repro_torch.serve import serve_step
+    cfg = mesh_config(C)
+    names = convert.leaf_names(cfg)
+    whole = convert.jax_leaves(M.init_params(cfg, generator(dev, 0)), cfg)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=1)
+    glob = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+            for k, v in make_source(data_cfg).global_batch(0).items()}
+    seen = {}
+    saved = shd.gather_sequence, shd.split_sequence
+
+    def counting(fn, key):
+        def call(x, tp):
+            # a gather's output, or the whole stream a split's backward
+            # gathers back
+            seen[key] += 1
+            seen[key + "_bytes"] += (x.numel() * x.element_size()
+                                     * (tp.size if key == "gather" else 1))
+            return fn(x, tp)
+        return call
+
+    shd.gather_sequence = counting(saved[0], "gather")
+    shd.split_sequence = counting(saved[1], "split")
+    out = {}
+    try:
+        for mk in ("dm22", "dm14"):
+            mesh = meshes[mk]
+            leaves = convert.shard_leaves(whole, mesh, names)
+            tp = convert.model_group(cfg, mesh)
+            batch = serve_step.local_batch(mesh, glob)
+            res = {}
+            for remat in (True, False):
+                seen.update(gather=0, gather_bytes=0, split=0, split_bytes=0)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                p = [x.detach().requires_grad_() for x in leaves]
+                loss, _ = M.lm_loss(convert.params_from_leaves(p, cfg), cfg,
+                                    batch, tp, remat=remat)
+                grads = torch.autograd.grad(loss, p, allow_unused=True,
+                                            materialize_grads=True)
+                _sync()
+                res[remat] = (loss.detach(), grads, dict(seen),
+                              torch.cuda.max_memory_allocated() / 1e9)
+            (l1, g1, c1, pk1), (l0, g0, c0, pk0) = res[True], res[False]
+            unequal = [n for n, a, b in zip(names, g1, g0)
+                       if not torch.equal(a, b)]
+            assert torch.equal(l1, l0) and not unequal, (
+                f"6c {mk}: sequence parallel differs from remat=False: loss "
+                f"{l1.item()} vs {l0.item()}, gradients {unequal}")
+            assert c1["gather"] > 0 and c0["gather"] == c0["split"] == 0, (
+                c1, c0)
+            out[mk] = {"tp": tp.size, "equal_bit_for_bit": True,
+                       "sp_all_gathers": c1["gather"] + c1["split"],
+                       "sp_all_gather_bytes": c1["gather_bytes"]
+                       + c1["split_bytes"],
+                       "peak_gb_sp": pk1, "peak_gb_no_remat": pk0}
+            del res, leaves
+    finally:
+        shd.gather_sequence, shd.split_sequence = saved
     return out
 
 
@@ -6671,12 +7069,12 @@ def mesh_forced_decode(cfg, params, tp, rows, tokens, extra, gen, M, S,
     return errs, got, fed, logits
 
 
-def phase_serve_mesh():
+def phase_serve_mesh(mesh_ranks):
     """Phase 19m: ``SERVE_MESH_CELLS`` on four rank processes sharing the
     one card over gloo (``serve_mesh_rank``), in one launch.  Any rank
     that fails fails the phase.  Returns the record, the kernel timing
     records at the ranks' K/V shapes and the seconds."""
-    ranks, seconds = run_mesh_ranks("serve_mesh")
+    ranks, seconds = kind_ranks(mesh_ranks, "serve_mesh")
     smi = card_name_and_power()
     out, launches = {"cells": {}}, {}
     for name, *_ in SERVE_MESH_CELLS:
@@ -6817,11 +7215,18 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
         print(json.dumps(dict(ab, seconds=time.perf_counter() - t_start)))
         print(card_name_and_power())
         return
+    # the dry runs share the host only with phase 2, whose every time is
+    # a device time behind the spin kernel (time_ms); phase 3 and all
+    # after it, whose host-bound times the host's load would move, start
+    # once they have ended
+    dryrun_jobs = start_dryruns()
     records = phase_kernels(dev, C.get("qwen2-0.5b"), kfwht, kunbias, ref,
                             coding, coupling)
     records += phase_quant_kernels(dev, kfwht, kquant, ref)
     records += phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology)
     lap("2_kernel_checks")
+    dryrun = phase_dryrun(dryrun_jobs)
+    lap("23_dryrun_wait")
     main_path = phase_main_path(dev, C, M, serve_step, coupling, counts)
     phase_small_reference(dev, C, M, serve_step)
     lap("3_serve")
@@ -6836,11 +7241,16 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     checkpoint = phase_checkpoint(dev, C, ts, Trainer, DataConfig, OptConfig,
                                   ckpt, counts)
     lap("5b_checkpoint")
-    dp_train = phase_mesh_train("dp")
-    lap("6b_dp_train")
-    tp_train = phase_mesh_train("tp")
-    lap("6c_tp_train")
-    ep_train, ep_records = phase_ep_train(dev, C, kfwht, ref)
+    mesh_ranks = run_mesh_ranks()
+    lap("6b-6d_6f_6h_6i_19m_mesh_ranks")
+    dp_train = phase_mesh_train("dp", mesh_ranks)
+    tp_train = phase_mesh_train("tp", mesh_ranks)
+    lap("6b-6c_report")
+    train_remat = phase_train_remat(dev, C, ts, Trainer, DataConfig,
+                                    OptConfig, counts,
+                                    dryrun["reckon"])
+    lap("6j_train_remat")
+    ep_train, ep_records = phase_ep_train(dev, C, kfwht, ref, mesh_ranks)
     records += ep_records
     lap("6d_ep_train")
     train_families = phase_train_families(dev, C, ts, Trainer, DataConfig,
@@ -6851,7 +7261,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                                                                ref)
     records += family_records
     lap("6e_train_families")
-    train_families_mesh = phase_mesh_train_families()
+    train_families_mesh = phase_mesh_train_families(mesh_ranks)
     lap("6f_train_families_mesh")
     train_rs = phase_train_recurrent_stubs(dev, C, ts, Trainer, DataConfig,
                                            OptConfig, make_source, counts)
@@ -6863,9 +7273,10 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
         map(tuple, train_families["fwht"]["shapes"]), "recurrent/stubs")
     records += rs_records
     lap("6g_train_recurrent_stubs")
-    train_rs_mesh = phase_mesh_train_families("recurrent_stubs")
+    train_rs_mesh = phase_mesh_train_families(mesh_ranks, "recurrent_stubs")
     lap("6h_train_recurrent_stubs_mesh")
-    train_tp_rs = phase_mesh_train_families("tp_recurrent_stubs")
+    train_tp_rs = phase_mesh_train_families(mesh_ranks,
+                                            "tp_recurrent_stubs")
     train_tp_rs["fwht"], tp_rs_records = check_family_fwht(
         dev, C, kfwht, ref, tp_rs_fwht_shapes(C),
         map(tuple, train_families["fwht"]["shapes"]
@@ -6954,7 +7365,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     del seamless_params
     torch.cuda.empty_cache()
     lap("19l_serve_seamless_long")
-    serve_mesh, serve_mesh_records = phase_serve_mesh()
+    serve_mesh, serve_mesh_records = phase_serve_mesh(mesh_ranks)
     records += serve_mesh_records
     lap("19m_serve_mesh")
     feature_check = phase_features_card_vs_cpu(dev, E, topology, figs)
@@ -6968,6 +7379,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "checkpoint": checkpoint["launches"],
                "dp_train": dp_train["launches"],
                "tp_train": tp_train["launches"],
+               "train_remat": train_remat["launches"],
                "fig1": fig1_launches, "fig2": fig2["launches"],
                "fig2_shared": fig2["shared"]["launches"],
                "fig3": fig3["launches"], "fig4": fig4["launches"],
@@ -7016,6 +7428,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "train": train, "allreduce": allreduce,
                       "checkpoint": checkpoint,
                       "dp_train": dp_train, "tp_train": tp_train,
+                      "train_remat": train_remat, "dryrun": dryrun,
                       "ep_train": ep_train, "small_train": small_train,
                       "train_families": train_families,
                       "train_families_mesh": train_families_mesh,
@@ -7042,9 +7455,13 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "serve_mesh": serve_mesh,
                       "seconds": time.perf_counter() - t_start}))
     lap("report")
-    print(json.dumps({"phase_seconds": seconds}))
-    print(smi)
     print(json.dumps({"kernels": records}))
+    print(json.dumps({"phase_seconds": seconds,
+                      "mesh_kind_seconds": {
+                          k: kind_ranks(mesh_ranks, k)[1]
+                          for k in MESH_KINDS},
+                      "total": time.perf_counter() - t_start}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -7062,11 +7479,7 @@ if __name__ == "__main__":
                     "without a workspace), in turns, on the engine's real "
                     "blocks")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
-    ap.add_argument("--mesh-kind", choices=("dp", "tp", "ep", "families",
-                                             "recurrent_stubs",
-                                             "tp_recurrent_stubs",
-                                             "serve_mesh"),
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-kind", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -7074,4 +7487,7 @@ if __name__ == "__main__":
         mesh_rank(args.mesh_kind, args.mesh_rank, args.mesh_port,
                   args.mesh_out)
     else:
-        main(args.ab_fwht, args.ab_dcqcn)
+        try:
+            main(args.ab_fwht, args.ab_dcqcn)
+        finally:
+            stop_dryruns()

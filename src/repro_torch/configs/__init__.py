@@ -7,7 +7,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import (
+    ModelConfig, MoEConfig, ShapeConfig, SHAPES, runnable_shapes)
 
 ARCHS = ("qwen2_0_5b", "gemma2_9b", "chatglm3_6b", "nemotron_4_15b",
          "qwen2_moe_a2_7b", "granite_moe_3b_a800m", "recurrentgemma_9b",
@@ -33,4 +34,5 @@ def get_smoke(name: str) -> ModelConfig:
     return _module(name).SMOKE
 
 
-__all__ = ["ModelConfig", "MoEConfig", "ARCHS", "get", "get_smoke", "canonical"]
+__all__ = ["ModelConfig", "MoEConfig", "ShapeConfig", "SHAPES", "ARCHS",
+           "runnable_shapes", "get", "get_smoke", "canonical"]

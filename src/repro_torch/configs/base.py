@@ -5,8 +5,8 @@ defaults: the dense families (qwen2, gemma2, chatglm3, nemotron), the
 MoE family (qwen2-moe, granite-moe), the recurrent families
 (recurrentgemma, xLSTM), and the modality stubs: phi-3-vision's
 projected image embeddings and seamless's encoder-decoder stacks with
-its projected audio frames.  JAX's ``ShapeConfig`` and dry-run shapes
-are not ported.
+its projected audio frames; the dry run's shapes (:class:`ShapeConfig`,
+:data:`SHAPES`, :func:`runnable_shapes`) as JAX states them.
 """
 from __future__ import annotations
 
@@ -141,3 +141,40 @@ class ModelConfig:
         if self.frontend:
             emb += self.frontend_dim * d
         return blocks + emb
+
+    def active_param_count(self) -> int:
+        """Parameters touched a token (MoE: only the routed top-k and the
+        shared experts), JAX's formula."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        d = self.d_model
+        all_e = (m.n_experts + m.n_shared) * 3 * d * m.d_expert
+        act_e = (m.top_k + m.n_shared) * 3 * d * m.d_expert
+        return self.param_count() - self.n_layers * (all_e - act_e)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def runnable_shapes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The shapes of :data:`SHAPES` this architecture runs: all but
+    ``long_500k``, which only a model with no full-sequence attention
+    takes."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.is_subquadratic:
+        out.append("long_500k")
+    return tuple(out)

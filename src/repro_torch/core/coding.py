@@ -40,6 +40,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+import repro_torch
 from repro_torch.kernels import ops
 
 
@@ -79,8 +80,7 @@ def rademacher(generator: torch.Generator, code: HadamardCode) -> torch.Tensor:
     One vector shared across rotation blocks; every participant draws it
     from an identically seeded generator.
     """
-    bits = torch.randint(0, 2, (code.n_rot,), generator=generator,
-                         device=generator.device)
+    bits = repro_torch.randint(2, (code.n_rot,), generator)
     return bits.to(torch.float32) * 2 - 1
 
 
@@ -228,8 +228,7 @@ class NdPlan:
 
 
 def rademacher_nd(generator: torch.Generator, plan: NdPlan) -> torch.Tensor:
-    bits = torch.randint(0, 2, (plan.n_rot,), generator=generator,
-                         device=generator.device)
+    bits = repro_torch.randint(2, (plan.n_rot,), generator)
     return bits.to(torch.float32) * 2 - 1
 
 

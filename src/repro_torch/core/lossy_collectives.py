@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch import generator
+from repro_torch import generator, rand
 from repro_torch.core import coding
 
 
@@ -41,7 +41,7 @@ def _world(group) -> tuple[int, int]:
 def arrival_mask(gen: torch.Generator, n_rows: int,
                  drop_rate: float) -> torch.Tensor:
     """Bernoulli(1 - drop_rate) per wire row: True = arrived in window."""
-    return torch.rand(n_rows, generator=gen, device=gen.device) >= drop_rate
+    return rand((n_rows,), gen) >= drop_rate
 
 
 def _peer_mask(seed: int, group, n_rows: int, drop_rate: float,

@@ -5,6 +5,15 @@ A tensor on the CPU takes the plain PyTorch version in :mod:`ref`; any
 other tensor goes to the kernel, which launches on CUDA or raises.  No
 row padding is needed (the JAX ``_pad_rows``): the kernels mask their
 ragged edges themselves.
+
+The FWHT, the fused FWHT + quantize, the quantizer and the unbias are
+``torch.library`` custom ops (``torch.ops.repro_torch.*``): their CUDA
+implementation is the kernel's launcher, and each has a fake
+implementation that returns empty outputs of the right shapes and
+dtypes, so a step traced on meta tensors (``launch/dryrun.py``) passes
+through them.  The fake computes nothing and only meta (or fake) tensors
+reach it; a CUDA tensor launches the kernel or raises.  The DCQCN scan is
+no custom op: the engine that runs it is on no traced path.
 """
 from __future__ import annotations
 
@@ -19,6 +28,56 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import unbias as _unbias
 
 
+@torch.library.custom_op("repro_torch::fwht", mutates_args=(),
+                        device_types="cuda")
+def _fwht_op(x: torch.Tensor, signs: Optional[torch.Tensor],
+             scale: float) -> torch.Tensor:
+    return _fwht.fwht_cuda(x, signs, scale)
+
+
+@_fwht_op.register_fake
+def _(x, signs, scale):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::fwht_quantize", mutates_args=(),
+                        device_types="cuda")
+def _fwht_quantize_op(x: torch.Tensor, noise: torch.Tensor,
+                      signs: Optional[torch.Tensor], scale: float
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _fwht.fwht_quantize_cuda(x, noise, signs, scale)
+
+
+def _quantized_like(x: torch.Tensor, *_):
+    return (torch.empty(x.shape, dtype=torch.int8, device=x.device),
+            torch.empty(x.shape[:1], dtype=torch.float32, device=x.device))
+
+
+_fwht_quantize_op.register_fake(_quantized_like)
+
+
+@torch.library.custom_op("repro_torch::quantize_int8", mutates_args=(),
+                        device_types="cuda")
+def _quantize_op(x: torch.Tensor, noise: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _quant.quantize_int8_cuda(x, noise)
+
+
+_quantize_op.register_fake(_quantized_like)
+
+
+@torch.library.custom_op("repro_torch::masked_unbias", mutates_args=(),
+                        device_types="cuda")
+def _unbias_op(y_sum: torch.Tensor, counts: torch.Tensor,
+               total: float) -> torch.Tensor:
+    return _unbias.masked_unbias_cuda(y_sum, counts, total)
+
+
+@_unbias_op.register_fake
+def _(y_sum, counts, total):
+    return torch.empty_like(y_sum)
+
+
 def fwht(x: torch.Tensor, *, signs: Optional[torch.Tensor] = None,
          scale: float = 1.0) -> torch.Tensor:
     """FWHT along the last axis of a 2-D tensor (unnormalized by default).
@@ -29,7 +88,7 @@ def fwht(x: torch.Tensor, *, signs: Optional[torch.Tensor] = None,
     """
     if x.device.type == "cpu":
         return ref.fwht(x, signs=signs, scale=scale)
-    return _fwht.fwht_cuda(x, signs, scale)
+    return _fwht_op(x, signs, float(scale))
 
 
 def fwht_quantize(x: torch.Tensor, noise: torch.Tensor, *,
@@ -43,14 +102,14 @@ def fwht_quantize(x: torch.Tensor, noise: torch.Tensor, *,
     """
     if x.device.type == "cpu":
         return ref.fwht_quantize(x, noise, signs=signs, scale=scale)
-    return _fwht.fwht_quantize_cuda(x, noise, signs, scale)
+    return _fwht_quantize_op(x, noise, signs, float(scale))
 
 
 def quantize_int8(x: torch.Tensor, noise: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         return ref.quantize_int8(x, noise)
-    return _quant.quantize_int8_cuda(x, noise)
+    return _quantize_op(x, noise)
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -61,7 +120,7 @@ def masked_unbias(y_sum: torch.Tensor, counts: torch.Tensor,
                   total: int) -> torch.Tensor:
     if y_sum.device.type == "cpu":
         return ref.masked_unbias(y_sum, counts, total)
-    return _unbias.masked_unbias_cuda(y_sum, counts, total)
+    return _unbias_op(y_sum, counts, float(total))
 
 
 def dcqcn_scan(cnp: torch.Tensor, any_t: torch.Tensor, rate: torch.Tensor,

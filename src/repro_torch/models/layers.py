@@ -40,6 +40,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+import repro_torch
 from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 
@@ -56,7 +57,9 @@ def trunc_normal(generator: torch.Generator, shape, dtype,
                  fan_in: int) -> torch.Tensor:
     """Truncated normal in [-2, 2] std, std = 1/sqrt(fan_in), drawn in
     float32 on the generator's device and rounded to ``dtype``, as in
-    JAX."""
+    JAX.  Empty from a meta generator."""
+    if isinstance(generator, repro_torch.MetaGenerator):
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (t * fan_in ** -0.5).to(dtype)

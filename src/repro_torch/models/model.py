@@ -57,6 +57,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
@@ -238,7 +239,8 @@ def hidden_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                rows: Optional[shd.RowGroup] = None,
                image_embeds: Optional[torch.Tensor] = None,
                frame_embeds: Optional[torch.Tensor] = None,
-               memory: Optional[torch.Tensor] = None):
+               memory: Optional[torch.Tensor] = None,
+               remat: bool = False):
     """(the residual stream (B, S, D) after the last block, before the
     final norm; the MoE aux loss summed over the layers, float32, 0
     without MoE layers).  With ``caches`` the K/V of every attention
@@ -258,7 +260,10 @@ def hidden_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     stub, projected and prepended to the text, so S counts them;
     ``frame_embeds`` (B, S_enc, frontend_dim) of an enc-dec config,
     encoded (:func:`encode`) into ``memory`` unless ``memory`` is
-    given.  ``positions`` default to 0 .. S - 1."""
+    given.  ``positions`` default to 0 .. S - 1.  ``remat``: the decoder
+    stack recomputes its units in the backward, its residual stream split
+    over ``model`` between them (:func:`_stack`); the training loss takes
+    it, serving does not (JAX's ``serve_step.py:39,54``)."""
     check_supported(cfg)
     vocab_tp = L.split_over_model("embed.table", tp)
     x = L.embed(params["embed.table"], cfg, tokens, vocab_tp)
@@ -272,7 +277,7 @@ def hidden_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     return _stack(params, cfg, "layers.", cfg.n_layers, x,
                   positions=positions, caches=caches,
                   cache_index=cache_index, memory=memory, tp=tp,
-                  lossy=lossy, rows=rows)
+                  lossy=lossy, rows=rows, remat=remat)
 
 
 def _frontend(params: Params, embeds: torch.Tensor, dtype: torch.dtype,
@@ -293,11 +298,15 @@ def encode(params: Params, cfg: ModelConfig, frame_embeds: torch.Tensor,
     (no sqrt(d) scale), the encoder stack at positions 0 .. S_enc - 1
     with ``causal=False``, then ``enc_norm``: ``memory`` (B, S_enc, D).
     With ``tp`` the projection and the stack run tensor parallel
-    (:func:`_frontend`, :func:`_stack`); ``memory`` is whole."""
+    (:func:`_frontend`, :func:`_stack`); ``memory`` is whole.  The stack
+    takes remat, as JAX's ``_encode`` keeps ``_apply_stack``'s default
+    even when serving: with ``tp`` its stream is split over ``model``
+    between units there too (the checkpoint itself only runs where a
+    gradient is taken)."""
     x = _frontend(params, frame_embeds, L.dtype_of(cfg), tp)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _ = _stack(params, cfg, "encoder.layers.", cfg.encoder_layers, x,
-                  positions=pos, causal=False, tp=tp)
+                  positions=pos, causal=False, tp=tp, remat=True)
     return L.rmsnorm(params["enc_norm.scale"], x, cfg.norm_eps)
 
 
@@ -308,59 +317,126 @@ def _stack(params: Params, cfg: ModelConfig, prefix: str, n_layers: int,
            memory: Optional[torch.Tensor] = None, causal: bool = True,
            tp: Optional[shd.ModelGroup] = None,
            lossy: Optional[LossyCtx] = None,
-           rows: Optional[shd.RowGroup] = None):
+           rows: Optional[shd.RowGroup] = None, remat: bool = False):
     """The blocks ``{prefix}{i}.*``, i < ``n_layers`` (JAX
-    ``_apply_stack``): (x, the MoE aux loss)."""
-    eps = cfg.norm_eps
+    ``_apply_stack``): (x, the MoE aux loss).
+
+    Layers ``[g * plen, (g + 1) * plen)``, g < ``n_layers // plen``
+    (plen = ``len(block_pattern)``), form unit g, and each tail layer a
+    unit of its own; a unit's aux loss is summed from zero, then added to
+    the total, as JAX's scan carries it.  With ``remat`` (training) and
+    no ``caches``, each unit runs under ``torch.utils.checkpoint``
+    (non-reentrant; JAX's ``jax.checkpoint``): the backward recomputes
+    it from its input, so only one unit's activations are alive there.
+    The recompute repeats the forward exactly: the MoE arrival uniforms
+    are fixed arrays, and the checkpoint keeps the RNG state.
+
+    Sequence parallelism, JAX's pin of the residual stream over
+    ``model`` (``model.py:176-208``), under JAX's gate: ``remat``, a
+    model group ``tp``, S > 1 and S % tp == 0.  Between the pattern
+    units the stream is this rank's block of the sequence, (B, S / tp,
+    D) (:func:`repro_torch.sharding.split_sequence`), so a checkpoint
+    keeps a 1/tp block; a unit gathers the blocks first
+    (:func:`~repro_torch.sharding.gather_sequence`) and runs whole
+    inside, and the tail runs on the whole sequence, as JAX pins only
+    the pattern units.  Only copies are added: the result is the
+    unpinned one bit for bit."""
     plen = len(cfg.block_pattern)
+    n_groups = n_layers // plen
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    on = bool(lossy and lossy.enabled)
-    for i in range(n_layers):
-        p = sub_params(params, f"{prefix}{i}.")
-        kind = cfg.block_pattern[i % plen]
-        h = L.rmsnorm(p["ln1.scale"], x, eps)
-        if kind in RECURRENT_KINDS:
-            block = {"rglru": RG.rglru_block, "mlstm": XL.mlstm_block,
-                     "slstm": XL.slstm_block}[kind]
-            cache = None if caches is None else caches.layer(i)
-            h, new = block(sub_params(p, kind + "."), cfg, h, cache=cache,
-                           tp=tp)
-            if cache is not None:
-                cache.store(new)
-            x = x + h
-            if kind == "rglru":
-                h = L.rmsnorm(p["ln2.scale"], x, eps)
-                x = x + L.mlp(sub_params(p, "mlp."), cfg, h,
-                              L.split_over_model("mlp.wi", tp))
-            continue
-        h = L.attention(sub_params(p, "attn."), cfg, h,
-                        kind="local" if kind == "local" else "global",
-                        positions=positions, causal=causal,
-                        cache=None if caches is None else caches.layer(i),
-                        cache_index=cache_index,
-                        tp=L.split_over_model("attn.wq", tp))
-        if cfg.post_norm:
-            h = L.rmsnorm(p["pn1.scale"], h, eps)
-        x = x + h
-        if memory is not None and "lnx.scale" in p:
-            h = L.rmsnorm(p["lnx.scale"], x, eps)
-            x = x + L.attention(sub_params(p, "xattn."), cfg, h,
-                                positions=positions, memory=memory,
-                                tp=L.split_over_model("xattn.wq", tp))
-        h = L.rmsnorm(p["ln2.scale"], x, eps)
-        if kind == "moe":
-            h, a = MOE.moe_block(
-                sub_params(p, "moe."), cfg, h, tp=tp, layer=i, lossy=on,
-                coins=lossy.coins[i] if on and lossy.coins else None,
-                drop_rate=lossy.drop_rate if lossy else 0.0, rows=rows)
-            aux = aux + a
-        else:
-            h = L.mlp(sub_params(p, "mlp."), cfg, h,
-                      L.split_over_model("mlp.wi", tp))
-        if cfg.post_norm:
-            h = L.rmsnorm(p["pn2.scale"], h, eps)
-        x = x + h
+    ckpt = remat and caches is None and torch.is_grad_enabled()
+    pin = (remat and tp is not None and n_groups > 0 and x.shape[1] > 1
+           and x.shape[1] % tp.size == 0)
+
+    def layers(x, lo, hi):
+        a = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(lo, hi):
+            x, ai = _block(params, cfg, prefix, i, x, positions=positions,
+                           caches=caches, cache_index=cache_index,
+                           memory=memory, causal=causal, tp=tp,
+                           lossy=lossy, rows=rows)
+            if ai is not None:
+                a = a + ai
+        return x, a
+
+    def unit(x, lo, hi):
+        if pin:
+            x = shd.gather_sequence(x, tp)
+        x, a = layers(x, lo, hi)
+        return (shd.split_sequence(x, tp) if pin else x), a
+
+    def run(fn, x, lo, hi):
+        if ckpt:
+            return checkpoint(fn, x, lo, hi, use_reentrant=False)
+        return fn(x, lo, hi)
+
+    if pin:
+        x = shd.split_sequence(x, tp)
+    for g in range(n_groups):
+        x, a = run(unit, x, g * plen, (g + 1) * plen)
+        aux = aux + a
+    if pin:
+        x = shd.gather_sequence(x, tp)
+    for i in range(n_groups * plen, n_layers):
+        x, a = run(layers, x, i, i + 1)
+        aux = aux + a
     return x, aux
+
+
+def _block(params: Params, cfg: ModelConfig, prefix: str, i: int,
+           x: torch.Tensor, *, positions: torch.Tensor,
+           caches: Optional["Caches"], cache_index: Optional[int],
+           memory: Optional[torch.Tensor], causal: bool,
+           tp: Optional[shd.ModelGroup], lossy: Optional[LossyCtx],
+           rows: Optional[shd.RowGroup]):
+    """Layer ``i`` of the stack ``prefix``: (x, its MoE aux loss, None
+    in a layer without one)."""
+    eps = cfg.norm_eps
+    p = sub_params(params, f"{prefix}{i}.")
+    kind = cfg.block_pattern[i % len(cfg.block_pattern)]
+    h = L.rmsnorm(p["ln1.scale"], x, eps)
+    if kind in RECURRENT_KINDS:
+        block = {"rglru": RG.rglru_block, "mlstm": XL.mlstm_block,
+                 "slstm": XL.slstm_block}[kind]
+        cache = None if caches is None else caches.layer(i)
+        h, new = block(sub_params(p, kind + "."), cfg, h, cache=cache,
+                       tp=tp)
+        if cache is not None:
+            cache.store(new)
+        x = x + h
+        if kind == "rglru":
+            h = L.rmsnorm(p["ln2.scale"], x, eps)
+            x = x + L.mlp(sub_params(p, "mlp."), cfg, h,
+                          L.split_over_model("mlp.wi", tp))
+        return x, None
+    h = L.attention(sub_params(p, "attn."), cfg, h,
+                    kind="local" if kind == "local" else "global",
+                    positions=positions, causal=causal,
+                    cache=None if caches is None else caches.layer(i),
+                    cache_index=cache_index,
+                    tp=L.split_over_model("attn.wq", tp))
+    if cfg.post_norm:
+        h = L.rmsnorm(p["pn1.scale"], h, eps)
+    x = x + h
+    if memory is not None and "lnx.scale" in p:
+        h = L.rmsnorm(p["lnx.scale"], x, eps)
+        x = x + L.attention(sub_params(p, "xattn."), cfg, h,
+                            positions=positions, memory=memory,
+                            tp=L.split_over_model("xattn.wq", tp))
+    h = L.rmsnorm(p["ln2.scale"], x, eps)
+    a = None
+    if kind == "moe":
+        on = bool(lossy and lossy.enabled)
+        h, a = MOE.moe_block(
+            sub_params(p, "moe."), cfg, h, tp=tp, layer=i, lossy=on,
+            coins=lossy.coins[i] if on and lossy.coins else None,
+            drop_rate=lossy.drop_rate if lossy else 0.0, rows=rows)
+    else:
+        h = L.mlp(sub_params(p, "mlp."), cfg, h,
+                  L.split_over_model("mlp.wi", tp))
+    if cfg.post_norm:
+        h = L.rmsnorm(p["pn2.scale"], h, eps)
+    return x + h, a
 
 
 def head(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -409,7 +485,7 @@ def lm_loss(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor],
             tp: Optional[shd.ModelGroup] = None,
             lossy: Optional[LossyCtx] = None,
-            rows: Optional[shd.RowGroup] = None):
+            rows: Optional[shd.RowGroup] = None, remat: bool = True):
     """Next-token cross-entropy plus the MoE aux loss.  Returns (loss,
     (nll, aux)) as JAX does; ``aux`` is 0 for the dense families.
     ``lossy``: the lossy expert dispatch (:class:`LossyCtx`); ``rows``:
@@ -425,8 +501,11 @@ def lm_loss(params: Params, cfg: ModelConfig,
 
     The cross-entropy is taken in float32 with the row max shifted out,
     as in JAX.  The label logit is gathered where JAX sums a one-hot
-    product: the same value, since a sum with zeros is exact.  No remat:
-    the port keeps the activations.
+    product: the same value, since a sum with zeros is exact.  ``remat``
+    (on by default, as JAX's ``lm_loss``): the decoder and encoder stacks
+    recompute each unit in the backward and, on a model group, keep the
+    residual stream split over ``model`` between units (:func:`_stack`);
+    the loss and every gradient are those of ``remat=False`` bit for bit.
 
     With the logits split over the vocabulary (``tp``, a split
     :func:`logits_leaf`) every reduction over it is the local one, then
@@ -438,7 +517,7 @@ def lm_loss(params: Params, cfg: ModelConfig,
     """
     x, aux = hidden_aux(params, cfg, batch["tokens"], tp=tp, lossy=lossy,
                         rows=rows, image_embeds=batch.get("image_embeds"),
-                        frame_embeds=batch.get("frame_embeds"))
+                        frame_embeds=batch.get("frame_embeds"), remat=remat)
     logits = head(params, cfg, x, tp)
     labels = batch["labels"]
     n_txt = labels.shape[1]

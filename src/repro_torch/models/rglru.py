@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+import repro_torch
 from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -63,8 +64,7 @@ def init_rglru(generator: torch.Generator, cfg: ModelConfig) -> Params:
 
     f32 = dict(dtype=torch.float32, device=dev)
     # lambda init so a^c in [0.9, 0.999] (Griffin's stable-decay init)
-    u = torch.empty(w, **f32).uniform_(0.9 ** 2, 0.999 ** 2,
-                                       generator=generator)
+    u = repro_torch.uniform((w,), 0.9 ** 2, 0.999 ** 2, generator)
     lam = torch.log(torch.expm1(-torch.log(u) / _C))
     return {
         "w_in": tn((d, w), d),

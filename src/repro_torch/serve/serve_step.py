@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+import repro_torch
 from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import coding
@@ -55,14 +56,12 @@ def frontend_inputs(cfg: ModelConfig, batch: int, seq: int,
     ``frame_embeds`` (batch, seq, frontend_dim); standard normal from
     ``generator``, on its device, in bfloat16.  Empty without a
     frontend."""
-    dev = generator.device
     shape = {"vision_stub": (batch, cfg.n_frontend_tokens, cfg.frontend_dim),
              "audio_stub": (batch, seq, cfg.frontend_dim)}.get(cfg.frontend)
     if shape is None:
         return {}
     name = "image_embeds" if cfg.frontend == "vision_stub" else "frame_embeds"
-    return {name: torch.randn(shape, generator=generator, device=dev
-                              ).to(torch.bfloat16)}
+    return {name: repro_torch.randn(shape, generator).to(torch.bfloat16)}
 
 
 def mesh_groups(cfg: ModelConfig, mesh

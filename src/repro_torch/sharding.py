@@ -20,7 +20,10 @@ operators :func:`copy_to_model`, :func:`reduce_from_model` and
 :func:`gather_replicated` and :func:`all_to_all_model`) has no
 counterpart either: GSPMD emits those collectives from the JAX package's
 partition specs and sharding constraints, and the port writes them out.
-Every collective over the ``model`` group goes through
+Sequence parallelism (:func:`split_sequence`, :func:`gather_sequence`)
+is JAX's pin of the residual stream seq-sharded over ``model`` between
+remat units, which GSPMD turns into the same copies.  Every collective
+over the ``model`` group goes through
 :func:`model_all_reduce`, :func:`model_all_gather`,
 :func:`model_reduce_scatter` or :func:`model_all_to_all`, in the
 tensor's own dtype, as GSPMD's do.
@@ -429,3 +432,50 @@ def gather_from_model(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
     reduce-scatters, so each rank's gradient is the sum of every rank's
     partial gradient of its own slice."""
     return _GatherFromModel.apply(x, tp)
+
+
+class _SplitSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        n = x.shape[1] // tp.size
+        return x.narrow(1, tp.index * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return model_all_gather(grad, ctx.tp, 1).contiguous(), None
+
+
+class _GatherSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return model_all_gather(x, tp, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = grad.shape[1] // ctx.tp.size
+        return grad.narrow(1, ctx.tp.index * n, n).clone(
+            memory_format=torch.contiguous_format), None
+
+
+def split_sequence(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
+    """This rank's block of the sequence, a copy: (B, S, ...) ->
+    (B, S / tp, ...), block ``index`` in rank order along ``model``, so
+    the whole stream it came from can be freed.  The backward
+    all-gathers the blocks' gradients over ``model`` into a contiguous
+    whole: the layers' backward then sees the layout it sees without the
+    split (:func:`scatter_to_model`'s gathered gradient is strided, and
+    a GEMM's rounding follows its operands' layout).  JAX's pin of the
+    residual stream at a remat unit's exit."""
+    return _SplitSequence.apply(x, tp)
+
+
+def gather_sequence(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
+    """The model ranks' sequence blocks side by side, in rank order: the
+    whole stream, which every rank then uses alike (the Megatron
+    operators leave its gradient whole and the same on every model rank),
+    so the backward keeps this rank's block of it, a copy.  The inverse
+    of :func:`split_sequence`: JAX's pin at a remat unit's entry."""
+    return _GatherSequence.apply(x, tp)

@@ -150,6 +150,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+import repro_torch
 from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import coding
@@ -188,7 +189,9 @@ def loss_and_grads(cfg: ModelConfig, leaves, batch: Dict[str, torch.Tensor],
                    tp: Optional[shd.ModelGroup] = None,
                    lossy: Optional[M.LossyCtx] = None,
                    rows: Optional[shd.RowGroup] = None):
-    """(loss, nll, aux, grads) of ``M.lm_loss`` at the JAX-leaf-view
+    """(loss, nll, aux, grads) of ``M.lm_loss`` (with its default remat
+    and, on a model group, sequence parallelism, as JAX's step takes
+    ``lm_loss``) at the JAX-leaf-view
     parameters (this rank's shards with ``tp``); the gradients come back
     as one tensor per leaf, zeros for a leaf the loss does not reach.
     ``lossy``: the MoE layers' lossy dispatch; ``rows``: the dp ranks
@@ -432,8 +435,8 @@ def _draw_dp(generator, plans, rates, peer, coded, masks, signs, device):
         if i in masks:
             m[i] = masks[i]
         else:
-            u = torch.rand((rates.shape[0], plans[i].n_rot),
-                           generator=generator, device=generator.device)
+            u = repro_torch.rand((rates.shape[0], plans[i].n_rot),
+                                 generator)
             m[i] = (u >= rates[:, None])[peer]
     s = {i: signs[i] if i in signs
          else coding.rademacher_nd(generator, plans[i])
@@ -519,9 +522,8 @@ def _sync_dp(sync: _DpSync, grads, plans, generator, drop_rate, masks,
             raise ValueError("the int8 wire needs a generator, or noise "
                              "for every coded leaf")
         else:
-            full = torch.rand((tiles, n_rot, ns * sync.model.size if split
-                               else ns), generator=generator,
-                              device=generator.device)
+            full = repro_torch.rand((tiles, n_rot, ns * sync.model.size
+                                     if split else ns), generator)
         if split:
             full = full.narrow(2, sync.model.index * ns, ns)
         return full.to(dev)

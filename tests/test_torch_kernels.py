@@ -20,6 +20,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import fwht as tfwht
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import quantize as tquant
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import unbias as tunbias
 
@@ -126,12 +127,48 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
         tfwht.fwht_cuda(torch.randn(4, 64))
     with pytest.raises(ValueError, match="CUDA"):
         tunbias.masked_unbias_cuda(torch.randn(4, 64), torch.ones(4), 1)
+    # the custom ops hold only the CUDA launcher: a CPU tensor handed to
+    # them directly finds no implementation
+    with pytest.raises(NotImplementedError):
+        torch.ops.repro_torch.fwht(torch.randn(4, 64), None, 1.0)
+    # meta tensors reach the fake implementations: shapes, no values
     meta = torch.empty(4, 64, device="meta")
-    with pytest.raises(ValueError):                 # ops routes to the kernel
-        tops.fwht(meta)
-    with pytest.raises(ValueError):
-        tops.masked_unbias(meta, torch.empty(4, device="meta"), 1)
+    out = tops.fwht(meta)
+    assert out.device.type == "meta" and out.shape == (4, 64)
+    out = tops.masked_unbias(meta, torch.empty(4, device="meta"), 1)
+    assert out.device.type == "meta" and out.shape == (4, 64)
+    q, scale = tops.fwht_quantize(meta, meta)
+    assert (q.dtype, q.shape, scale.shape) == (torch.int8, (4, 64), (4,))
+    q, scale = tops.quantize_int8(meta, meta)
+    assert (q.dtype, q.shape, scale.shape) == (torch.int8, (4, 64), (4,))
     assert tfwht.launches == 0 and tunbias.launches == 0
+
+
+def test_custom_ops_cuda_implementations_are_the_launchers(monkeypatch):
+    """Each custom op's CUDA implementation hands its operands to its
+    kernel's launcher, once (the CPU never reaches it: called here
+    through the op's Python body with the launchers recorded)."""
+    calls = []
+
+    def record(name):
+        def launcher(*args):
+            calls.append((name, args))
+            return name
+        return launcher
+
+    for mod, fn in ((tfwht, "fwht_cuda"), (tfwht, "fwht_quantize_cuda"),
+                    (tquant, "quantize_int8_cuda"),
+                    (tunbias, "masked_unbias_cuda")):
+        monkeypatch.setattr(mod, fn, record(fn))
+    x, n, c = torch.ones(2, 8), torch.zeros(2, 8), torch.ones(2)
+    assert tops._fwht_op._init_fn(x, None, 0.5) == "fwht_cuda"
+    assert tops._fwht_quantize_op._init_fn(x, n, None, 0.5) == (
+        "fwht_quantize_cuda")
+    assert tops._quantize_op._init_fn(x, n) == "quantize_int8_cuda"
+    assert tops._unbias_op._init_fn(x, c, 4.0) == "masked_unbias_cuda"
+    assert [(name, len(args)) for name, args in calls] == [
+        ("fwht_cuda", 3), ("fwht_quantize_cuda", 4),
+        ("quantize_int8_cuda", 2), ("masked_unbias_cuda", 3)]
 
 
 def test_wrappers_refuse_misaligned():

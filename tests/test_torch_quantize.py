@@ -167,9 +167,16 @@ def test_quantize_wrappers_refuse_what_the_kernels_cannot_take():
         tquant.quantize_int8_cuda(x, noise)
     with pytest.raises(ValueError, match="CUDA"):
         tfwht.fwht_quantize_cuda(x, noise)
+    # the custom ops hold only the CUDA launchers: a CPU tensor handed to
+    # them directly finds no implementation
+    with pytest.raises(NotImplementedError):
+        torch.ops.repro_torch.quantize_int8(x, noise)
+    with pytest.raises(NotImplementedError):
+        torch.ops.repro_torch.fwht_quantize(x, noise, None, 1.0)
+    # meta tensors reach the fake implementations: shapes, no values
     meta = torch.empty(4, 64, device="meta")
-    with pytest.raises(ValueError):                 # ops routes to the kernel
-        tops.quantize_int8(meta, meta)
-    with pytest.raises(ValueError):
-        tops.fwht_quantize(meta, meta)
+    for q, scale in (tops.quantize_int8(meta, meta),
+                     tops.fwht_quantize(meta, meta)):
+        assert q.device.type == scale.device.type == "meta"
+        assert (q.dtype, q.shape, scale.shape) == (torch.int8, (4, 64), (4,))
     assert tfwht.quantize_launches == 0 and tquant.launches == 0

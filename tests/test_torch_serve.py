@@ -187,6 +187,9 @@ def _port_files():
 def test_port_imports_neither_jax_nor_repro():
     files = list(_port_files())
     assert len(files) > 10
+    walked = {os.path.relpath(f, REPO) for f in files}
+    for mod in ("specs", "costs", "dryrun"):       # the dry run's modules
+        assert f"src/repro_torch/launch/{mod}.py" in walked
     bad = []
     for path in files:
         tree = ast.parse(open(path).read(), path)

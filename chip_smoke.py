@@ -31,7 +31,10 @@ caught and carried on):
    blocks, and the legacy Fig.-2 pass's three channels under their
    shared step mask, (3, 76,200, 128)), and over two
    consecutive blocks, each real block timed beside its bound (the
-   larger of bytes, operations and the chain of active steps);
+   larger of bytes, operations and the chain of active steps); and
+   ``dcqcn.rate_trace`` (one trace as one seed, one scan launch a call)
+   on the legacy marks' first steps, the next ones from the state it
+   left, and a density-1 trace, bit for bit against the plain scan;
 3. serve qwen2-0.5b at full width (24 layers, d 896, 14 heads padded to
    16, kv 2, vocab 151,936, bf16, random weights from seed 0): prefill
    8 prompts of 512 tokens, ship the KV caches through the coded lossy
@@ -131,7 +134,11 @@ caught and carried on):
     step's FWHT launched twice a coded leaf at its shapes (held to the
     plain version there and timed); ``lossy_moe`` at drop 0 = off bit
     for bit; EP = the local path on one full-width layer in float32 at
-    capacity factor 50 (rtol 1e-4 + atol 1e-5).  Each cell prints its
+    capacity factor 50 (rtol 1e-4 + atol 1e-5); the (2, 2) ``exact``
+    cell's next step with 2 microbatches (each rank's share of block k
+    of the global batch, routed whole), timed beside the cell's steps:
+    loss within 1.5 of ln V, finite gradient norm and parameters, the dp
+    ranks bit-identical.  Each cell prints its
     step, EP all-to-all and dp sync times, the all-to-all's bytes a
     rank-step and the peak a rank;
 6e. the other families trained at full width on one device through
@@ -196,7 +203,13 @@ caught and carried on):
    p99 and recv_frac within rtol 1e-5); Fig. 2 on the card through
    ``CollectiveSimulator`` (128 nodes x 300 rounds, legacy streams, one
    scan call) equal to the committed ``fig2_*`` p99s, reduction and
-   Celeris loss, the beyond-paper adaptive per-step window (shared
+   Celeris loss; the sequential reference loop (host numpy, no device:
+   ``figs.fig2_sequential``, four single-threaded child processes)
+   with each design's statistics equal to the recorded pre-refactor
+   ones, ``fig2_ab_p99_ratio_roce`` equal to the committed 1.005 and
+   ``fig2_engine_speedup_x`` (the four runs' seconds over the engine's
+   wall) at least 10, no kernel launched; the beyond-paper adaptive
+   per-step window (shared
    fabric, 3 scan launches, Celeris's per-flow arrays copied back) equal
    to the committed ``fig2_beyond_step_window_reduction`` against that
    run's RoCE p99, then the paper protocol in the shared-fabric mode (3
@@ -2517,6 +2530,10 @@ EP_CELLS = (("exact", "dm14", "exact", False, 0.0),
             ("lossy_hadamard_lossy_moe", "dm22", "lossy_hadamard", True,
              0.05))
 EP_ARCH, EP_LAYERS, EP_STEPS = "qwen2-moe-a2.7b", 1, 3
+# the (2, 2) exact cell also takes one step with microbatches: JAX's
+# microbatch k is block k of the global batch, which the MoE layers route
+# whole over the dp ranks
+EP_MB_CELL, EP_MICROBATCHES = "exact_lossy_moe", 2
 EP_CHECK_TOKENS = (2, 64)          # the EP = local layer's (B, S)
 
 
@@ -2675,6 +2692,9 @@ def ep_rank(rank, dev):
                 "peak_gib": peak, "coded_leaves": n_coded}
             if name == "exact":
                 rec["off_vs_zero"] = ep_check_off_vs_zero(tr, cfg, opt, ts)
+            if name == EP_MB_CELL:
+                rec["cells"][name]["microbatches"] = ep_microbatch_step(
+                    tr, cfg, opt, ts, celeris, drop, group, counts)
     finally:
         (shd.model_all_to_all, shd.all_to_all_model, ops.fwht,
          ts._sync_dp) = saved
@@ -2699,6 +2719,33 @@ def ep_check_off_vs_zero(tr, cfg, opt, ts):
         del new
     assert torch.equal(*ends), "lossy_moe at drop 0 differs from off"
     return True
+
+
+def ep_microbatch_step(tr, cfg, opt, ts, celeris, drop, group, counts):
+    """One step with ``EP_MICROBATCHES`` microbatches from the trainer's
+    state on its next batch, timed alone: loss finite and within
+    FAMILY_LOSS_BAND of ln V, the gradient norm and the new parameters
+    finite, the ranks of the dp ``group`` bit-identical."""
+    import torch.distributed as dist
+    step = ts.make_train_step(cfg, tr.mesh, opt, celeris,
+                              microbatches=EP_MICROBATCHES)
+    batch = tr.put_batch(tr.start_step)
+    _sync()
+    counts.reset()
+    t0 = time.perf_counter()
+    new, m = step(tr.state, batch, tr.step_generator(tr.start_step), drop)
+    _sync()
+    wall = time.perf_counter() - t0
+    m = {k: float(v) for k, v in m.items()}
+    assert abs(m["loss"] - math.log(cfg.vocab_size)) < FAMILY_LOSS_BAND, m
+    assert np.isfinite(m["grad_norm"]) and all(
+        bool(torch.isfinite(p).all()) for p in new["params"]), m
+    fp = fingerprint(new["params"], m)
+    every = [torch.empty_like(fp) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, fp, group=group)
+    assert all(torch.equal(e, fp) for e in every), "the dp ranks differ"
+    return {"loss": m["loss"], "aux": m["aux"], "grad_norm": m["grad_norm"],
+            "step_ms": wall * 1e3, "launches": counts.read()}
 
 
 def ep_check_vs_local(dev, cfg, mesh, MOE, convert, shd, generator):
@@ -2770,6 +2817,15 @@ def phase_ep_train(dev, C, kfwht, ref, mesh_ranks):
         launches += sum(s["launches"]["fwht"] for rk in ranks
                         for s in rk["cells"][name]["steps"])
         out["cells"][name] = rec
+        if name == EP_MB_CELL:
+            rec["microbatches"] = mb = cell["microbatches"]
+            print(f"ep train {name} with {EP_MICROBATCHES} microbatches "
+                  f"(each rank's share of block k of the global batch, "
+                  f"routed whole): its next step, loss {mb['loss']:.4f} "
+                  f"(ln V {math.log(ep_config(C).vocab_size):.4f}), aux "
+                  f"{mb['aux']:.4g}, grad norm {mb['grad_norm']:.4g}, "
+                  f"{mb['step_ms']:.1f} ms, beside the cell's one-"
+                  f"microbatch steps {rec['step_ms']} ms [{smi}]")
         print(f"ep train {name} ({rec['mesh']}, {rec['mode']}, lossy_moe "
               f"{rec['lossy_moe']} at {rec['drop']}; {EP_ARCH} full width, "
               f"{EP_LAYERS} layers; {DP_WORLD} ranks on one card, gloo): "
@@ -4072,6 +4128,14 @@ SCAN_GAP_CYCLES, SCAN_RUN_CYCLES = 104, 72
 PLAIN_PREFIX_BLOCKS = ("fig2 legacy", "fig2 step", "fig4 p8 o8")
 PLAIN_PREFIX_STEPS = 8192
 ENGINE_CHECK_ROUNDS, FIG2_ROUNDS = 40, 300          # 128 nodes
+# the sequential reference against the batched engine
+# (fig2_tail_latency.py:50-72): the speedup's bar, and the committed
+# speedup, which is a ratio of two walls of another machine
+SEQ_SPEEDUP_BAR, SEQ_SPEEDUP_COMMITTED = 10.0, 14.6
+# dcqcn.rate_trace on the card: the legacy Fig.-2 marks' first steps
+# (the plain version is a host-bound loop of ~65 launches a step), as
+# (T, channel, flow), and a density-1 trace
+RATE_TRACE_STEPS, RATE_TRACE_DENSE = 2048, (2048, 2, 64)
 FIG3_NODES, FIG3_SEEDS, FIG3_ROUNDS, FIG3_MB = 1024, (0, 1, 2, 3), 120, 25.0
 FIG1_NODES, FIG1_ROUNDS, FIG1_STEPS = 128, 60, 60
 FIG1_REGIMES = {"light": 1.0, "paper": 0.6, "heavy": 0.4}
@@ -4321,6 +4385,8 @@ def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology):
         for x, y in zip(two, (long[0],) + long[1]):
             check(f"dcqcn two blocks vs one (calm split {split})", x, y,
                   1e-12 if x.dtype == torch.float64 else 1e-6, 0.0)
+    rate_trace = rate_trace_check(dev, kdcqcn, ref, dq,
+                                  real["fig2 legacy"][0])
     _sync()
     print(f"dcqcn_scan: kernel == plain version bit for bit in {checks + 2} "
           f"blocks (densities {SCAN_DENSITIES} as seeds at {SCAN_SHAPES}; "
@@ -4337,7 +4403,51 @@ def phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology):
               f"bytes {rec['bytes_bound_ms']:.5f}, chain "
               f"{rec['chain_bound_ms']:.5f} over {rec['max_active_steps']} "
               f"active steps; active share {rec['active_step_share']:.3f})")
-    return records
+    return records, rate_trace
+
+
+def rate_trace_check(dev, kdcqcn, ref, dq, legacy):
+    """``dcqcn.rate_trace`` on the card against the scan's plain version
+    on the same marks, bit for bit in the rates and the four state arrays,
+    one scan launch a call: the legacy Fig.-2 pass's first
+    RATE_TRACE_STEPS steps ((T, 3 channels, 128), one seed whose steps
+    are active where any channel's flow is marked), then its next steps
+    from the state the first call left, and a density-1 trace.  Returns
+    the path's record; its launches are those of the rate_trace calls."""
+    from repro_torch.core.transport import dcqcn
+    marks = legacy.permute(1, 0, 2)
+    n = RATE_TRACE_STEPS
+    traces = [("fig2 legacy, first steps", marks[:n], None),
+              ("fig2 legacy, next steps", marks[n:2 * n], "carry"),
+              ("density 1", torch.ones(RATE_TRACE_DENSE, dtype=torch.bool,
+                                       device=dev), None)]
+    launches, out, carry = 0, [], None
+    for name, cnp, start in traces:
+        state = carry if start == "carry" else None
+        kdcqcn.launches = 0
+        rates, st = dcqcn.rate_trace(cnp, dq, state)
+        assert kdcqcn.launches == 1, (name, kdcqcn.launches)
+        launches += kdcqcn.launches
+        T = cnp.shape[0]
+        flat = cnp.reshape(1, T, -1).contiguous()
+        init = (scan_state(1, flat.shape[2], dev) if state is None else
+                tuple(x.reshape(1, -1).contiguous() for x in (
+                    state.rate, state.target, state.alpha,
+                    state.good_stages)))
+        want, wst = ref.dcqcn_scan(flat, flat.any(2), *init, dq)
+        check_equal(f"rate_trace {name} {tuple(cnp.shape)}",
+                    (rates, st.rate, st.target, st.alpha, st.good_stages),
+                    (want.reshape(cnp.shape),) + tuple(
+                        x.reshape(cnp.shape[1:]) for x in wst))
+        assert rates.dtype == torch.float32 and st.rate.dtype == torch.float64
+        out.append({"trace": name, "shape": list(cnp.shape),
+                    "active_steps": int(flat.any(2).sum())})
+        carry = st
+    launches = {"fwht": 0, "fwht_quantize": 0, "masked_unbias": 0,
+                "quantize_int8": 0, "dcqcn_scan": launches}
+    print(f"rate_trace: == the scan's plain version bit for bit (rates and "
+          f"the four state arrays) on {out}; one scan launch a call")
+    return {"traces": out, "launches": launches}
 
 
 def phase_engine_card_vs_cpu(dev, E, P):
@@ -4392,7 +4502,7 @@ def phase_engine_card_vs_cpu(dev, E, P):
     return out
 
 
-def phase_fig2(dev, E, P, figs, counts):
+def phase_fig2(dev, E, P, figs, counts, seq_children):
     """Fig. 2 on the card: the paper protocol at 128 nodes x 300 rounds
     (benchmarks/fig2_tail_latency.py) through ``CollectiveSimulator``, in
     its legacy-stream mode (one scan call over the whole trace), held to
@@ -4445,6 +4555,8 @@ def phase_fig2(dev, E, P, figs, counts):
           f"% (p50 / p99) of the sequential simulator's; wall {wall:.2f} s "
           f"= host draws {rec['host_s']:.2f} s + device core "
           f"{rec['device_s']:.2f} s (+ assembly); launches {launches}")
+    rec["sequential"] = fig2_sequential_check(P, figs, counts, wall,
+                                              stats["roce"].p99, seq_children)
 
     _sync()
     torch.cuda.reset_peak_memory_stats()
@@ -4497,6 +4609,58 @@ def phase_fig2(dev, E, P, figs, counts):
           f"{rec['shared']['host_s']:.2f} s + device "
           f"{rec['shared']['device_s']:.2f} s; launches {s_launches}")
     return rec
+
+
+def fig2_sequential_check(P, figs, counts, engine_wall, roce_p99, children):
+    """Fig. 2's A/B against the sequential reference loop
+    (``figs.fig2_sequential``, host numpy, no device) on the host of the
+    card: its four designs at 128 nodes x FIG2_ROUNDS as single-threaded
+    child processes (``children``, started before the engine's check;
+    RoCE, IRN and SRNIC at once, then Celeris at RoCE's window), while
+    the script runs nothing else.  Each design's
+    statistics equal the recorded pre-refactor ones exactly;
+    ``fig2_ab_p99_ratio_roce`` (the engine's RoCE p99 over the loop's)
+    equals the committed key; ``fig2_engine_speedup_x`` (the four runs'
+    summed seconds over the engine's wall) is at least its bar; no kernel
+    launched, in this process or in the children."""
+    counts.reset()
+    t0 = time.perf_counter()
+    keys, stats, seconds, launches = figs.fig2_sequential(
+        P.SimParams(), FIG2_ROUNDS, 0, engine_wall, roce_p99,
+        children=children)
+    cost = time.perf_counter() - t0
+    here = counts.read()
+    assert not any(launches.values()) and not any(here.values()), (
+        launches, here)
+    with open(SEQ_STATS) as f:
+        recorded = json.load(f)
+    for d, st in stats.items():
+        got = {"p50_us": st.p50, "p99_us": st.p99, "p999_us": st.p999,
+               "mean_us": float(st.times_us.mean()),
+               "data_loss": st.mean_loss}
+        assert got == recorded[d], (d, got, recorded[d])
+    ratio = keys["fig2_ab_p99_ratio_roce"]
+    assert ratio == committed("fig2_ab_p99_ratio_roce") == 1.005, keys
+    speedup = keys["fig2_engine_speedup_x"]
+    assert speedup >= SEQ_SPEEDUP_BAR, keys
+    smi = card_name_and_power()
+    print(f"fig2 sequential reference (host numpy, no device; 128 nodes x "
+          f"{FIG2_ROUNDS} rounds): every design's p50/p99/p999/mean/loss == "
+          f"the recorded pre-refactor stats; fig2_ab_p99_ratio_roce {ratio} "
+          f"== committed; fig2_sequential_wall_s "
+          f"{keys['fig2_sequential_wall_s']} (the four runs' own seconds "
+          f"{ {d: round(v, 2) for d, v in seconds.items()} }, summed; they "
+          f"ran overlapped in {len(seconds)} single-threaded processes on "
+          f"a host of {os.cpu_count()} cores, {cost:.2f} s of the "
+          f"script's wall) over the engine's wall {engine_wall:.2f} s = "
+          f"fig2_engine_speedup_x {speedup} (bar {SEQ_SPEEDUP_BAR}; "
+          f"committed {SEQ_SPEEDUP_COMMITTED}, of another machine); kernel "
+          f"launches {launches} [{smi}]")
+    return {"keys": keys, "seconds": seconds, "engine_wall_s": engine_wall,
+            "script_wall_s": cost, "host_cores": os.cpu_count(),
+            "launches": here, "child_launches": launches,
+            "p99_ms": {d: st.p99 / 1e3 for d, st in stats.items()},
+            "card": smi}
 
 
 def phase_fig3(dev, E, ET, P, counts):
@@ -7223,7 +7387,9 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     records = phase_kernels(dev, C.get("qwen2-0.5b"), kfwht, kunbias, ref,
                             coding, coupling)
     records += phase_quant_kernels(dev, kfwht, kquant, ref)
-    records += phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P, topology)
+    scan_records, rate_trace = phase_dcqcn_kernel(dev, kdcqcn, ref, E, ET, P,
+                                                  topology)
+    records += scan_records
     lap("2_kernel_checks")
     dryrun = phase_dryrun(dryrun_jobs)
     lap("23_dryrun_wait")
@@ -7287,8 +7453,14 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
     small_train = phase_small_train(dev, C, ts, OptConfig, DataConfig,
                                     make_source)
     lap("7_small_train")
-    engine_check = phase_engine_card_vs_cpu(dev, E, P)
-    fig2 = phase_fig2(dev, E, P, figs, counts)
+    # the sequential loop's child processes import while the engine's
+    # card-vs-CPU check runs, and wait for their jobs
+    seq_children = figs.sequential_children()
+    try:
+        engine_check = phase_engine_card_vs_cpu(dev, E, P)
+        fig2 = phase_fig2(dev, E, P, figs, counts, seq_children)
+    finally:
+        figs.stop_children(seq_children)
     fig3 = phase_fig3(dev, E, ET, P, counts)
     torch.cuda.empty_cache()
     lap("8_engine_fig2_fig3")
@@ -7388,6 +7560,8 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                "fig8": fig8["launches"], "serve_long": serve_long["launches"],
                "fig10": fig10["launches"], "fig9": fig9["launches"],
                "fig2_step": fig2["step_window"]["launches"],
+               "fig2_sequential": fig2["sequential"]["launches"],
+               "rate_trace": rate_trace["launches"],
                "serve_gemma2": serve_gemma2["launches"],
                "serve_gemma2_long": serve_gemma2_long["launches"],
                "serve_chatglm3": serve_dense["chatglm3-6b"]["launches"],
@@ -7436,7 +7610,7 @@ def main(earlier_fwht=None, earlier_dcqcn=None):
                       "train_recurrent_stubs_mesh": train_rs_mesh,
                       "train_tp_recurrent_stubs": train_tp_rs,
                       "engine_card_vs_cpu": engine_check, "fig1": fig1,
-                      "fig2": fig2, "fig3": fig3,
+                      "fig2": fig2, "fig3": fig3, "rate_trace": rate_trace,
                       "hier_card_vs_cpu": hier_check, "fig4": fig4,
                       "fig7": fig7, "tables": tables, "fig5": fig5,
                       "fig6": fig6, "incast_card_vs_cpu": incast_check,

@@ -1,9 +1,10 @@
-"""Tables I-II and Figs. 2 (the per-step window), 5, 6, 8, 9 and 10 on
-the port's modules.
+"""Tables I-II and Figs. 2 (the per-step window and the sequential
+reference), 5, 6, 8, 9 and 10 on the port's modules.
 
 Each function runs one protocol of the JAX package's benchmark scripts
 (``benchmarks/table1_qp_state.py``, ``table2_resources.py``,
-``fig2_tail_latency.py``'s step-window run, ``fig5_schedule_tail.py``,
+``fig2_tail_latency.py``'s step-window and sequential runs,
+``fig5_schedule_tail.py``,
 ``fig6_scale_schedule.py``, ``fig8_serving_tail.py``,
 ``fig9_tail_attribution.py``, ``fig10_priority_loss.py``) on the port's
 engine, on the device given, and returns its ``BENCH_sim.json`` keys
@@ -13,9 +14,16 @@ functions on the CPU, at the smoke tiers and on cut grids of the full
 ones.
 """
 import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+import time
 
 import numpy as np
 import torch
+
+import repro_torch
 
 from repro_torch import configs as C
 from repro_torch.core import coding, qp_state, resource_model
@@ -24,6 +32,8 @@ from repro_torch.core.transport import engine as E
 from repro_torch.core.transport import params as P
 from repro_torch.core.transport import schedule as schedule_mod
 from repro_torch.core.transport import telemetry, topology, trace_export
+from repro_torch.core.transport.reference import (
+    SequentialCollectiveSimulator)
 from repro_torch.core.transport.simulator import CollectiveSimulator
 from repro_torch.models import model as M
 from repro_torch.serve import serve_step, traffic
@@ -364,6 +374,118 @@ def fig2_step_window(device, roce_p99, *, params=None, n_rounds=FIG2_ROUNDS,
     keys = {f"{prefix}_beyond_step_window_reduction": round(
         roce_p99 / st.p99, 2)}
     return keys, st, dict(sim._engine.timing)
+
+
+# the sequential reference's designs, in the order the protocol runs
+# them (fig2_tail_latency.py:50-72)
+SEQ_DESIGNS = ("roce", "irn", "srnic", "celeris")
+
+
+def fig2_sequential_run(params, design, n_rounds, seed, timeout_us=None):
+    """One design's run of the sequential protocol and the seconds of
+    that run alone: Celeris at the fixed window ``timeout_us``
+    (``adaptive=False``, ``window="round"``), the others as they are."""
+    sim = SequentialCollectiveSimulator(params)
+    t0 = time.perf_counter()
+    if design == "celeris":
+        st = sim.run("celeris", n_rounds, celeris_timeout_us=timeout_us,
+                     adaptive=False, window="round", seed=seed)
+    else:
+        st = sim.run(design, n_rounds, seed=seed)
+    return st, time.perf_counter() - t0
+
+
+def kernel_launches():
+    """The kernel wrappers' launch counters in this process, by kernel."""
+    from repro_torch.kernels import dcqcn, fwht, quantize, unbias
+    return {"fwht": fwht.launches, "fwht_quantize": fwht.quantize_launches,
+            "masked_unbias": unbias.launches,
+            "quantize_int8": quantize.launches,
+            "dcqcn_scan": dcqcn.launches}
+
+
+_SEQ_CHILD = """
+import pickle, sys
+from repro_torch.benchmarks import figs
+st, s = figs.fig2_sequential_run(*pickle.load(sys.stdin.buffer))
+pickle.dump((st.times_us, st.recv_frac, s, figs.kernel_launches()),
+            sys.stdout.buffer)
+"""
+
+
+def sequential_children():
+    """The child processes of :func:`fig2_sequential`, one a design,
+    single-threaded and with no device, started now: each imports the
+    port and then waits for its one job on stdin, so a caller can start
+    them before the quiet moment it runs the protocol in."""
+    src = os.path.dirname(os.path.dirname(repro_torch.__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    return [subprocess.Popen([sys.executable, "-c", _SEQ_CHILD], env=env,
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+            for _ in SEQ_DESIGNS]
+
+
+def stop_children(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _send(proc, job):
+    proc.stdin.write(pickle.dumps(job))
+    proc.stdin.close()
+
+
+def _result(proc, design):
+    """A child's (stats, seconds, kernel launches)."""
+    data = proc.stdout.read()
+    if proc.wait() != 0:
+        raise RuntimeError(f"the sequential {design} run failed "
+                           f"(exit {proc.returncode})")
+    times, frac, s, launches = pickle.loads(data)
+    return E.RoundStats(times_us=times, recv_frac=frac, design=design), s, \
+        launches
+
+
+def fig2_sequential(params, n_rounds, seed, engine_wall_s, engine_roce_p99,
+                    *, prefix="fig2", children=None):
+    """fig2_tail_latency.run()'s sequential keys: the reference loop's
+    protocol (the RoCE base run; Celeris's window at its p50 + std; IRN,
+    SRNIC; Celeris at that window), its wall against ``engine_wall_s``
+    (the batched engine's paper protocol) and the RoCE p99 parity of
+    ``engine_roce_p99`` with the base run, rounded as the script rounds
+    them.
+
+    The designs run as single-threaded child processes without a device,
+    all four started at once: RoCE, IRN and SRNIC run at once, Celeris
+    waits for RoCE's window.  Each times its own run, and the wall key is
+    the sum of the four runs' seconds, what the script's serial loop
+    measures.  ``children``: those of :func:`sequential_children`, started
+    earlier.  Returns (keys, {design: RoundStats}, {design: seconds}, the
+    kernel launches the runs made, by kernel)."""
+    procs = children if children is not None else sequential_children()
+    try:
+        for proc, d in zip(procs, SEQ_DESIGNS[:3]):
+            _send(proc, (params, d, n_rounds, seed, None))
+        runs = {"roce": _result(procs[0], "roce")}
+        _send(procs[3], (params, "celeris", n_rounds, seed,
+                         paper_budget(runs["roce"][0], 1.0)))
+        for proc, d in zip(procs[1:], SEQ_DESIGNS[1:]):
+            runs[d] = _result(proc, d)
+    finally:
+        stop_children(procs)
+    launches = {k: sum(run[2][k] for run in runs.values())
+                for k in runs["roce"][2]}
+    seconds = {d: runs[d][1] for d in SEQ_DESIGNS}
+    seq_wall = sum(seconds.values())
+    keys = {f"{prefix}_sequential_wall_s": round(seq_wall, 2),
+            f"{prefix}_engine_speedup_x": round(seq_wall / engine_wall_s, 1),
+            f"{prefix}_ab_p99_ratio_roce": round(
+                engine_roce_p99 / runs["roce"][0].p99, 3)}
+    return keys, {d: runs[d][0] for d in SEQ_DESIGNS}, seconds, launches
 
 
 # ----------------------------------------------------------------------

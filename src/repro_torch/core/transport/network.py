@@ -1,14 +1,16 @@
 """Clos fabric + background-contention model (port of
-``repro/core/transport/network.py``: the parts the engine runs; the
-step-at-a-time ``ClosFabric`` is left out).
+``repro/core/transport/network.py``).
 
 Background load is a Markov-modulated burst process per ToR uplink
 (on/off with occupancy drawn per burst).  Occupancy determines queueing
 delay, ECN marking probability, drop probability and (for RoCE) PFC
 pause events.
 
-Two kinds of code live here:
+Three kinds of code live here:
 
+- :class:`ClosFabric`, the burst process one step at a time on its own
+  generator (host numpy), which the sequential reference loop
+  (``reference.py``) drives;
 - the **host pass** (numpy, copied as it is): :func:`occupancy_trace`
   resolves the burst chain in closed form and the occupancy EWMA by a
   truncated geometric filter, consuming the fabric stream in exactly the
@@ -35,6 +37,83 @@ class FabricState:
     """Per-ToR burst state carried from one engine block to the next."""
     bursting: np.ndarray      # (n_tors,) bool
     occupancy: np.ndarray     # (n_tors,) current uplink occupancy
+
+
+class ClosFabric:
+    """2-tier Clos: nodes -> ToR -> spine.  Ring neighbours that share a
+    ToR traverse one hop; cross-ToR hops traverse the (contended) uplink.
+    One :meth:`advance` is one collective step of the burst process; the
+    engine's :func:`occupancy_trace` consumes the same stream in the same
+    order for a whole block at once."""
+
+    def __init__(self, p: NetworkParams, rng: np.ndarray | None = None,
+                 seed: int = 0):
+        self.p = p
+        self.n_tors = p.n_nodes // p.nodes_per_tor
+        self.rng = np.random.default_rng(seed)
+        self.state = FabricState(
+            bursting=np.zeros(self.n_tors, dtype=bool),
+            occupancy=np.full(self.n_tors, p.idle_occupancy),
+        )
+
+    def tor_of(self, node: np.ndarray) -> np.ndarray:
+        return node // self.p.nodes_per_tor
+
+    def advance(self) -> None:
+        """One collective-step tick of the background burst process."""
+        p, st, rng = self.p, self.state, self.rng
+        start = rng.random(self.n_tors) < p.burst_on_prob
+        stop = rng.random(self.n_tors) < p.burst_off_prob
+        st.bursting = (st.bursting & ~stop) | (~st.bursting & start)
+        burst_occ = rng.uniform(p.burst_occupancy_lo, p.burst_occupancy_hi,
+                                self.n_tors)
+        target = np.where(st.bursting, burst_occ, p.idle_occupancy)
+        # occupancy relaxes toward target (queues drain and fill gradually)
+        st.occupancy = 0.5 * st.occupancy + 0.5 * target
+
+    def path_occupancy(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+        """Occupancy seen by each (src, dst) transfer: max over traversed
+        uplinks; same-ToR transfers see only local (near-idle) queues."""
+        p = self.p
+        ts, td = self.tor_of(src), self.tor_of(dst)
+        up = self.state.occupancy[ts]
+        down = self.state.occupancy[td]
+        cross = np.maximum(up, down)
+        same = np.full_like(cross, p.idle_occupancy)
+        return np.where(ts == td, same, cross)
+
+    # the response curves are the module functions below, which the
+    # engine evaluates too
+
+    def queue_delay_us(self, occ: np.ndarray) -> np.ndarray:
+        return queue_delay_us(self.p, occ)
+
+    def avail_bandwidth(self, occ: np.ndarray) -> np.ndarray:
+        """Fraction of line rate available to the foreground transfer."""
+        return avail_bandwidth(self.p, occ)
+
+    def ecn_mark_prob(self, occ: np.ndarray) -> np.ndarray:
+        return ecn_mark_prob(self.p, occ)
+
+    def drop_prob(self, occ: np.ndarray) -> np.ndarray:
+        return drop_prob(self.p, occ)
+
+    def pfc_pause_us(self, occ: np.ndarray) -> np.ndarray:
+        """RoCE only: PAUSE stalls when ingress exceeds the PFC threshold.
+        A pause on a ToR uplink head-of-line-blocks every flow through
+        that ToR; each pause propagates a further hop with probability
+        ``pfc_cascade_prob`` (geometric storm, capped), drawn on this
+        fabric's own generator."""
+        p = self.p
+        paused = occ > p.pfc_threshold
+        total = np.where(paused, p.pfc_pause_us, 0.0)
+        alive = paused.copy()
+        for _ in range(p.pfc_max_cascade):
+            alive = alive & (self.rng.random(occ.shape) < p.pfc_cascade_prob)
+            if not alive.any():
+                break
+            total = total + np.where(alive, p.pfc_pause_us, 0.0)
+        return total
 
 
 # ----------------------------------------------------------------------

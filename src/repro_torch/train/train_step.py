@@ -67,8 +67,10 @@ pmean over the dp axes of each rank's shards, and the global norm adds
 up the split leaves' squares over ``model``.
 
 **Gradient accumulation** (``microbatches`` M > 1, the JAX step's
-``_accum_grads``): the rank's rows split in order into M microbatches,
-gradients summed in float32 and scaled by 1/M into each leaf's dtype,
+``_accum_grads``): the rank's rows split in order into M microbatches
+(on the MoE path that routes the dp ranks' rows together, the rank's
+shares of the global batch's M blocks, see **MoE**), gradients summed in
+float32 and scaled by 1/M into each leaf's dtype,
 loss, nll and aux averaged; the sync runs once on the sum.  On one
 device (no dp axis) the batch is taken whole, as the JAX step's no-dp
 branch takes it.
@@ -120,9 +122,10 @@ ranks (``exact``, or a lossy mode with nothing to code) the JAX step is
 one GSPMD program over the global batch, whose MoE layers fill every
 expert's capacity from all dp shards' tokens together: there each rank
 gathers the dp ranks' rows into its MoE layers (``sharding.RowGroup``)
-and keeps its own rows of their output.  Not ported, and refused:
-``microbatches`` there (JAX's microbatch is a block of the global
-batch's rows, not of each shard's).
+and keeps its own rows of their output.  With ``microbatches`` there
+JAX's microbatch is a block of the global batch's rows: each rank takes
+its share of each block (``_global_microbatches``), so that the MoE
+layers route exactly the rows of JAX's microbatch, in its order.
 
 **The families.**  Every model of the JAX package trains: the dense
 and MoE families, the recurrent ones (recurrentgemma's RG-LRU, xLSTM's
@@ -207,6 +210,24 @@ def loss_and_grads(cfg: ModelConfig, leaves, batch: Dict[str, torch.Tensor],
     return loss.detach(), nll.detach(), aux.detach(), list(grads)
 
 
+def _global_microbatches(batch: Dict[str, torch.Tensor], microbatches: int,
+                         rows: shd.RowGroup):
+    """This rank's rows of each of the JAX step's microbatches when the
+    MoE layers route the dp ranks' rows together (``rows``).  JAX's
+    microbatch k is block k of the global batch (the ranks' rows in rank
+    order), so each rank takes its share of block k in rank order, and
+    gathering the shares over ``rows`` gives block k whole, in its
+    order."""
+    whole = {}
+    for k, v in batch.items():
+        v = v.contiguous()
+        whole[k] = v.new_empty((rows.size * v.shape[0],) + v.shape[1:])
+        dist.all_gather_into_tensor(whole[k], v, group=rows.group)
+    n = batch["tokens"].shape[0] // microbatches    # a rank's share
+    return [{k: v.narrow(0, (i * rows.size + rows.index) * n, n)
+             for k, v in whole.items()} for i in range(microbatches)]
+
+
 def accum_grads(cfg: ModelConfig, leaves, batch: Dict[str, torch.Tensor],
                 microbatches: int, tp: Optional[shd.ModelGroup] = None,
                 lossy: Optional[M.LossyCtx] = None,
@@ -214,18 +235,23 @@ def accum_grads(cfg: ModelConfig, leaves, batch: Dict[str, torch.Tensor],
     """:func:`loss_and_grads` over ``microbatches`` slices of the batch
     rows, in order (the JAX step's ``_accum_grads``): gradients summed in
     float32, then scaled by 1/M into each leaf's dtype; loss, nll and aux
-    averaged."""
+    averaged.  With ``rows`` a slice is this rank's share of a block of
+    the global batch (:func:`_global_microbatches`), else a block of this
+    rank's rows."""
     if microbatches == 1:
         return loss_and_grads(cfg, leaves, batch, tp, lossy, rows)
-    mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                       + tuple(v.shape[1:])) for k, v in batch.items()}
+    if rows is not None:
+        mbs = _global_microbatches(batch, microbatches, rows)
+    else:
+        mbs = [{k: v.reshape((microbatches, v.shape[0] // microbatches)
+                             + tuple(v.shape[1:]))[i]
+                for k, v in batch.items()} for i in range(microbatches)]
     gsum = [torch.zeros(leaf.shape, dtype=torch.float32, device=leaf.device)
             for leaf in leaves]
     loss = nll = aux = torch.zeros((), dtype=torch.float32,
                                    device=leaves[0].device)
-    for i in range(microbatches):
-        l, n, a, g = loss_and_grads(cfg, leaves, {k: v[i] for k, v in
-                                                  mb.items()}, tp, lossy)
+    for mb in mbs:
+        l, n, a, g = loss_and_grads(cfg, leaves, mb, tp, lossy, rows)
         gsum = [x + y.to(torch.float32) for x, y in zip(gsum, g)]
         loss, nll, aux = loss + l, nll + n, aux + a
     inv = 1.0 / microbatches
@@ -618,11 +644,6 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     if (cfg.moe is not None and dp_sync is not None
             and dp_sync.dp.size > 1
             and not (dp_sync.island and any(p is not None for p in plans))):
-        if accum > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: microbatches on dp ranks outside the lossy "
-                "island are not ported for MoE (JAX's microbatch is a block "
-                "of the global batch's rows)")
         rows = shd.RowGroup(dp_sync.dp.group, dp_sync.dp.size,
                             dp_sync.dp.peer)
 

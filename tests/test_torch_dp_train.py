@@ -48,12 +48,14 @@ import contextlib
 import dataclasses
 import functools
 import json
+import logging
 import os
 import re
 import socket
 import subprocess
 import sys
 import textwrap
+import time
 import types
 
 import jax
@@ -80,6 +82,7 @@ from repro_torch.models import convert as tconvert
 from repro_torch.train import train_step as tts
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LOG = logging.getLogger(__name__)
 WORLD, TIMEOUT = 4, 300
 MIN_CODED, SEQ, BATCH = 1024, 32, 8
 OPT = dict(lr=1e-3, warmup_steps=10, total_steps=500)
@@ -118,6 +121,27 @@ STEP_KEY = 5
 ZERO_CASES = ("d4_lh", "dm41_lh", "pd22_hier2")
 MEDIAN_VALUES = (1.7, 0.4, 2.9, 1.1)
 
+# each side prints "STAGE <name> <seconds>" as it goes; the fixture
+# logs those lines, so that a slow run names its slow stage
+STAGE = """
+import time as _time
+_t0 = [_time.time()]
+def stage(name):
+    now = _time.time()
+    print("STAGE %s %.1f" % (name, now - _t0[0]), flush=True)
+    _t0[0] = now
+"""
+
+# a JAX side's programs: each is traced and lowered in the main thread
+# and compiled on a pool, so that XLA compiles them side by side
+POOL = """
+from concurrent.futures import ThreadPoolExecutor
+_pool = ThreadPoolExecutor(4)
+
+def compiled(fn, args):
+    return _pool.submit(fn.trace(*args).lower().compile)
+"""
+
 JAX_SIDE = """
 import json, sys
 import jax, jax.numpy as jnp, numpy as np
@@ -132,22 +156,22 @@ meta = json.load(open(d + "/meta.json"))
 meshes = {k: shd.make_mesh(tuple(v[0]), tuple(v[1]))
           for k, v in meta["meshes"].items()}
 out = {}
+stage("setup")
 
-# (a) the sync functions on identical gradients
+# (a) the sync functions on identical gradients, one program for the
+# cases that differ only in key and drop rate
 plans = [None if sd == "uncoded" else coding.plan_nd(tuple(s), sd,
                                                      meta["sync_rot"])
          for s, sd in meta["sync_leaves"]]
 n_leaves = len(plans)
-for name, (mk, kind, q, drop, wire) in meta["sync_cases"].items():
-    mesh = meshes[mk]
+coded = [i for i, p in enumerate(plans) if p is not None]
+
+def sync_program(mesh, kind, q, wire):
     dp = shd.dp_axes(mesh)
-    key = jax.random.PRNGKey(meta["sync_keys"][name])
     cel = ts.CelerisConfig(mode="lossy_hadamard", quantize_wire=q,
                            wire_dtype=wire)
-    coded = [i for i, p in enumerate(plans) if p is not None]
 
-    def f(peer, *gs, key=key, kind=kind, q=q, drop=drop, mesh=mesh, dp=dp,
-          cel=cel, coded=coded):
+    def f(peer, key, drop, *gs):
         grads = [g[0] for g in gs]
         pid = peer[0]
         if kind == "hier":
@@ -184,18 +208,29 @@ for name, (mk, kind, q, drop, wire) in meta["sync_cases"].items():
         return [e[None] for e in est], frac[None], codes
 
     nc = len(coded) if q else 0
-    sm = shd.shard_map(f, mesh=mesh,
-                       in_specs=(P(dp),) + (P(dp),) * n_leaves,
-                       out_specs=([P(dp)] * n_leaves, P(dp), [P(dp)] * nc),
-                       check_vma=False)
-    est, frac, codes = jax.jit(sm)(
-        jnp.arange(4, dtype=jnp.int32),
-        *[jnp.asarray(inp[f"grad{i}"]) for i in range(n_leaves)])
+    return jax.jit(shd.shard_map(
+        f, mesh=mesh, in_specs=(P(dp), P(), P()) + (P(dp),) * n_leaves,
+        out_specs=([P(dp)] * n_leaves, P(dp), [P(dp)] * nc),
+        check_vma=False))
+
+grads = [jnp.asarray(inp[f"grad{i}"]) for i in range(n_leaves)]
+programs, sync_args = {}, {}
+for name, (mk, kind, q, drop, wire) in meta["sync_cases"].items():
+    sync_args[name] = (jnp.arange(4, dtype=jnp.int32),
+                       jax.random.PRNGKey(meta["sync_keys"][name]),
+                       jnp.float32(drop), *grads)
+    sig = (mk, kind, q, wire)
+    if sig not in programs:
+        programs[sig] = compiled(sync_program(meshes[mk], kind, q, wire),
+                                 sync_args[name])
+for name, (mk, kind, q, drop, wire) in meta["sync_cases"].items():
+    est, frac, codes = programs[mk, kind, q, wire].result()(*sync_args[name])
     for i, e in enumerate(est):
         out[f"{name}_est{i}"] = np.asarray(e)
     out[f"{name}_frac"] = np.asarray(frac)
-    for j, c in enumerate(codes):
+    for j, c in enumerate(codes if q else []):
         out[f"{name}_codes{coded[j]}"] = np.asarray(c)
+stage("sync cases")
 
 # (b) whole steps
 import repro.configs as C
@@ -205,6 +240,7 @@ cfg = dataclasses.replace(C.get_smoke("qwen2-0.5b"), dtype="float32")
 params = M.init_params(jax.random.PRNGKey(0), cfg)
 batch = {"tokens": jnp.asarray(inp["tokens"]),
          "labels": jnp.asarray(inp["labels"])}
+steps = {}
 for name, (mk, mode, q, drop) in meta["step_cases"].items():
     cel = ts.CelerisConfig(mode=mode, min_coded_size=meta["min_coded"],
                            quantize_wire=q)
@@ -212,13 +248,18 @@ for name, (mk, mode, q, drop) in meta["step_cases"].items():
                               cel, donate=False)
     state = {"params": params, "opt": adamw.init_opt_state(params),
              "step": jnp.zeros((), jnp.int32)}
-    new, m = step(state, batch, jax.random.PRNGKey(meta["step_key"]),
-                  jnp.asarray(drop, jnp.float32))
+    args = (state, batch, jax.random.PRNGKey(meta["step_key"]),
+            jnp.asarray(drop, jnp.float32))
+    steps[name] = (compiled(step, args), args)
+stage("steps traced")
+for name, (prog, args) in steps.items():
+    new, m = prog.result()(*args)
     for i, (p, mu) in enumerate(zip(jax.tree_util.tree_leaves(new["params"]),
                                     jax.tree_util.tree_leaves(new["opt"]["mu"]))):
         out[f"{name}_p{i}"], out[f"{name}_mu{i}"] = np.asarray(p), np.asarray(mu)
     for k, v in m.items():
         out[f"{name}_m_{k}"] = np.asarray(v)
+stage("steps compiled and run")
 
 # (d) the partition specs
 specs = {}
@@ -236,6 +277,7 @@ for tier, shapes in meta["spec_shapes"].items():
                                        rules.batch_specs(mesh, batch).items()}
 json.dump(specs, open(d + "/jax_specs.json", "w"))
 np.savez(d + "/jax.npz", **out)
+stage("specs")
 """
 
 # ZeRO-1 helpers of the torch sides (here and tests/test_torch_tp_train.py):
@@ -299,12 +341,13 @@ from repro_torch.core import coding, timeout
 from repro_torch.data import pipeline
 from repro_torch.optim import adamw
 from repro_torch.train import sharding_rules as rules, train_step as ts
-inp = np.load(d + "/inputs.npz")
+inp = np.load(d + "/torch_inputs.npz")
 meta = json.load(open(d + "/meta.json"))
 t = lambda a: torch.as_tensor(np.array(a))
 meshes = {k: shd.make_mesh(tuple(v[0]), tuple(v[1]), "cpu")
           for k, v in meta["meshes"].items()}
 out = {}
+stage("setup")
 
 def axes(mesh, names):
     return ts._Axes(shd.group(mesh, names), shd.axis_size(mesh, names),
@@ -347,6 +390,7 @@ for name, (mk, kind, q, drop, wire) in meta["sync_cases"].items():
         out[f"{name}_codes{i}"] = ts._int8_wire(contrib, noise[i],
                                                 lossy)[0].numpy()
 
+stage("sync cases")
 # (b) whole steps, (c) the single-device exact step
 cfg = dataclasses.replace(C.get_smoke("qwen2-0.5b"), dtype="float32")
 leaves = [t(inp[f"leaf{i}"]) for i in range(14)]
@@ -393,20 +437,24 @@ for name, (mk, mode, q, drop) in meta["step_cases"].items():
                                            signs, lossy, exact)
         for i, b in bound.items():
             out[f"{name}_bound{i}"] = np.float64(b)
+    stage("step " + name)
 if rank == 0:
     batch = {k: torch.as_tensor(v, dtype=torch.long)
              for k, v in src.global_batch(0, 4).items()}
     new, m = ts.make_train_step(cfg, None, opt)(
         ts.state_from_params(leaves, cfg), batch, None, 0.0)
     save("single_exact", new, m)
+stage("single exact")
 for mk, mesh in meshes.items():
     zero_vs_replicated(mk, cfg, mesh, leaves)
+stage("zero1 vs replicated")
 
 # chip_smoke's check of the syncs at drop 0 against the exact pmean
 zero = chip_smoke.dp_check_coded_syncs(
     torch.device("cpu"), {"host": meshes["dm41"], "pods": meshes["pd22"]},
     cfg, meta["min_coded"])
 out.update({f"zero_{k}": np.float64(v) for k, v in zero.items()})
+stage("coded syncs at drop 0")
 
 # (d) the partition specs
 if rank == 0:
@@ -435,11 +483,57 @@ dist.destroy_process_group()
 
 def _torch_side(code):
     """A torch side's script with the ZeRO-1 helpers defined after its
-    setup (the line ``opt = adamw.OptConfig(**meta["opt"])``)."""
+    setup (the line ``opt = adamw.OptConfig(**meta["opt"])``), and
+    ``stage`` before it."""
     head, sep, tail = textwrap.dedent(code).partition(
         'opt = adamw.OptConfig(**meta["opt"])\n')
     assert sep, "the torch side defines no opt"
-    return head + sep + ZERO_SIDE + tail
+    return textwrap.dedent(STAGE) + head + sep + ZERO_SIDE + tail
+
+
+def jax_side(code):
+    """A JAX side's script with ``stage`` and ``compiled`` before it."""
+    return textwrap.dedent(STAGE) + textwrap.dedent(POOL) + textwrap.dedent(
+        code)
+
+
+def run_sides(d, jax_code, torch_code, env, timeout=TIMEOUT, prepare=None):
+    """Start the JAX side, run ``prepare`` (the torch ranks' inputs)
+    meanwhile, then start the four torch ranks; wait for each process
+    under ``timeout`` and log its wall and its STAGE lines; raise with
+    the logs of those that failed."""
+    t0 = time.perf_counter()
+    procs = [("jax", subprocess.Popen(
+        [sys.executable, "-c", jax_code, d], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))]
+    try:
+        if prepare is not None:
+            prepare()
+    except BaseException:
+        procs[0][1].kill()
+        procs[0][1].communicate()
+        raise
+    port = str(_free_port())
+    procs += [(f"rank{r}", subprocess.Popen(
+        [sys.executable, "-c", torch_code, str(r), port, d],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for r in range(WORLD)]
+    failed = []
+    try:
+        for name, p in procs:
+            log, _ = p.communicate(timeout=timeout)
+            LOG.info("%s: exit %s after %.1f s; %s", name, p.returncode,
+                     time.perf_counter() - t0,
+                     "; ".join(l[6:] for l in log.splitlines()
+                               if l.startswith("STAGE ")))
+            if p.returncode != 0:
+                failed.append(log)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert not failed, "\n".join(failed)
 
 
 def _free_port() -> int:
@@ -488,18 +582,48 @@ def _draws(key, i, plan, peers, rates, noise):
     return out
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    d = str(tmp_path_factory.mktemp("dp_train"))
+def jax_inputs(d):
+    """Write the JAX side's inputs (``inputs.npz``: each rank's sync
+    gradients and the batch) and the cases (``meta.json``) into ``d``;
+    return the inputs and the cases."""
+    t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     inp = {}
-    # (a) per-rank gradients and JAX's draws
     for i, (shape, _) in enumerate(SYNC_LEAVES):
         inp[f"grad{i}"] = rng.standard_normal((WORLD,) + shape).astype(
             np.float32)
-    sync_keys = {name: 10 + n for n, name in enumerate(SYNC_CASES)}
+    jcfg = _cfg()
+    src = jpipe.make_source(jpipe.DataConfig(
+        vocab_size=jcfg.vocab_size, seq_len=SEQ, global_batch=BATCH,
+        seed=1))
+    inp.update(src.global_batch(0, WORLD))
+    spec_shapes = {tier: [list(l.shape) for l in jax.tree_util.tree_leaves(
+        jax.eval_shape(lambda k, c=c: JM.init_params(k, c),
+                       jax.random.PRNGKey(0)))]
+        for tier, c in (("smoke", jcfg), ("full", JC.get("qwen2-0.5b")))}
+    meta = {"meshes": MESHES, "sync_cases": SYNC_CASES,
+            "sync_leaves": SYNC_LEAVES, "sync_rot": SYNC_ROT,
+            "sync_keys": {name: 10 + n for n, name in enumerate(SYNC_CASES)},
+            "step_cases": STEP_CASES, "step_key": STEP_KEY,
+            "min_coded": MIN_CODED, "opt": OPT, "seq": SEQ, "batch": BATCH,
+            "spec_shapes": spec_shapes, "median_values": MEDIAN_VALUES,
+            "zero_cases": ZERO_CASES}
+    np.savez(os.path.join(d, "inputs.npz"), **inp)
+    with open(os.path.join(d, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    LOG.info("prep: the JAX side's inputs (eval_shape of both tiers) "
+             "after %.1f s", time.perf_counter() - t0)
+    return inp, meta
+
+
+def torch_inputs(d, inp, meta):
+    """Add the weights and JAX's draws of every case to ``inp`` and write
+    it as the torch ranks' inputs (``torch_inputs.npz``).  The JAX side
+    makes the same draws inside its programs."""
+    t0 = time.perf_counter()
+    # (a) JAX's draws for each rank's sync
     for name, (mk, kind, q, drop, _) in SYNC_CASES.items():
-        key = jax.random.PRNGKey(sync_keys[name])
+        key = jax.random.PRNGKey(meta["sync_keys"][name])
         peers = [r // 2 for r in range(WORLD)] if kind == "hier" \
             else list(range(WORLD))
         for i, (shape, sd) in enumerate(SYNC_LEAVES):
@@ -509,16 +633,14 @@ def runs(tmp_path_factory):
             for k, v in _draws(key, i, plan, peers, [drop] * WORLD,
                                True).items():
                 inp[f"{name}_{k}{i}"] = v
-    # (b) the weights, the batch and each step's draws
-    jcfg = _cfg()
-    jparams = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    LOG.info("prep: the sync cases' draws after %.1f s",
+             time.perf_counter() - t0)
+    # (b) the weights and each step's draws
+    jparams = JM.init_params(jax.random.PRNGKey(0), _cfg())
     jleaves = jax.tree_util.tree_leaves(jparams)
     for i, leaf in enumerate(jleaves):
         inp[f"leaf{i}"] = np.asarray(leaf)
-    src = jpipe.make_source(jpipe.DataConfig(
-        vocab_size=jcfg.vocab_size, seq_len=SEQ, global_batch=BATCH,
-        seed=1))
-    inp.update(src.global_batch(0, WORLD))
+    LOG.info("prep: init_params after %.1f s", time.perf_counter() - t0)
     key = jax.random.PRNGKey(STEP_KEY)
     for name, (mk, mode, q, drop) in STEP_CASES.items():
         if mode == "exact":
@@ -534,44 +656,22 @@ def runs(tmp_path_factory):
             plan = jcoding.plan_nd(leaf.shape, sd, 4096)
             for k, v in _draws(key, i, plan, peers, rates, q).items():
                 inp[f"{name}_{k}{i}"] = v
-    spec_shapes = {
-        "smoke": [list(l.shape) for l in jleaves],
-        "full": [list(l.shape) for l in jax.tree_util.tree_leaves(
-            jax.eval_shape(lambda k: JM.init_params(
-                k, JC.get("qwen2-0.5b")), jax.random.PRNGKey(0)))]}
-    meta = {"meshes": MESHES, "sync_cases": SYNC_CASES,
-            "sync_leaves": SYNC_LEAVES, "sync_rot": SYNC_ROT,
-            "sync_keys": sync_keys, "step_cases": STEP_CASES,
-            "step_key": STEP_KEY, "min_coded": MIN_CODED, "opt": OPT,
-            "seq": SEQ, "batch": BATCH, "spec_shapes": spec_shapes,
-            "median_values": MEDIAN_VALUES, "zero_cases": ZERO_CASES}
-    np.savez(os.path.join(d, "inputs.npz"), **inp)
-    with open(os.path.join(d, "meta.json"), "w") as f:
-        json.dump(meta, f)
+    np.savez(os.path.join(d, "torch_inputs.npz"), **inp)
+    LOG.info("prep: the weights and the steps' draws written after %.1f s",
+             time.perf_counter() - t0)
 
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """One launch: the JAX side starts on its inputs while this process
+    makes the torch ranks' (JAX's draws), then the four ranks start."""
+    d = str(tmp_path_factory.mktemp("dp_train"))
+    inp, meta = jax_inputs(d)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(REPO, "src"), REPO]), OMP_NUM_THREADS="1",
         XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(JAX_SIDE), d], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
-    port = str(_free_port())
-    procs += [subprocess.Popen(
-        [sys.executable, "-c", _torch_side(TORCH_SIDE), str(r), port, d],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(WORLD)]
-    failed = []
-    try:
-        for p in procs:
-            log, _ = p.communicate(timeout=TIMEOUT)
-            if p.returncode != 0:
-                failed.append(log)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    assert not failed, "\n".join(failed)
+    run_sides(d, jax_side(JAX_SIDE), _torch_side(TORCH_SIDE), env,
+              prepare=lambda: torch_inputs(d, inp, meta))
     load = functools.partial(np.load, allow_pickle=False)
     with open(os.path.join(d, "jax_specs.json")) as f:
         jspecs = json.load(f)

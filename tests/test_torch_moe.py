@@ -21,8 +21,6 @@ import dataclasses
 import functools
 import json
 import os
-import subprocess
-import sys
 import textwrap
 
 import jax
@@ -53,7 +51,7 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.serve import serve_step as TS
 from repro_torch.train import train_step as tts
 from repro_torch.train.trainer import Trainer
-from test_torch_dp_train import _draws, _free_port, fake_world
+from test_torch_dp_train import _draws, fake_world, jax_side, run_sides
 
 ARCHS = ["qwen2-moe-a2.7b", "granite-moe-3b-a800m"]
 TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
@@ -492,9 +490,9 @@ def test_train_step_matches_jax(mode):
 def test_refusals():
     """granite-moe trains (no shared experts, no QKV bias: held to JAX's
     steps in ``tests/test_torch_train_families.py``): its step, state and
-    Trainer build and one CPU step runs.  Microbatches in an MoE step on
-    dp ranks outside the lossy island (where JAX routes the global
-    batch) are refused; that step itself builds."""
+    Trainer build and one CPU step runs.  An MoE step on dp ranks outside
+    the lossy island (where JAX routes the global batch) builds, with
+    microbatches too (held to JAX's in ``test_ep_train_step_matches_jax``)."""
     cfg = TC.get_smoke(ARCHS[1])
     tts.make_train_step(cfg)
     state = tts.init_state(torch.Generator(), cfg)
@@ -509,8 +507,7 @@ def test_refusals():
     with fake_world(4):
         m = tmesh.make_host_mesh((2, 2), device_type="cpu")
         assert tts.make_train_step(q, m).model_group.size == 2
-        with pytest.raises(NotImplementedError, match="global batch"):
-            tts.make_train_step(q, m, microbatches=2)
+        assert tts.make_train_step(q, m, microbatches=2).model_group.size == 2
         assert tts.make_train_step(q, m, None, tts.CelerisConfig(
             mode="lossy_hadamard", lossy_moe=True)).model_group.size == 2
         # a data axis of 1 runs exact on the model axis
@@ -579,7 +576,12 @@ EP_SEQ, EP_BATCH, EP_DROP, STEP_KEY = 32, 8, 0.3, 7
 # name -> (mesh, mode, lossy_moe drop rate)
 EP_STEPS = {"dm14_exact_moe": ("dm14", "exact", EP_DROP),
             "dm22_exact_moe": ("dm22", "exact", EP_DROP),
-            "dm22_lh_moe": ("dm22", "lossy_hadamard", EP_DROP)}
+            "dm22_lh_moe": ("dm22", "lossy_hadamard", EP_DROP),
+            "dm22_exact_moe_mb2": ("dm22", "exact", EP_DROP)}
+# the cases that accumulate: on (2, 2) exact JAX's microbatch k is block k
+# of the global batch, which the MoE layers route whole
+EP_MICROBATCHES = {name: 2 if name.endswith("_mb2") else 1
+                   for name in EP_STEPS}
 
 EP_JAX = """
 import dataclasses, json, sys
@@ -606,39 +608,72 @@ def block_loss(p_, x_, key, lossy):
                            drop_rate=meta["drop"])
     return jnp.sum(y * r) + aux, (y, aux)
 
+stage("setup")
+# every program is traced under its mesh here and compiled on the pool
+blocks = {}
 for mk, mesh in meshes.items():
     shd.set_global_mesh(mesh)
     for lossy in (False, True):
         name = f"block_{mk}_{'lossy' if lossy else 'plain'}"
-        (l, (y, aux)), g = jax.jit(jax.value_and_grad(
+        blocks[name] = compiled(jax.jit(jax.value_and_grad(
             lambda p_, x_: block_loss(p_, x_, jax.random.PRNGKey(11), lossy),
-            argnums=(0, 1), has_aux=True))(p, x)
-        out[name + "_y"], out[name + "_aux"] = np.asarray(y), np.asarray(aux)
-        out[name + "_gx"] = np.asarray(g[1])
-        for k, v in g[0].items():
-            if isinstance(v, dict):
-                for k2, v2 in v.items():
-                    out[f"{name}_g_{k}.{k2}"] = np.asarray(v2)
-            else:
-                out[f"{name}_g_{k}"] = np.asarray(v)
+            argnums=(0, 1), has_aux=True)), (p, x))
+for name, prog in blocks.items():
+    (l, (y, aux)), g = prog.result()(p, x)
+    out[name + "_y"], out[name + "_aux"] = np.asarray(y), np.asarray(aux)
+    out[name + "_gx"] = np.asarray(g[1])
+    for k, v in g[0].items():
+        if isinstance(v, dict):
+            for k2, v2 in v.items():
+                out[f"{name}_g_{k}.{k2}"] = np.asarray(v2)
+        else:
+            out[f"{name}_g_{k}"] = np.asarray(v)
 shd.set_global_mesh(None)
 y, aux = MOE.moe_block(p, roomy, x)
 out["roomy_local_y"], out["roomy_local_aux"] = np.asarray(y), np.asarray(aux)
 
+stage("blocks")
 params = M.init_params(jax.random.PRNGKey(0), cfg)
+steps = {}
 for name, (mk, mode, drop) in meta["steps"].items():
     mesh = meshes[mk]
     shd.set_global_mesh(mesh)
     cel = ts.CelerisConfig(mode=mode, min_coded_size=meta["min_coded"],
                            lossy_moe=True)
+    mbs = meta["microbatches"][name]
     step = ts.make_train_step(cfg, mesh, adamw.OptConfig(**meta["opt"]),
-                              cel, donate=False)
+                              cel, donate=False, microbatches=mbs)
     state = {"params": params, "opt": adamw.init_opt_state(params),
              "step": jnp.zeros((), jnp.int32)}
     n = meta["n_dp"][name]
     batch = {k: jnp.asarray(inp[f"{k}_n{n}"]) for k in ("tokens", "labels")}
-    new, m = step(state, batch, jax.random.PRNGKey(meta["step_key"]),
-                  jnp.float32(drop))
+    if mbs > 1:
+        # the routing ids of each microbatch's first MoE layer: the rows
+        # of JAX's split of the global batch (its _accum_grads), in order
+        mb = {k: v.reshape((mbs, v.shape[0] // mbs) + v.shape[1:])
+              for k, v in batch.items()}
+        calls, route = [], MOE._route
+        def recording(*a, **k):
+            out_ = route(*a, **k)
+            calls.append(np.asarray(out_[1]))
+            return out_
+        MOE._route = recording
+        shd.set_global_mesh(None)
+        first = []
+        with jax.disable_jit():
+            for i in range(mbs):
+                calls.clear()
+                M.forward(params, cfg, {k: v[i] for k, v in mb.items()},
+                          remat=False)
+                first.append(calls[0])
+        MOE._route = route
+        shd.set_global_mesh(mesh)
+        out[f"{name}_routes"] = np.stack(first)
+    args = (state, batch, jax.random.PRNGKey(meta["step_key"]),
+            jnp.float32(drop))
+    steps[name] = (compiled(step, args), args)
+for name, (prog, args) in steps.items():
+    new, m = prog.result()(*args)
     leaves = jax.tree_util.tree_leaves
     for i, (w, mu) in enumerate(zip(leaves(new["params"]),
                                     leaves(new["opt"]["mu"]))):
@@ -648,6 +683,7 @@ for name, (mk, mode, drop) in meta["steps"].items():
         out[f"{name}_m_{k}"] = np.asarray(v)
 shd.set_global_mesh(None)
 np.savez(d + "/jax.npz", **out)
+stage("steps")
 """
 
 EP_TORCH = """
@@ -725,7 +761,8 @@ for name, (mk, mode, drop) in meta["steps"].items():
              for k in ("tokens", "labels")}
     cel = ts.CelerisConfig(mode=mode, min_coded_size=meta["min_coded"],
                            lossy_moe=True)
-    step = ts.make_train_step(cfg, mesh, opt, cel)
+    mbs = meta["microbatches"][name]
+    step = ts.make_train_step(cfg, mesh, opt, cel, microbatches=mbs)
     coded = [int(k[len(name) + 5:]) for k in inp.files
              if k.startswith(name + "_mask")]
     masks = {i: t(inp[f"{name}_mask{i}"][peer]) for i in coded}
@@ -734,8 +771,20 @@ for name, (mk, mode, drop) in meta["steps"].items():
     coins = [t(c) for c in inp["step_coins_%d" % tp.size]]
     state = ts.state_from_params(convert.shard_leaves(leaves, mesh, names),
                                  cfg, mesh)
+    calls, route = [], MOE._route
+    def recording(*a, **k):
+        out_ = route(*a, **k)
+        calls.append(out_[1].detach().numpy().copy())
+        return out_
+    MOE._route = recording
     new, m = step(state, batch, None, drop, masks=masks, signs=signs,
                   coins=coins)
+    MOE._route = route
+    if mbs > 1:
+        # the first routing call of each microbatch (the same number of
+        # calls each, remat's recompute included)
+        assert len(calls) % mbs == 0, len(calls)
+        out[f"{name}_routes"] = np.stack(calls[::len(calls) // mbs])
     gathered = list(convert.gather_state(   # over data, then model
         new["opt"]["mu"], ts.state_specs(convert.leaf_shapes(cfg), mesh,
                                          names)["opt"]["mu"], mesh))
@@ -821,7 +870,7 @@ def ep_runs(tmp_path_factory):
                 inp[f"{name}_{k}{i}"] = v
     meta = {"meshes": EP_MESHES, "steps": EP_STEPS, "drop": EP_DROP,
             "min_coded": MIN_CODED, "opt": OPT, "n_dp": n_dp,
-            "step_key": STEP_KEY}
+            "step_key": STEP_KEY, "microbatches": EP_MICROBATCHES}
     np.savez(os.path.join(d, "inputs.npz"), **inp)
     with open(os.path.join(d, "meta.json"), "w") as f:
         json.dump(meta, f)
@@ -829,26 +878,7 @@ def ep_runs(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(repo, "src"), repo]), OMP_NUM_THREADS="1",
         XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(EP_JAX), d], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
-    port = str(_free_port())
-    procs += [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(EP_TORCH), str(r), port, d],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(WORLD)]
-    failed = []
-    try:
-        for p in procs:
-            log, _ = p.communicate(timeout=TIMEOUT)
-            if p.returncode != 0:
-                failed.append(log)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    assert not failed, "\n".join(failed)
+    run_sides(d, jax_side(EP_JAX), textwrap.dedent(EP_TORCH), env, TIMEOUT)
     jax_out = dict(np.load(os.path.join(d, "jax.npz")))
     return inp, jax_out, [dict(np.load(os.path.join(d, f"rank{r}.npz")))
                           for r in range(WORLD)]
@@ -924,12 +954,26 @@ def test_ep_train_step_matches_jax(ep_runs, case):
     MoE leaves' JAX plans, with JAX's draws), each rank's shards against
     JAX's step on the same mesh: loss and aux rtol 1e-5, the synced
     gradient (first moments, gathered over ``data``) atol 1e-8, the
-    updated parameters to the first AdamW update's bound."""
+    updated parameters to the first AdamW update's bound.  The (2, 2)
+    exact case with two microbatches first asserts the routing ids of
+    each microbatch's first MoE layer: each rank's sender slice of the
+    rows of JAX's microbatch (block k of the global batch), in order."""
     _, jax_out, ranks = ep_runs
     mk, mode, _ = EP_STEPS[case]
     dims = _ep_split_dims(mk)
     tp = EP_MESHES[mk][0][1]
     eps, lr, b1 = 1e-8, OPT["lr"], 0.9
+    mbs = EP_MICROBATCHES[case]
+    if mbs > 1:
+        want = jax_out[f"{case}_routes"]
+        s_loc = EP_SEQ // tp
+        want = want.reshape(mbs, EP_BATCH // mbs, EP_SEQ, -1)
+        for r, out in enumerate(ranks):
+            m = int(_ep_coords(mk)[r]["model"])
+            np.testing.assert_array_equal(
+                out[f"{case}_routes"],
+                want[:, :, m * s_loc:(m + 1) * s_loc].reshape(
+                    mbs, -1, want.shape[-1]), err_msg=f"rank {r}")
     for r, out in enumerate(ranks):
         m = int(_ep_coords(mk)[r]["model"])
         for k in ("loss", "nll", "aux", "grad_norm"):

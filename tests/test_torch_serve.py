@@ -190,6 +190,7 @@ def test_port_imports_neither_jax_nor_repro():
     walked = {os.path.relpath(f, REPO) for f in files}
     for mod in ("specs", "costs", "dryrun"):       # the dry run's modules
         assert f"src/repro_torch/launch/{mod}.py" in walked
+    assert "src/repro_torch/core/transport/reference.py" in walked
     bad = []
     for path in files:
         tree = ast.parse(open(path).read(), path)

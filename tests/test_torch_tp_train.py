@@ -55,9 +55,6 @@ import dataclasses
 import functools
 import json
 import os
-import subprocess
-import sys
-import textwrap
 import types
 
 import jax
@@ -72,8 +69,9 @@ from repro.models import model as JM
 from repro.train import sharding_rules as jrules
 from repro.train import train_step as jts
 from repro.checkpoint import checkpoint as jckpt
-from test_torch_dp_train import (OPT, _case, _check_step, _draws, _free_port,
-                                 _torch_side, zero1_blocks)
+from test_torch_dp_train import (OPT, _case, _check_step, _draws,
+                                 _torch_side, jax_side, run_sides,
+                                 zero1_blocks)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD, TIMEOUT = 4, 300
@@ -122,18 +120,20 @@ out = {}
 def batch_of(n):
     return {k: jnp.asarray(inp[f"{k}_n{n}"]) for k in ("tokens", "labels")}
 
-# (a) the forward on the TP meshes
+stage("setup")
+# (a) the forward on the TP meshes; every program is traced under its
+# mesh here and compiled on the pool
+fwd = {}
 for mk in ("dm22", "dm14"):
     shd.set_global_mesh(meshes[mk])
     b = batch_of(1)
-    logits = jax.jit(lambda p: M.forward(p, cfgs["smoke"], b)[0])(
-        params["smoke"])
-    loss = jax.jit(lambda p: M.lm_loss(p, cfgs["smoke"], b)[0])(
-        params["smoke"])
-    out[f"fwd_{mk}_logits"], out[f"fwd_{mk}_loss"] = (np.asarray(logits),
-                                                      np.asarray(loss))
+    fwd[mk] = (compiled(jax.jit(lambda p: M.forward(p, cfgs["smoke"], b)[0]),
+                        (params["smoke"],)),
+               compiled(jax.jit(lambda p: M.lm_loss(p, cfgs["smoke"], b)[0]),
+                        (params["smoke"],)))
 
 # (b), (d) whole steps
+steps = {}
 for name, (mk, ck, mode, q, drop, mb) in meta["step_cases"].items():
     mesh = meshes[mk] if mk else None
     shd.set_global_mesh(mesh)
@@ -144,9 +144,16 @@ for name, (mk, ck, mode, q, drop, mb) in meta["step_cases"].items():
     p = params[ck]
     state = {"params": p, "opt": adamw.init_opt_state(p),
              "step": jnp.zeros((), jnp.int32)}
-    new, m = step(state, batch_of(meta["n_dp"][name]),
-                  jax.random.PRNGKey(meta["step_key"]),
-                  jnp.asarray(drop, jnp.float32))
+    args = (state, batch_of(meta["n_dp"][name]),
+            jax.random.PRNGKey(meta["step_key"]),
+            jnp.asarray(drop, jnp.float32))
+    steps[name] = (compiled(step, args), args)
+stage("traced")
+for mk, (logits, loss) in fwd.items():
+    out[f"fwd_{mk}_logits"] = np.asarray(logits.result()(params["smoke"]))
+    out[f"fwd_{mk}_loss"] = np.asarray(loss.result()(params["smoke"]))
+for name, (prog, args) in steps.items():
+    new, m = prog.result()(*args)
     leaves = jax.tree_util.tree_leaves
     for i, (w, mu) in enumerate(zip(leaves(new["params"]),
                                     leaves(new["opt"]["mu"]))):
@@ -156,6 +163,7 @@ for name, (mk, ck, mode, q, drop, mb) in meta["step_cases"].items():
         out[f"{name}_m_{k}"] = np.asarray(v)
 shd.set_global_mesh(None)
 np.savez(d + "/jax.npz", **out)
+stage("compiled and run")
 """
 
 TORCH_SIDE = """
@@ -446,26 +454,7 @@ def runs(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(REPO, "src"), REPO]), OMP_NUM_THREADS="1",
         XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(JAX_SIDE), d], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
-    port = str(_free_port())
-    procs += [subprocess.Popen(
-        [sys.executable, "-c", _torch_side(TORCH_SIDE), str(r), port, d],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(WORLD)]
-    failed = []
-    try:
-        for p in procs:
-            log, _ = p.communicate(timeout=TIMEOUT)
-            if p.returncode != 0:
-                failed.append(log)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    assert not failed, "\n".join(failed)
+    run_sides(d, jax_side(JAX_SIDE), _torch_side(TORCH_SIDE), env)
     load = functools.partial(np.load, allow_pickle=False)
     jax_out = dict(load(os.path.join(d, "jax.npz")))
     # JAX's restore of the port's (2, 2) checkpoint, into its own state

@@ -42,9 +42,6 @@ import dataclasses
 import functools
 import json
 import os
-import subprocess
-import sys
-import textwrap
 
 import jax
 import numpy as np
@@ -55,8 +52,8 @@ from repro.core import coding as jcoding
 from repro.data import pipeline as jpipe
 from repro.models import model as JM
 from repro.train import sharding_rules as jrules
-from test_torch_dp_train import (OPT, _case, _draws, _free_port, _torch_side,
-                                 zero1_blocks)
+from test_torch_dp_train import (OPT, _case, _draws, _torch_side, jax_side,
+                                 run_sides, zero1_blocks)
 from test_torch_tp_train import MESHES, _coords, _mask_rows, _stub_mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -100,17 +97,20 @@ out = {}
 def batch_of(n):
     return {k: jnp.asarray(inp[f"{k}_n{n}"]) for k in ("tokens", "labels")}
 
-# (a) the forward on the TP meshes
+stage("setup")
+# (a) the forward on the TP meshes; every program is traced under its
+# mesh here and compiled on the pool
+fwd = {}
 for k, cfg in cfgs.items():
     for mk in meta["fwd_meshes"]:
         shd.set_global_mesh(meshes[mk])
         b = batch_of(1)
-        out[f"fwd_{k}_{mk}_logits"] = np.asarray(jax.jit(
-            lambda p: M.forward(p, cfg, b)[0])(params[k]))
-        out[f"fwd_{k}_{mk}_loss"] = np.asarray(jax.jit(
-            lambda p: M.lm_loss(p, cfg, b)[0])(params[k]))
+        fwd[k, mk] = (
+            compiled(jax.jit(lambda p: M.forward(p, cfg, b)[0]), (params[k],)),
+            compiled(jax.jit(lambda p: M.lm_loss(p, cfg, b)[0]), (params[k],)))
 
 # (b) whole steps
+steps = {}
 for name, (k, mk, mode, q, drop, lmoe) in meta["step_cases"].items():
     mesh = meshes[mk]
     shd.set_global_mesh(mesh)
@@ -121,9 +121,16 @@ for name, (k, mk, mode, q, drop, lmoe) in meta["step_cases"].items():
     p = params[k]
     state = {"params": p, "opt": adamw.init_opt_state(p),
              "step": jnp.zeros((), jnp.int32)}
-    new, m = step(state, batch_of(meta["n_dp"][name]),
-                  jax.random.PRNGKey(meta["step_key"]),
-                  jnp.asarray(drop, jnp.float32))
+    args = (state, batch_of(meta["n_dp"][name]),
+            jax.random.PRNGKey(meta["step_key"]),
+            jnp.asarray(drop, jnp.float32))
+    steps[name] = (compiled(step, args), args)
+stage("traced")
+for (k, mk), (logits, loss) in fwd.items():
+    out[f"fwd_{k}_{mk}_logits"] = np.asarray(logits.result()(params[k]))
+    out[f"fwd_{k}_{mk}_loss"] = np.asarray(loss.result()(params[k]))
+for name, (prog, args) in steps.items():
+    new, m = prog.result()(*args)
     leaves = jax.tree_util.tree_leaves
     for i, (w, mu) in enumerate(zip(leaves(new["params"]),
                                     leaves(new["opt"]["mu"]))):
@@ -133,6 +140,7 @@ for name, (k, mk, mode, q, drop, lmoe) in meta["step_cases"].items():
         out[f"{name}_m_{key}"] = np.asarray(v)
 shd.set_global_mesh(None)
 np.savez(d + "/jax.npz", **out)
+stage("compiled and run")
 """
 
 TORCH_SIDE = """
@@ -298,26 +306,7 @@ def runs(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(REPO, "src"), REPO]), OMP_NUM_THREADS="1",
         XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(JAX_SIDE), d], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
-    port = str(_free_port())
-    procs += [subprocess.Popen(
-        [sys.executable, "-c", _torch_side(TORCH_SIDE), str(r), port, d],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(WORLD)]
-    failed = []
-    try:
-        for p in procs:
-            log, _ = p.communicate(timeout=TIMEOUT)
-            if p.returncode != 0:
-                failed.append(log)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    assert not failed, "\n".join(failed)
+    run_sides(d, jax_side(JAX_SIDE), _torch_side(TORCH_SIDE), env, TIMEOUT)
     load = functools.partial(np.load, allow_pickle=False)
     return (inp, dict(load(os.path.join(d, "jax.npz"))),
             [dict(load(os.path.join(d, f"rank{r}.npz")))

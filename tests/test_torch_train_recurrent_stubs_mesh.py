@@ -27,8 +27,6 @@ blocks, by JAX's ``zero1_specs``, of the whole state, bit for bit.
 import functools
 import json
 import os
-import subprocess
-import sys
 import textwrap
 
 import jax
@@ -38,8 +36,8 @@ import pytest
 from repro.core import coding as jcoding
 from repro.models import model as JM
 from repro.train import sharding_rules as jrules
-from test_torch_dp_train import (_case, _draws, _free_port, _torch_side,
-                                 zero1_blocks)
+import test_torch_dp_train as dp_train
+from test_torch_dp_train import _case, _draws, _torch_side, zero1_blocks
 from test_torch_tp_train import MESHES, _mask_rows, _stub_mesh
 from test_torch_train_families import MIN_CODED, OPT, _cfgs
 from test_torch_train_families_mesh import _check_step
@@ -69,6 +67,9 @@ d = sys.argv[1]
 inp = np.load(d + "/inputs.npz")
 meta = json.load(open(d + "/meta.json"))
 out = {}
+stage("setup")
+# every step is traced under its mesh here and compiled on the pool
+steps = {}
 for name, (arch, mk, mode, q, drop, *kw) in meta["cases"].items():
     if name in meta["torch_only"]:
         continue
@@ -85,8 +86,12 @@ for name, (arch, mk, mode, q, drop, *kw) in meta["cases"].items():
              "step": jnp.zeros((), jnp.int32)}
     batch = {k[len(name) + 7:]: jnp.asarray(inp[k]) for k in inp.files
              if k.startswith(name + "_batch_")}
-    new, m = step(state, batch, jax.random.PRNGKey(meta["step_key"]),
-                  jnp.asarray(drop, jnp.float32))
+    args = (state, batch, jax.random.PRNGKey(meta["step_key"]),
+            jnp.asarray(drop, jnp.float32))
+    steps[name] = (compiled(step, args), args)
+stage("traced")
+for name, (prog, args) in steps.items():
+    new, m = prog.result()(*args)
     leaves = jax.tree_util.tree_leaves
     for i, (w, mu) in enumerate(zip(leaves(new["params"]),
                                     leaves(new["opt"]["mu"]))):
@@ -96,6 +101,7 @@ for name, (arch, mk, mode, q, drop, *kw) in meta["cases"].items():
         out[f"{name}_m_{key}"] = np.asarray(v)
 shd.set_global_mesh(None)
 np.savez(d + "/jax.npz", **out)
+stage("compiled and run")
 """
 
 TORCH_SIDE = """
@@ -208,9 +214,11 @@ def mesh_runs(d, cases, extras=(), torch_tail="", torch_only=()):
 
 def run_sides(d, inp, meta, jax_side, torch_side):
     """Save ``inp`` (``inputs.npz``) and ``meta`` (``meta.json``) in
-    ``d``, then start ``jax_side`` (argv: ``d``) in one process with four
-    forced host devices and ``torch_side`` (argv: rank, port, ``d``) in
-    four, each under its own timeout.  Returns (``jax.npz``, each rank's
+    ``d``, then start ``jax_side`` (argv: ``d``; with ``stage`` and
+    ``compiled`` defined) in one process with four forced host devices
+    and ``torch_side`` (argv: rank, port, ``d``) in four, each under its
+    own timeout (``test_torch_dp_train.run_sides``, which logs each
+    process's wall and stages).  Returns (``jax.npz``, each rank's
     ``rank<r>.npz``) as dicts."""
     np.savez(os.path.join(d, "inputs.npz"), **inp)
     with open(os.path.join(d, "meta.json"), "w") as f:
@@ -218,26 +226,8 @@ def run_sides(d, inp, meta, jax_side, torch_side):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(REPO, "src"), REPO]), OMP_NUM_THREADS="1",
         XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(jax_side), d], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
-    port = str(_free_port())
-    procs += [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(torch_side), str(r), port, d],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(WORLD)]
-    failed = []
-    try:
-        for p in procs:
-            log, _ = p.communicate(timeout=TIMEOUT)
-            if p.returncode != 0:
-                failed.append(log)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    assert not failed, "\n".join(failed)
+    dp_train.run_sides(d, dp_train.jax_side(jax_side),
+                       textwrap.dedent(torch_side), env, TIMEOUT)
     load = functools.partial(np.load, allow_pickle=False)
     return (dict(load(os.path.join(d, "jax.npz"))),
             [dict(load(os.path.join(d, f"rank{r}.npz")))

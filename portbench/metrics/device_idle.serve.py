@@ -1,0 +1,7 @@
+"""The share of the profiled requests' window in which no device operation ran,
+%."""
+from portbench.harness import readers
+
+
+def read(ctx):
+    return readers.device_idle(ctx)
